@@ -1,0 +1,91 @@
+"""Data pipeline, port of `repro.data.pipeline`: deterministic per-step
+synthetic batches (bit-identical numpy), a step-addressable prefetch
+thread, and the copy of a batch to the device.
+
+The paper benchmarks the mesh-tangling problem on synthetic data (§VI);
+these batches match its shapes.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Callable
+
+import numpy as np
+import torch
+
+
+def synthetic_mesh_batch(step: int, batch: int, hw: int, channels: int = 18,
+                         out_hw: int | None = None) -> dict:
+    """Mesh-tangling lookalike: random fields (state variables) and a
+    per-pixel tangle mask on the prediction grid."""
+    rng = np.random.default_rng(1234 + step)
+    x = rng.standard_normal((batch, hw, hw, channels), dtype=np.float32)
+    out_hw = out_hw or hw // 64
+    y = (rng.random((batch, out_hw, out_hw, 1)) < 0.1).astype(np.float32)
+    return {"image": x, "label": y}
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """numpy batch -> tensors on `device`; to the card through pinned host
+    memory with a non-blocking copy on the current stream."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(v)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t.to(device)
+    return out
+
+
+class Prefetcher:
+    """Double-buffered host-side prefetch of a step-indexed batch factory.
+
+    Queue entries are tagged with their step index and `get(step)` is
+    step-addressable: a request behind the stream restarts the filler
+    thread at that step, one ahead of it skips stale entries.
+    """
+
+    DEPTH = 2     # batches made ahead
+
+    def __init__(self, make_batch: Callable[[int], dict], start_step: int = 0):
+        self._make = make_batch
+        self._start(start_step)
+
+    def _start(self, step: int):
+        self._q: queue.Queue = queue.Queue(maxsize=self.DEPTH)
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._fill,
+                                   args=(step, self._q, self._stop),
+                                   daemon=True)
+        self._t.start()
+
+    def _fill(self, s: int, q: queue.Queue, stop: threading.Event):
+        while not stop.is_set():
+            item = (s, self._make(s))
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+            s += 1
+
+    def seek(self, step: int):
+        """Restart the stream at `step`."""
+        self.close()
+        self._start(step)
+
+    def get(self, step: int) -> dict:
+        """The batch for exactly `step`."""
+        while True:
+            s, b = self._q.get()
+            if s == step:
+                return b
+            if s > step:
+                self.seek(step)
+
+    def close(self):
+        """Stop the filler thread and wait for it (at most one batch)."""
+        self._stop.set()
+        self._t.join(timeout=60)

@@ -1,0 +1,81 @@
+"""Optimizers over parameter trees, port of `repro.optim.optimizer`:
+SGD with momentum (the paper's CNN training), a warmup + cosine schedule
+and global-norm clipping.
+
+Unlike the reference's pure transforms, `update` writes the new values
+into the parameter tensors in place (under `no_grad`), which saves a copy
+of every weight; it returns the same tree.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.utils import tree_leaves
+
+
+class OptState(NamedTuple):
+    step: int
+    mu: Any          # momentum, one tensor per parameter leaf
+    nu: Any          # second moment (None for SGD)
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], OptState]
+    update: Callable[[Any, OptState, Any], tuple[Any, OptState]]
+
+
+def warmup_cosine(base_lr: float, warmup: int, total: int,
+                  final_frac: float = 0.1) -> Callable[[int], float]:
+    """Linear warmup to `base_lr` over `warmup` steps, then a cosine decay
+    to `final_frac * base_lr` at `total`."""
+    def lr(step: int) -> float:
+        if step < warmup:
+            return base_lr * step / max(warmup, 1)
+        prog = min(max((step - warmup) / max(total - warmup, 1), 0.0), 1.0)
+        return base_lr * (final_frac + (1 - final_frac) * 0.5
+                          * (1 + math.cos(math.pi * prog)))
+    return lr
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in fp32."""
+    return torch.sqrt(sum(g.float().square().sum()
+                          for g in tree_leaves(grads)))
+
+
+def clip_by_global_norm(grads: list, max_norm: float):
+    """(grads scaled so their global norm is at most `max_norm`, norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return [(g * scale).to(g.dtype) for g in grads], norm
+
+
+def sgd(lr: float | Callable[[int], float], momentum: float = 0.9,
+        clip_norm: float | None = None) -> Optimizer:
+    """SGD with momentum.  `params` and `grads` are trees of equal
+    structure; the learning rate is evaluated at step+1, as in the
+    reference."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        return OptState(0, [torch.zeros_like(p) for p in tree_leaves(params)],
+                        None)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        if clip_norm:
+            gs, _ = clip_by_global_norm(gs, clip_norm)
+        mu = [momentum * m + g for m, g in zip(state.mu, gs)]
+        step = state.step + 1
+        lrv = lr_fn(step)
+        for p, u in zip(ps, mu):
+            p.sub_(lrv * u)
+        return params, OptState(step, mu, None)
+
+    return Optimizer(init, update)
