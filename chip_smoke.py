@@ -6,24 +6,37 @@
 Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build every kernel under src/repro_torch/kernels/csrc with nvcc;
+2. build every kernel under src/repro_torch/kernels/csrc with nvcc, one
+   process per source, all at once;
 3. kernel vs plain: for each distinct conv shape of mesh1k at batch 2, in
    float32 and bfloat16, hold the conv kernel against `conv2d_ref` and the
    autograd Function's dx/dw against autograd through `conv2d_ref`; time
    the kernel, the plain version and one `F.conv2d` call (channels_last,
    TF32 off: the yardstick, never called by the port); compute the bound;
-4. train: run the trainer's own entry (`launch.train.main`) on full-width
-   mesh1k, batch 2, 3 steps; check finite losses and 19 x 3 kernel
-   launches; then hold the full-width forward loss of one batch-1 sample
+   then the same for the flash-attention kernel at hymba-1.5b's shapes
+   (window 1024 and none; yardstick `F.scaled_dot_product_attention`) and
+   the SSD-chunk kernel at hymba's and mamba2-780m's shapes (no
+   yardstick: no one PyTorch call computes it), forward and gradients of
+   their autograd Functions;
+4. mesh1k: run the trainer's own entry (`launch.train.main`) on
+   full-width mesh1k, batch 2, 3 steps; check finite losses and 19 x 3
+   conv launches; hold the full-width forward loss of one batch-1 sample
    on the card (kernel) against the same params and sample on the CPU
    (plain versions); profile one more step by kind of device kernel;
-5. print the `kernels` JSON line and, last, the `ok` JSON line.
+5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
+   2048, 3 steps: finite losses and 32 x 3 launches of each LM kernel;
+   the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
+   at seq 1280 on the card against the CPU; one profiled step and the
+   SSD's inter-chunk recurrence timed alone;
+6. print the `kernels` JSON line and, last, the `ok` JSON line.
 
+Each launch count is read from a run that starts with every count at 0.
 Any failed phase raises and the script exits non-zero.  Per-shape rows go
 to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -38,16 +51,23 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.configs import hymba_1_5b  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import conv2d as kconv  # noqa: E402
-from repro_torch.kernels.ref import conv2d_ref  # noqa: E402
+from repro_torch.kernels import flash_attention as kfa  # noqa: E402
+from repro_torch.kernels import ssd as kssd  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    conv2d_ref, flash_attention_ref, ssd_chunked_ref)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models.cnn import meshnet  # noqa: E402
-from repro_torch.optim.optimizer import sgd  # noqa: E402
+from repro_torch.models.lm import modules as lm_modules  # noqa: E402
+from repro_torch.models.lm import transformer  # noqa: E402
+from repro_torch.optim.optimizer import adamw, sgd  # noqa: E402
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainStepConfig, make_train_step)
-from repro_torch.utils import FP32, same_pads, time_fn  # noqa: E402
+from repro_torch.utils import (  # noqa: E402
+    FP32, same_pads, time_fn, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 on the CUDA cores
@@ -65,6 +85,22 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # full-width forward loss, card vs CPU: fp32 through 19 conv-BN-ReLU
 # layers whose sums run in another order on each
 LOSS_RTOL = 1e-4
+# attention / SSD kernel vs plain, max |difference| over the largest
+# output magnitude: f32 sums of up to 2048 keys x 64 dims (attention) or
+# cl x n products (SSD) in another order; bf16 one rounding of the output
+# that may land on the neighbouring value.  S is fp32 for both dtypes.
+LM_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# their autograd Functions' gradients: the backward recomputes through
+# the plain version, so only the order of the reductions may differ
+LM_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+HYMBA = hymba_1_5b.CONFIG
+LM_BATCH, LM_SEQ = 1, 2048
+# the 4-layer full-width forward loss, card vs CPU: fp32 through four
+# hybrid blocks whose sums (up to 6400 products) run in another order
+LM_LOSS_RTOL = 1e-4
+# the 4-layer full-width forward check: types g, s, g, g and a sequence
+# longer than the 1024 window, a multiple of the SSD chunk
+CHECK_LAYERS, CHECK_SEQ = 4, 1280
 
 
 def card_line() -> str:
@@ -97,6 +133,34 @@ def mesh_conv_shapes(cfg) -> list[dict]:
                            "stride": s, "count": 0}
         shapes[key]["count"] += 1
     return list(shapes.values())
+
+
+def _check_close(what: str, got: torch.Tensor, want: torch.Tensor,
+                 tol: float) -> float:
+    """max |got - want|, which must be within tol x max(1, max |want|)."""
+    want = want.float()
+    err = float((got.float() - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    if not err <= tol * scale:
+        raise AssertionError(f"{what}: max |err| {err} > {tol} * {scale}")
+    return err
+
+
+def _timings(fn_kernel, fn_plain, fn_library, flops: float, nbytes: float,
+             dtype: torch.dtype) -> dict:
+    """Kernel, plain and library times (CUDA events, trimmed mean of 10
+    after 2 warmups) and the bound: max(FLOPs / peak, bytes / 3.35 TB/s)."""
+    kernel_s = time_fn(fn_kernel, reps=10, warmup=2)
+    plain_s = time_fn(fn_plain, reps=10, warmup=2)
+    library_s = None if fn_library is None else \
+        time_fn(fn_library, reps=10, warmup=2)
+    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
+    return {"ms": kernel_s * 1e3, "plain_ms": plain_s * 1e3,
+            "library_ms": None if library_s is None else library_s * 1e3,
+            "bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "ops_ms": ops_s * 1e3, "bytes_ms": bytes_s * 1e3,
+            "gflops": flops / 1e9, "tflops_s": flops / kernel_s / 1e12}
 
 
 def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
@@ -136,38 +200,25 @@ def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
         a = xp.detach().requires_grad_()
         b = w.detach().requires_grad_()
         (fwd(a, b).float() * g.float()).sum().backward()
-        grads.append((a.grad.float(), b.grad.float()))
-    (dx, dw), (rdx, rdw) = grads
-    for nm, got, want in (("dx", dx, rdx), ("dw", dw, rdw)):
-        e = float((got - want).abs().max())
-        sc = max(1.0, float(want.abs().max()))
-        if not e <= BWD_TOL[dtype] * sc:
-            raise AssertionError(f"{sh['layer']} {dtype}: {nm} max |err| "
-                                 f"{e} > {BWD_TOL[dtype]} * {sc}")
-    del grads, dx, dw, rdx, rdw
+        grads.append((a.grad, b.grad))
+    for nm, got, want in zip(("dx", "dw"), *grads):
+        _check_close(f"{sh['layer']} {dtype}: {nm}", got, want,
+                     BWD_TOL[dtype])
+    del grads
 
     x_nchw = xp.permute(0, 3, 1, 2)            # channels_last view
     w_oihw = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
-    kernel_s = time_fn(lambda: kconv.conv2d(xp, w, stride=s), reps=10,
-                       warmup=2)
-    plain_s = time_fn(lambda: conv2d_ref(xp, w, stride=s), reps=10,
-                      warmup=2)
-    library_s = time_fn(lambda: F.conv2d(x_nchw, w_oihw, stride=s),
-                        reps=10, warmup=2)
-    flops = 2.0 * n * y.shape[1] * y.shape[2] * f * k * k * c
-    nbytes = (xp.numel() + w.numel() + y.numel()) * xp.element_size()
-    ops_s, bytes_s = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
-    return {"layer": sh["layer"], "dtype": str(dtype).split(".")[-1],
-            "x": list(sh["x"]), "k": k, "f": f, "stride": s,
-            "count": sh["count"], "max_abs_err": err,
-            "ms": kernel_s * 1e3, "plain_ms": plain_s * 1e3,
-            "library_ms": library_s * 1e3,
-            "bound_ms": max(ops_s, bytes_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-            "ops_ms": ops_s * 1e3, "bytes_ms": bytes_s * 1e3,
-            "gflops": flops / 1e9,
-            "tflops_s": flops / kernel_s / 1e12}
+    row = {"layer": sh["layer"], "dtype": str(dtype).split(".")[-1],
+           "x": list(sh["x"]), "k": k, "f": f, "stride": s,
+           "count": sh["count"], "max_abs_err": err}
+    row.update(_timings(
+        lambda: kconv.conv2d(xp, w, stride=s),
+        lambda: conv2d_ref(xp, w, stride=s),
+        lambda: F.conv2d(x_nchw, w_oihw, stride=s),
+        2.0 * n * y.shape[1] * y.shape[2] * f * k * k * c,
+        (xp.numel() + w.numel() + y.numel()) * xp.element_size(), dtype))
+    return row
 
 
 def kernel_phase(card: str) -> list[dict]:
@@ -222,11 +273,32 @@ def train_phase() -> dict:
             "steady_step_s": step_s, "steady_compute_s": compute_s}
 
 
+def _device_breakdown(run_step, classify) -> tuple[float, dict, int]:
+    """One call of `run_step` (which must end in a device sync) under
+    torch.profiler: (host ms, {group: device ms}, device kernels), each
+    kernel's time added to the group `classify(name.lower())` gives."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict[str, float] = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        g = classify(e.name.lower())
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    return wall_ms, groups, n_kernels
+
+
 def profile_phase() -> dict:
     """Device time of one full-width training step (batch 2, batch already
     on the card) by kind of kernel, from torch.profiler's CUDA events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cfg, dev = meshnet.MESH1K, torch.device("cuda")
     model = meshnet.MeshNet(cfg, generator=torch.Generator().manual_seed(0),
                             device=dev)
@@ -238,29 +310,19 @@ def profile_phase() -> dict:
     batch = pipeline.to_device(pipeline.synthetic_mesh_batch(
         0, BATCH, cfg.input_hw, cfg.in_channels, out_hw=cfg.out_hw), dev)
     params, state, m = step(params, state, batch)     # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
-        float(m["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    groups = {"conv2d kernel (forward)": 0.0,
-              "library conv (dgrad/wgrad)": 0.0, "other": 0.0}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        n_kernels += 1
-        ms = e.time_range.elapsed_us() / 1e3
-        name = e.name.lower()
+
+    def run_step():
+        float(step(params, state, batch)[2]["loss"])
+
+    def classify(name):
         if "conv2d_kernel" in name:
-            groups["conv2d kernel (forward)"] += ms
-        elif any(t in name for t in ("cudnn", "xmma", "dgrad", "wgrad",
-                                     "conv", "gemm", "cutlass")):
-            groups["library conv (dgrad/wgrad)"] += ms
-        else:
-            groups["other"] += ms
+            return "conv2d kernel (forward)"
+        if any(t in name for t in ("cudnn", "xmma", "dgrad", "wgrad",
+                                   "conv", "gemm", "cutlass")):
+            return "library conv (dgrad/wgrad)"
+        return "other"
+
+    wall_ms, groups, n_kernels = _device_breakdown(run_step, classify)
     busy = sum(groups.values())
     if n_kernels == 0:
         print("step breakdown: the profiler saw no device kernels "
@@ -303,6 +365,320 @@ def forward_check() -> dict:
             "max_logit_diff": dlogit}
 
 
+# ---------------------------------------------------------------- LM path --
+
+def admitted_pairs(s: int, window: int | None) -> int:
+    """(query, key) pairs that causality and the window admit at length s:
+    the work the masks leave, which is what the bound counts."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def attention_cases(cfg) -> list[dict]:
+    """The attention calls of one forward: full causal on the global
+    layers, causal + window on the others."""
+    n_glob = sum(t == "hybrid_g" for t in cfg.layer_types())
+    return [{"mask": "causal", "window": None, "count": n_glob},
+            {"mask": f"window {cfg.window}", "window": cfg.window,
+             "count": cfg.n_layers - n_glob}]
+
+
+def check_attention(case: dict, dtype: torch.dtype,
+                    gen: torch.Generator) -> dict:
+    dev, cfg = torch.device("cuda"), HYMBA
+    b, s, hq, hkv, d = LM_BATCH, LM_SEQ, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    window, what = case["window"], f"flash_attention {case['mask']} {dtype}"
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    o = kfa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err = _check_close(what, o, flash_attention_ref(q, k, v, window=window),
+                       LM_FWD_TOL[dtype])
+
+    # the autograd Function (kernel forward, backward recomputed through
+    # the plain version) vs autograd through the plain version
+    g = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    grads = []
+    for fwd in (lambda *a: kfa.FlashAttention.apply(*a, True, window, None,
+                                                    None),
+                lambda *a: flash_attention_ref(*a, window=window)):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        (fwd(*ts).float() * g.float()).sum().backward()
+        grads.append([t.grad for t in ts])
+    for nm, got, want in zip(("dq", "dk", "dv"), *grads):
+        _check_close(f"{what} {nm}", got, want, LM_BWD_TOL[dtype])
+    del grads
+
+    # the yardstick: one SDPA call on (B, H, S, D) views, GQA, the same mask
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        pos = torch.arange(s, device=dev)
+        keep = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                                  enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float() - o.float())
+                    .abs().max())
+    row = {"kernel": "flash_attention", "mask": case["mask"],
+           "dtype": str(dtype).split(".")[-1], "count": case["count"],
+           "q": [b, s, hq, d], "kv": [b, s, hkv, d], "max_abs_err": err,
+           "library_vs_kernel_err": lib_err}
+    row.update(_timings(
+        lambda: kfa.flash_attention(q, k, v, window=window),
+        lambda: flash_attention_ref(q, k, v, window=window), library,
+        4.0 * d * admitted_pairs(s, window) * b * hq,
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), dtype))
+    return row
+
+
+# the SSD shapes: hymba's (its path) and mamba2-780m's (repro/configs/
+# mamba2_780m.py: d 1536 x expand 2 / head dim 64 = 48 heads, state 128,
+# chunk 128), which the kernel takes too but no ported path runs yet
+SSD_SHAPES = [
+    {"model": "hymba-1.5b", "h": HYMBA.ssm_heads, "p": HYMBA.ssm_head_dim,
+     "n": HYMBA.ssm_state, "chunk": HYMBA.ssm_chunk,
+     "count": HYMBA.n_layers},
+    {"model": "mamba2-780m", "h": 48, "p": 64, "n": 128, "chunk": 128,
+     "count": 0},
+]
+
+
+def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    dev = torch.device("cuda")
+    b, l = LM_BATCH, LM_SEQ
+    h, p, n, chunk = shape["h"], shape["p"], shape["n"], shape["chunk"]
+    what = f"ssd_chunk {shape['model']} {dtype}"
+    # the model's inputs at init: la = softplus(dt) * -A with A_log =
+    # log(linspace(1, 16)); la stays fp32 under bf16, as in the model
+    xdt = (torch.randn((b, l, h, p), generator=gen, device=dev) * 0.5) \
+        .to(dtype)
+    dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev))
+    la = (-dt * torch.linspace(1.0, 16.0, h, device=dev)).contiguous()
+    B = (torch.randn((b, l, n), generator=gen, device=dev) * 0.5).to(dtype)
+    C = (torch.randn((b, l, n), generator=gen, device=dev) * 0.5).to(dtype)
+    y, S = kssd.ssd_chunk(xdt, la, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    yr, Sr = ssd_chunked_ref(xdt, la, B, C, chunk)
+    err = max(_check_close(f"{what} y", y, yr, LM_FWD_TOL[dtype]),
+              _check_close(f"{what} S", S, Sr, LM_FWD_TOL[torch.float32]))
+    del yr, Sr
+
+    gy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
+    gS = torch.randn(S.shape, generator=gen, device=dev)
+    grads = []
+    for fwd in (lambda *a: kssd.SsdChunk.apply(*a, chunk),
+                lambda *a: ssd_chunked_ref(*a, chunk)):
+        ts = [t.detach().requires_grad_() for t in (xdt, la, B, C)]
+        yy, SS = fwd(*ts)
+        ((yy.float() * gy.float()).sum() + (SS * gS).sum()).backward()
+        grads.append([t.grad for t in ts])
+    for nm, got, want in zip(("dxdt", "dla", "dB", "dC"), *grads):
+        _check_close(f"{what} {nm}", got, want, LM_BWD_TOL[dtype])
+    del grads
+
+    nc = l // chunk
+    # G = C.B^T once per chunk; per head y over the causal pairs and S
+    flops = b * nc * (2.0 * chunk * chunk * n
+                      + h * (p * chunk * (chunk + 1) + 2.0 * chunk * p * n))
+    nbytes = (2 * xdt.numel() + B.numel() + C.numel()) * xdt.element_size() \
+        + (la.numel() + S.numel()) * 4
+    row = {"kernel": "ssd_chunk", "model": shape["model"],
+           "dtype": str(dtype).split(".")[-1], "count": shape["count"],
+           "xdt": [b, l, h, p], "n": n, "chunk": chunk, "max_abs_err": err}
+    row.update(_timings(
+        lambda: kssd.ssd_chunk(xdt, la, B, C, chunk=chunk),
+        lambda: ssd_chunked_ref(xdt, la, B, C, chunk), None, flops, nbytes,
+        dtype))
+    return row
+
+
+def lm_kernel_phase(card: str) -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    print(f"{'kernel':16s} {'case':12s} {'dtype':8s} {'n':>2s} "
+          f"{'kernel_ms':>10s} {'plain_ms':>9s} {'library_ms':>10s} "
+          f"{'bound_ms':>9s} {'TFLOP/s':>8s} {'max_err':>9s}   ({card})")
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = [(check_attention, c) for c in attention_cases(HYMBA)] + \
+            [(check_ssd, s) for s in SSD_SHAPES]
+        for check, case in cases:
+            r = check(case, dtype, gen)
+            rows.append(r)
+            lib = "none" if r["library_ms"] is None else \
+                f"{r['library_ms']:.4f}"
+            print(f"{r['kernel']:16s} {r.get('mask', r.get('model')):12s} "
+                  f"{r['dtype']:8s} {r['count']:2d} {r['ms']:10.4f} "
+                  f"{r['plain_ms']:9.4f} {lib:>10s} {r['bound_ms']:9.4f} "
+                  f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}",
+                  flush=True)
+            torch.cuda.empty_cache()
+    return rows
+
+
+def lm_train_phase() -> dict:
+    """3 full-width hymba-1.5b steps through the trainer's own entry."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train_cli.main(["--arch", "hymba-1.5b", "--batch", str(LM_BATCH),
+                          "--seq", str(LM_SEQ), "--steps", str(STEPS),
+                          "--device", "cuda", "--log-every", "1"])
+    counts = ops.launch_counts()
+    want = {"conv2d": 0, "flash_attention": HYMBA.n_layers * STEPS,
+            "ssd_chunk": HYMBA.n_layers * STEPS}
+    if not all(math.isfinite(l) for l in res["losses"]):
+        raise AssertionError(f"non-finite loss: {res['losses']}")
+    if counts != want:
+        raise AssertionError(f"launches {counts} in {STEPS} steps, want "
+                             f"{want} (one forward launch per layer; the "
+                             f"backward recomputes through the plain "
+                             f"versions)")
+    steady = res["step_s"][1:]
+    step_s = sum(steady) / len(steady)
+    tokens = LM_BATCH * LM_SEQ
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"train: {STEPS} steps of full-width hymba-1.5b "
+          f"({res['n_params'] / 1e9:.3f} B params) at batch {LM_BATCH} x "
+          f"seq {LM_SEQ}; losses {res['losses']}; step seconds "
+          f"{res['step_s']}; steps 2..{STEPS}: {step_s:.4f} s/step, "
+          f"{tokens / step_s:.1f} tokens/s; peak memory {peak:.2f} GiB; "
+          f"launches {counts}")
+    return {"launches": counts, "losses": res["losses"],
+            "step_s": res["step_s"], "data_s": res["data_s"],
+            "steady_step_s": step_s, "tokens_per_s": tokens / step_s,
+            "peak_gib": peak, "n_params": res["n_params"]}
+
+
+def lm_forward_check() -> dict:
+    """Forward loss of a 4-layer full-width hymba at seq 1280, the same
+    params and batch through the card's kernels and the CPU's plain
+    versions."""
+    cfg = dataclasses.replace(HYMBA, n_layers=CHECK_LAYERS)
+    types = cfg.layer_types()
+    if types != ["hybrid_g", "hybrid_s", "hybrid_g", "hybrid_g"]:
+        raise AssertionError(f"check layers {types}")
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    nb = pipeline.synthetic_lm_batch(0, 1, CHECK_SEQ, cfg.vocab)
+    out = {}
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            d = torch.device(dev)
+            p = tree_map(lambda t: t.detach().to(d), params)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            out[dev] = float(transformer.loss_fn(
+                p, pipeline.to_device(nb, d), cfg))
+            out[dev + "_s"] = time.perf_counter() - t0
+            out[dev + "_launches"] = ops.launch_counts()
+            del p
+    lg, lc = out["cuda"], out["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    print(f"forward check, hymba-1.5b {CHECK_LAYERS} layers {types} at seq "
+          f"{CHECK_SEQ}: loss card {lg!r} cpu {lc!r} rel diff {rel:.3e} "
+          f"(tol {LM_LOSS_RTOL}); card launches {out['cuda_launches']}")
+    if not (math.isfinite(lg) and rel <= LM_LOSS_RTOL):
+        raise AssertionError(f"card loss {lg} vs cpu loss {lc}: rel {rel}")
+    want = {"conv2d": 0, "flash_attention": CHECK_LAYERS,
+            "ssd_chunk": CHECK_LAYERS}
+    if out["cuda_launches"] != want:
+        raise AssertionError(f"card forward launches {out['cuda_launches']}")
+    return {"loss_cuda": lg, "loss_cpu": lc, "rel_diff": rel,
+            "types": types, "seq": CHECK_SEQ}
+
+
+def lm_profile_phase() -> dict:
+    """Device time of one full-width hymba-1.5b step (batch 1 x seq 2048,
+    batch on the card) by kind of kernel, and the SSD's inter-chunk
+    recurrence timed alone at hymba's shape."""
+    dev = torch.device("cuda")
+    args = train_cli.parse_args(["--arch", "hymba-1.5b", "--batch",
+                                 str(LM_BATCH), "--seq", str(LM_SEQ),
+                                 "--steps", str(STEPS)])
+    cfg, params, _, loss, mk, prec = train_cli.build(args, dev)
+    opt = adamw(0.0)
+    step = make_train_step(loss, opt, TrainStepConfig(precision=prec))
+    state = opt.init(params)
+    batch = pipeline.to_device(mk(0), dev)
+    float(step(params, state, batch)[2]["loss"])        # warm
+
+    def run_step():
+        float(step(params, state, batch)[2]["loss"])
+
+    def classify(name):
+        if "flash_fwd_kernel" in name:
+            return "flash_attention kernel"
+        if "ssd_chunk_kernel" in name:
+            return "ssd_chunk kernel"
+        if any(t in name for t in ("gemm", "cutlass", "xmma", "sm90",
+                                   "cublas")):
+            return "cuBLAS matmuls"
+        if "softmax" in name:
+            return "softmax (plain attention recompute)"
+        if "reduce" in name:
+            return "reductions"
+        if any(t in name for t in ("elementwise", "vectorized", "unrolled")):
+            return "elementwise"
+        return "other"
+
+    wall_ms, groups, n_kernels = _device_breakdown(run_step, classify)
+    del params, state, step, opt
+    torch.cuda.empty_cache()
+
+    # the inter-chunk recurrence of one layer: forward, and forward +
+    # backward, at hymba's (b, nc, h, p, n)
+    nc = LM_SEQ // cfg.ssm_chunk
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    a_tot = torch.exp(-torch.rand((LM_BATCH, nc, cfg.ssm_heads),
+                                  generator=gen, device=dev))
+    S = torch.randn((LM_BATCH, nc, cfg.ssm_heads, cfg.ssm_head_dim,
+                     cfg.ssm_state), generator=gen, device=dev)
+    fwd_s = time_fn(lambda: lm_modules.inter_chunk_states(a_tot, S)[1],
+                    reps=10, warmup=2)
+    a_g, S_g = a_tot.clone().requires_grad_(), S.clone().requires_grad_()
+
+    def fwd_bwd():
+        h_in, h_fin = lm_modules.inter_chunk_states(a_g, S_g)
+        (h_in.sum() + h_fin.sum()).backward()
+        return S_g.grad
+    fwd_bwd_s = time_fn(fwd_bwd, reps=10, warmup=2)
+    # the same call's kernels alone: CUDA events above include the gaps
+    # in which the card waits for the host to launch the next small op
+    ic_wall_ms, ic_groups, ic_kernels = _device_breakdown(
+        lambda: fwd_bwd().sum().item(), lambda name: "all")
+    ic_device_ms = ic_groups.get("all")
+    busy = sum(groups.values()) if n_kernels else None
+    print(f"step breakdown (one hymba-1.5b step, batch {LM_BATCH} x seq "
+          f"{LM_SEQ} on the card, host clock {wall_ms:.2f} ms): " + (
+              f"device kernels {busy:.2f} ms in {n_kernels} kernels, idle "
+              f"share {1 - busy / wall_ms:.3f}; " + "; ".join(
+                  f"{k} {v:.2f} ms" for k, v in sorted(groups.items()))
+              if n_kernels else "the profiler saw no device kernels (not "
+              "measured)"))
+    ic_device = "not measured (the profiler saw no kernels)" \
+        if ic_device_ms is None else \
+        f"{ic_device_ms:.4f} ms in {ic_kernels} kernels"
+    print(f"ssd inter-chunk recurrence ({nc} chunks, one layer): forward "
+          f"{fwd_s * 1e3:.4f} ms, forward + backward {fwd_bwd_s * 1e3:.4f} "
+          f"ms (CUDA events, launch gaps included); x {cfg.n_layers} "
+          f"layers: {fwd_bwd_s * 1e3 * cfg.n_layers:.2f} ms per step; "
+          f"forward + backward device kernels {ic_device} (host clock "
+          f"{ic_wall_ms:.2f} ms under the profiler)")
+    return {"wall_ms": wall_ms, "device_ms": busy, "groups": groups,
+            "n_kernels": n_kernels, "inter_chunk_fwd_ms": fwd_s * 1e3,
+            "inter_chunk_fwd_bwd_ms": fwd_bwd_s * 1e3,
+            "inter_chunk_fwd_bwd_device_ms": ic_device_ms,
+            "inter_chunk_fwd_bwd_kernels": ic_kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -324,45 +700,73 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}")
 
     rows = kernel_phase(card)
+    lm_rows = lm_kernel_phase(card)
     train = train_phase()
     fwd = forward_check()
     breakdown = profile_phase()
+    lm_train = lm_train_phase()
+    lm_fwd = lm_forward_check()
+    lm_breakdown = lm_profile_phase()
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:
-        json.dump({"card": card, "shapes": rows, "train": train,
-                   "forward_check": fwd, "step_breakdown": breakdown}, f,
-                  indent=1)
+        json.dump({"card": card, "shapes": rows, "lm_shapes": lm_rows,
+                   "train": train, "forward_check": fwd,
+                   "step_breakdown": breakdown, "lm_train": lm_train,
+                   "lm_forward_check": lm_fwd,
+                   "lm_step_breakdown": lm_breakdown}, f, indent=1)
 
-    # the kernels line: one forward of mesh1k at batch 2 in float32, each
-    # shape's numbers times the layers that make it (19 calls)
-    f32 = [r for r in rows if r["dtype"] == "float32"]
-    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    # the kernels line: each kernel's numbers over one forward of its model
+    # in float32 (bf16 beside), each shape's times the calls that make it
+    def entry(name, source, replaces, launches, rs, scope):
+        rs = [r for r in rs if r["count"]]
+        f32 = [r for r in rs if r["dtype"] == "float32"]
+        bf16 = [r for r in rs if r["dtype"] == "bfloat16"]
 
-    def total(rs, key):
-        return sum(r[key] * r["count"] for r in rs)
+        def total(sel, key):
+            if any(r[key] is None for r in sel):
+                return None
+            return sum(r[key] * r["count"] for r in sel)
 
-    entry = {
-        "name": "conv2d", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/conv2d.cu",
-        "replaces": "src/repro/kernels/conv2d.py:43",
-        "launches": train["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in f32),
-        "ms": total(f32, "ms"), "plain_ms": total(f32, "plain_ms"),
-        "bound_ms": total(f32, "bound_ms"),
-        "bound_by": "operations" if total(f32, "ops_ms")
-        >= total(f32, "bytes_ms") else "bytes",
-        "library_ms": total(f32, "library_ms"),
-        "scope": "one mesh1k forward, batch 2, float32: 19 conv calls",
-        "bf16": {"max_abs_err": max(r["max_abs_err"] for r in bf16),
-                 "ms": total(bf16, "ms"),
-                 "plain_ms": total(bf16, "plain_ms"),
-                 "bound_ms": total(bf16, "bound_ms"),
-                 "library_ms": total(bf16, "library_ms")},
-    }
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in f32),
+            "ms": total(f32, "ms"), "plain_ms": total(f32, "plain_ms"),
+            "bound_ms": total(f32, "bound_ms"),
+            "bound_by": "operations" if total(f32, "ops_ms")
+            >= total(f32, "bytes_ms") else "bytes",
+            "library_ms": total(f32, "library_ms"), "scope": scope,
+            "bf16": {"max_abs_err": max(r["max_abs_err"] for r in bf16),
+                     "ms": total(bf16, "ms"),
+                     "plain_ms": total(bf16, "plain_ms"),
+                     "bound_ms": total(bf16, "bound_ms"),
+                     "library_ms": total(bf16, "library_ms")},
+        }
+
+    n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
+    lm_scope = f"one hymba-1.5b forward, batch {LM_BATCH} x seq {LM_SEQ}, " \
+        f"float32: "
+    kernels = [
+        entry("conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
+              "src/repro/kernels/conv2d.py:43", train["launches"], rows,
+              "one mesh1k forward, batch 2, float32: 19 conv calls"),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:77",
+              lm_train["launches"]["flash_attention"],
+              [r for r in lm_rows if r["kernel"] == "flash_attention"],
+              lm_scope + f"{n_glob} causal + {HYMBA.n_layers - n_glob} "
+              f"window-{HYMBA.window} calls"),
+        entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
+              "src/repro/kernels/ssd.py:55",
+              lm_train["launches"]["ssd_chunk"],
+              [r for r in lm_rows if r["kernel"] == "ssd_chunk"],
+              lm_scope + f"{HYMBA.n_layers} calls"),
+    ]
     print(f"card: {card}")
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,18 +2,19 @@
 
 Each ported architecture lives in `repro_torch/configs/<id>.py` exposing
 CONFIG (full size) and SMOKE (the reference's reduced config for CPU
-runs).  The port so far covers the mesh-tangling CNNs; every other arch of
-the reference registry raises until its slice lands.
+runs).  The port so far covers the mesh-tangling CNNs and hymba-1.5b;
+every other arch of the reference registry raises until its slice lands.
 """
 from __future__ import annotations
 
 import importlib
 
 CNN_ARCHS = ["mesh1k", "mesh2k"]
+LM_ARCHS = ["hymba_1_5b"]
 NOT_PORTED = [
     "resnet50", "gemma2_9b", "qwen2_5_14b", "qwen1_5_0_5b", "olmo_1b",
-    "mixtral_8x7b", "olmoe_1b_7b", "hymba_1_5b", "pixtral_12b",
-    "mamba2_780m", "seamless_m4t_large_v2",
+    "mixtral_8x7b", "olmoe_1b_7b", "pixtral_12b", "mamba2_780m",
+    "seamless_m4t_large_v2",
 ]
 
 
@@ -23,10 +24,10 @@ def canon(name: str) -> str:
 
 def get(name: str, smoke: bool = False):
     arch = canon(name)
-    if arch not in CNN_ARCHS:
+    if arch not in CNN_ARCHS + LM_ARCHS:
         known = arch in NOT_PORTED
         raise ValueError(
             f"arch {name!r} is not ported yet" if known else
-            f"unknown arch {name!r}; ported: {CNN_ARCHS}")
+            f"unknown arch {name!r}; ported: {CNN_ARCHS + LM_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -26,6 +26,13 @@ def synthetic_mesh_batch(step: int, batch: int, hw: int, channels: int = 18,
     return {"image": x, "label": y}
 
 
+def synthetic_lm_batch(step: int, batch: int, seq: int, vocab: int) -> dict:
+    """Uniform random token ids; labels are the tokens shifted by one."""
+    rng = np.random.default_rng(9876 + step)
+    tokens = rng.integers(0, vocab, size=(batch, seq + 1), dtype=np.int32)
+    return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on `device`; to the card through pinned host
     memory with a non-blocking copy on the current stream."""

@@ -1,0 +1,134 @@
+"""The flash-attention kernel's wrapper and its autograd Function.
+
+`flash_attention` launches `csrc/flash_attention.cu` (the Hopper
+counterpart of the Pallas kernel `repro/kernels/flash_attention.py::
+flash_attention`) on CUDA tensors and counts its launches in
+`flash_attention.launches`.  It never falls back: anything the kernel does
+not take raises.  The plain version is `ref.flash_attention_ref`;
+`ops.flash_attention` picks between the two by the tensor's device.
+
+`FlashAttention` is the differentiable op on the card.  Its forward is the
+kernel.  Its backward recomputes the attention through the plain version
+and differentiates that with autograd: the TPU kernel is forward-only and
+the reference differentiates its jnp attention (`ring_attention.
+_block_attend`), so the gradient is the same function's.  A backward
+kernel is later work.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_I64 = ctypes.c_int64
+MAX_HEAD_DIM = 128
+
+
+def _lib():
+    from repro_torch.kernels import _build
+    lib = _build.load("flash_attention")
+    fn = lib.repro_flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, _I64, _I64, _I64, _I64,
+                       _I64, _I64, ctypes.c_float, ctypes.c_float,
+                       ctypes.c_int, _I64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               window: int | None, softcap: float | None,
+               scale: float | None) -> None:
+    """Raise on anything the kernel does not take: ranks and shapes, GQA
+    grouping, dtype, devices, contiguity, head dim > 128, a window below 1,
+    a softcap that is not positive, and rows that no key is admitted to."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention wants q (B,Sq,Hq,D) and k/v "
+                         f"(B,Sk,Hkv,D); got ranks {q.dim()}, {k.dim()}, "
+                         f"{v.dim()}")
+    b, sq, hq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    sk, hkv = k.shape[1], k.shape[2]
+    if min(b, sq, sk, hq, hkv, d) < 1 or hq % hkv:
+        raise ValueError(f"q heads {hq} must be a multiple of kv heads "
+                         f"{hkv}, and no extent may be 0")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
+                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention wants contiguous q, k and v")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    if scale is not None and not math.isfinite(scale):
+        raise ValueError(f"scale must be finite, got {scale}")
+    if window is not None and sq >= sk + window:
+        raise ValueError(f"query rows {sk + window - 1}.. of {sq} see no "
+                         f"key (Sk {sk}, window {window})")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention on the card: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) ->
+    (B,Sq,Hq,D) in q's dtype.
+
+    Launches on the current stream and does not synchronise; raises if the
+    launch is refused."""
+    check_args(q, k, v, window, softcap, scale)
+    if not q.is_cuda:
+        raise ValueError(f"the flash_attention kernel runs on CUDA tensors; "
+                         f"got {q.device} (ops.flash_attention takes the "
+                         f"plain version on the CPU)")
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, scale,
+                     softcap or 0.0, int(causal),
+                     window if window is not None else 0, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError_t {err} (q {tuple(q.shape)}, "
+                           f"k {tuple(k.shape)})")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable attention on the card: forward through the kernel,
+    backward by autograd through the plain version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window, softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, go):
+        from repro_torch.kernels.ref import flash_attention_ref
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o = flash_attention_ref(q, k, v, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(o, (q, k, v), go)
+        return dq, dk, dv, None, None, None, None

@@ -6,7 +6,11 @@ exist only to be compared with the kernels.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30     # masked logits / exponents: exp() of it is exactly 0
 
 
 def conv2d_ref(x: torch.Tensor, w: torch.Tensor,
@@ -32,3 +36,75 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor,
             t = torch.matmul(xs, wf[i, j])
             acc = t if acc is None else acc + t
     return acc.to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """Attention, q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) with Hq % Hkv == 0
+    -> (B, Sq, Hq, D) in q's dtype.
+
+    GQA maps q head hi to kv head hi // (Hq // Hkv).  Positions count from
+    0 for both q and k; causal keeps qpos >= kpos, the window keeps
+    qpos - kpos < window.  Masked logits are set to -1e30 (not -inf), the
+    softmax and both products run in fp32.  Differentiable by autograd.
+    """
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, sq, hkv, g, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, s.new_tensor(NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def ssd_chunk_ref(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
+                  C: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-chunk SSD: y_i = sum_{j<=i} C_i.B_j exp(cum_i - cum_j) xdt_j
+    and the chunk's outgoing state from zero inflow,
+    S = sum_j xdt_j (x) B_j exp(cum_end - cum_j).
+
+    xdt: (b, l, h, p); la: (b, l, h) log-decay; B/C: (b, l, n).  Returns
+    y (b, l, h, p) in xdt's dtype and S (b, h, p, n) in fp32; all the
+    math runs in fp32, the upper triangle masked in the exponent."""
+    xf, laf, Bf, Cf = xdt.float(), la.float(), B.float(), C.float()
+    l = xdt.shape[1]
+    cum = torch.cumsum(laf, dim=1)                          # (b, l, h)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]           # (b, i, j, h)
+    mask = torch.ones((l, l), dtype=torch.bool, device=xdt.device).tril()
+    seg = torch.where(mask[None, :, :, None], seg, seg.new_tensor(NEG_INF))
+    decay = torch.exp(seg)
+    G = torch.einsum("bin,bjn->bij", Cf, Bf)
+    y = torch.einsum("bijh,bjhp->bihp", G[..., None] * decay, xf)
+    dec_end = torch.exp(cum[:, -1:, :] - cum)               # (b, l, h)
+    S = torch.einsum("bjhp,bjn->bhpn", xf * dec_end[..., None], Bf)
+    return y.to(xdt.dtype), S
+
+
+def ssd_chunked_ref(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
+                    C: torch.Tensor, chunk: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`ssd_chunk_ref` on every `chunk`-long slice of the sequence (what the
+    kernel computes): y (b, l, h, p) in xdt's dtype and the per-chunk
+    zero-inflow states S (b, l // chunk, h, p, n) in fp32."""
+    b, l, h, p = xdt.shape
+    n = B.shape[-1]
+    nc = l // chunk
+    y, S = ssd_chunk_ref(xdt.reshape(b * nc, chunk, h, p),
+                         la.reshape(b * nc, chunk, h),
+                         B.reshape(b * nc, chunk, n),
+                         C.reshape(b * nc, chunk, n))
+    return y.reshape(b, l, h, p), S.reshape(b, nc, h, p, n)

@@ -1,0 +1,271 @@
+"""Transformer/SSM building blocks on one device, port of
+`repro.models.lm.modules`.
+
+Parameters are plain dicts of tensors with the reference's names; every
+function takes them as its first argument, as the reference does.
+Attention goes through `core.ring_attention` (the flash-attention kernel
+on the card) and the SSD's intra-chunk pass through `kernels.ops.
+ssd_chunk` (the SSD-chunk kernel on the card).  MoE, the SSM decode step,
+encoder and cross-attention, and the sequence-sharded paths wait for
+their slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.ring_attention import ring_attention
+from repro_torch.kernels import ops
+from repro_torch.models.lm.config import LMConfig
+
+
+def normal_init(gen: torch.Generator, shape, scale: float, device):
+    """N(0, scale^2) in fp32 drawn from `gen` (on the generator's device),
+    placed on `device`."""
+    return (torch.randn(shape, generator=gen, device=gen.device)
+            * scale).to(device)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(cfg: LMConfig, d: int, device=None) -> torch.Tensor:
+    if cfg.norm == "nonparam_ln":        # olmo: no learnable affine
+        return torch.zeros((0,), device=device)
+    return torch.ones((d,), device=device)
+
+
+def norm_apply(cfg: LMConfig, w: torch.Tensor, x: torch.Tensor
+               ) -> torch.Tensor:
+    """rmsnorm / layernorm / non-parametric layernorm over the last dim, in
+    fp32, returned in x's dtype."""
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + 1e-6)
+        return (y * w).to(x.dtype)
+    mean = xf.mean(-1, keepdim=True)
+    var = (xf - mean).square().mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + 1e-5)
+    if cfg.norm == "layernorm":
+        y = y * w
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (B, S, H, D) with D even; positions: (S,) or (B, S)."""
+    d = x.shape[-1]
+    freqs = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / d))
+    if positions.dim() == 1:
+        ang = positions[:, None].float() * freqs[None, :]
+        ang = ang[None, :, None, :]                      # (1, S, 1, D/2)
+    else:
+        ang = positions[..., None].float() * freqs
+        ang = ang[:, :, None, :]                         # (B, S, 1, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg: LMConfig, device) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    sc = 1.0 / math.sqrt(d)
+    p = {"wq": normal_init(gen, (d, hq * hd), sc, device),
+         "wk": normal_init(gen, (d, hkv * hd), sc, device),
+         "wv": normal_init(gen, (d, hkv * hd), sc, device),
+         "wo": normal_init(gen, (hq * hd, d), 1.0 / math.sqrt(hq * hd),
+                           device)}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((hq * hd,), device=device)
+        p["bk"] = torch.zeros((hkv * hd,), device=device)
+        p["bv"] = torch.zeros((hkv * hd,), device=device)
+    return p
+
+
+def attn_qkv(p: dict, cfg: LMConfig, x: torch.Tensor,
+             positions: torch.Tensor, rope_on: bool = True):
+    b, s, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, hq, hd)
+    k = k.reshape(b, s, hkv, hd)
+    v = v.reshape(b, s, hkv, hd)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_apply(p: dict, x: torch.Tensor, *, cfg: LMConfig,
+               positions: torch.Tensor, window: int | None,
+               causal: bool = True) -> torch.Tensor:
+    """Self-attention of x (B, S, d) on one device."""
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
+    o = ring_attention(q, k, v, seq_axis=None, scale=scale,
+                       causal=causal, window=window,
+                       softcap=cfg.attn_softcap)
+    b, s = x.shape[:2]
+    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, cfg: LMConfig, device) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    p = {"wi": normal_init(gen, (d, f), sc_in, device)}
+    if cfg.mlp in ("swiglu", "geglu"):
+        p["wg"] = normal_init(gen, (d, f), sc_in, device)
+    p["wo"] = normal_init(gen, (f, d), sc_out, device)
+    return p
+
+
+def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    h = x @ p["wi"]
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["wg"]) * h
+    elif cfg.mlp == "geglu":
+        h = F.gelu(x @ p["wg"], approximate="tanh") * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# SSD (mamba2) — chunked state-space duality
+# ---------------------------------------------------------------------------
+
+def ssm_init(gen: torch.Generator, cfg: LMConfig, device) -> dict:
+    d, di, ds, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    conv_dim = di + 2 * ds
+    return {
+        "in_proj": normal_init(gen, (d, 2 * di + 2 * ds + h),
+                               1.0 / math.sqrt(d), device),
+        "conv_w": normal_init(gen, (cfg.ssm_conv, conv_dim),
+                              1.0 / math.sqrt(cfg.ssm_conv), device),
+        "conv_b": torch.zeros((conv_dim,), device=device),
+        "dt_bias": torch.zeros((h,), device=device),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=device)),
+        "D": torch.ones((h,), device=device),
+        "gate_norm": torch.ones((di,), device=device),
+        "out_proj": normal_init(gen, (di, d), 1.0 / math.sqrt(di), device),
+    }
+
+
+def _ssd_chunked(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, chunk: int, h0: torch.Tensor | None = None):
+    """Exact chunked SSD scan.
+
+    xdt: (b, l, h, p) dt-scaled inputs; la: (b, l, h) log-decay; B, C:
+    (b, l, n); h0: optional initial state (b, h, p, n).  Returns y
+    (b, l, h, p) and h_final (b, h, p, n) in fp32.
+
+    The intra-chunk pass and the chunk summaries are `ops.ssd_chunk` (the
+    kernel on the card); the inter-chunk recurrence over the chunks and
+    the inflowing-state term stay in PyTorch, as they stay in jnp in the
+    reference.
+    """
+    b, l, h, p = xdt.shape
+    n = B.shape[-1]
+    chunk = min(chunk, l)
+    while l % chunk:            # largest divisor of l not exceeding `chunk`
+        chunk -= 1
+    nc = l // chunk
+    y, S = ops.ssd_chunk(xdt, la, B, C, chunk=chunk)   # S: (b,nc,h,p,n) f32
+    cum = torch.cumsum(la.reshape(b, nc, chunk, h), dim=2)   # (b,nc,cl,h)
+    h_in, h_fin = inter_chunk_states(torch.exp(cum[:, :, -1, :]), S, h0)
+
+    # inflowing-state contribution to each position
+    Cz = C.reshape(b, nc, chunk, n)
+    y_inter = torch.einsum("bzin,bzhpn->bzihp", Cz, h_in.to(xdt.dtype)) \
+        * torch.exp(cum).to(xdt.dtype)[..., None]
+    y = (y.reshape(b, nc, chunk, h, p) + y_inter).reshape(b, l, h, p)
+    return y, h_fin
+
+
+def inter_chunk_states(a_tot: torch.Tensor, S: torch.Tensor,
+                       h0: torch.Tensor | None = None):
+    """The recurrence over chunks: the state flowing into chunk z is
+    h_z = h_{z-1} * a_tot[z-1] + S[z-1] from h_0 = h0 (zeros if None).
+
+    a_tot: (b, nc, h) each chunk's total decay; S: (b, nc, h, p, n) its
+    zero-inflow state.  Returns the inflowing states (b, nc, h, p, n) and
+    the final state (b, h, p, n), in fp32.  One small step per chunk, as
+    the reference's `lax.scan`."""
+    b, nc, h, p, n = S.shape
+    hprev = torch.zeros((b, h, p, n), dtype=torch.float32,
+                        device=S.device) if h0 is None else h0.float()
+    h_in = []
+    for z in range(nc):
+        h_in.append(hprev)
+        hprev = hprev * a_tot[:, z, :, None, None] + S[:, z]
+    return torch.stack(h_in, dim=1), hprev
+
+
+def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """x: (b, l, c), w: (k, c): y_t = sum_i w_i * x_{t-k+1+i} + bias, with
+    zeros before the sequence (the reference's left-padded windows)."""
+    k, l = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    y = xp[:, 0:l] * w[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + l] * w[i]
+    return y + bias
+
+
+def _ssd_local(x: torch.Tensor, p: dict, cfg: LMConfig) -> torch.Tensor:
+    """The SSD block body on one device."""
+    b, l, d = x.shape
+    di, ds, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    zxbcdt = x @ p["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * ds, h], dim=-1)
+
+    # depthwise causal conv over the sequence (plain PyTorch: no TPU
+    # kernel of the reference computes it)
+    xbc = F.silu(_causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"]))
+
+    xin, B, C = torch.split(xbc, [di, ds, ds], dim=-1)
+    xin = xin.reshape(b, l, h, cfg.ssm_head_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"])                # (b,l,h)
+    A = -torch.exp(p["A_log"])
+    la = dt * A                                               # log decay
+    xdt = xin * dt[..., None].to(xin.dtype)
+
+    y, _ = _ssd_chunked(xdt, la, B.contiguous(), C.contiguous(),
+                        cfg.ssm_chunk)
+
+    y = y + p["D"][None, None, :, None].to(y.dtype) * xin
+    y = y.reshape(b, l, di)
+    y = y * F.silu(z)
+    yf = y.float()
+    y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
+         * p["gate_norm"]).to(x.dtype)
+    return y @ p["out_proj"]
+
+
+def ssm_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The SSD block on one device (the reference's `ssm_apply` with no
+    sequence axis)."""
+    return _ssd_local(x, p, cfg)

@@ -1,0 +1,221 @@
+"""Generic LM on one device, port of `repro.models.lm.transformer`.
+
+The reference runs its layer stack as `lax.scan` over parameters stacked
+per segment of equal block types (`plan`).  PyTorch runs eagerly, so the
+port keeps one parameter dict per layer, in execution order, with the
+reference's names:
+
+    {"embed": (vocab, d), "final_norm": (d,),
+     "layers": [{"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ssm": {...},
+                 "fuse_attn", "fuse_ssm", "ln2", "mlp": {...}}, ...]}
+
+`params_from_jax` unstacks the reference's `segments` into that list.
+This slice ports the dense-attention (`attn`, `swa`), `ssm` and hybrid
+(`hybrid_g`, `hybrid_s`) blocks; MoE, encoder-decoder, the modality
+frontends, vocab-parallel loss, prefill and decode wait for their slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models.lm import modules as M
+from repro_torch.models.lm.config import LMConfig
+from repro_torch.utils import tree_leaves, tree_map
+
+Segment = tuple[tuple[str, ...], int]
+
+
+def plan(cfg: LMConfig, types: list[str] | None = None) -> list[Segment]:
+    """The reference's segmentation of the layer stack: one period-2 unit
+    if the types alternate, else runs of equal types."""
+    types = types if types is not None else cfg.layer_types()
+    if len(set(types)) > 1 and len(types) % 2 == 0:
+        unit = tuple(types[:2])
+        if types == list(unit) * (len(types) // 2):
+            return [(unit, len(types) // 2)]
+    segs: list[Segment] = []
+    for t in types:
+        if segs and segs[-1][0] == (t,):
+            segs[-1] = ((t,), segs[-1][1] + 1)
+        else:
+            segs.append(((t,), 1))
+    return segs
+
+
+def _check_ported(cfg: LMConfig) -> None:
+    if cfg.n_experts or cfg.is_encdec or cfg.frontend:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, encoder-decoder and modality frontends are "
+            f"not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _block_init(gen: torch.Generator, cfg: LMConfig, btype: str,
+                device) -> dict:
+    p: dict[str, Any] = {"ln1": M.norm_init(cfg, cfg.d_model, device)}
+    hybrid = btype.startswith("hybrid")
+    if btype in ("attn", "swa") or hybrid:
+        p["attn"] = M.attn_init(gen, cfg, device)
+    if hybrid or btype == "ssm":
+        p["ssm"] = M.ssm_init(gen, cfg, device)
+    if hybrid:
+        p["fuse_attn"] = torch.ones((cfg.d_model,), device=device)
+        p["fuse_ssm"] = torch.ones((cfg.d_model,), device=device)
+    if cfg.sandwich_norm:
+        p["ln1_post"] = M.norm_init(cfg, cfg.d_model, device)
+    if cfg.d_ff > 0 and btype != "ssm":
+        p["ln2"] = M.norm_init(cfg, cfg.d_model, device)
+        p["mlp"] = M.mlp_init(gen, cfg, device)
+        if cfg.sandwich_norm:
+            p["ln2_post"] = M.norm_init(cfg, cfg.d_model, device)
+    return p
+
+
+def init(gen: torch.Generator, cfg: LMConfig, *,
+         device: torch.device | str = "cpu") -> dict:
+    """Random fp32 params drawn from `gen` (on the generator's device)
+    with the reference's scales: N(0, 1/fan_in) weights, ones for norms and
+    the SSD's D, zeros for biases, A_log = log(linspace(1, 16)).  Each
+    tensor is moved to `device` as soon as it is drawn; the leaves require
+    grad."""
+    _check_ported(cfg)
+    params: dict[str, Any] = {
+        "embed": M.normal_init(gen, (cfg.vocab, cfg.d_model),
+                               1.0 / math.sqrt(cfg.d_model), device),
+        "final_norm": M.norm_init(cfg, cfg.d_model, device),
+        "layers": [_block_init(gen, cfg, bt, device)
+                   for bt in cfg.layer_types()],
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = M.normal_init(
+            gen, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model),
+            device)
+    return tree_map(lambda t: t.requires_grad_(), params)
+
+
+def params_from_jax(tree: dict, cfg: LMConfig) -> dict:
+    """The reference's param (or gradient) tree -> the port's per-layer
+    tree, fp32 leaf tensors on the CPU that require grad.
+
+    `tree["segments"]` holds one tuple per `plan(cfg)` segment, each entry a
+    block dict whose leaves are stacked on a leading `count` axis; layer
+    c of a segment is slice c of every leaf of its unit, units in order.
+    Leaves may be numpy arrays or anything `np.asarray` takes; they are
+    copied, never aliased."""
+    def conv(a, i=None):
+        a = np.asarray(a)
+        return torch.tensor(a if i is None else a[i], dtype=torch.float32)
+
+    def unstack(sub, i):
+        if isinstance(sub, dict):
+            return {k: unstack(v, i) for k, v in sub.items()}
+        return conv(sub, i)
+
+    segs = plan(cfg)
+    if len(tree["segments"]) != len(segs):
+        raise ValueError(f"{len(tree['segments'])} segments given, "
+                         f"{len(segs)} wanted ({segs})")
+    out = {k: conv(v) for k, v in tree.items()
+           if k not in ("segments", "enc_segments", "enc_final_norm")}
+    layers = []
+    for (unit, count), seg in zip(segs, tree["segments"]):
+        if len(seg) != len(unit):
+            raise ValueError(f"segment {unit} x {count}: {len(seg)} blocks "
+                             f"given")
+        for c in range(count):
+            for block in seg:
+                lead = {np.shape(a)[0] for a in tree_leaves(block)}
+                if lead != {count}:
+                    raise ValueError(f"segment {unit} x {count}: leading "
+                                     f"axes {sorted(lead)}")
+                layers.append(unstack(block, c))
+    out["layers"] = layers
+    return tree_map(lambda t: t.requires_grad_(), out)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _block_apply(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,
+                 positions: torch.Tensor) -> torch.Tensor:
+    h = M.norm_apply(cfg, p["ln1"], x)
+    window = cfg.window if btype in ("swa", "hybrid_s") else None
+    if btype == "ssm":
+        out = M.ssm_apply(p["ssm"], h, cfg)
+    elif btype.startswith("hybrid"):
+        a_out = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
+                             window=window, causal=True)
+        s_out = M.ssm_apply(p["ssm"], h, cfg)
+        out = 0.5 * (M.norm_apply(cfg, p["fuse_attn"], a_out)
+                     + M.norm_apply(cfg, p["fuse_ssm"], s_out))
+    elif btype in ("attn", "swa"):
+        out = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
+                           window=window, causal=True)
+    else:
+        raise NotImplementedError(f"block type {btype!r} is not ported yet")
+    if cfg.sandwich_norm:
+        out = M.norm_apply(cfg, p["ln1_post"], out)
+    x = x + out
+
+    if cfg.d_ff > 0 and btype != "ssm":
+        h = M.norm_apply(cfg, p["ln2"], x)
+        out = M.mlp_apply(p["mlp"], h, cfg)
+        if cfg.sandwich_norm:
+            out = M.norm_apply(cfg, p["ln2_post"], out)
+        x = x + out
+    return x
+
+
+# ---------------------------------------------------------------------------
+# forward / loss
+# ---------------------------------------------------------------------------
+
+def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor
+           ) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embedding:
+        x = x * math.sqrt(cfg.d_model)
+    return x
+
+
+def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    emb = params["unembed"] if "unembed" in params else params["embed"].T
+    logits = x @ emb
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
+
+
+def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor
+            ) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V)."""
+    _check_ported(cfg)
+    types = cfg.layer_types()
+    if len(params["layers"]) != len(types):
+        raise ValueError(f"{len(params['layers'])} layers given, "
+                         f"{len(types)} wanted")
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for bt, lp in zip(types, params["layers"]):
+        x = _block_apply(lp, x, bt, cfg, positions)
+    x = M.norm_apply(cfg, params["final_norm"], x)
+    return _logits(params, cfg, x)
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+    """Next-token cross entropy in fp32.  batch: tokens (B, S), labels
+    (B, S)."""
+    logits = forward(params, cfg, batch["tokens"])
+    labels = batch["labels"].long()
+    logits = logits[:, -labels.shape[1]:].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return (logz - gold).mean()

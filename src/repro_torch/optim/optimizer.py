@@ -1,6 +1,6 @@
 """Optimizers over parameter trees, port of `repro.optim.optimizer`:
-SGD with momentum (the paper's CNN training), a warmup + cosine schedule
-and global-norm clipping.
+SGD with momentum (the paper's CNN training), AdamW (the LM training), a
+warmup + cosine schedule and global-norm clipping.
 
 Unlike the reference's pure transforms, `update` writes the new values
 into the parameter tensors in place (under `no_grad`), which saves a copy
@@ -77,5 +77,39 @@ def sgd(lr: float | Callable[[int], float], momentum: float = 0.9,
         for p, u in zip(ps, mu):
             p.sub_(lrv * u)
         return params, OptState(step, mu, None)
+
+    return Optimizer(init, update)
+
+
+def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
+          b2: float = 0.95, eps: float = 1e-8, weight_decay: float = 0.1,
+          clip_norm: float | None = 1.0) -> Optimizer:
+    """AdamW (the reference's LM optimizer): global-norm clipping, fp32
+    moments, bias correction, decoupled weight decay on every leaf, and
+    the learning rate evaluated at step+1.  The moments and the params are
+    updated in place."""
+    lr_fn = lr if callable(lr) else (lambda _: lr)
+
+    def init(params):
+        zeros = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in tree_leaves(params)]
+        return OptState(0, zeros, [torch.zeros_like(z) for z in zeros])
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        ps, gs = tree_leaves(params), tree_leaves(grads)
+        if clip_norm:
+            gs, _ = clip_by_global_norm(gs, clip_norm)
+        step = state.step + 1
+        bc1 = 1 - b1 ** step
+        bc2 = 1 - b2 ** step
+        lrv = lr_fn(step)
+        for p, g, m, v in zip(ps, gs, state.mu, state.nu):
+            g = g.float()
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g.square())
+            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            p.sub_((lrv * (u + weight_decay * p.float())).to(p.dtype))
+        return params, OptState(step, state.mu, state.nu)
 
     return Optimizer(init, update)

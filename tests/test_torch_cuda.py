@@ -1,21 +1,27 @@
-"""The port's compiled kernel on the card.  Every test here needs CUDA
+"""The port's compiled kernels on the card.  Every test here needs CUDA
 and `nvcc`, is marked `cuda`, and skips where there is no card.  This file
 imports neither jax nor the reference, so it runs on a machine without
 them:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 2e-5 / bf16 3e-2 on the conv (the reference sweep's);
+Tolerances: f32 2e-5 / bf16 3e-2 on every kernel's output (the reference
+sweep's: sums in another order in f32, one bf16 rounding of the output);
 dx/dw 1e-4 of the largest gradient (cuDNN's reductions in another order,
-TF32 off); smoke-training losses rtol 1e-4 against the CPU run.
+TF32 off); the attention and SSD Functions' gradients 1e-5 of the largest
+(the same plain version recomputed, so only the cotangent's path
+differs); smoke-training losses rtol 1e-4 against the CPU run.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import conv2d as tconv
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import conv2d_ref
+from repro_torch.kernels import ssd as tssd
+from repro_torch.kernels.ref import (conv2d_ref, flash_attention_ref,
+                                     ssd_chunked_ref)
 from repro_torch.launch import train as train_cli
 
 torch.set_num_threads(2)
@@ -106,5 +112,157 @@ def test_smoke_training_runs_through_the_kernel(cuda):
     assert ops.launch_counts()["conv2d"] == 4 * 2     # 4 convs x 2 steps
     on_cpu = train_cli.main(argv + ["--device", "cpu"])
     assert ops.launch_counts()["conv2d"] == 4 * 2
+    np.testing.assert_allclose(on_card["losses"], on_cpu["losses"],
+                               rtol=1e-4)
+
+
+# (b, sq, hq, hkv, d, causal, window, softcap): hymba's smoke and GQA g=5
+# with its window at a cut length, ragged S, D up to 128, no causality
+ATTN = [
+    (1, 128, 4, 2, 16, True, 16, None), (2, 100, 6, 3, 32, True, None, None),
+    (1, 200, 25, 5, 64, True, 64, None), (1, 96, 5, 1, 64, True, 37, 30.0),
+    (1, 64, 4, 4, 128, False, None, None), (2, 70, 2, 1, 8, False, 5, None),
+    (1, 1, 2, 2, 64, True, None, None),
+]
+
+
+def _attn_inputs(b, sq, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap", ATTN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_matches_plain(cuda, b, sq, hq, hkv, d, causal, window,
+                                    cap, dtype):
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, tdt)
+               for a in _attn_inputs(b, sq, hq, hkv, d))
+    opts = dict(causal=causal, window=window, softcap=cap)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert got.dtype == tdt and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, **opts)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap",
+                         [ATTN[0], ATTN[2], ATTN[3]])
+def test_flash_function_grads_match_plain(cuda, b, sq, hq, hkv, d, causal,
+                                          window, cap):
+    arrays = _attn_inputs(b, sq, hq, hkv, d, seed=1)
+    g = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (b, sq, hq, d)).astype(np.float32)).to(cuda)
+    grads = []
+    for fwd in (ops.flash_attention, flash_attention_ref):
+        ts = [torch.from_numpy(a).to(cuda).requires_grad_() for a in arrays]
+        (fwd(*ts, causal=causal, window=window, softcap=cap) * g).sum() \
+            .backward()
+        grads.append([t.grad.cpu().numpy() for t in ts])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+# (b, l, h, p, n, chunk): hymba's smoke, the chunk shrink (96 -> 48),
+# hymba's 50 heads over blocks of 4, mamba2's cl 128 x n 128, tiny extents
+SSD = [
+    (2, 128, 8, 16, 8, 64), (1, 96, 5, 64, 16, 48), (1, 128, 50, 64, 16, 64),
+    (1, 256, 6, 64, 128, 128), (2, 64, 3, 8, 4, 16), (1, 8, 1, 1, 1, 1),
+]
+
+
+def _ssd_inputs(b, l, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5,
+            -rng.uniform(0.01, 0.5, (b, l, h)).astype(np.float32),
+            rng.standard_normal((b, l, n)).astype(np.float32) * 0.5,
+            rng.standard_normal((b, l, n)).astype(np.float32) * 0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_matches_plain(cuda, b, l, h, p, n, chunk, dtype):
+    tdt = getattr(torch, dtype)
+    xdt, la, B, C = _ssd_inputs(b, l, h, p, n)
+    xdt, B, C = (torch.from_numpy(a).to(cuda, tdt) for a in (xdt, B, C))
+    la = torch.from_numpy(la).to(cuda)
+    before = tssd.ssd_chunk.launches
+    y, S = tssd.ssd_chunk(xdt, la, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk.launches == before + 1
+    assert y.dtype == tdt and S.dtype == torch.float32
+    assert S.shape == (b, l // chunk, h, p, n)
+    yr, Sr = ssd_chunked_ref(xdt, la, B, C, chunk)
+    for got, want in ((y, yr), (S, Sr)):
+        want = want.float().cpu().numpy()
+        # at mamba2's cl 128 x n 128 an output sums ~16k products in
+        # another order, so the absolute floor scales with the largest
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), want, rtol=TOL[dtype],
+            atol=TOL[dtype] * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [SSD[0], SSD[1], SSD[3]])
+def test_ssd_function_grads_match_plain(cuda, b, l, h, p, n, chunk):
+    arrays = _ssd_inputs(b, l, h, p, n, seed=1)
+    rng = np.random.default_rng(2)
+    gy = torch.from_numpy(rng.standard_normal((b, l, h, p)).astype(
+        np.float32)).to(cuda)
+    gS = torch.from_numpy(rng.standard_normal((b, l // chunk, h, p, n))
+                          .astype(np.float32)).to(cuda)
+    grads = []
+    for fwd in (lambda *a: ops.ssd_chunk(*a, chunk=chunk),
+                lambda *a: ssd_chunked_ref(*a, chunk)):
+        ts = [torch.from_numpy(a).to(cuda).requires_grad_() for a in arrays]
+        y, S = fwd(*ts)
+        ((y * gy).sum() + (S * gS).sum()).backward()
+        grads.append([t.grad.cpu().numpy() for t in ts])
+    for got, want in zip(*grads):
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.cuda
+def test_attention_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                            q.transpose(1, 2))
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 8, 2, 136, device=cuda)
+        tfa.flash_attention(big, big, big)
+    with pytest.raises(TypeError):
+        tfa.flash_attention(q.half(), q.half(), q.half())
+    x = torch.zeros(1, 8, 2, 4, device=cuda)
+    la = torch.zeros(1, 8, 2, device=cuda)
+    bc = torch.zeros(1, 8, 3, device=cuda)
+    with pytest.raises(ValueError, match="chunk"):
+        tssd.ssd_chunk(x, la, bc, bc, chunk=3)
+    with pytest.raises(ValueError, match="state"):
+        wide = torch.zeros(1, 8, 129, device=cuda)
+        tssd.ssd_chunk(x, la, wide, wide, chunk=8)
+
+
+@pytest.mark.cuda
+def test_hymba_smoke_training_runs_through_the_kernels(cuda):
+    argv = ["--arch", "hymba-1.5b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "128", "--log-every", "1"]
+    ops.reset_launch_counts()
+    on_card = train_cli.main(argv + ["--device", "cuda"])
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 5 * 2    # 5 layers x 2 steps
+    assert counts["ssd_chunk"] == 5 * 2
+    on_cpu = train_cli.main(argv + ["--device", "cpu"])
+    assert ops.launch_counts() == counts
     np.testing.assert_allclose(on_card["losses"], on_cpu["losses"],
                                rtol=1e-4)

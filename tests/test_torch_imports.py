@@ -36,7 +36,13 @@ def test_port_imports_no_jax_and_no_reference():
     expected = {"repro_torch.kernels.conv2d", "repro_torch.kernels.ops",
                 "repro_torch.kernels._build", "repro_torch.launch.train",
                 "repro_torch.models.cnn.meshnet", "repro_torch.configs.mesh2k",
-                "repro_torch.train.metrics", "repro_torch.data.pipeline"}
+                "repro_torch.train.metrics", "repro_torch.data.pipeline",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.ssd", "repro_torch.core.ring_attention",
+                "repro_torch.models.lm.config",
+                "repro_torch.models.lm.modules",
+                "repro_torch.models.lm.transformer",
+                "repro_torch.configs.hymba_1_5b"}
     assert expected <= set(out["modules"])
 
 

@@ -1,10 +1,11 @@
-"""The port's conv kernel module against the reference's Pallas kernel.
+"""The port's kernel modules against the reference's Pallas kernels.
 
-On the CPU, `repro_torch.kernels.ops.conv2d` runs the plain version; the
-same numpy inputs go through `repro.kernels.conv2d.conv2d(interpret=True)`.
-Tolerances are the reference's own sweep's: 2e-5 in f32, 3e-2 in bf16 (one
-bf16 rounding of the output).  The compiled kernel is held against the
-plain version in tests/test_torch_cuda.py, which needs the card.
+On the CPU, `repro_torch.kernels.ops` runs each kernel's plain version;
+the same numpy inputs go through the reference's Pallas kernel in
+`interpret=True` mode and through its jnp oracle.  Tolerances are the
+reference's own sweep's: 2e-5 in f32, 3e-2 in bf16 (one bf16 rounding of
+the output).  The compiled kernels are held against the plain versions in
+tests/test_torch_cuda.py, which needs the card.
 """
 import jax
 import jax.numpy as jnp
@@ -14,9 +15,13 @@ import torch
 
 from repro.kernels import ref as jref
 from repro.kernels.conv2d import conv2d as pallas_conv2d
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro.kernels.ssd import ssd_chunk as pallas_ssd
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels import conv2d as tconv
-from repro_torch.kernels.ref import conv2d_ref
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import ssd as tssd
+from repro_torch.kernels.ref import conv2d_ref, ssd_chunk_ref
 
 torch.set_num_threads(2)
 
@@ -142,3 +147,159 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.find_nvcc()
+
+
+# (b, sq, hq, hkv, d, causal, window, softcap): GQA g = 1, 2, 5; ragged S
+# (the Pallas kernel shrinks its blocks to divisors); both masks; softcap
+ATTN = [
+    (2, 64, 4, 4, 16, True, None, None), (1, 50, 4, 2, 32, True, 7, None),
+    (1, 70, 10, 2, 16, True, 16, 30.0), (2, 48, 5, 1, 8, False, None, None),
+    (1, 33, 6, 3, 16, False, 5, 20.0),
+]
+
+
+def _attn_inputs(b, sq, hq, hkv, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, hq, d), (b, sq, hkv, d), (b, sq, hkv, d))]
+
+
+@pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap", ATTN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_pallas_and_oracle(b, sq, hq, hkv, d, causal,
+                                                   window, cap, dtype):
+    arrays = _attn_inputs(b, sq, hq, hkv, d)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    jin = [jnp.asarray(a, dtype) for a in arrays]
+    kernel = pallas_flash(*jin, block_q=32, block_k=32, interpret=True,
+                          **opts)
+    oracle = jref.flash_attention_ref(*jin, **opts)
+    tdt = getattr(torch, dtype)
+    got = ops.flash_attention(*(torch.from_numpy(a).to(tdt)
+                                for a in arrays), **opts)
+    assert got.dtype == tdt and tuple(got.shape) == kernel.shape
+    for want in (kernel, oracle):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
+# (b, l, h, p, n, chunk): the reference sweep's shapes and a 48-step chunk
+SSD = [(2, 64, 4, 16, 8, 16), (1, 96, 3, 8, 4, 48), (2, 48, 2, 32, 4, 8),
+       (1, 32, 8, 8, 16, 32)]
+
+
+def _ssd_inputs(b, l, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5,
+            -rng.uniform(0.01, 0.5, (b, l, h)).astype(np.float32),
+            rng.standard_normal((b, l, n)).astype(np.float32) * 0.5,
+            rng.standard_normal((b, l, n)).astype(np.float32) * 0.5)
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_matches_pallas_and_oracle(b, l, h, p, n, chunk, dtype):
+    """ops.ssd_chunk (the plain version on the CPU) against the Pallas
+    kernel over the whole sequence, and the single-chunk plain version
+    against the reference's oracle chunk by chunk."""
+    xdt, la, B, C = _ssd_inputs(b, l, h, p, n)
+    tdt = getattr(torch, dtype)
+    jx, jB, jC = (jnp.asarray(a, dtype) for a in (xdt, B, C))
+    ky, ks = pallas_ssd(jx, jnp.asarray(la), jB, jC, chunk=chunk,
+                        interpret=True)
+    tx, tB, tC = (torch.from_numpy(a).to(tdt) for a in (xdt, B, C))
+    tla = torch.from_numpy(la)
+    y, S = ops.ssd_chunk(tx, tla, tB, tC, chunk=chunk)
+    assert y.dtype == tdt and S.dtype == torch.float32
+    assert tuple(y.shape) == ky.shape and tuple(S.shape) == ks.shape
+    tol = TOL[dtype]
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(ky, np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(S.numpy(), np.asarray(ks), rtol=tol, atol=tol)
+    for i in range(l // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        ry, rs = jref.ssd_chunk_ref(jx[:, sl], jnp.asarray(la)[:, sl],
+                                    jB[:, sl], jC[:, sl])
+        oy, os_ = ssd_chunk_ref(tx[:, sl], tla[:, sl], tB[:, sl], tC[:, sl])
+        np.testing.assert_allclose(oy.float().numpy(),
+                                   np.asarray(ry, np.float32),
+                                   rtol=tol, atol=tol)
+        np.testing.assert_allclose(os_.numpy(), np.asarray(rs, np.float32),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["rank", "gqa", "dtype", "layout", "window",
+                                 "softcap", "head_dim", "unseen_rows"])
+def test_flash_attention_checks_raise(bad):
+    q = torch.zeros(1, 8, 4, 16)
+    k = v = torch.zeros(1, 8, 2, 16)
+    opts = dict(causal=True, window=None, softcap=None)
+    if bad == "rank":
+        q = q[0]
+    elif bad == "gqa":
+        k = v = torch.zeros(1, 8, 3, 16)
+    elif bad == "dtype":
+        q, k, v = q.double(), k.double(), v.double()
+    elif bad == "layout":
+        q = torch.zeros(1, 4, 8, 16).transpose(1, 2)
+    elif bad == "window":
+        opts["window"] = 0
+    elif bad == "softcap":
+        opts["softcap"] = -1.0
+    elif bad == "head_dim":
+        q = torch.zeros(1, 8, 4, 136)
+        k = v = torch.zeros(1, 8, 2, 136)
+    elif bad == "unseen_rows":
+        q = torch.zeros(1, 12, 4, 16)
+        opts["window"] = 4
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(q, k, v, **opts)
+
+
+@pytest.mark.parametrize("bad", ["rank", "shape", "chunk", "big_chunk",
+                                 "dtype", "state"])
+def test_ssd_chunk_checks_raise(bad):
+    x, la = torch.zeros(1, 16, 2, 4), torch.zeros(1, 16, 2)
+    B = C = torch.zeros(1, 16, 3)
+    chunk = 8
+    if bad == "rank":
+        la = la[0]
+    elif bad == "shape":
+        C = torch.zeros(1, 16, 5)
+    elif bad == "chunk":
+        chunk = 5
+    elif bad == "big_chunk":
+        x, la = torch.zeros(1, 256, 2, 4), torch.zeros(1, 256, 2)
+        B = C = torch.zeros(1, 256, 3)
+        chunk = 256
+    elif bad == "dtype":
+        B = B.to(torch.bfloat16)
+    elif bad == "state":
+        B = C = torch.zeros(1, 16, 129)
+    with pytest.raises((ValueError, TypeError)):
+        ops.ssd_chunk(x, la, B, C, chunk=chunk)
+
+
+def test_attention_and_ssd_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers never fall back to the plain version: a CPU
+    tensor raises, and the launch counts stay put."""
+    ops.reset_launch_counts()
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention(q, q, q)
+    x, la, B = torch.zeros(1, 8, 2, 4), torch.zeros(1, 8, 2), \
+        torch.zeros(1, 8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tssd.ssd_chunk(x, la, B, B, chunk=8)
+    ops.flash_attention(q, q, q)
+    ops.ssd_chunk(x, la, B, B, chunk=8)
+    assert ops.launch_counts() == {"conv2d": 0, "flash_attention": 0,
+                                   "ssd_chunk": 0}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "ssd"])
+def test_every_kernel_source_builds_into_its_own_library(name):
+    p = _build.library_path(name)
+    assert p.name.startswith(name + "-") and p.parent == _build.BUILD_DIR
+    assert (_build.CSRC / f"{name}.cu").exists()

@@ -1,0 +1,397 @@
+"""The port's one-device LM path (hymba-1.5b's hybrid attention + SSD
+blocks) against the JAX reference on the CPU.
+
+The same numpy inputs, and the reference's own `init` params carried
+across by `transformer.params_from_jax`, go through both packages; on the
+CPU the port's attention and SSD run their kernels' plain versions.  The
+JAX oracles are jitted (eager hymba SMOKE loss+grad takes 18 s).
+Tolerances and their reasons:
+
+* modules, ring attention and the chunked SSD: 2e-5 (the kernel sweeps'
+  f32 tolerance: the same sums in another order);
+* hymba SMOKE loss rtol 1e-5 and every gradient rtol 1e-4 / atol 1e-6:
+  five hybrid blocks whose backward divides by rms norms of order 1e-1,
+  which amplifies the forward's rounding, with an absolute floor for tiny
+  gradients;
+* BF16 loss rtol 3e-2: bf16 rounds at other places in the two packages;
+* the 3-step AdamW trajectory: losses and grad norms rtol 1e-4, params
+  rtol 1e-4 / atol 1e-6 (the gradients' tolerance through three steps;
+  Adam's update divides by sqrt(nu), which is as exact as the gradient).
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import utils as jutils
+from repro.configs import hymba_1_5b as jhymba
+from repro.core import ring_attention as jra
+from repro.data import pipeline as jpipe
+from repro.models.lm import config as jconfig
+from repro.models.lm import modules as jM
+from repro.models.lm import transformer as jT
+from repro.optim import optimizer as jopt
+from repro.train import train_loop as jtl
+from repro_torch import utils as tutils
+from repro_torch.configs import hymba_1_5b as thymba
+from repro_torch.configs import registry as treg
+from repro_torch.core import ring_attention as tra
+from repro_torch.data import pipeline as tpipe
+from repro_torch.launch import train as train_cli
+from repro_torch.models.lm import config as tconfig
+from repro_torch.models.lm import modules as tM
+from repro_torch.models.lm import transformer as tT
+from repro_torch.optim import optimizer as topt
+from repro_torch.train import train_loop as ttl
+
+torch.set_num_threads(2)
+
+F32 = 2e-5
+SEQ = 128           # > the smoke window 16 and two SSD chunks of 64
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def _tcfg(jcfg):
+    """The port's LMConfig with the reference config's fields."""
+    return tconfig.LMConfig(**dataclasses.asdict(jcfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _hymba_smoke():
+    """The reference's hymba SMOKE params (seed 0) as numpy arrays."""
+    jp = jax.tree.map(np.asarray,
+                      jT.init(jax.random.PRNGKey(0), jhymba.SMOKE))
+    return jp
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_value_and_grad():
+    return jax.jit(jax.value_and_grad(functools.partial(
+        jT.loss_fn, cfg=jhymba.SMOKE, remat=False)))
+
+
+# ---------------------------------------------------------------------------
+# config, registry, batches
+# ---------------------------------------------------------------------------
+
+def test_config_copy_matches_reference():
+    jf = {f.name: f.default for f in dataclasses.fields(jconfig.LMConfig)}
+    tf = {f.name: f.default for f in dataclasses.fields(tconfig.LMConfig)}
+    assert jf == tf
+    assert dataclasses.asdict(thymba.CONFIG) == \
+        dataclasses.asdict(jhymba.CONFIG)
+    assert dataclasses.asdict(thymba.SMOKE) == \
+        dataclasses.asdict(jhymba.SMOKE)
+    for j in (jhymba.CONFIG, jhymba.SMOKE):
+        t = _tcfg(j)
+        assert t.layer_types() == j.layer_types()
+        assert t.total_params() == j.total_params()
+        assert (t.d_inner, t.ssm_heads) == (j.d_inner, j.ssm_heads)
+    # full width: 1.59 B params, layers {0, 16, 31} global, 50 SSD heads
+    assert abs(thymba.CONFIG.total_params() - 1.59e9) < 0.01e9
+    assert thymba.CONFIG.ssm_heads == 50
+    assert [i for i, t in enumerate(thymba.CONFIG.layer_types())
+            if t == "hybrid_g"] == [0, 16, 31]
+
+
+@pytest.mark.parametrize("types", [
+    None, ["attn"] * 4, ["swa", "attn"] * 3, ["ssm"] * 3,
+    ["hybrid_g", "hybrid_s", "hybrid_s", "hybrid_g"]])
+def test_plan_matches_reference(types):
+    for j in (jhymba.CONFIG, jhymba.SMOKE):
+        assert tT.plan(_tcfg(j), types) == jT.plan(j, types)
+
+
+def test_registry_ports_hymba_only_among_lms():
+    assert treg.get("hymba-1.5b") is thymba.CONFIG
+    assert treg.get("hymba_1_5b", smoke=True) is thymba.SMOKE
+    for arch in ("mamba2-780m", "gemma2_9b", "qwen1.5-0.5b", "resnet50"):
+        with pytest.raises(ValueError, match="not ported yet"):
+            treg.get(arch)
+
+
+@pytest.mark.parametrize("step,batch,seq,vocab", [
+    (0, 1, 64, 32001), (3, 2, 128, 256), (7, 4, 5, 11)])
+def test_synthetic_lm_batch_bit_identical(step, batch, seq, vocab):
+    a = jpipe.synthetic_lm_batch(step, batch, seq, vocab)
+    b = tpipe.synthetic_lm_batch(step, batch, seq, vocab)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert a[k].dtype == b[k].dtype
+        np.testing.assert_array_equal(a[k], b[k])
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm", "nonparam_ln"])
+def test_norm_apply_matches_jax(norm):
+    cfg = dataclasses.replace(jhymba.SMOKE, norm=norm)
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((2, 5, 64)) * 3 + 1).astype(np.float32)
+    w = np.asarray(jM.norm_init(cfg, 64)) + rng.standard_normal(
+        np.asarray(jM.norm_init(cfg, 64)).shape).astype(np.float32)
+    want = jM.norm_apply(cfg, jnp.asarray(w), jnp.asarray(x))
+    got = tM.norm_apply(_tcfg(cfg), _t(w), _t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
+                               atol=F32)
+
+
+@pytest.mark.parametrize("pos_shape", ["1d", "2d"])
+def test_rope_matches_jax(pos_shape):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 9, 3, 16)).astype(np.float32)
+    pos = np.arange(9) if pos_shape == "1d" else \
+        rng.integers(0, 100, (2, 9))
+    want = jM.rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)
+    got = tM.rope(_t(x), torch.from_numpy(pos), 10_000.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
+                               atol=F32)
+
+
+@pytest.mark.parametrize("mlp", ["swiglu", "geglu", "gelu"])
+def test_mlp_apply_matches_jax(mlp):
+    cfg = dataclasses.replace(jhymba.SMOKE, mlp=mlp)
+    p = jax.tree.map(np.asarray, jM.mlp_init(jax.random.PRNGKey(2), cfg,
+                                             jnp.float32))
+    x = np.random.default_rng(3).standard_normal((2, 7, 64)) \
+        .astype(np.float32)
+    want = jM.mlp_apply(p, jnp.asarray(x), cfg)
+    got = tM.mlp_apply({k: _t(v) for k, v in p.items()}, _t(x), _tcfg(cfg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
+                               atol=F32)
+
+
+@pytest.mark.parametrize("window,qkv_bias", [(None, False), (16, True)])
+def test_attn_apply_matches_jax(window, qkv_bias):
+    """q/k/v projections, rope, GQA attention through ring_attention and
+    the output projection, on hymba SMOKE's widths."""
+    cfg = dataclasses.replace(jhymba.SMOKE, qkv_bias=qkv_bias)
+    p = jax.tree.map(np.asarray, jM.attn_init(jax.random.PRNGKey(4), cfg,
+                                              jnp.float32))
+    if qkv_bias:
+        p = {k: v + 0.1 if k.startswith("b") else v for k, v in p.items()}
+    x = np.random.default_rng(5).standard_normal((2, 40, 64)) \
+        .astype(np.float32)
+    want = jax.jit(functools.partial(
+        jM.attn_apply, cfg=cfg, ctx=jM.ShardCtx(), window=window))(
+        p, jnp.asarray(x), positions=jnp.arange(40))
+    got = tM.attn_apply({k: _t(v) for k, v in p.items()}, _t(x),
+                        cfg=_tcfg(cfg), positions=torch.arange(40),
+                        window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
+                               atol=F32)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,window,cap,scale", [
+    (1, 40, 4, 2, 16, None, None, None), (2, 33, 10, 2, 8, 5, None, None),
+    (1, 64, 5, 5, 32, 16, 30.0, 0.2)])
+def test_ring_attention_matches_jax(b, s, hq, hkv, d, window, cap, scale):
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((b, s, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    want = jra.ring_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              mesh=None, seq_axis=None, scale=scale,
+                              window=window, softcap=cap)
+    got = tra.ring_attention(_t(q), _t(k), _t(v), seq_axis=None,
+                             scale=scale, window=window, softcap=cap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
+                               atol=F32)
+    with pytest.raises(NotImplementedError, match="halo"):
+        tra.ring_attention(_t(q), _t(k), _t(v), seq_axis="model")
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,with_h0", [
+    (2, 128, 4, 16, 8, 64, False), (1, 96, 3, 8, 4, 64, False),
+    (1, 64, 2, 8, 16, 16, True), (2, 40, 3, 4, 4, 64, False)])
+def test_ssd_chunked_matches_jax(b, l, h, p, n, chunk, with_h0):
+    """Including the chunk shrink: l = 96 with chunk 64 runs 48-step
+    chunks, l = 40 one chunk of 40."""
+    rng = np.random.default_rng(7)
+    xdt = rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5
+    la = -rng.uniform(0.01, 0.5, (b, l, h)).astype(np.float32)
+    B = rng.standard_normal((b, l, n)).astype(np.float32) * 0.5
+    C = rng.standard_normal((b, l, n)).astype(np.float32) * 0.5
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32) \
+        if with_h0 else None
+    jy, jh = jM._ssd_chunked(jnp.asarray(xdt), jnp.asarray(la),
+                             jnp.asarray(B), jnp.asarray(C), chunk,
+                             None if h0 is None else jnp.asarray(h0))
+    ty, th = tM._ssd_chunked(_t(xdt), _t(la), _t(B), _t(C), chunk,
+                             None if h0 is None else _t(h0))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=F32,
+                               atol=F32)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=F32,
+                               atol=F32)
+
+
+def test_ssm_apply_matches_jax():
+    """The whole SSD block: in_proj, depthwise causal conv, softplus dt,
+    the chunked scan (two chunks), D skip, gated rms norm, out_proj."""
+    cfg = jhymba.SMOKE
+    p = jax.tree.map(np.asarray, jM.ssm_init(jax.random.PRNGKey(8), cfg,
+                                             jnp.float32))
+    rng = np.random.default_rng(9)
+    p["conv_b"] = rng.standard_normal(p["conv_b"].shape).astype(np.float32)
+    p["dt_bias"] = rng.standard_normal(p["dt_bias"].shape) \
+        .astype(np.float32)
+    x = rng.standard_normal((2, SEQ, 64)).astype(np.float32)
+    want = jax.jit(functools.partial(jM.ssm_apply, cfg=cfg,
+                                     ctx=jM.ShardCtx()))(p, jnp.asarray(x))
+    got = tM.ssm_apply({k: _t(v) for k, v in p.items()}, _t(x), _tcfg(cfg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
+                               atol=F32)
+
+
+# ---------------------------------------------------------------------------
+# the whole model
+# ---------------------------------------------------------------------------
+
+def test_params_from_jax_unstacks_segments_in_order():
+    jp = _hymba_smoke()
+    params = tT.params_from_jax(jp, thymba.SMOKE)
+    assert len(params["layers"]) == jhymba.SMOKE.n_layers
+    # [g]x1, [s]x1, [g]x1, [s]x1, [g]x1: segment i holds layer i
+    for i, seg in enumerate(jp["segments"]):
+        np.testing.assert_array_equal(
+            params["layers"][i]["attn"]["wq"].detach().numpy(),
+            seg[0]["attn"]["wq"][0])
+    full = jT.plan(jhymba.CONFIG)
+    assert full == [(("hybrid_g",), 1), (("hybrid_s",), 15),
+                    (("hybrid_g",), 1), (("hybrid_s",), 14),
+                    (("hybrid_g",), 1)]
+    # the port's own init has the same tree and shapes
+    mine = tT.init(torch.Generator().manual_seed(0), thymba.SMOKE)
+    assert [tuple(t.shape) for t in tutils.tree_leaves(mine)] == \
+        [tuple(t.shape) for t in tutils.tree_leaves(params)]
+    assert all(t.requires_grad for t in tutils.tree_leaves(mine))
+
+
+def test_params_from_jax_unstacks_a_repeated_segment():
+    """A 4-layer hymba (g, s, g, g) at the smoke widths: its middle
+    segments are [s] x 1 and [g] x 2."""
+    cfg = dataclasses.replace(jhymba.SMOKE, n_layers=4)
+    assert jT.plan(cfg) == [
+        (("hybrid_g",), 1), (("hybrid_s",), 1), (("hybrid_g",), 2)]
+    smoke = _hymba_smoke()["segments"]          # [g], [s], [g], [s], [g]
+    jp = dict(_hymba_smoke(), segments=[smoke[0], smoke[1], tuple(
+        jax.tree.map(lambda a, b: np.concatenate([a, b]), x, y)
+        for x, y in zip(smoke[2], smoke[4]))])
+    params = tT.params_from_jax(jp, _tcfg(cfg))
+    for li, (si, c) in enumerate([(0, 0), (1, 0), (2, 0), (2, 1)]):
+        np.testing.assert_array_equal(
+            params["layers"][li]["ssm"]["in_proj"].detach().numpy(),
+            jp["segments"][si][0]["ssm"]["in_proj"][c])
+
+
+def test_params_from_jax_rejects_mismatch():
+    jp = _hymba_smoke()
+    with pytest.raises(ValueError, match="segments"):
+        tT.params_from_jax(dict(jp, segments=jp["segments"][:-1]),
+                           thymba.SMOKE)
+    bad = list(jp["segments"])
+    bad[1] = tuple(jax.tree.map(lambda a: np.concatenate([a, a]), b)
+                   for b in bad[1])
+    with pytest.raises(ValueError, match="leading"):
+        tT.params_from_jax(dict(jp, segments=bad), thymba.SMOKE)
+
+
+def test_hymba_smoke_loss_and_grads_match_jax():
+    """hymba SMOKE at seq 128 (window 16 and chunk 64 both bite): the loss
+    and every gradient against jax.value_and_grad(T.loss_fn)."""
+    jp = _hymba_smoke()
+    nb = tpipe.synthetic_lm_batch(0, 2, SEQ, jhymba.SMOKE.vocab)
+    jloss, jgrads = _jax_value_and_grad()(
+        jp, {k: jnp.asarray(v) for k, v in nb.items()})
+    params = tT.params_from_jax(jp, thymba.SMOKE)
+    tb = tpipe.to_device(nb, torch.device("cpu"))
+    loss = tT.loss_fn(params, tb, thymba.SMOKE)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    leaves = tutils.tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves)
+    want = tutils.tree_leaves(tT.params_from_jax(
+        jax.tree.map(np.asarray, jgrads), thymba.SMOKE))
+    assert len(grads) == len(want)
+    for g, w in zip(grads, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.detach().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_hymba_smoke_bf16_loss_matches_jax():
+    jp = _hymba_smoke()
+    nb = tpipe.synthetic_lm_batch(1, 2, SEQ, jhymba.SMOKE.vocab)
+    jloss = jax.jit(functools.partial(jT.loss_fn, cfg=jhymba.SMOKE,
+                                      remat=False))(
+        jutils.BF16.cast_compute(jp),
+        {k: jnp.asarray(v) for k, v in nb.items()})
+    params = tutils.BF16.cast_compute(tT.params_from_jax(jp, thymba.SMOKE))
+    loss = tT.loss_fn(params, tpipe.to_device(nb, torch.device("cpu")),
+                      thymba.SMOKE)
+    assert loss.dtype == torch.float32
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=3e-2)
+
+
+def test_three_step_adamw_trajectory_matches_jax():
+    """The reference's make_train_step + adamw(warmup_cosine(lr, 20, 3))
+    on synthetic_lm_batch, from the same params, against the port's."""
+    jp = _hymba_smoke()
+    cfg, lr, steps = jhymba.SMOKE, 3e-3, 3
+    jo = jopt.adamw(jopt.warmup_cosine(lr, 20, steps))
+    jstep = jtl.make_train_step(
+        functools.partial(jT.loss_fn, cfg=cfg, remat=False), jo, None,
+        jtl.TrainStepConfig(precision=jutils.FP32))
+    jparams = jax.tree.map(jnp.asarray, jp)
+    jstate = jo.init(jparams)
+    opt = topt.adamw(topt.warmup_cosine(lr, 20, steps))
+    tstep = ttl.make_train_step(
+        functools.partial(tT.loss_fn, cfg=thymba.SMOKE), opt,
+        ttl.TrainStepConfig(precision=tutils.FP32))
+    params = tT.params_from_jax(jp, thymba.SMOKE)
+    state = opt.init(params)
+    for s in range(steps):
+        nb = tpipe.synthetic_lm_batch(s, 2, SEQ, cfg.vocab)
+        jparams, jstate, _, jm = jstep(
+            jparams, jstate, None, {k: jnp.asarray(v) for k, v in nb.items()})
+        params, state, m = tstep(params, state,
+                                 tpipe.to_device(nb, torch.device("cpu")))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    assert state.step == steps
+    want = tT.params_from_jax(jax.tree.map(np.asarray, jparams), cfg=_tcfg(
+        cfg))
+    # Adam moves an element by about lr whatever its gradient's size, so
+    # an element whose gradient is at rounding level (within the grads'
+    # atol) may step either way: all but 1e-3 of the elements within the
+    # gradients' tolerance, every one within twice the summed lr
+    lr_sum = sum(topt.warmup_cosine(lr, 20, steps)(s + 1)
+                 for s in range(steps))
+    n_off = n_all = 0
+    for p, w in zip(tutils.tree_leaves(params), tutils.tree_leaves(want)):
+        diff = (p - w).abs().detach()
+        n_off += int((diff > 1e-6 + 1e-4 * w.detach().abs()).sum())
+        n_all += diff.numel()
+        assert float(diff.max()) <= 2 * lr_sum
+    assert n_off <= 1e-3 * n_all, (n_off, n_all)
+
+
+def test_train_cli_hymba_smoke_on_cpu():
+    res = train_cli.main(["--arch", "hymba-1.5b", "--smoke", "--steps", "2",
+                          "--batch", "2", "--seq", "32", "--device", "cpu",
+                          "--bf16", "--log-every", "1"])
+    assert res["cfg"] is thymba.SMOKE and len(res["losses"]) == 2
+    assert all(np.isfinite(res["losses"]))
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--arch", "mesh1k", "--bf16"])
+    with pytest.raises(SystemExit):
+        train_cli.parse_args(["--arch", "hymba-1.5b", "--remat"])
