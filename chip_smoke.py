@@ -7,9 +7,11 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build every kernel under src/repro_torch/kernels/csrc with nvcc, one
-   process per source, all at once;
+   process per source, all at once; count the HGMMA instructions (wgmma)
+   in the conv library's SASS, which must be > 0;
 3. kernel vs plain: for each distinct conv shape of mesh1k at batch 2, in
-   float32 and bfloat16, hold the conv kernel against `conv2d_ref` and the
+   float32 and bfloat16, print the conv's launch plan (path, tile, K
+   splits), hold the conv kernel against `conv2d_ref` and the
    autograd Function's dx/dw against autograd through `conv2d_ref`; time
    the kernel, the plain version and one `F.conv2d` call (channels_last,
    TF32 off: the yardstick, never called by the port); compute the bound;
@@ -28,7 +30,9 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone;
-6. print the `kernels` JSON line and, last, the `ok` JSON line.
+6. print every kernel's registers, static shared memory and spills (the
+   ptxas report), the HGMMA count, the `kernels` JSON line and, last, the
+   `ok` JSON line.
 
 Each launch count is read from a run that starts with every count at 0.
 Any failed phase raises and the script exits non-zero.  Per-shape rows go
@@ -41,6 +45,8 @@ import functools
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -109,6 +115,42 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()
     return out[0]
+
+
+def sass_count(lib, opcode: str) -> int:
+    """How many `opcode` instructions cuobjdump finds in the SASS of the
+    built library `lib`."""
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sum(opcode in line for line in sass.splitlines())
+
+
+def ptxas_resources(name: str, log: str) -> list[str]:
+    """One line per kernel of an `nvcc -Xptxas -v` log: its registers,
+    static shared memory (the dynamic ring is not in the log) and
+    spills."""
+    kernels, out, spill = [], [], ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernels.append(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = f"spills {m.group(1)} / {m.group(2)} bytes"
+        elif (m := re.search(r"Used (\d+) registers(?:.*?(\d+) bytes "
+                             r"smem)?", line)) and kernels:
+            out.append([kernels[-1], f"{m.group(1)} registers, "
+                        f"{m.group(2) or 0} bytes static shared memory, "
+                        f"{spill}"])
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(k for k, _ in out),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        for row, nm in zip(out, names):
+            row[0] = nm.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+    return [f"  {name}: {k}: {v}" for k, v in out]
 
 
 def mesh_conv_shapes(cfg) -> list[dict]:
@@ -209,9 +251,11 @@ def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
     x_nchw = xp.permute(0, 3, 1, 2)            # channels_last view
     w_oihw = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
+    p = kconv.plan(tuple(xp.shape), tuple(w.shape), s, dtype)
     row = {"layer": sh["layer"], "dtype": str(dtype).split(".")[-1],
            "x": list(sh["x"]), "k": k, "f": f, "stride": s,
-           "count": sh["count"], "max_abs_err": err}
+           "count": sh["count"], "max_abs_err": err,
+           "plan": dataclasses.asdict(p)}
     row.update(_timings(
         lambda: kconv.conv2d(xp, w, stride=s),
         lambda: conv2d_ref(xp, w, stride=s),
@@ -227,16 +271,20 @@ def kernel_phase(card: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     print(f"{'layer':8s} {'dtype':8s} {'x (N,H,W,C)':22s} {'k':>2s} "
-          f"{'F':>4s} {'s':>2s} {'n':>2s} {'kernel_ms':>10s} "
+          f"{'F':>4s} {'s':>2s} {'n':>2s} {'path tile splits':18s} "
+          f"{'kernel_ms':>10s} "
           f"{'plain_ms':>9s} {'library_ms':>10s} {'bound_ms':>9s} "
           f"{'TFLOP/s':>8s} {'max_err':>9s}   ({card})")
     for dtype in (torch.float32, torch.bfloat16):
         for sh in mesh_conv_shapes(meshnet.MESH1K):
             r = check_shape(sh, dtype, gen)
             rows.append(r)
+            p = r["plan"]
+            plan = f"{p['path']} {p['tile_m']}x{p['tile_n']} {p['splits']}"
             print(f"{r['layer']:8s} {r['dtype']:8s} {str(tuple(r['x'])):22s} "
                   f"{r['k']:2d} {r['f']:4d} {r['stride']:2d} "
-                  f"{r['count']:2d} {r['ms']:10.4f} {r['plain_ms']:9.4f} "
+                  f"{r['count']:2d} {plan:18s} {r['ms']:10.4f} "
+                  f"{r['plain_ms']:9.4f} "
                   f"{r['library_ms']:10.4f} {r['bound_ms']:9.4f} "
                   f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}",
                   flush=True)
@@ -315,8 +363,8 @@ def profile_phase() -> dict:
         float(step(params, state, batch)[2]["loss"])
 
     def classify(name):
-        if "conv2d_kernel" in name:
-            return "conv2d kernel (forward)"
+        if "repro_conv2d" in name:
+            return "conv2d kernel (forward, split-K sums included)"
         if any(t in name for t in ("cudnn", "xmma", "dgrad", "wgrad",
                                    "conv", "gemm", "cutlass")):
             return "library conv (dgrad/wgrad)"
@@ -692,12 +740,15 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
-    for name, path in libs.items():
-        log = path.with_suffix(".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+    resources = [line for name, path in sorted(libs.items())
+                 for line in ptxas_resources(
+                     name, path.with_suffix(".log").read_text())]
+    # the bf16 conv path must run on the tensor cores' wgmma
+    hgmma = sass_count(libs["conv2d"], "HGMMA")
+    print(f"conv2d library: {hgmma} HGMMA instructions in its SASS")
+    if hgmma == 0:
+        raise AssertionError("no HGMMA in the conv2d library: the bf16 "
+                             "path does not use wgmma")
 
     rows = kernel_phase(card)
     lm_rows = lm_kernel_phase(card)
@@ -715,7 +766,9 @@ def main() -> int:
                    "train": train, "forward_check": fwd,
                    "step_breakdown": breakdown, "lm_train": lm_train,
                    "lm_forward_check": lm_fwd,
-                   "lm_step_breakdown": lm_breakdown}, f, indent=1)
+                   "lm_step_breakdown": lm_breakdown,
+                   "conv2d_hgmma": hgmma, "resources": resources}, f,
+                  indent=1)
 
     # the kernels line: each kernel's numbers over one forward of its model
     # in float32 (bf16 beside), each shape's times the calls that make it
@@ -765,6 +818,9 @@ def main() -> int:
               [r for r in lm_rows if r["kernel"] == "ssd_chunk"],
               lm_scope + f"{HYMBA.n_layers} calls"),
     ]
+    print("kernel resources (ptxas):")
+    print("\n".join(resources))
+    print(f"conv2d library: {hgmma} HGMMA instructions in its SASS")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

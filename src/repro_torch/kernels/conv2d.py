@@ -2,9 +2,13 @@
 
 `conv2d` launches `csrc/conv2d.cu` (the Hopper counterpart of the Pallas
 kernel `repro/kernels/conv2d.py::conv2d`) on CUDA tensors and counts its
-launches in `conv2d.launches`.  It never falls back: anything the kernel
-does not take raises.  The plain version is `ref.conv2d_ref`; `ops.conv2d`
-picks between the two by the tensor's device.
+launches in `conv2d.launches`, one per call (a split-K call's second,
+summing kernel included).  `plan` picks from the shapes alone the path
+(bf16 on `wgmma`, f32 on FMAs), the tiles, the K splits and the zero
+padding of C and F that the kernel's 16-byte copies need.  It never
+falls back: anything the kernel does not take raises.  The plain
+version is `ref.conv2d_ref`; `ops.conv2d` picks between the two by the
+tensor's device.
 
 `Conv2d` is the differentiable op the model calls.  Its forward is
 `ops.conv2d`; its backward is PyTorch's `conv2d_input` / `conv2d_weight`
@@ -16,11 +20,83 @@ card's measurements show they pay.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
+import torch.nn.functional as F
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_int64
+SMS = 132            # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How `csrc/conv2d.cu` runs one call, from the shapes alone.
+
+    path: "wgmma" (bf16 on the tensor cores) or "fma" (f32 on the CUDA
+    cores); tile_m x tile_n output pixels x filters per CTA; tile_k
+    channels per K step; splits: CTAs that share one tile's K steps (1: no
+    split-K); c_pad / f_pad: x's channels and w's filters after zero
+    padding, so that every copy is 16 aligned bytes."""
+    path: str
+    tile_m: int
+    tile_n: int
+    tile_k: int
+    splits: int
+    c_pad: int
+    f_pad: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(x_shape, w_shape, stride: int, dtype: torch.dtype) -> Plan:
+    """The launch plan for x (N,H,W,C) * w (KH,KW,C,F) at `stride`.
+
+    C and F are zero-padded to a multiple of 8 (bf16) or 4 (f32).  The
+    filter tile is 64 where F <= 64, else 128; the pixel tile is 128, or
+    256 for a bf16 128-filter tile where those tiles still fill the card's
+    SMs (a taller tile reuses each B tile over more pixels).  A K step is
+    64 channels (bf16), or 16 (f32; 8 where C is not a multiple of 16).
+    Where the tiles make less than one wave on the card's SMs, the K steps
+    (KH*KW taps x C / tile_k slices) are split over up to MAX_SPLITS CTAs,
+    each keeping at least 8 K steps."""
+    n, h, wd, c = x_shape
+    kh, kw, _, f = w_shape
+    bf16 = dtype == torch.bfloat16
+    align = 8 if bf16 else 4
+    tile_n = 64 if f <= 64 else 128
+    c_pad = _ceil(c, align) * align
+    tile_k = 64 if bf16 else (16 if c_pad % 16 == 0 else 8)
+    m = n * ((h - kh) // stride + 1) * ((wd - kw) // stride + 1)
+    tile_m = 256 if bf16 and tile_n == 128 and \
+        _ceil(m, 256) * _ceil(f, tile_n) >= SMS else 128
+    tiles = _ceil(m, tile_m) * _ceil(f, tile_n)
+    ksteps = kh * kw * _ceil(c_pad, tile_k)
+    splits = 1
+    if tiles < SMS:
+        splits = max(1, min(_ceil(SMS, tiles), MAX_SPLITS, ksteps // 8))
+    return Plan(path="wgmma" if bf16 else "fma", tile_m=tile_m,
+                tile_n=tile_n, tile_k=tile_k, splits=splits, c_pad=c_pad,
+                f_pad=_ceil(f, align) * align)
+
+
+def pad_operands(x: torch.Tensor, w: torch.Tensor, p: Plan
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x and w with C zero-padded to p.c_pad and w's F to p.f_pad (the
+    same tensors where nothing is padded).  Zero channels and filters add
+    exact zeros, so y[..., :F] is unchanged."""
+    dc, df = p.c_pad - x.shape[3], p.f_pad - w.shape[3]
+    if dc:
+        x = F.pad(x, (0, dc))
+    if dc or df:
+        w = F.pad(w, (0, df, 0, dc))
+    return x, w
 
 
 def _lib():
@@ -28,9 +104,8 @@ def _lib():
     lib = _build.load("conv2d")
     fn = lib.repro_conv2d
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, _I64, _I64, _I64, _I64, _I64, _I64,
-                       _I64, _I64, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [_I64] * 13 \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -63,26 +138,33 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
            stride: int = 1) -> torch.Tensor:
     """VALID conv, NHWC x HWIO -> NHWC in x's dtype, on the card.
 
-    Launches on the current stream and does not synchronise; raises if the
+    Pads C and F as `plan` says, allocates y and any split-K workspace,
+    launches on the current stream and does not synchronise; raises if a
     launch is refused."""
     check_args(x, w, stride)
     if not x.is_cuda:
         raise ValueError(f"the conv2d kernel runs on CUDA tensors; got "
                          f"{x.device} (ops.conv2d takes the plain version "
                          f"on the CPU)")
-    n, h, wd, c = x.shape
+    n, h, wd, _ = x.shape
     kh, kw, _, f = w.shape
-    y = torch.empty((n, (h - kh) // stride + 1, (wd - kw) // stride + 1, f),
-                    dtype=x.dtype, device=x.device)
+    p = plan(tuple(x.shape), tuple(w.shape), stride, x.dtype)
+    xp, wp = pad_operands(x, w, p)
+    ho, wo = (h - kh) // stride + 1, (wd - kw) // stride + 1
+    y = torch.empty((n, ho, wo, f), dtype=x.dtype, device=x.device)
+    ws = torch.empty((p.splits, n * ho * wo, f), dtype=torch.float32,
+                     device=x.device) if p.splits > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                     _DTYPES[x.dtype], n, h, wd, c, kh, kw, f, stride,
-                     stream)
+        err = _lib()(xp.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                     None if ws is None else ws.data_ptr(),
+                     _DTYPES[x.dtype], n, h, wd, p.c_pad, kh, kw, f,
+                     p.f_pad, stride, p.tile_m, p.tile_n, p.tile_k,
+                     p.splits, stream)
     if err != 0:
         raise RuntimeError(f"conv2d kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
-                           f"stride {stride})")
+                           f"stride {stride}, {p})")
     conv2d.launches += 1
     return y
 

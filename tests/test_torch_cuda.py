@@ -27,12 +27,21 @@ from repro_torch.launch import train as train_cli
 torch.set_num_threads(2)
 
 # the reference sweep and the meshnet edge shapes (C=18 at stride 2, the
-# F=1 1x1 pred conv, prime H_out / W_out, odd extents at stride 2)
+# F=1 1x1 pred conv, prime H_out / W_out, odd extents at stride 2), then
+# the edges of the kernel's tiles: C=18 at stride 2 into F=72 (not a
+# multiple of the filter tile) over a prime 23x23 output of more than one
+# 128-pixel tile; a prime H_out of 137 into F=130 (two filter tiles, the
+# second ragged); split-K at conv6_2's shape (18,18,512) -> 512; split-K
+# with a ragged channel slice (C=72) and F=200; bf16's 256-pixel tile,
+# ragged in pixels and filters (2 x 132 x 132 outputs, F=72)
 SHAPES = [
     (18, 16, 8, 16, 3, 1), (33, 16, 4, 8, 3, 2), (16, 12, 3, 5, 1, 1),
     (23, 9, 6, 128, 7, 2), (12, 8, 16, 256, 3, 1), (9, 9, 2, 3, 5, 1),
     (17, 17, 18, 8, 3, 2), (8, 8, 32, 1, 1, 1), (15, 19, 5, 7, 3, 1),
     (21, 13, 6, 9, 3, 2),
+    (47, 47, 18, 72, 3, 2), (139, 9, 16, 130, 3, 1),
+    (18, 18, 512, 512, 3, 1), (12, 12, 72, 200, 3, 1),
+    (134, 134, 8, 72, 3, 1),
 ]
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -61,6 +70,7 @@ def test_kernel_matches_plain(cuda, h, w, c, f, k, s, dtype):
     tdt = getattr(torch, dtype)
     xd = torch.from_numpy(x).to(cuda, tdt)
     wd = torch.from_numpy(wt).to(cuda, tdt)
+    p = tconv.plan(xd.shape, wd.shape, s, tdt)
     before = tconv.conv2d.launches
     got = ops.conv2d(xd, wd, stride=s)
     torch.cuda.synchronize()
@@ -69,12 +79,14 @@ def test_kernel_matches_plain(cuda, h, w, c, f, k, s, dtype):
     want = conv2d_ref(xd, wd, stride=s)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
-                               rtol=TOL[dtype], atol=TOL[dtype])
+                               rtol=TOL[dtype], atol=TOL[dtype],
+                               err_msg=str(p))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,c,f,k,s", [
-    (17, 17, 18, 8, 3, 2), (8, 8, 32, 1, 1, 1), (21, 13, 6, 9, 3, 2)])
+    (17, 17, 18, 8, 3, 2), (8, 8, 32, 1, 1, 1), (21, 13, 6, 9, 3, 2),
+    (18, 18, 512, 512, 3, 1)])
 def test_function_grads_match_plain(cuda, h, w, c, f, k, s):
     x, wt = _inputs(h, w, c, f, k, seed=1)
     grads = []

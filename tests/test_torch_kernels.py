@@ -116,6 +116,68 @@ def test_conv2d_checks_raise(bad):
         ops.conv2d(x, w, stride=s)
 
 
+# mesh1k's first conv (C = 18 at stride 2), conv1_2, conv3_2, conv6_2 and
+# the 1x1 pred conv (F = 1), at batch 2 with the SAME padding applied
+CONV1_1 = ((2, 1025, 1025, 18), (3, 3, 18, 64), 2)
+CONV1_2 = ((2, 514, 514, 64), (3, 3, 64, 64), 1)
+CONV3_2 = ((2, 130, 130, 256), (3, 3, 256, 256), 1)
+CONV6_2 = ((2, 18, 18, 512), (3, 3, 512, 512), 1)
+PRED = ((2, 16, 16, 512), (1, 1, 512, 1), 1)
+
+
+@pytest.mark.parametrize("dtype,c_pad,f_pad,path", [
+    (torch.bfloat16, 24, 8, "wgmma"), (torch.float32, 20, 4, "fma")])
+def test_conv2d_plan_pads_channels_and_filters(dtype, c_pad, f_pad, path):
+    """C pads to a multiple of 8 (bf16) or 4 (f32), and so does the 1x1
+    pred weight's F = 1, so that every copy is 16 aligned bytes."""
+    p = tconv.plan(*CONV1_1[:2], CONV1_1[2], dtype)
+    assert (p.path, p.c_pad, p.f_pad, p.tile_n) == (path, c_pad, 64, 64)
+    q = tconv.plan(*PRED[:2], PRED[2], dtype)
+    assert (q.c_pad, q.f_pad, q.tile_n) == (512, f_pad, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_plan_splits_k_only_where_tiles_underfill(dtype):
+    """conv6_2 at batch 2 makes 16 tiles of 128 x 128: its K steps are
+    split until the CTAs fill a wave; conv1_2's 4096 tiles are not."""
+    p = tconv.plan(*CONV6_2[:2], CONV6_2[2], dtype)
+    tiles = -(-2 * 16 * 16 // p.tile_m) * -(-512 // p.tile_n)
+    assert tiles == 16 and p.splits > 1
+    assert tiles * p.splits >= tconv.SMS
+    ksteps = 9 * 512 // p.tile_k
+    assert ksteps // p.splits >= 8
+    assert tconv.plan(*CONV1_2[:2], CONV1_2[2], dtype).splits == 1
+    # bf16 takes 256 x 128 tiles where they still fill a wave (conv3_2)
+    q = tconv.plan(*CONV3_2[:2], CONV3_2[2], dtype)
+    assert (q.tile_m, q.tile_n) == (256 if dtype == torch.bfloat16 else 128,
+                                    128)
+    assert p.tile_m == 128
+
+
+@pytest.mark.parametrize("h,w,c,f,k,s", [
+    (17, 17, 18, 8, 3, 2), (8, 8, 32, 1, 1, 1), (15, 19, 5, 7, 3, 1),
+    (12, 12, 3, 72, 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zero_padding_leaves_the_plain_result_bit_equal(h, w, c, f, k, s,
+                                                        dtype):
+    """The wrapper's zero channels and filters change nothing: the plain
+    version on the padded operands, cut back to F, equals it on the
+    originals bit for bit.  Integer-valued inputs keep every partial sum
+    exact, so no summation order can tell the two apart."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(-3, 4, (2, h, w, c))
+                         .astype(np.float32)).to(dtype)
+    wt = torch.from_numpy(rng.integers(-3, 4, (k, k, c, f))
+                          .astype(np.float32)).to(dtype)
+    p = tconv.plan(tuple(x.shape), tuple(wt.shape), s, dtype)
+    xp, wp = tconv.pad_operands(x, wt, p)
+    assert xp.shape[3] == wp.shape[2] == p.c_pad and wp.shape[3] == p.f_pad
+    assert (p.c_pad, p.f_pad) != (c, f)
+    want = conv2d_ref(x, wt, stride=s)
+    got = conv2d_ref(xp, wp, stride=s)[..., :f]
+    assert torch.equal(got, want)
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     """The kernel wrapper never falls back to the plain version: a CPU
     tensor raises, and the launch count stays put."""
