@@ -8,7 +8,7 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build every kernel under src/repro_torch/kernels/csrc with nvcc, one
    process per source, all at once; count the HGMMA instructions (wgmma)
-   in the conv library's SASS, which must be > 0;
+   in the conv and attention libraries' SASS, each of which must be > 0;
 3. kernel vs plain: for each distinct conv shape of mesh1k at batch 2, in
    float32 and bfloat16, print the conv's launch plan (path, tile, K
    splits), hold the conv kernel against `conv2d_ref` and the
@@ -16,7 +16,9 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    the kernel, the plain version and one `F.conv2d` call (channels_last,
    TF32 off: the yardstick, never called by the port); compute the bound;
    then the same for the flash-attention kernel at hymba-1.5b's shapes
-   (window 1024 and none; yardstick `F.scaled_dot_product_attention`) and
+   (window 1024 and none, each row with its plan, the bf16 ones on
+   `wgmma` and held element by element to one bf16 ulp of A + |o32|;
+   yardstick `F.scaled_dot_product_attention`) and
    the SSD-chunk kernel at hymba's and mamba2-780m's shapes (no
    yardstick: no one PyTorch call computes it), forward and gradients of
    their autograd Functions;
@@ -26,12 +28,13 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    on the card (kernel) against the same params and sample on the CPU
    (plain versions); profile one more step by kind of device kernel;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
-   2048, 3 steps: finite losses and 32 x 3 launches of each LM kernel;
+   2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
+   32 x 3 launches of each LM kernel;
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone;
 6. print every kernel's registers, static shared memory and spills (the
-   ptxas report), the HGMMA count, the `kernels` JSON line and, last, the
+   ptxas report), the HGMMA counts, the `kernels` JSON line and, last, the
    `ok` JSON line.
 
 Each launch count is read from a run that starts with every count at 0.
@@ -99,6 +102,14 @@ LM_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # their autograd Functions' gradients: the backward recomputes through
 # the plain version, so only the order of the reductions may differ
 LM_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# bf16 attention, element by element as well: the kernel rounds each P to
+# bf16 (relative error <= 2^-8) and its output once (<= 2^-8 |o|), so
+# |o - o32| <= 2^-8 (A + |o32|), where o32 is the plain version in fp32 on
+# the same bf16 inputs and A = softmax(S).|v| (both by `attention_limit`).
+# The limit is twice that, one bf16 ulp of A + |o32|: unlike LM_FWD_TOL,
+# which scales with the largest output, it sees a key tile gone astray in
+# a row that averages over a thousand keys.
+ATTN_ELEM_ULP = 2.0 ** -7
 HYMBA = hymba_1_5b.CONFIG
 LM_BATCH, LM_SEQ = 1, 2048
 # the 4-layer full-width forward loss, card vs CPU: fp32 through four
@@ -432,6 +443,16 @@ def attention_cases(cfg) -> list[dict]:
              "count": cfg.n_layers - n_glob}]
 
 
+def attention_limit(q, k, v, **opts) -> tuple[torch.Tensor, torch.Tensor]:
+    """(o32, limit) for bf16 attention: the plain version in fp32 on the
+    same inputs, and ATTN_ELEM_ULP x (softmax(S).|v| + |o32|) per
+    element."""
+    q, k, v = (t.float() for t in (q, k, v))
+    want = flash_attention_ref(q, k, v, **opts)
+    spread = flash_attention_ref(q, k, v.abs(), **opts)
+    return want, ATTN_ELEM_ULP * (spread + want.abs())
+
+
 def check_attention(case: dict, dtype: torch.dtype,
                     gen: torch.Generator) -> dict:
     dev, cfg = torch.device("cuda"), HYMBA
@@ -445,6 +466,14 @@ def check_attention(case: dict, dtype: torch.dtype,
     torch.cuda.synchronize()
     err = _check_close(what, o, flash_attention_ref(q, k, v, window=window),
                        LM_FWD_TOL[dtype])
+    elem = None
+    if dtype == torch.bfloat16:
+        want, limit = attention_limit(q, k, v, window=window)
+        elem = float(((o.float() - want).abs() / limit).max())
+        if not elem <= 1.0:
+            raise AssertionError(f"{what}: an element is {elem} x its "
+                                 f"limit (one bf16 ulp of A + |o32|)")
+        del want, limit
 
     # the autograd Function (kernel forward, backward recomputed through
     # the plain version) vs autograd through the plain version
@@ -476,10 +505,13 @@ def check_attention(case: dict, dtype: torch.dtype,
                                                   enable_gqa=True)
     lib_err = float((library().transpose(1, 2).float() - o.float())
                     .abs().max())
+    p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, window)
     row = {"kernel": "flash_attention", "mask": case["mask"],
            "dtype": str(dtype).split(".")[-1], "count": case["count"],
            "q": [b, s, hq, d], "kv": [b, s, hkv, d], "max_abs_err": err,
-           "library_vs_kernel_err": lib_err}
+           "max_err_over_elem_limit": elem,
+           "library_vs_kernel_err": lib_err, "plan": dataclasses.asdict(p),
+           "plan_str": f"{p.path} {p.tile_q}x{p.tile_k}"}
     row.update(_timings(
         lambda: kfa.flash_attention(q, k, v, window=window),
         lambda: flash_attention_ref(q, k, v, window=window), library,
@@ -553,7 +585,8 @@ def lm_kernel_phase(card: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     print(f"{'kernel':16s} {'case':12s} {'dtype':8s} {'n':>2s} "
-          f"{'kernel_ms':>10s} {'plain_ms':>9s} {'library_ms':>10s} "
+          f"{'plan':13s} {'kernel_ms':>10s} {'plain_ms':>9s} "
+          f"{'library_ms':>10s} "
           f"{'bound_ms':>9s} {'TFLOP/s':>8s} {'max_err':>9s}   ({card})")
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(check_attention, c) for c in attention_cases(HYMBA)] + \
@@ -561,25 +594,35 @@ def lm_kernel_phase(card: str) -> list[dict]:
         for check, case in cases:
             r = check(case, dtype, gen)
             rows.append(r)
+            if r["kernel"] == "flash_attention" and dtype == torch.bfloat16 \
+                    and r["plan"]["path"] != "wgmma":
+                raise AssertionError(f"bf16 attention at D = {r['q'][3]} "
+                                     f"planned {r['plan']}, not wgmma")
             lib = "none" if r["library_ms"] is None else \
                 f"{r['library_ms']:.4f}"
             print(f"{r['kernel']:16s} {r.get('mask', r.get('model')):12s} "
-                  f"{r['dtype']:8s} {r['count']:2d} {r['ms']:10.4f} "
+                  f"{r['dtype']:8s} {r['count']:2d} "
+                  f"{r.get('plan_str', '-'):13s} {r['ms']:10.4f} "
                   f"{r['plain_ms']:9.4f} {lib:>10s} {r['bound_ms']:9.4f} "
-                  f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}",
+                  f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}"
+                  + ("" if r.get("max_err_over_elem_limit") is None else
+                     f"  err/elem limit "
+                     f"{r['max_err_over_elem_limit']:.3f}"),
                   flush=True)
             torch.cuda.empty_cache()
     return rows
 
 
-def lm_train_phase() -> dict:
-    """3 full-width hymba-1.5b steps through the trainer's own entry."""
+def lm_train_phase(bf16: bool = False) -> dict:
+    """3 full-width hymba-1.5b steps through the trainer's own entry, FP32
+    or (`--bf16`) bf16 compute with fp32 master weights."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = train_cli.main(["--arch", "hymba-1.5b", "--batch", str(LM_BATCH),
                           "--seq", str(LM_SEQ), "--steps", str(STEPS),
-                          "--device", "cuda", "--log-every", "1"])
+                          "--device", "cuda", "--log-every", "1"]
+                         + (["--bf16"] if bf16 else []))
     counts = ops.launch_counts()
     want = {"conv2d": 0, "flash_attention": HYMBA.n_layers * STEPS,
             "ssd_chunk": HYMBA.n_layers * STEPS}
@@ -595,7 +638,8 @@ def lm_train_phase() -> dict:
     tokens = LM_BATCH * LM_SEQ
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train: {STEPS} steps of full-width hymba-1.5b "
-          f"({res['n_params'] / 1e9:.3f} B params) at batch {LM_BATCH} x "
+          f"({res['n_params'] / 1e9:.3f} B params, "
+          f"{'BF16' if bf16 else 'FP32'}) at batch {LM_BATCH} x "
           f"seq {LM_SEQ}; losses {res['losses']}; step seconds "
           f"{res['step_s']}; steps 2..{STEPS}: {step_s:.4f} s/step, "
           f"{tokens / step_s:.1f} tokens/s; peak memory {peak:.2f} GiB; "
@@ -603,7 +647,8 @@ def lm_train_phase() -> dict:
     return {"launches": counts, "losses": res["losses"],
             "step_s": res["step_s"], "data_s": res["data_s"],
             "steady_step_s": step_s, "tokens_per_s": tokens / step_s,
-            "peak_gib": peak, "n_params": res["n_params"]}
+            "peak_gib": peak, "n_params": res["n_params"],
+            "precision": "bf16" if bf16 else "fp32"}
 
 
 def lm_forward_check() -> dict:
@@ -662,7 +707,7 @@ def lm_profile_phase() -> dict:
         float(step(params, state, batch)[2]["loss"])
 
     def classify(name):
-        if "flash_fwd_kernel" in name:
+        if "flash_fwd" in name:
             return "flash_attention kernel"
         if "ssd_chunk_kernel" in name:
             return "ssd_chunk kernel"
@@ -743,12 +788,14 @@ def main() -> int:
     resources = [line for name, path in sorted(libs.items())
                  for line in ptxas_resources(
                      name, path.with_suffix(".log").read_text())]
-    # the bf16 conv path must run on the tensor cores' wgmma
-    hgmma = sass_count(libs["conv2d"], "HGMMA")
-    print(f"conv2d library: {hgmma} HGMMA instructions in its SASS")
-    if hgmma == 0:
-        raise AssertionError("no HGMMA in the conv2d library: the bf16 "
-                             "path does not use wgmma")
+    # the bf16 conv and attention paths must run on the tensor cores' wgmma
+    hgmma = {name: sass_count(libs[name], "HGMMA")
+             for name in ("conv2d", "flash_attention")}
+    for name, n in hgmma.items():
+        print(f"{name} library: {n} HGMMA instructions in its SASS")
+        if n == 0:
+            raise AssertionError(f"no HGMMA in the {name} library: the "
+                                 f"bf16 path does not use wgmma")
 
     rows = kernel_phase(card)
     lm_rows = lm_kernel_phase(card)
@@ -756,6 +803,7 @@ def main() -> int:
     fwd = forward_check()
     breakdown = profile_phase()
     lm_train = lm_train_phase()
+    lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
     lm_breakdown = lm_profile_phase()
 
@@ -765,9 +813,10 @@ def main() -> int:
         json.dump({"card": card, "shapes": rows, "lm_shapes": lm_rows,
                    "train": train, "forward_check": fwd,
                    "step_breakdown": breakdown, "lm_train": lm_train,
+                   "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
-                   "conv2d_hgmma": hgmma, "resources": resources}, f,
+                   "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
     # the kernels line: each kernel's numbers over one forward of its model
@@ -820,7 +869,8 @@ def main() -> int:
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))
-    print(f"conv2d library: {hgmma} HGMMA instructions in its SASS")
+    print("; ".join(f"{name} library: {n} HGMMA instructions in its SASS"
+                    for name, n in hgmma.items()))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

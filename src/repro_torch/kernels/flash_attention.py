@@ -3,40 +3,92 @@
 `flash_attention` launches `csrc/flash_attention.cu` (the Hopper
 counterpart of the Pallas kernel `repro/kernels/flash_attention.py::
 flash_attention`) on CUDA tensors and counts its launches in
-`flash_attention.launches`.  It never falls back: anything the kernel does
-not take raises.  The plain version is `ref.flash_attention_ref`;
-`ops.flash_attention` picks between the two by the tensor's device.
+`flash_attention.launches`.  `plan` picks the path from the shapes alone
+(bf16 on `wgmma`, everything else on fp32 FMAs) and states the tiles, the
+padded head dim and the K/V ring's stages that the kernel derives from
+them.  It never falls back: anything the kernel does not take raises.
+The plain version is `ref.flash_attention_ref`; `ops.flash_attention`
+picks between the two by the tensor's device.
 
 `FlashAttention` is the differentiable op on the card.  Its forward is the
-kernel.  Its backward recomputes the attention through the plain version
-and differentiates that with autograd: the TPU kernel is forward-only and
-the reference differentiates its jnp attention (`ring_attention.
-_block_attend`), so the gradient is the same function's.  A backward
-kernel is later work.
+kernel, which on the `wgmma` path rounds P to bf16 before P.V, as the
+Pallas kernel does (`p.astype(v.dtype)`); the plain version keeps P in
+fp32, as the reference's jnp oracle does.  Its backward recomputes the
+attention through the plain version and differentiates that with
+autograd: the TPU kernel is forward-only and the reference differentiates
+its jnp attention (`ring_attention._block_attend`), so the gradient is the
+same function's.  A backward kernel is later work.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PATHS = {"fma": 0, "wgmma": 1}
 _I64 = ctypes.c_int64
 MAX_HEAD_DIM = 128
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How `csrc/flash_attention.cu` runs one call, from the shapes alone.
+
+    path: "wgmma" (bf16 on the tensor cores) or "fma" (fp32 on the CUDA
+    cores), the one choice passed to the kernel.  The rest states what the
+    kernel derives from the path, D and causality, for printing and tests:
+    tile_q x tile_k queries x keys per score tile; d_pad: the head dim as
+    the kernel stages it (zero columns past D); stages: K/V tiles in shared
+    memory; order: "longest-first" (causal: the query tiles that see the
+    most keys launch first) or "in-order"."""
+    path: str
+    tile_q: int
+    tile_k: int
+    d_pad: int
+    stages: int
+    order: str
+
+
+@functools.lru_cache(maxsize=256)
+def plan(q_shape, k_shape, dtype: torch.dtype, causal: bool,
+         window: int | None) -> Plan:
+    """The launch plan for q (B,Sq,Hq,D) against k/v (B,Sk,Hkv,D).
+
+    bf16 with D a multiple of 8 (16-byte rows for the copies) takes
+    `wgmma`: 128 queries x 64 keys, D padded to 64 (one swizzle atom; two
+    CTAs share an SM) or 128 (two atoms), a 2-stage K/V ring.  f32, and
+    bf16 with any other D, take `fma`: 128 queries x 64 keys, D padded to
+    64 with a 2-stage ring or to 128 with one stage (two do not fit in
+    shared memory).  The window does not change the plan: masks cost only
+    on the tiles they cross."""
+    d = q_shape[3]
+    d_pad = 64 if d <= 64 else 128
+    order = "longest-first" if causal else "in-order"
+    if dtype == torch.bfloat16 and d % 8 == 0:
+        return Plan("wgmma", 128, 64, d_pad, 2, order)
+    return Plan("fma", 128, 64, d_pad, 2 if d_pad == 64 else 1, order)
+
+
+_fn = None
+
+
 def _lib():
-    from repro_torch.kernels import _build
-    lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention
-    if fn.argtypes is None:
+    """The C entry point, resolved once."""
+    global _fn
+    if _fn is None:
+        from repro_torch.kernels import _build
+        fn = _build.load("flash_attention").repro_flash_attention
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, _I64, _I64, _I64, _I64,
                        _I64, _I64, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_int, _I64, ctypes.c_void_p]
+                       ctypes.c_int, _I64, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    return fn
+        _fn = fn
+    return _fn
 
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -83,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Attention on the card: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) ->
-    (B,Sq,Hq,D) in q's dtype.
+    (B,Sq,Hq,D) in q's dtype, as `plan` says.
 
     Launches on the current stream and does not synchronise; raises if the
     launch is refused."""
@@ -94,18 +146,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"plain version on the CPU)")
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    p = plan(tuple(q.shape), tuple(k.shape), q.dtype, causal, window)
+    # the kernel's 16-byte copies want 16-byte aligned buffers: a view at
+    # an odd offset is copied (the data, not the function, changes nothing)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                     _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, scale,
-                     softcap or 0.0, int(causal),
-                     window if window is not None else 0, stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, scale, softcap or 0.0,
+            int(causal), window if window is not None else 0,
+            _PATHS[p.path])
+    if q.device.index == torch.cuda.current_device():
+        err = _lib()(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(q.device):
+            err = _lib()(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err} (q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)})")
+                           f"k {tuple(k.shape)}, {p})")
     flash_attention.launches += 1
     return o
 
@@ -114,8 +173,10 @@ flash_attention.launches = 0
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable attention on the card: forward through the kernel,
-    backward by autograd through the plain version, recomputed."""
+    """Differentiable attention on the card: forward through the kernel
+    (P rounded to bf16 before P.V on the `wgmma` path, like the Pallas
+    kernel), backward by autograd through the plain version (P in fp32),
+    recomputed."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window, softcap, scale):

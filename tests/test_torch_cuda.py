@@ -10,7 +10,9 @@ sweep's: sums in another order in f32, one bf16 rounding of the output);
 dx/dw 1e-4 of the largest gradient (cuDNN's reductions in another order,
 TF32 off); the attention and SSD Functions' gradients 1e-5 of the largest
 (the same plain version recomputed, so only the cotangent's path
-differs); smoke-training losses rtol 1e-4 against the CPU run.
+differs); smoke-training losses rtol 1e-4 against the CPU run.  bf16
+attention is also held element by element to one bf16 ulp of
+softmax(S).|v| + |o32| (see `test_flash_kernel_matches_plain`).
 """
 import numpy as np
 import pytest
@@ -129,12 +131,21 @@ def test_smoke_training_runs_through_the_kernel(cuda):
 
 
 # (b, sq, hq, hkv, d, causal, window, softcap): hymba's smoke and GQA g=5
-# with its window at a cut length, ragged S, D up to 128, no causality
+# with its window at a cut length, ragged S, D up to 128, no causality;
+# then hymba's full shape (causal, and window 1024), Sq at the 128-query
+# tile's edges (127, 129), a window smaller than one key tile (5) and one
+# that straddles two (70), and head dims that are not whole 16-byte rows
+# (bf16 D = 20 and f32 D = 6 take the fma path with element copies)
 ATTN = [
     (1, 128, 4, 2, 16, True, 16, None), (2, 100, 6, 3, 32, True, None, None),
     (1, 200, 25, 5, 64, True, 64, None), (1, 96, 5, 1, 64, True, 37, 30.0),
     (1, 64, 4, 4, 128, False, None, None), (2, 70, 2, 1, 8, False, 5, None),
     (1, 1, 2, 2, 64, True, None, None),
+    (1, 2048, 25, 5, 64, True, None, None),
+    (1, 2048, 25, 5, 64, True, 1024, None),
+    (1, 127, 5, 1, 64, True, None, None), (2, 129, 4, 2, 128, True, 70, None),
+    (1, 129, 25, 5, 64, True, 5, None), (1, 200, 2, 1, 64, False, 70, None),
+    (1, 65, 3, 1, 20, True, None, None), (1, 33, 2, 2, 6, False, None, 20.0),
 ]
 
 
@@ -162,6 +173,39 @@ def test_flash_kernel_matches_plain(cuda, b, sq, hq, hkv, d, causal, window,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == "bfloat16":
+        # element by element: rounding each P (relative 2^-8) and the
+        # output (2^-8 |o|) to bf16 moves an element by at most 2^-8 (A +
+        # |o32|), o32 the plain version in fp32 on the same bf16 inputs
+        # and A = softmax(S).|v|; the limit is one bf16 ulp of that sum.
+        # Unlike TOL's 3e-2 it sees a lost key in a long row, where the
+        # output is a small average.
+        q, k, v = q.float(), k.float(), v.float()
+        o32 = flash_attention_ref(q, k, v, **opts)
+        limit = 2.0 ** -7 * (flash_attention_ref(q, k, v.abs(), **opts)
+                             + o32.abs())
+        worst = float(((got.float() - o32).abs() / limit).max())
+        assert worst <= 1.0, f"an element is {worst} x its limit"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap",
+                         [a for a in ATTN if a[4] == 64])
+def test_flash_bf16_at_d64_runs_on_wgmma(cuda, b, sq, hq, hkv, d, causal,
+                                         window, cap):
+    """The bf16 rows at D = 64 take the tensor-core path, and it agrees
+    with the plain version within the bf16 tolerance."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _attn_inputs(b, sq, hq, hkv, d, seed=3))
+    p = tfa.plan(tuple(q.shape), tuple(k.shape), torch.bfloat16, causal,
+                 window)
+    assert (p.path, p.d_pad, p.tile_q, p.tile_k) == ("wgmma", 64, 128, 64)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    got = tfa.flash_attention(q, k, v, **opts)
+    want = flash_attention_ref(q, k, v, **opts)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
 
 
 @pytest.mark.cuda

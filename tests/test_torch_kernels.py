@@ -7,6 +7,8 @@ reference's own sweep's: 2e-5 in f32, 3e-2 in bf16 (one bf16 rounding of
 the output).  The compiled kernels are held against the plain versions in
 tests/test_torch_cuda.py, which needs the card.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -244,6 +246,49 @@ def test_flash_attention_matches_pallas_and_oracle(b, sq, hq, hkv, d, causal,
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32),
                                    rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,d,path,tile_q,tile_k,d_pad,stages", [
+    (torch.bfloat16, 8, "wgmma", 128, 64, 64, 2),
+    (torch.bfloat16, 16, "wgmma", 128, 64, 64, 2),
+    (torch.bfloat16, 64, "wgmma", 128, 64, 64, 2),
+    (torch.bfloat16, 80, "wgmma", 128, 64, 128, 2),
+    (torch.bfloat16, 128, "wgmma", 128, 64, 128, 2),
+    (torch.bfloat16, 20, "fma", 128, 64, 64, 2),
+    (torch.bfloat16, 126, "fma", 128, 64, 128, 1),
+    (torch.float32, 8, "fma", 128, 64, 64, 2),
+    (torch.float32, 16, "fma", 128, 64, 64, 2),
+    (torch.float32, 64, "fma", 128, 64, 64, 2),
+    (torch.float32, 80, "fma", 128, 64, 128, 1),
+    (torch.float32, 128, "fma", 128, 64, 128, 1),
+])
+def test_flash_attention_plan_path_and_tiles(dtype, d, path, tile_q, tile_k,
+                                             d_pad, stages):
+    """bf16 with 16-byte rows (D % 8 == 0) runs on wgmma, D padded to one
+    64-column swizzle atom or two; f32 and any other bf16 D run on FMAs,
+    with one K/V stage where D pads to 128 (shared memory).  Both tile
+    128 queries x 64 keys."""
+    p = tfa.plan((1, 2048, 25, d), (1, 2048, 5, d), dtype, True, 1024)
+    assert (p.path, p.tile_q, p.tile_k, p.d_pad, p.stages) == \
+        (path, tile_q, tile_k, d_pad, stages)
+    assert p.d_pad >= d
+
+
+def test_flash_attention_plan_is_cached_and_orders_causal_tiles():
+    """The plan is pure and cached: the same arguments give the same
+    object without recomputing; only causality changes the launch order,
+    and the window changes nothing."""
+    tfa.plan.cache_clear()
+    args = ((1, 2048, 25, 64), (1, 2048, 5, 64), torch.bfloat16)
+    p = tfa.plan(*args, True, 1024)
+    assert tfa.plan(*args, True, 1024) is p
+    info = tfa.plan.cache_info()
+    assert (info.hits, info.misses) == (1, 1)
+    assert p.order == "longest-first"
+    assert tfa.plan(*args, True, None) == p
+    assert tfa.plan(*args, False, None).order == "in-order"
+    assert dataclasses.replace(tfa.plan(*args, False, None),
+                               order="longest-first") == p
 
 
 # (b, l, h, p, n, chunk): the reference sweep's shapes and a 48-step chunk

@@ -22,16 +22,12 @@ step timing of one process (used by the above).
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
-import json
-import os
-import subprocess
 import sys
 import time
-from pathlib import Path
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from ab_common import HERE, main, parent_fn, print_totals, timing_row, turns
+
 STEP_REPS, STEP_WARMUP, BATCH = 10, 2, 2
 
 
@@ -74,39 +70,17 @@ def step_only(src: str) -> dict:
             "conv_launches": ops.launch_counts()["conv2d"]}
 
 
-def step_ab(parent_tree: str) -> list[dict]:
-    order = [("parent", os.path.join(parent_tree, "src")),
-             ("change", os.path.join(HERE, "src"))]
-    out = []
-    for name, src in order + order[::-1]:
-        res = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--step-only",
-             "--src", src], capture_output=True, text=True, check=True,
-            timeout=900)
-        row = json.loads(res.stdout.strip().splitlines()[-1])
-        row["tree"] = name
-        out.append(row)
-        print(f"step {name:6s}: mean {row['mean_s'] * 1e3:.3f} ms over "
-              f"{STEP_REPS} steps (min {min(row['step_s']) * 1e3:.3f}), "
-              f"loss {row['loss']!r}, conv launches {row['conv_launches']}",
-              flush=True)
-    return out
+def report(name: str, row: dict) -> None:
+    print(f"step {name:6s}: mean {row['mean_s'] * 1e3:.3f} ms over "
+          f"{STEP_REPS} steps (min {min(row['step_s']) * 1e3:.3f}), "
+          f"loss {row['loss']!r}, conv launches {row['conv_launches']}",
+          flush=True)
 
 
-def parent_fn(src: str):
-    """The earlier kernel's entry point, built from `src` with this tree's
-    nvcc flags."""
-    from repro_torch.kernels import _build
-    out = _build.BUILD_DIR / "conv2d_parent.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run(_build.nvcc_command(_build.find_nvcc(), Path(src), out),
-                   check=True, capture_output=True)
-    fn = ctypes.CDLL(str(out)).repro_conv2d
-    i64 = ctypes.c_int64
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [i64] * 8 + \
-        [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+I64 = ctypes.c_int64
+# repro_conv2d(x, w, y, dtype, n, h, wd, c, kh, kw, f, s, stream)
+PARENT_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [I64] * 8 + \
+    [ctypes.c_void_p]
 
 
 def kernel_ab(parent_src: str | None) -> list[dict]:
@@ -123,7 +97,8 @@ def kernel_ab(parent_src: str | None) -> list[dict]:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    old = parent_fn(parent_src) if parent_src else None
+    old = parent_fn(parent_src, "conv2d", PARENT_ARGTYPES) \
+        if parent_src else None
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows, failed = [], []
@@ -160,14 +135,10 @@ def kernel_ab(parent_src: str | None) -> list[dict]:
                 print(failed[-1], flush=True)
             p_err = None if old is None else \
                 float((run_old().float() - yr).abs().max())
-            new_t, old_t = [], []
-            for turn in ("old", "new", "new", "old"):
-                if turn == "old" and old is None:
-                    continue
-                t = time_fn(run_old if turn == "old" else
-                            (lambda: kconv.conv2d(xp, w, stride=s)),
-                            reps=10, warmup=2)
-                (old_t if turn == "old" else new_t).append(t * 1e3)
+            new_t, old_t = turns(
+                lambda fn: time_fn(fn, reps=10, warmup=2) * 1e3,
+                lambda: kconv.conv2d(xp, w, stride=s),
+                None if old is None else run_old)
             x_nchw = xp.permute(0, 3, 1, 2)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
@@ -175,19 +146,14 @@ def kernel_ab(parent_src: str | None) -> list[dict]:
                              reps=10, warmup=2) * 1e3
             flops = 2.0 * n * y.shape[1] * y.shape[2] * f * k * k * c
             nbytes = (xp.numel() + w.numel() + y.numel()) * xp.element_size()
-            bound_ms = max(flops / cs.PEAK_FLOPS[dtype],
-                           nbytes / cs.PEAK_BYTES_S) * 1e3
             p = kconv.plan(tuple(xp.shape), tuple(w.shape), s, dtype)
-            ms = sum(new_t) / len(new_t)
             row = {"layer": sh["layer"], "dtype": str(dtype).split(".")[-1],
                    "x": list(sh["x"]), "k": k, "f": f, "stride": s,
-                   "count": sh["count"], "plan": p.__dict__, "ms": ms,
-                   "ms_turns": new_t, "parent_ms": (sum(old_t) / len(old_t)
-                                                    if old_t else None),
-                   "parent_ms_turns": old_t, "library_ms": lib_ms,
-                   "bound_ms": bound_ms, "tflops_s": flops / ms / 1e9,
-                   "max_abs_err": err, "parent_max_abs_err": p_err}
+                   "count": sh["count"], "plan": p.__dict__,
+                   "max_abs_err": err, "parent_max_abs_err": p_err,
+                   **timing_row(new_t, old_t, lib_ms, flops, nbytes, dtype)}
             rows.append(row)
+            ms, bound_ms = row["ms"], row["bound_ms"]
             plan_s = f"{p.path} {p.tile_m}x{p.tile_n} k{p.splits}"
             par = "-" if row["parent_ms"] is None else \
                 f"{row['parent_ms']:9.4f}"
@@ -198,45 +164,12 @@ def kernel_ab(parent_src: str | None) -> list[dict]:
                   flush=True)
             del x, xp, w, y, yr
             torch.cuda.empty_cache()
-    for dt in ("float32", "bfloat16"):
-        sel = [r for r in rows if r["dtype"] == dt]
-        tot = {key: (None if any(r[key] is None for r in sel) else
-                     sum(r[key] * r["count"] for r in sel))
-               for key in ("ms", "parent_ms", "library_ms", "bound_ms")}
-        print(f"one mesh1k forward, {dt}: " + ", ".join(
-            f"{key} {'-' if v is None else f'{v:.4f}'}"
-            for key, v in tot.items()), flush=True)
+    print_totals(rows, "one mesh1k forward")
     if failed:
         raise AssertionError("kernel vs plain: " + "; ".join(failed))
     return rows
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--parent-src")
-    ap.add_argument("--parent-tree")
-    ap.add_argument("--step-only", action="store_true")
-    ap.add_argument("--src")
-    args = ap.parse_args()
-    if args.step_only:
-        print(json.dumps(step_only(args.src)))
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        print("conv_ab: needs a CUDA card", file=sys.stderr)
-        return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-    rows = kernel_ab(args.parent_src)
-    steps = step_ab(args.parent_tree) if args.parent_tree else None
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "conv_ab.json"), "w") as f:
-        json.dump({"card": card, "shapes": rows, "steps": steps}, f,
-                  indent=1)
-    return 0
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(__doc__, "conv_ab", __file__, kernel_ab, step_only,
+                  report))
