@@ -8,7 +8,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build every kernel under src/repro_torch/kernels/csrc with nvcc, one
    process per source, all at once; count the HGMMA instructions (wgmma)
-   in the conv and attention libraries' SASS, each of which must be > 0;
+   in the conv and attention libraries' SASS and the HMMA instructions
+   (mma.sync) in the SSD library's, each of which must be > 0;
 3. kernel vs plain: for each distinct conv shape of mesh1k at batch 2, in
    float32 and bfloat16, print the conv's launch plan (path, tile, K
    splits), hold the conv kernel against `conv2d_ref` and the
@@ -19,9 +20,10 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    (window 1024 and none, each row with its plan, the bf16 ones on
    `wgmma` and held element by element to one bf16 ulp of A + |o32|;
    yardstick `F.scaled_dot_product_attention`) and
-   the SSD-chunk kernel at hymba's and mamba2-780m's shapes (no
-   yardstick: no one PyTorch call computes it), forward and gradients of
-   their autograd Functions;
+   the SSD-chunk kernel at hymba's and mamba2-780m's shapes (each row
+   with its plan, the bf16 ones on `mma.sync` and held element by element
+   to 2^-7 |y32| + 2^-12 |M|.|xdt|; no yardstick: no one PyTorch call
+   computes it), forward and gradients of their autograd Functions;
 4. mesh1k: run the trainer's own entry (`launch.train.main`) on
    full-width mesh1k, batch 2, 3 steps; check finite losses and 19 x 3
    conv launches; hold the full-width forward loss of one batch-1 sample
@@ -32,7 +34,7 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    32 x 3 launches of each LM kernel;
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
-   SSD's inter-chunk recurrence timed alone;
+   SSD's inter-chunk recurrence timed alone, with its launches per layer;
 6. print every kernel's registers, static shared memory and spills (the
    ptxas report), the HGMMA counts, the `kernels` JSON line and, last, the
    `ok` JSON line.
@@ -532,25 +534,63 @@ SSD_SHAPES = [
 ]
 
 
-def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
+def ssd_inputs(shape: dict, dtype: torch.dtype, gen: torch.Generator):
+    """xdt, la, B, C at batch LM_BATCH x LM_SEQ: the model's inputs at
+    init, la = softplus(dt) * -A with A_log = log(linspace(1, 16)); la
+    stays fp32 under bf16, as in the model."""
     dev = torch.device("cuda")
-    b, l = LM_BATCH, LM_SEQ
-    h, p, n, chunk = shape["h"], shape["p"], shape["n"], shape["chunk"]
-    what = f"ssd_chunk {shape['model']} {dtype}"
-    # the model's inputs at init: la = softplus(dt) * -A with A_log =
-    # log(linspace(1, 16)); la stays fp32 under bf16, as in the model
+    b, l, h, p, n = LM_BATCH, LM_SEQ, shape["h"], shape["p"], shape["n"]
     xdt = (torch.randn((b, l, h, p), generator=gen, device=dev) * 0.5) \
         .to(dtype)
     dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev))
     la = (-dt * torch.linspace(1.0, 16.0, h, device=dev)).contiguous()
     B = (torch.randn((b, l, n), generator=gen, device=dev) * 0.5).to(dtype)
     C = (torch.randn((b, l, n), generator=gen, device=dev) * 0.5).to(dtype)
+    return xdt, la, B, C
+
+
+def ssd_work(xdt, la, B, S, chunk: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: G = C.B^T once per chunk, then per head
+    y over the causal pairs and S; each input read once (C as B), each
+    output written once."""
+    b, l, h, p = xdt.shape
+    n, nc = B.shape[-1], l // chunk
+    flops = b * nc * (2.0 * chunk * chunk * n
+                      + h * (p * chunk * (chunk + 1) + 2.0 * chunk * p * n))
+    nbytes = (2 * xdt.numel() + 2 * B.numel()) * xdt.element_size() \
+        + (la.numel() + S.numel()) * 4
+    return flops, nbytes
+
+
+def ssd_plan_str(pl, ctas: int | None = None) -> str:
+    """path, the chunk the CTA is built for, its heads and (if given) the
+    CTAs an SM holds: "mma 64 h2 3/SM"."""
+    return f"{pl.path} {pl.chunk_tile} h{pl.heads}" + (
+        "" if ctas is None else f" {ctas}/SM")
+
+
+def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    dev = torch.device("cuda")
+    chunk = shape["chunk"]
+    what = f"ssd_chunk {shape['model']} {dtype}"
+    xdt, la, B, C = ssd_inputs(shape, dtype, gen)
+    pl = kssd.plan(chunk, shape["n"], dtype)
+    if pl.path != ("mma" if dtype == torch.bfloat16 else "fma"):
+        raise AssertionError(f"{what} planned {pl}")
     y, S = kssd.ssd_chunk(xdt, la, B, C, chunk=chunk)
     torch.cuda.synchronize()
     yr, Sr = ssd_chunked_ref(xdt, la, B, C, chunk)
     err = max(_check_close(f"{what} y", y, yr, LM_FWD_TOL[dtype]),
               _check_close(f"{what} S", S, Sr, LM_FWD_TOL[torch.float32]))
     del yr, Sr
+    elem = None
+    if dtype == torch.bfloat16:
+        want, limit = kssd.elem_limit(xdt, la, B, C, chunk)
+        elem = float(((y.float() - want).abs() / limit).max())
+        if not elem <= 1.0:
+            raise AssertionError(f"{what}: an element is {elem} x its "
+                                 f"limit (2^-7 |y32| + 2^-12 |M|.|xdt|)")
+        del want, limit
 
     gy = torch.randn(y.shape, generator=gen, device=dev).to(dtype)
     gS = torch.randn(S.shape, generator=gen, device=dev)
@@ -565,15 +605,14 @@ def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
         _check_close(f"{what} {nm}", got, want, LM_BWD_TOL[dtype])
     del grads
 
-    nc = l // chunk
-    # G = C.B^T once per chunk; per head y over the causal pairs and S
-    flops = b * nc * (2.0 * chunk * chunk * n
-                      + h * (p * chunk * (chunk + 1) + 2.0 * chunk * p * n))
-    nbytes = (2 * xdt.numel() + B.numel() + C.numel()) * xdt.element_size() \
-        + (la.numel() + S.numel()) * 4
+    flops, nbytes = ssd_work(xdt, la, B, S, chunk)
     row = {"kernel": "ssd_chunk", "model": shape["model"],
            "dtype": str(dtype).split(".")[-1], "count": shape["count"],
-           "xdt": [b, l, h, p], "n": n, "chunk": chunk, "max_abs_err": err}
+           "xdt": list(xdt.shape), "n": shape["n"], "chunk": chunk,
+           "max_abs_err": err, "max_err_over_elem_limit": elem,
+           "plan": dataclasses.asdict(pl),
+           "ctas_per_sm": kssd.occupancy(chunk, shape["n"], dtype)}
+    row["plan_str"] = ssd_plan_str(pl, row["ctas_per_sm"])
     row.update(_timings(
         lambda: kssd.ssd_chunk(xdt, la, B, C, chunk=chunk),
         lambda: ssd_chunked_ref(xdt, la, B, C, chunk), None, flops, nbytes,
@@ -585,7 +624,7 @@ def lm_kernel_phase(card: str) -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     print(f"{'kernel':16s} {'case':12s} {'dtype':8s} {'n':>2s} "
-          f"{'plan':13s} {'kernel_ms':>10s} {'plain_ms':>9s} "
+          f"{'plan':15s} {'kernel_ms':>10s} {'plain_ms':>9s} "
           f"{'library_ms':>10s} "
           f"{'bound_ms':>9s} {'TFLOP/s':>8s} {'max_err':>9s}   ({card})")
     for dtype in (torch.float32, torch.bfloat16):
@@ -602,7 +641,7 @@ def lm_kernel_phase(card: str) -> list[dict]:
                 f"{r['library_ms']:.4f}"
             print(f"{r['kernel']:16s} {r.get('mask', r.get('model')):12s} "
                   f"{r['dtype']:8s} {r['count']:2d} "
-                  f"{r.get('plan_str', '-'):13s} {r['ms']:10.4f} "
+                  f"{r.get('plan_str', '-'):15s} {r['ms']:10.4f} "
                   f"{r['plain_ms']:9.4f} {lib:>10s} {r['bound_ms']:9.4f} "
                   f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}"
                   + ("" if r.get("max_err_over_elem_limit") is None else
@@ -727,27 +766,34 @@ def lm_profile_phase() -> dict:
     torch.cuda.empty_cache()
 
     # the inter-chunk recurrence of one layer: forward, and forward +
-    # backward, at hymba's (b, nc, h, p, n)
+    # backward, at hymba's (b, nc, h, p, n), from per-chunk log decays of
+    # hymba's range (-0.16 to -700: some underflow)
     nc = LM_SEQ // cfg.ssm_chunk
     gen = torch.Generator(device="cuda").manual_seed(2)
-    a_tot = torch.exp(-torch.rand((LM_BATCH, nc, cfg.ssm_heads),
-                                  generator=gen, device=dev))
+    log_a = -torch.exp(torch.empty((LM_BATCH, nc, cfg.ssm_heads),
+                                   device=dev).uniform_(
+        math.log(0.16), math.log(700.0), generator=gen))
     S = torch.randn((LM_BATCH, nc, cfg.ssm_heads, cfg.ssm_head_dim,
                      cfg.ssm_state), generator=gen, device=dev)
-    fwd_s = time_fn(lambda: lm_modules.inter_chunk_states(a_tot, S)[1],
+    fwd_s = time_fn(lambda: lm_modules.inter_chunk_states(log_a, S)[1],
                     reps=10, warmup=2)
-    a_g, S_g = a_tot.clone().requires_grad_(), S.clone().requires_grad_()
+    a_g, S_g = log_a.clone().requires_grad_(), S.clone().requires_grad_()
 
     def fwd_bwd():
         h_in, h_fin = lm_modules.inter_chunk_states(a_g, S_g)
         (h_in.sum() + h_fin.sum()).backward()
         return S_g.grad
     fwd_bwd_s = time_fn(fwd_bwd, reps=10, warmup=2)
-    # the same call's kernels alone: CUDA events above include the gaps
+    # the same calls' kernels alone: CUDA events above include the gaps
     # in which the card waits for the host to launch the next small op
+    _, _, ic_fwd_kernels = _device_breakdown(
+        lambda: lm_modules.inter_chunk_states(log_a, S)[1].sum().item(),
+        lambda name: "all")
     ic_wall_ms, ic_groups, ic_kernels = _device_breakdown(
         lambda: fwd_bwd().sum().item(), lambda name: "all")
     ic_device_ms = ic_groups.get("all")
+    if not torch.isfinite(a_g.grad).all():
+        raise AssertionError("the recurrence's gradient is not finite")
     busy = sum(groups.values()) if n_kernels else None
     print(f"step breakdown (one hymba-1.5b step, batch {LM_BATCH} x seq "
           f"{LM_SEQ} on the card, host clock {wall_ms:.2f} ms): " + (
@@ -759,16 +805,19 @@ def lm_profile_phase() -> dict:
     ic_device = "not measured (the profiler saw no kernels)" \
         if ic_device_ms is None else \
         f"{ic_device_ms:.4f} ms in {ic_kernels} kernels"
-    print(f"ssd inter-chunk recurrence ({nc} chunks, one layer): forward "
-          f"{fwd_s * 1e3:.4f} ms, forward + backward {fwd_bwd_s * 1e3:.4f} "
-          f"ms (CUDA events, launch gaps included); x {cfg.n_layers} "
-          f"layers: {fwd_bwd_s * 1e3 * cfg.n_layers:.2f} ms per step; "
-          f"forward + backward device kernels {ic_device} (host clock "
-          f"{ic_wall_ms:.2f} ms under the profiler)")
+    print(f"ssd inter-chunk recurrence ({nc} chunks, one layer, closed "
+          f"form): launches per layer {ic_fwd_kernels} forward, "
+          f"{ic_kernels} forward + backward (the profiler's device "
+          f"kernels); forward {fwd_s * 1e3:.4f} ms, forward + backward "
+          f"{fwd_bwd_s * 1e3:.4f} ms (CUDA events, launch gaps included); "
+          f"x {cfg.n_layers} layers: {fwd_bwd_s * 1e3 * cfg.n_layers:.2f} "
+          f"ms per step; forward + backward device kernels {ic_device} "
+          f"(host clock {ic_wall_ms:.2f} ms under the profiler)")
     return {"wall_ms": wall_ms, "device_ms": busy, "groups": groups,
             "n_kernels": n_kernels, "inter_chunk_fwd_ms": fwd_s * 1e3,
             "inter_chunk_fwd_bwd_ms": fwd_bwd_s * 1e3,
             "inter_chunk_fwd_bwd_device_ms": ic_device_ms,
+            "inter_chunk_fwd_kernels": ic_fwd_kernels,
             "inter_chunk_fwd_bwd_kernels": ic_kernels}
 
 
@@ -788,14 +837,18 @@ def main() -> int:
     resources = [line for name, path in sorted(libs.items())
                  for line in ptxas_resources(
                      name, path.with_suffix(".log").read_text())]
-    # the bf16 conv and attention paths must run on the tensor cores' wgmma
+    # the bf16 conv and attention paths must run on the tensor cores'
+    # wgmma, the bf16 SSD path on their mma.sync
     hgmma = {name: sass_count(libs[name], "HGMMA")
              for name in ("conv2d", "flash_attention")}
+    hgmma["ssd"] = sass_count(libs["ssd"], "HMMA")
     for name, n in hgmma.items():
-        print(f"{name} library: {n} HGMMA instructions in its SASS")
+        op = "HMMA" if name == "ssd" else "HGMMA"
+        print(f"{name} library: {n} {op} instructions in its SASS")
         if n == 0:
-            raise AssertionError(f"no HGMMA in the {name} library: the "
-                                 f"bf16 path does not use wgmma")
+            raise AssertionError(f"no {op} in the {name} library: its "
+                                 f"bf16 path does not use the tensor "
+                                 f"cores")
 
     rows = kernel_phase(card)
     lm_rows = lm_kernel_phase(card)
@@ -869,8 +922,9 @@ def main() -> int:
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))
-    print("; ".join(f"{name} library: {n} HGMMA instructions in its SASS"
-                    for name, n in hgmma.items()))
+    print("; ".join(f"{name} library: {n} "
+                    f"{'HMMA' if name == 'ssd' else 'HGMMA'} instructions "
+                    f"in its SASS" for name, n in hgmma.items()))
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

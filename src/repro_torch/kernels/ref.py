@@ -80,18 +80,24 @@ def ssd_chunk_ref(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     xdt: (b, l, h, p); la: (b, l, h) log-decay; B/C: (b, l, n).  Returns
     y (b, l, h, p) in xdt's dtype and S (b, h, p, n) in fp32; all the
     math runs in fp32, the upper triangle masked in the exponent."""
-    xf, laf, Bf, Cf = xdt.float(), la.float(), B.float(), C.float()
-    l = xdt.shape[1]
-    cum = torch.cumsum(laf, dim=1)                          # (b, l, h)
-    seg = cum[:, :, None, :] - cum[:, None, :, :]           # (b, i, j, h)
-    mask = torch.ones((l, l), dtype=torch.bool, device=xdt.device).tril()
-    seg = torch.where(mask[None, :, :, None], seg, seg.new_tensor(NEG_INF))
-    decay = torch.exp(seg)
-    G = torch.einsum("bin,bjn->bij", Cf, Bf)
-    y = torch.einsum("bijh,bjhp->bihp", G[..., None] * decay, xf)
+    xf, Bf = xdt.float(), B.float()
+    cum = torch.cumsum(la.float(), dim=1)                   # (b, l, h)
+    y = torch.einsum("bijh,bjhp->bihp", ssd_scores(cum, B, C), xf)
     dec_end = torch.exp(cum[:, -1:, :] - cum)               # (b, l, h)
     S = torch.einsum("bjhp,bjn->bhpn", xf * dec_end[..., None], Bf)
     return y.to(xdt.dtype), S
+
+
+def ssd_scores(cum: torch.Tensor, B: torch.Tensor,
+               C: torch.Tensor) -> torch.Tensor:
+    """M[b, i, j, h] = C_i.B_j exp(cum_i - cum_j) for j <= i, else 0 (the
+    upper triangle masked in the exponent), in fp32; cum: (b, l, h)."""
+    l = cum.shape[1]
+    seg = cum[:, :, None, :] - cum[:, None, :, :]           # (b, i, j, h)
+    mask = torch.ones((l, l), dtype=torch.bool, device=cum.device).tril()
+    seg = torch.where(mask[None, :, :, None], seg, seg.new_tensor(NEG_INF))
+    G = torch.einsum("bin,bjn->bij", C.float(), B.float())
+    return G[..., None] * torch.exp(seg)
 
 
 def ssd_chunked_ref(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,

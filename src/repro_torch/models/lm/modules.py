@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.ring_attention import ring_attention
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.config import LMConfig
 
 
@@ -194,7 +195,7 @@ def _ssd_chunked(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     nc = l // chunk
     y, S = ops.ssd_chunk(xdt, la, B, C, chunk=chunk)   # S: (b,nc,h,p,n) f32
     cum = torch.cumsum(la.reshape(b, nc, chunk, h), dim=2)   # (b,nc,cl,h)
-    h_in, h_fin = inter_chunk_states(torch.exp(cum[:, :, -1, :]), S, h0)
+    h_in, h_fin = inter_chunk_states(cum[:, :, -1, :], S, h0)
 
     # inflowing-state contribution to each position
     Cz = C.reshape(b, nc, chunk, n)
@@ -204,23 +205,38 @@ def _ssd_chunked(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     return y, h_fin
 
 
-def inter_chunk_states(a_tot: torch.Tensor, S: torch.Tensor,
+def inter_chunk_states(log_a: torch.Tensor, S: torch.Tensor,
                        h0: torch.Tensor | None = None):
-    """The recurrence over chunks: the state flowing into chunk z is
-    h_z = h_{z-1} * a_tot[z-1] + S[z-1] from h_0 = h0 (zeros if None).
+    """The recurrence over chunks, h_z = h_{z-1} * a[z-1] + S[z-1] from
+    h_0 = h0 (zeros if None), in closed form.
 
-    a_tot: (b, nc, h) each chunk's total decay; S: (b, nc, h, p, n) its
-    zero-inflow state.  Returns the inflowing states (b, nc, h, p, n) and
-    the final state (b, h, p, n), in fp32.  One small step per chunk, as
-    the reference's `lax.scan`."""
+    log_a: (b, nc, h) each chunk's log total decay (not its exp: the log
+    of an underflowed decay would be -inf, and -inf - -inf is NaN); S:
+    (b, nc, h, p, n) each chunk's zero-inflow state.  Returns the inflowing
+    states (b, nc, h, p, n) and the final state (b, h, p, n), in fp32.
+
+    With h0 taken as a chunk -1, the state after z chunks is
+    sum_k L[z, k] S'[k] with L[z, k] = exp(sum_{k <= m < z} log_a[m]) for
+    k <= z (Mamba-2's segment sum): one product instead of the
+    reference's `lax.scan`.  Each exponent is a cumulative sum over its
+    own segment's chunks, not a difference of two long prefix sums, which
+    would cancel in fp32; the exponent, not the result, is masked above
+    the diagonal, so the backward sees no 0 * inf."""
     b, nc, h, p, n = S.shape
-    hprev = torch.zeros((b, h, p, n), dtype=torch.float32,
-                        device=S.device) if h0 is None else h0.float()
-    h_in = []
-    for z in range(nc):
-        h_in.append(hprev)
-        hprev = hprev * a_tot[:, z, :, None, None] + S[:, z]
-    return torch.stack(h_in, dim=1), hprev
+    init = torch.zeros((b, 1, h, p, n), dtype=torch.float32,
+                       device=S.device) if h0 is None \
+        else h0.float()[:, None]
+    Sx = torch.cat([init, S.float()], dim=1)                 # (b,nc+1,h,p,n)
+    # x[t] = log_a[t - 1]: the decay from chunk t-1 into chunk t
+    x = F.pad(log_a.float().transpose(1, 2), (1, 0))         # (b, h, nc+1)
+    lower = torch.ones((nc + 1, nc + 1), dtype=torch.bool,
+                       device=S.device).tril()
+    # seg[z, k] = sum of x[t] over k < t <= z
+    seg = torch.cumsum(x[..., :, None].masked_fill(~lower.tril(-1), 0.0),
+                       dim=-2)
+    L = torch.exp(torch.where(lower, seg, seg.new_tensor(NEG_INF)))
+    states = torch.einsum("bhzk,bkhpn->bzhpn", L, Sx)
+    return states[:, :nc], states[:, nc]
 
 
 def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,

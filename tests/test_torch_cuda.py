@@ -12,7 +12,8 @@ TF32 off); the attention and SSD Functions' gradients 1e-5 of the largest
 (the same plain version recomputed, so only the cotangent's path
 differs); smoke-training losses rtol 1e-4 against the CPU run.  bf16
 attention is also held element by element to one bf16 ulp of
-softmax(S).|v| + |o32| (see `test_flash_kernel_matches_plain`).
+softmax(S).|v| + |o32| (see `test_flash_kernel_matches_plain`), bf16 SSD
+to 2^-7 |y32| + 2^-12 |M|.|xdt| (`test_ssd_bf16_within_the_element_limit`).
 """
 import numpy as np
 import pytest
@@ -228,10 +229,13 @@ def test_flash_function_grads_match_plain(cuda, b, sq, hq, hkv, d, causal,
 
 
 # (b, l, h, p, n, chunk): hymba's smoke, the chunk shrink (96 -> 48),
-# hymba's 50 heads over blocks of 4, mamba2's cl 128 x n 128, tiny extents
+# hymba's 50 heads over blocks of 2, mamba2's cl 128 x n 128, tiny extents,
+# a chunk of 40 (a masked partial tile) at p 4 (no 16-byte bf16 rows), a
+# chunk of 96 in the 128-row CTA
 SSD = [
     (2, 128, 8, 16, 8, 64), (1, 96, 5, 64, 16, 48), (1, 128, 50, 64, 16, 64),
     (1, 256, 6, 64, 128, 128), (2, 64, 3, 8, 4, 16), (1, 8, 1, 1, 1, 1),
+    (1, 80, 3, 4, 4, 40), (1, 192, 5, 64, 64, 96),
 ]
 
 
@@ -265,6 +269,37 @@ def test_ssd_kernel_matches_plain(cuda, b, l, h, p, n, chunk, dtype):
         np.testing.assert_allclose(
             got.float().cpu().numpy(), want, rtol=TOL[dtype],
             atol=TOL[dtype] * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n,chunk", [(50, 16, 64), (48, 128, 128)])
+def test_ssd_bf16_within_the_element_limit(cuda, h, n, chunk):
+    """hymba's and mamba2's shapes at batch 1 x 2048 on the model's inputs
+    (la = softplus(dt) * -A, A over linspace(1, 16)): every bf16 output
+    element within 2^-7 |y32| + 2^-12 |M|.|xdt| (`ssd.elem_limit`), y32
+    the plain version in fp32 on the same inputs, beside the unchanged
+    TOL; S within the f32 tolerance.  Rounding M to bf16 alone would break
+    the first, the hi/lo split keeps to it."""
+    rng = np.random.default_rng(4)
+    b, l, p = 1, 2048, 64
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h))))
+    la = torch.from_numpy((-dt * np.linspace(1.0, 16.0, h))
+                          .astype(np.float32)).to(cuda)
+    xdt, B, C = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)
+                                  * 0.5).to(cuda, torch.bfloat16)
+                 for s in ((b, l, h, p), (b, l, n), (b, l, n)))
+    assert tssd.plan(chunk, n, torch.bfloat16).path == "mma"
+    y, S = tssd.ssd_chunk(xdt, la, B, C, chunk=chunk)
+    yr, Sr = ssd_chunked_ref(xdt, la, B, C, chunk)
+    y32, limit = tssd.elem_limit(xdt, la, B, C, chunk)
+    worst = float(((y.float() - y32).abs() / limit).max())
+    assert worst <= 1.0, f"an element is {worst} x its limit"
+    for got, want, tol in ((y, yr, TOL["bfloat16"]),
+                           (S, Sr, TOL["float32"])):
+        want = want.float().cpu().numpy()
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), want, rtol=tol,
+            atol=tol * max(1.0, float(np.abs(want).max())))
 
 
 @pytest.mark.cuda

@@ -336,6 +336,99 @@ def test_ssd_chunk_matches_pallas_and_oracle(b, l, h, p, n, chunk, dtype):
                                    rtol=tol, atol=tol)
 
 
+# (b, l, h, p, n, chunk) of the emulation: hymba's chunk 64, the chunk
+# shrink's 40 (a masked partial tile), mamba2's chunk 128 at n 128, and
+# one head or a few
+SSD_EMU = [(1, 128, 2, 16, 16, 64), (1, 80, 3, 8, 8, 40),
+           (1, 128, 1, 16, 128, 128), (2, 96, 1, 64, 16, 48)]
+
+
+def _model_ssd_inputs(b, l, h, p, n, dtype, seed=0):
+    """The model's SSD inputs at init: la = softplus(dt) * -A with A over
+    linspace(1, 16), fp32 under bf16 too."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((b, l, h))))
+    la = torch.from_numpy((-dt * np.linspace(1.0, 16.0, h))
+                          .astype(np.float32))
+    xdt, B, C = (torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * 0.5).to(dtype)
+        for s in ((b, l, h, p), (b, l, n), (b, l, n)))
+    return xdt, la, B, C
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD_EMU)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_emulation_matches_pallas_and_oracle(b, l, h, p, n, chunk,
+                                                 dtype):
+    """The CPU emulation of the kernel's tiling (16-row tiles, upper tiles
+    skipped, the partial tile masked, bf16 hi/lo splits) against the
+    Pallas kernel in interpret mode and the plain version, at TOL; bf16
+    also within the element-wise limit the kernel is held to on the
+    card."""
+    tdt = getattr(torch, dtype)
+    xdt, la, B, C = _ssd_inputs(b, l, h, p, n)
+    jx, jB, jC = (jnp.asarray(a, dtype) for a in (xdt, B, C))
+    ky, ks = pallas_ssd(jx, jnp.asarray(la), jB, jC, chunk=chunk,
+                        interpret=True)
+    tx, tB, tC = (torch.from_numpy(a).to(tdt) for a in (xdt, B, C))
+    tla = torch.from_numpy(la)
+    y, S = tssd.ssd_chunk_emulated(tx, tla, tB, tC, chunk)
+    assert y.dtype == tdt and S.dtype == torch.float32
+    assert tuple(y.shape) == ky.shape and tuple(S.shape) == ks.shape
+    yr, Sr = ops.ssd_chunk(tx, tla, tB, tC, chunk=chunk)
+    tol = TOL[dtype]
+    for want in (np.asarray(ky, np.float32), yr.float().numpy()):
+        np.testing.assert_allclose(y.float().numpy(), want, rtol=tol,
+                                   atol=tol)
+    for want in (np.asarray(ks), Sr.numpy()):
+        np.testing.assert_allclose(S.numpy(), want, rtol=TOL["float32"],
+                                   atol=TOL["float32"])
+    if dtype == "bfloat16":
+        y32, limit = tssd.elem_limit(tx, tla, tB, tC, chunk)
+        assert float(((y.float() - y32).abs() / limit).max()) <= 1.0
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [(1, 128, 4, 64, 16, 64),
+                                             (1, 128, 2, 64, 128, 128)])
+def test_ssd_emulation_without_the_low_part_exceeds_the_limit(b, l, h, p,
+                                                              n, chunk):
+    """Rounding M and xdt * w to bf16 alone (no low part) breaks the
+    element-wise limit on y and the fp32 tolerance on S at hymba's and
+    mamba2's chunk and state on the model's inputs; the split stays
+    inside both."""
+    xdt, la, B, C = _model_ssd_inputs(b, l, h, p, n, torch.bfloat16)
+    y32, limit = tssd.elem_limit(xdt, la, B, C, chunk)
+    _, Sr = ops.ssd_chunk(xdt, la, B, C, chunk=chunk)
+    s_tol = TOL["float32"] * max(1.0, float(Sr.abs().max()))
+    worst = {}
+    for split in (True, False):
+        y, S = tssd.ssd_chunk_emulated(xdt, la, B, C, chunk, split=split)
+        worst[split] = (float(((y.float() - y32).abs() / limit).max()),
+                        float((S - Sr).abs().max()))
+    assert worst[True][0] <= 1.0 and worst[True][1] <= s_tol
+    assert worst[False][0] > 1.0 and worst[False][1] > s_tol
+
+
+@pytest.mark.parametrize("chunk,n,dtype,want", [
+    (64, 16, torch.float32, ("fma", 64, 256, 4, 2, 2)),
+    (64, 16, torch.bfloat16, ("mma", 64, 256, 4, 2, 2)),
+    (48, 16, torch.bfloat16, ("mma", 64, 256, 3, 2, 2)),
+    (40, 16, torch.float32, ("fma", 64, 256, 3, 2, 2)),
+    (128, 128, torch.float32, ("fma", 128, 512, 8, 4, 2)),
+    (128, 128, torch.bfloat16, ("mma", 128, 512, 8, 4, 2)),
+    (96, 64, torch.bfloat16, ("mma", 128, 512, 6, 4, 2)),
+    (1, 1, torch.float32, ("fma", 64, 256, 1, 2, 2)),
+])
+def test_ssd_plan_path_tiles_and_heads(chunk, n, dtype, want):
+    """bf16 runs on mma.sync, f32 on FMAs; the CTA is built for a chunk of
+    64 or 128 with four threads a row, 16-row tiles cover the chunk, two
+    heads share G where it is cheap (n <= 32), else four."""
+    p = tssd.plan(chunk, n, dtype)
+    assert (p.path, p.chunk_tile, p.threads, p.row_tiles, p.heads,
+            p.stages) == want
+    assert tssd.plan(chunk, n, dtype) is p
+
+
 @pytest.mark.parametrize("bad", ["rank", "gqa", "dtype", "layout", "window",
                                  "softcap", "head_dim", "unseen_rows"])
 def test_flash_attention_checks_raise(bad):

@@ -233,6 +233,83 @@ def test_ssd_chunked_matches_jax(b, l, h, p, n, chunk, with_h0):
                                atol=F32)
 
 
+def _long_ssd_inputs(b, l, h, p, n, seed, with_h0):
+    """Log-decays over hymba's range, -0.01 to -11 per step: over a
+    16-step chunk some totals pass -104, where exp underflows to 0."""
+    rng = np.random.default_rng(seed)
+    xdt = rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5
+    la = -rng.uniform(0.01, 11.0, (b, l, h)).astype(np.float32)
+    B = rng.standard_normal((b, l, n)).astype(np.float32) * 0.5
+    C = rng.standard_normal((b, l, n)).astype(np.float32) * 0.5
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32) \
+        if with_h0 else None
+    return xdt, la, B, C, h0
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_chunked_closed_form_matches_jax_scan_fwd_and_grads(with_h0):
+    """32 chunks of 16 steps: the closed-form recurrence against the
+    reference's `lax.scan`, forward and the gradients of every input
+    (jax.grad against autograd) through one random cotangent."""
+    b, l, h, p, n, chunk = 1, 512, 3, 4, 4, 16
+    xdt, la, B, C, h0 = _long_ssd_inputs(b, l, h, p, n, 11, with_h0)
+    tot = la.reshape(b, l // chunk, chunk, h).sum(2)
+    assert (np.exp(tot) == 0).any() and (np.exp(tot) > 0).any()
+    rng = np.random.default_rng(12)
+    gy = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    gh = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    args = [xdt, la, B, C] + ([h0] if with_h0 else [])
+
+    def jloss(*a):
+        y, hf = jM._ssd_chunked(*a[:4], chunk, a[4] if with_h0 else None)
+        return jnp.sum(y * gy) + jnp.sum(hf * gh), (y, hf)
+    (_, (jy, jh)), jg = jax.jit(jax.value_and_grad(
+        jloss, argnums=tuple(range(len(args))), has_aux=True))(
+            *(jnp.asarray(a) for a in args))
+    ts = [_t(a).requires_grad_() for a in args]
+    ty, th = tM._ssd_chunked(*ts[:4], chunk, ts[4] if with_h0 else None)
+    ((ty * _t(gy)).sum() + (th * _t(gh)).sum()).backward()
+    for got, want in [(ty, jy), (th, jh)] + \
+            [(t.grad, g) for t, g in zip(ts, jg)]:
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   rtol=F32, atol=F32)
+
+
+def _inter_chunk_loop(a_tot, S, h0=None):
+    """The recurrence as a loop over chunks (the port's form before the
+    closed form): h_z = h_{z-1} * a_tot[z-1] + S[z-1]."""
+    b, nc, h, p, n = S.shape
+    hprev = torch.zeros((b, h, p, n)) if h0 is None else h0
+    h_in = []
+    for z in range(nc):
+        h_in.append(hprev)
+        hprev = hprev * a_tot[:, z, :, None, None] + S[:, z]
+    return torch.stack(h_in, dim=1), hprev
+
+
+@pytest.mark.parametrize("nc,with_h0", [(1, False), (5, True), (33, False),
+                                        (40, True)])
+def test_inter_chunk_states_matches_the_loop(nc, with_h0):
+    """The closed form against the loop it replaced, at chunk totals of
+    hymba's range (-0.16 to -700, exp underflowing to 0 past -104), and
+    its gradients finite where decays underflow."""
+    rng = np.random.default_rng(nc)
+    b, h, p, n = 2, 3, 4, 5
+    log_a = _t(-np.exp(rng.uniform(np.log(0.16), np.log(700.0),
+                                   (b, nc, h))))
+    S = _t(rng.standard_normal((b, nc, h, p, n)))
+    h0 = _t(rng.standard_normal((b, h, p, n))) if with_h0 else None
+    want_in, want_fin = _inter_chunk_loop(torch.exp(log_a), S, h0)
+    la = log_a.clone().requires_grad_()
+    got_in, got_fin = tM.inter_chunk_states(la, S, h0)
+    np.testing.assert_allclose(got_in.detach().numpy(), want_in.numpy(),
+                               rtol=F32, atol=F32)
+    np.testing.assert_allclose(got_fin.detach().numpy(), want_fin.numpy(),
+                               rtol=F32, atol=F32)
+    (got_in.sum() + got_fin.sum()).backward()
+    assert torch.isfinite(la.grad).all()
+
+
 def test_ssm_apply_matches_jax():
     """The whole SSD block: in_proj, depthwise causal conv, softplus dt,
     the chunked scan (two chunks), D skip, gated rms norm, out_proj."""
