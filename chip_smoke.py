@@ -29,6 +29,17 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    conv launches; hold the full-width forward loss of one batch-1 sample
    on the card (kernel) against the same params and sample on the CPU
    (plain versions); profile one more step by kind of device kernel;
+   time the §IV-A split's interior-slice copy at a 2-way H shard;
+4b. spatial mesh1k: spawn 2 ranks on the one card, joined over gloo
+   (the kernels are built before; a rank that fails fails the run): the
+   19 convs' parity (each rank's block of y, dx and the summed dw against
+   the float64 conv, with the split's kernel calls), the 2-rank
+   global-BN loss against one rank's, and 3 training steps through the
+   trainer's own entry (`--model 2`): equal losses and params on both
+   ranks, 49 conv launches and 59 staged halo messages a step a rank,
+   one more step profiled and the gradient all-reduce timed; then 4
+   ranks (2 x 2, H x W) for block 1's two conv shapes.  Two processes
+   sharing one card over gloo: not a scaling result;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
    2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
    32 x 3 launches of each LM kernel;
@@ -63,6 +74,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import hymba_1_5b  # noqa: E402
+from repro_torch.core import halo  # noqa: E402
+from repro_torch.core.spatial_conv import (  # noqa: E402
+    ConvSharding, conv_calls, spatial_conv2d, split_rows)
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import conv2d as kconv  # noqa: E402
@@ -71,14 +85,15 @@ from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     conv2d_ref, flash_attention_ref, ssd_chunked_ref)
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.cnn import meshnet  # noqa: E402
 from repro_torch.models.lm import modules as lm_modules  # noqa: E402
 from repro_torch.models.lm import transformer  # noqa: E402
 from repro_torch.optim.optimizer import adamw, sgd  # noqa: E402
 from repro_torch.train.train_loop import (  # noqa: E402
-    TrainStepConfig, make_train_step)
+    TrainStepConfig, make_train_step, reduce_replicated_grads)
 from repro_torch.utils import (  # noqa: E402
-    FP32, same_pads, time_fn, tree_map)
+    FP32, same_pads, time_fn, tree_leaves, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 on the CUDA cores
@@ -96,6 +111,14 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # full-width forward loss, card vs CPU: fp32 through 19 conv-BN-ReLU
 # layers whose sums run in another order on each
 LOSS_RTOL = 1e-4
+# the spatial path: each rank's block of the conv output, dx and dw (summed
+# over the ranks) against the same conv in float64 on the card, over the
+# largest magnitude (tests/test_torch_cuda.py's tolerances: f32 sums in
+# the kernel's order, cuDNN's gradients over other extents; the
+# one-process f32 conv's errors are printed beside); the 2-rank global-BN
+# loss against one rank's at LOSS_RTOL
+SPATIAL_FWD_TOL, SPATIAL_BWD_TOL = 2e-5, 1e-4
+SPATIAL_MODEL = 2
 # attention / SSD kernel vs plain, max |difference| over the largest
 # output magnitude: f32 sums of up to 2048 keys x 64 dims (attention) or
 # cl x n products (SSD) in another order; bf16 one rounding of the output
@@ -357,6 +380,16 @@ def _device_breakdown(run_step, classify) -> tuple[float, dict, int]:
     return wall_ms, groups, n_kernels
 
 
+def cnn_kind(name: str) -> str:
+    """The kind of a CNN step's device kernel, by its lower-case name."""
+    if "repro_conv2d" in name:
+        return "conv2d kernel (forward, split-K sums included)"
+    if any(t in name for t in ("cudnn", "xmma", "dgrad", "wgrad", "conv",
+                               "gemm", "cutlass")):
+        return "library conv (dgrad/wgrad)"
+    return "other"
+
+
 def profile_phase() -> dict:
     """Device time of one full-width training step (batch 2, batch already
     on the card) by kind of kernel, from torch.profiler's CUDA events."""
@@ -375,15 +408,7 @@ def profile_phase() -> dict:
     def run_step():
         float(step(params, state, batch)[2]["loss"])
 
-    def classify(name):
-        if "repro_conv2d" in name:
-            return "conv2d kernel (forward, split-K sums included)"
-        if any(t in name for t in ("cudnn", "xmma", "dgrad", "wgrad",
-                                   "conv", "gemm", "cutlass")):
-            return "library conv (dgrad/wgrad)"
-        return "other"
-
-    wall_ms, groups, n_kernels = _device_breakdown(run_step, classify)
+    wall_ms, groups, n_kernels = _device_breakdown(run_step, cnn_kind)
     busy = sum(groups.values())
     if n_kernels == 0:
         print("step breakdown: the profiler saw no device kernels "
@@ -424,6 +449,342 @@ def forward_check() -> dict:
         raise AssertionError(f"card loss {lg} vs cpu loss {lc}: rel {rel}")
     return {"loss_cuda": lg, "loss_cpu": lc, "rel_diff": rel,
             "max_logit_diff": dlogit}
+
+
+# ------------------------------------------------------- spatial path --
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _rank_entry(rank: int, world: int, port: int, fn, out_dir: str,
+                args: tuple) -> None:
+    """One spawned rank on cuda:0: join the gloo group, run fn(rank, world,
+    *args), write its dict to out_dir/rank<r>.json."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = fn(rank, world, *args)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, world: int, *args) -> list[dict]:
+    """fn(rank, world, *args) in `world` processes spawned on the one card,
+    one gloo group on a free port; each rank's returned dict.  The kernels
+    are built before (the ranks load the cached libraries); a rank that
+    raises fails the run."""
+    import torch.multiprocessing as mp
+    out_dir = os.path.join(HERE, "build", "spatial")
+    os.makedirs(out_dir, exist_ok=True)
+    for r in range(world):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if os.path.exists(path):
+            os.remove(path)
+    torch.cuda.empty_cache()
+    mp.spawn(_rank_entry, args=(world, _free_port(), fn, out_dir, args),
+             nprocs=world, join=True)
+    out = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _block(t: torch.Tensor, mesh, sh: ConvSharding) -> torch.Tensor:
+    """This rank's H (and W) block of a global NHWC tensor."""
+    for dim, axis in ((1, sh.h_axis), (2, sh.w_axis)):
+        if axis is not None:
+            t = pipeline.shard_dim(t, dim, mesh, axis)
+    return t
+
+
+def _conv_f64(x: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
+    """The SAME conv in float64 through the plain version: the exact
+    reference both f32 paths are held against."""
+    pads = same_pads(w.shape[0], s)
+    return conv2d_ref(F.pad(x, (0, 0) + pads + pads), w, stride=s)
+
+
+def conv_parity(mesh, sh: ConvSharding, layers) -> list[dict]:
+    """At each of `layers` (meshnet.layer_geometry rows), batch 2, f32:
+    this rank's spatial_conv2d (overlap=True) of its block, dx and dw
+    (summed over the ranks), each against the same conv in float64 on the
+    card; the one-process spatial_conv2d's errors against it beside (two
+    f32 orders of a reduction over up to 524288 terms differ by about
+    1e-4 of the largest dw, so each is held to the exact value); with
+    the kernel launches of the spatial call."""
+    dev, rows = torch.device("cuda"), []
+    split = sh.h_axis if sh.w_axis is None else sh.w_axis   # the conv's
+    for li, (name, c, hw, f, k, s) in layers:
+        gen = torch.Generator(device=dev).manual_seed(100 + li)
+        x = torch.randn((BATCH, hw, hw, c), generator=gen, device=dev)
+        w = torch.randn((k, k, c, f), generator=gen, device=dev) \
+            * math.sqrt(2.0 / (k * k * c))
+        g = torch.randn((BATCH, hw // s, hw // s, f), generator=gen,
+                        device=dev)
+        grads = []
+        for dt, fn in ((torch.float32, lambda a, b: spatial_conv2d(
+                a, b, strides=(s, s), sharding=ConvSharding())),
+                       (torch.float64, lambda a, b: _conv_f64(a, b, s))):
+            a = x.to(dt, copy=True).requires_grad_()
+            b = w.to(dt, copy=True).requires_grad_()
+            y_ = fn(a, b)
+            (y_ * g.to(dt)).sum().backward()
+            grads.append((y_.detach(), a.grad, b.grad))
+            del a, b, y_
+        (y32, dx32, dw32), (y64, dx64, dw64) = grads
+        xl = _block(x, mesh, sh).contiguous().requires_grad_()
+        wl = w.clone().requires_grad_()
+        before = kconv.conv2d.launches
+        y = spatial_conv2d(xl, wl, strides=(s, s), sharding=sh, mesh=mesh,
+                           overlap=True)
+        calls = kconv.conv2d.launches - before
+        (y * _block(g, mesh, sh)).sum().backward()
+        dw = reduce_replicated_grads([wl.grad], mesh)[0]
+        torch.cuda.synchronize()
+        what = f"spatial conv {name} rank {mesh.rank}"
+        row = {"layer": name, "x": [BATCH, hw, hw, c], "k": k, "f": f,
+               "stride": s, "calls": calls,
+               "want_calls": conv_calls(hw // mesh.axis_size(split), k, s)}
+        for nm, got, one, exact, tol in (
+                ("y", y.detach(), _block(y32, mesh, sh),
+                 _block(y64, mesh, sh), SPATIAL_FWD_TOL),
+                ("dx", xl.grad, _block(dx32, mesh, sh),
+                 _block(dx64, mesh, sh), SPATIAL_BWD_TOL),
+                ("dw", dw, dw32, dw64, SPATIAL_BWD_TOL)):
+            row[f"err_{nm}"] = _check_close(f"{what} {nm}", got, exact, tol)
+            row[f"one_err_{nm}"] = float((one.double() - exact).abs().max())
+            row[f"vs_one_{nm}"] = float((got - one).abs().max())
+        rows.append(row)
+        del x, w, g, grads, y32, dx32, dw32, y64, dx64, dw64, xl, wl, y, dw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def spatial_rank(rank: int, world: int) -> dict:
+    """One of 2 ranks (data 1 x model 2, H over model) on the card: (a) the
+    19 conv-parity rows; (b) the full-width global-BN forward loss against
+    one rank's; (c) 3 training steps through the trainer's own entry."""
+    mesh = make_mesh(data=1, model=SPATIAL_MODEL)
+    sh = ConvSharding(batch_axes=("data",), h_axis="model")
+    layers = list(enumerate(meshnet.layer_geometry(meshnet.MESH1K)))
+    rows = conv_parity(mesh, sh, layers)
+
+    cfg = dataclasses.replace(meshnet.MESH1K, bn_scope="global")
+    dev = torch.device("cuda")
+    model = meshnet.MeshNet(cfg, generator=torch.Generator().manual_seed(0),
+                            device=dev)
+    nb = pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
+                                       cfg.in_channels, out_hw=cfg.out_hw)
+    with torch.no_grad():
+        part = meshnet.loss_fn(model.params(), pipeline.to_device(
+            pipeline.shard_batch(nb, mesh, sh), dev), cfg, sh, mesh)
+        loss_ranks = float(mesh.all_reduce(part, mesh.axis_names))
+        loss_one = float(meshnet.loss_fn(model.params(), pipeline.to_device(
+            nb, dev), cfg)) if rank == 0 else None
+    del model
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    halo.reset_staged()
+    res = train_cli.main(["--arch", "mesh1k", "--batch", str(BATCH),
+                          "--steps", str(STEPS), "--model",
+                          str(SPATIAL_MODEL), "--device", "cuda",
+                          "--log-every", "1"])
+    launches, staged = ops.launch_counts()["conv2d"], halo.staged
+    collectives_staged = res["mesh"].staged
+    breakdown = spatial_step_breakdown(res["params"], res["mesh"], sh)
+    return {"conv_rows": rows, "loss_ranks": loss_ranks,
+            "breakdown": breakdown,
+            "loss_one": loss_one, "losses": res["losses"],
+            "step_s": res["step_s"], "data_s": res["data_s"],
+            "launches": launches, "staged": staged,
+            "collectives_staged": collectives_staged,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "digest": [float(p.detach().double().sum())
+                       for p in tree_leaves(res["params"])]}
+
+
+def spatial_step_breakdown(params, mesh, sh: ConvSharding) -> dict:
+    """One more training step of this rank (batch already on the card, lr
+    0) under torch.profiler, by kind of device kernel; and the gradient
+    all-reduce alone (the flat fp32 buffer of every param through gloo),
+    host clock around synchronised calls, the mean of 3."""
+    cfg, dev = meshnet.MESH1K, torch.device("cuda")
+    opt = sgd(0.0, momentum=0.9)
+    step = make_train_step(functools.partial(
+        meshnet.loss_fn, cfg=cfg, plan=sh, mesh=mesh), opt,
+        TrainStepConfig(precision=FP32), mesh=mesh)
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.shard_batch(
+        pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
+                                      cfg.in_channels, out_hw=cfg.out_hw),
+        mesh, sh), dev)
+    float(step(params, state, batch)[2]["loss"])        # warm
+
+    def run_step():
+        float(step(params, state, batch)[2]["loss"])
+    wall_ms, groups, n_kernels = _device_breakdown(run_step, cnn_kind)
+    grads = [torch.ones_like(p) for p in tree_leaves(params)]
+    reduce_replicated_grads(grads, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        reduce_replicated_grads(grads, mesh)
+    torch.cuda.synchronize()
+    return {"wall_ms": wall_ms, "groups": groups, "n_kernels": n_kernels,
+            "device_ms": sum(groups.values()),
+            "grad_all_reduce_ms": (time.perf_counter() - t0) / 3 * 1e3,
+            "grad_mb": sum(g.numel() for g in grads) * 4 / 1e6}
+
+
+def spatial_hw_rank(rank: int, world: int) -> dict:
+    """One of 4 ranks (data 2 x model 2; H over model, W over data): the
+    conv-parity rows of block 1's stride-2 and stride-1 layers."""
+    mesh = make_mesh(data=2, model=2)
+    sh = ConvSharding(batch_axes=(), h_axis="model", w_axis="data")
+    layers = list(enumerate(meshnet.layer_geometry(meshnet.MESH1K)))[:2]
+    return {"conv_rows": conv_parity(mesh, sh, layers)}
+
+
+def interior_copy_phase(card: str) -> dict:
+    """What the §IV-A split's interior slice costs at a 2-way H shard of
+    every mesh1k layer, batch 2, f32: the slice of a contiguous NHWC block
+    is not contiguous (N > 1), and its W padding copies it into the
+    contiguous tensor the kernel takes.  Times that pad (what the port
+    does), the same pad of a contiguous tensor of the slice's shape, and
+    the interior conv kernel (CUDA events, one process)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tot = {"pad_slice_ms": 0.0, "pad_contig_ms": 0.0, "kernel_ms": 0.0}
+    for name, c, hw, f, k, s in meshnet.layer_geometry(meshnet.MESH1K):
+        lo, hi = same_pads(k, s)
+        if lo == hi == 0:
+            continue
+        hl = hw // SPATIAL_MODEL
+        x = torch.randn((BATCH, hl, hw, c), generator=gen, device=dev)
+        w = torch.randn((k, k, c, f), generator=gen, device=dev)
+        t_lo, i_hi, _ = split_rows(hl, k, s, lo)
+        start = t_lo * s - lo
+        inner = x.narrow(1, start, (i_hi - 1) * s - lo + k - start)
+        dense = inner.contiguous()
+        pad = (0, 0) + same_pads(k, s)
+        xp = F.pad(inner, pad)
+        tot["pad_slice_ms"] += time_fn(lambda: F.pad(inner, pad), reps=10,
+                                       warmup=2) * 1e3
+        tot["pad_contig_ms"] += time_fn(lambda: F.pad(dense, pad), reps=10,
+                                        warmup=2) * 1e3
+        tot["kernel_ms"] += time_fn(lambda: kconv.conv2d(xp, w, stride=s),
+                                    reps=10, warmup=2) * 1e3
+        del x, w, inner, dense, xp
+    torch.cuda.empty_cache()
+    print(f"interior slice copy, mesh1k at a {SPATIAL_MODEL}-way H shard, "
+          f"batch {BATCH}, f32, 18 halo layers summed: pad of the "
+          f"non-contiguous slice {tot['pad_slice_ms']:.4f} ms, pad of a "
+          f"contiguous tensor of its shape {tot['pad_contig_ms']:.4f} ms, "
+          f"interior conv kernels {tot['kernel_ms']:.4f} ms ({card})")
+    return tot
+
+
+def spatial_phase(card: str) -> dict:
+    """The sample x spatial path as 2 and 4 processes sharing the one card
+    over gloo (halos staged through the host): not a scaling result."""
+    ranks = spawn_ranks(spatial_rank, SPATIAL_MODEL)
+    hw4 = spawn_ranks(spatial_hw_rank, 4)
+    geo = meshnet.layer_geometry(meshnet.MESH1K)
+    print(f"spatial conv parity, f32, batch {BATCH}, overlap (interior / "
+          f"boundary split): max |error| of each rank's block of y, dx and "
+          f"dw (summed over the ranks) against the conv in float64 on the "
+          f"card, and in brackets the one-process f32 conv's ({card}):")
+    print(f"{'ranks':6s} {'layer':8s} {'x (N,H,W,C)':22s} {'k':>2s} {'s':>2s} "
+          f"{'calls':>5s} {'err y':>20s} {'err dx':>20s} {'err dw':>20s}")
+    for tag, runs in (("2 H", ranks), ("2x2 HW", hw4)):
+        for i, row in enumerate(runs[0]["conv_rows"]):
+            rs = [r["conv_rows"][i] for r in runs]
+            for r in rs:
+                if r["calls"] != r["want_calls"]:
+                    raise AssertionError(f"{tag} {r['layer']}: {r['calls']} "
+                                         f"conv launches, want "
+                                         f"{r['want_calls']}")
+            errs = " ".join(
+                f"{max(r[f'err_{n}'] for r in rs):9.2e} "
+                f"({max(r[f'one_err_{n}'] for r in rs):8.2e})"
+                for n in ("y", "dx", "dw"))
+            print(f"{tag:6s} {row['layer']:8s} {str(tuple(row['x'])):22s} "
+                  f"{row['k']:2d} {row['stride']:2d} {row['calls']:5d} "
+                  f"{errs}", flush=True)
+    if len(ranks[0]["conv_rows"]) != len(geo) or len(hw4[0]["conv_rows"]) \
+            != 2:
+        raise AssertionError("spatial conv parity rows missing")
+
+    lo_, l1 = ranks[0]["loss_ranks"], ranks[0]["loss_one"]
+    rel = abs(lo_ - l1) / abs(l1)
+    print(f"spatial forward check, full-width mesh1k, global BN, batch "
+          f"{BATCH}: loss on {SPATIAL_MODEL} ranks {lo_!r} "
+          f"({ranks[1]['loss_ranks']!r} on rank 1), one rank {l1!r}, rel "
+          f"diff {rel:.3e} (tol {LOSS_RTOL}) ({card})")
+    if not (math.isfinite(lo_) and rel <= LOSS_RTOL
+            and ranks[1]["loss_ranks"] == lo_):
+        raise AssertionError(f"spatial loss {lo_} vs one rank {l1}")
+
+    # conv launches a step: the interior plus a top block where lo > 0 and
+    # a bottom block where hi > 0 (spatial_conv.conv_calls); halo messages
+    # through the host a step: on 2 ranks each sends or receives one per
+    # halo width that is not 0, forward, and again backward except at the
+    # first layer, whose input needs no gradient
+    per_step = sum(conv_calls(hw // SPATIAL_MODEL, k, s)
+                   for _, _, hw, _, k, s in geo)
+    halo_step = sum(((same_pads(k, s)[0] > 0) + (same_pads(k, s)[1] > 0))
+                    * (1 if i == 0 else 2)
+                    for i, (_, _, _, _, k, s) in enumerate(geo))
+    for r, out in enumerate(ranks):
+        if out["losses"] != ranks[0]["losses"] or \
+                out["digest"] != ranks[0]["digest"]:
+            raise AssertionError(f"rank {r} diverged: losses "
+                                 f"{out['losses']} vs {ranks[0]['losses']}")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"non-finite loss: {out['losses']}")
+        if out["launches"] != per_step * STEPS:
+            raise AssertionError(f"rank {r}: {out['launches']} conv launches "
+                                 f"in {STEPS} steps, want {per_step} x "
+                                 f"{STEPS}")
+        if out["staged"] != halo_step * STEPS:
+            raise AssertionError(f"rank {r}: {out['staged']} staged halo "
+                                 f"messages, want {halo_step} x {STEPS}")
+        steady = out["step_s"][1:]
+        print(f"spatial train rank {r}/{SPATIAL_MODEL} (2 processes sharing "
+              f"one card over gloo: not a scaling result): full-width "
+              f"mesh1k, global batch {BATCH}, uniform plan, losses "
+              f"{out['losses']}; step seconds {out['step_s']} (batch wait "
+              f"+ copy {out['data_s']}); steps 2..{STEPS}: "
+              f"{sum(steady) / len(steady):.4f} s/step; peak memory "
+              f"{out['peak_gib']:.2f} GiB; conv launches {out['launches']} "
+              f"({per_step} a step); halo messages staged through the host "
+              f"{out['staged']} ({halo_step} a step); all-reduces staged "
+              f"{out['collectives_staged']} ({card})")
+        b = out["breakdown"]
+        print(f"spatial step breakdown rank {r} (one step, its block on "
+              f"the card, the other rank stepping beside it, host clock "
+              f"{b['wall_ms']:.2f} ms): device kernels {b['device_ms']:.2f} "
+              f"ms in {b['n_kernels']} kernels, idle share "
+              f"{1 - b['device_ms'] / b['wall_ms']:.3f}; " + "; ".join(
+                  f"{k} {v:.2f} ms" for k, v in sorted(b["groups"].items()))
+              + f"; the gradient all-reduce alone ({b['grad_mb']:.1f} MB "
+              f"through gloo) {b['grad_all_reduce_ms']:.2f} ms ({card})")
+    return {"ranks": ranks, "hw_ranks": hw4, "launches_per_step": per_step,
+            "staged_per_step": halo_step, "loss_rel_diff": rel}
 
 
 # ---------------------------------------------------------------- LM path --
@@ -735,7 +1096,7 @@ def lm_profile_phase() -> dict:
     args = train_cli.parse_args(["--arch", "hymba-1.5b", "--batch",
                                  str(LM_BATCH), "--seq", str(LM_SEQ),
                                  "--steps", str(STEPS)])
-    cfg, params, _, loss, mk, prec = train_cli.build(args, dev)
+    cfg, params, _, loss, mk, prec, _ = train_cli.build(args, dev)
     opt = adamw(0.0)
     step = make_train_step(loss, opt, TrainStepConfig(precision=prec))
     state = opt.init(params)
@@ -855,6 +1216,12 @@ def main() -> int:
     train = train_phase()
     fwd = forward_check()
     breakdown = profile_phase()
+    t_spatial = time.perf_counter()
+    interior = interior_copy_phase(card)
+    spatial = spatial_phase(card)
+    spatial["phase_s"] = time.perf_counter() - t_spatial
+    print(f"spatial phases (interior copy, 2 and 4 spawned ranks) took "
+          f"{spatial['phase_s']:.1f} s of this run ({card})")
     lm_train = lm_train_phase()
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
@@ -865,7 +1232,9 @@ def main() -> int:
               "w") as f:
         json.dump({"card": card, "shapes": rows, "lm_shapes": lm_rows,
                    "train": train, "forward_check": fwd,
-                   "step_breakdown": breakdown, "lm_train": lm_train,
+                   "step_breakdown": breakdown,
+                   "interior_copy": interior, "spatial": spatial,
+                   "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
@@ -904,9 +1273,11 @@ def main() -> int:
     lm_scope = f"one hymba-1.5b forward, batch {LM_BATCH} x seq {LM_SEQ}, " \
         f"float32: "
     kernels = [
-        entry("conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
-              "src/repro/kernels/conv2d.py:43", train["launches"], rows,
-              "one mesh1k forward, batch 2, float32: 19 conv calls"),
+        dict(entry("conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
+                   "src/repro/kernels/conv2d.py:43", train["launches"], rows,
+                   "one mesh1k forward, batch 2, float32: 19 conv calls"),
+             spatial_launches_per_rank=[r["launches"]
+                                        for r in spatial["ranks"]]),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:77",

@@ -1,2 +1,2 @@
-"""Distributed-memory CNN primitives (paper §III); this slice ports the
-single-device paths."""
+"""Distributed-memory CNN primitives (paper §III): the halo exchange, the
+spatially decomposed conv, pooling and BN over `torch.distributed`."""

@@ -33,6 +33,43 @@ def synthetic_lm_batch(step: int, batch: int, seq: int, vocab: int) -> dict:
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
 
 
+def shard_dim(a, dim: int, mesh, axis):
+    """This rank's block of `a` (a numpy array or a tensor) along `dim`
+    over a (possibly product) axis: shard `mesh.index(axis)` of
+    `mesh.axis_size(axis)` equal ones, a view."""
+    m = mesh.axis_size(axis)
+    if a.shape[dim] % m:
+        raise ValueError(f"extent {a.shape[dim]} of dim {dim} does not "
+                         f"divide over {axis} ({m} shards)")
+    n = a.shape[dim] // m
+    i = mesh.index(axis)
+    return a[(slice(None),) * dim + (slice(i * n, (i + 1) * n),)]
+
+
+def shard_batch(batch: dict, mesh, sharding) -> dict:
+    """This rank's block of a global CNN batch: N over the batch axes, H
+    and W over `sharding`'s spatial axes.
+
+    Every rank draws the same global batch and keeps its block, so a step
+    sees the same data on any mesh.  The image is cut by `sharding` as
+    given (the first layer's fit); the labels as the pred layer's output
+    is, by `sharding` fitted 1x1 to the label grid (in the reference
+    GSPMD cuts them).  Blocks are contiguous copies."""
+    if mesh is None:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        sh = sharding if k == "image" else \
+            sharding.fit(v.shape[1], v.shape[2], 1, 1, dict(mesh.shape))
+        v = shard_dim(v, 0, mesh, tuple(sh.batch_axes))
+        if sh.h_axis is not None:
+            v = shard_dim(v, 1, mesh, sh.h_axis)
+        if sh.w_axis is not None:
+            v = shard_dim(v, 2, mesh, sh.w_axis)
+        out[k] = np.ascontiguousarray(v)
+    return out
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on `device`; to the card through pinned host
     memory with a non-blocking copy on the current stream."""

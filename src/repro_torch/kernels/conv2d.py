@@ -10,6 +10,12 @@ falls back: anything the kernel does not take raises.  The plain
 version is `ref.conv2d_ref`; `ops.conv2d` picks between the two by the
 tensor's device.
 
+`tile_order` gives the order in which the kernel's CTAs take the pixel
+tiles: the plain order, or with `interior_first` the tiles that read the
+halo rows last (the reference's `interior_first` grid order).
+`conv2d_emulated` runs `plan` and `tile_order` in plain PyTorch on the
+CPU, tile by tile, as the CUDA kernel does.
+
 `Conv2d` is the differentiable op the model calls.  Its forward is
 `ops.conv2d`; its backward is PyTorch's `conv2d_input` / `conv2d_weight`
 (cuDNN on the card) on NCHW/OIHW views of the same tensors.  That mirrors
@@ -25,6 +31,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.utils import same_pads
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_int64
@@ -86,6 +94,41 @@ def plan(x_shape, w_shape, stride: int, dtype: torch.dtype) -> Plan:
                 f_pad=_ceil(f, align) * align)
 
 
+@functools.lru_cache(maxsize=1024)
+def tile_order(x_shape, w_shape, stride: int, dtype: torch.dtype,
+               interior_first: bool) -> tuple[int, ...] | None:
+    """The pixel tiles (of `plan`'s tile_m) in the order the kernel's CTAs
+    take them; None for the plain order.
+
+    With `interior_first`, the tiles holding an output row that reads the
+    first lo or last hi input rows of its sample, (lo, hi) the SAME pads of
+    (KH, stride) -- the halo rows `core.spatial_conv` puts there -- come
+    after all the others, each group in ascending order.  Every tile
+    appears once; a 1x1 kernel has no such rows."""
+    if not interior_first:
+        return None
+    n, h, wd, _ = x_shape
+    kh, kw = w_shape[0], w_shape[1]
+    p = plan(tuple(x_shape), tuple(w_shape), stride, dtype)
+    ho, wo = (h - kh) // stride + 1, (wd - kw) // stride + 1
+    lo, hi = same_pads(kh, stride)
+    oh = torch.arange(ho)
+    edge_row = (oh * stride < lo) | (oh * stride + kh > h - hi)
+    m = n * ho * wo
+    tiles = _ceil(m, p.tile_m)
+    edge = torch.zeros(tiles * p.tile_m, dtype=torch.bool)
+    edge[:m] = edge_row[(torch.arange(m) % (ho * wo)) // wo]
+    edge = edge.view(tiles, p.tile_m).any(dim=1)
+    order = torch.cat([torch.nonzero(~edge).flatten(),
+                       torch.nonzero(edge).flatten()])
+    return tuple(order.tolist())
+
+
+@functools.lru_cache(maxsize=256)
+def _order_on(device: torch.device, order: tuple[int, ...]) -> torch.Tensor:
+    return torch.tensor(order, dtype=torch.int32, device=device)
+
+
 def pad_operands(x: torch.Tensor, w: torch.Tensor, p: Plan
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """x and w with C zero-padded to p.c_pad and w's F to p.f_pad (the
@@ -105,7 +148,7 @@ def _lib():
     fn = lib.repro_conv2d
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] + [_I64] * 13 \
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
     return fn
 
@@ -134,13 +177,13 @@ def check_args(x: torch.Tensor, w: torch.Tensor, stride: int) -> None:
                          f"{tuple(x.shape[1:3])} (VALID conv)")
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, *,
-           stride: int = 1) -> torch.Tensor:
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           interior_first: bool = False) -> torch.Tensor:
     """VALID conv, NHWC x HWIO -> NHWC in x's dtype, on the card.
 
     Pads C and F as `plan` says, allocates y and any split-K workspace,
-    launches on the current stream and does not synchronise; raises if a
-    launch is refused."""
+    takes the pixel tiles in `tile_order`, launches on the current stream
+    and does not synchronise; raises if a launch is refused."""
     check_args(x, w, stride)
     if not x.is_cuda:
         raise ValueError(f"the conv2d kernel runs on CUDA tensors; got "
@@ -154,13 +197,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *,
     y = torch.empty((n, ho, wo, f), dtype=x.dtype, device=x.device)
     ws = torch.empty((p.splits, n * ho * wo, f), dtype=torch.float32,
                      device=x.device) if p.splits > 1 else None
+    order = tile_order(tuple(x.shape), tuple(w.shape), stride, x.dtype,
+                       interior_first)
+    order_t = None if order is None else _order_on(x.device, order)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib()(xp.data_ptr(), wp.data_ptr(), y.data_ptr(),
                      None if ws is None else ws.data_ptr(),
                      _DTYPES[x.dtype], n, h, wd, p.c_pad, kh, kw, f,
                      p.f_pad, stride, p.tile_m, p.tile_n, p.tile_k,
-                     p.splits, stream)
+                     p.splits,
+                     None if order_t is None else order_t.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"conv2d kernel launch failed: cudaError_t {err} "
                            f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
@@ -178,11 +225,11 @@ class Conv2d(torch.autograd.Function):
     gradients."""
 
     @staticmethod
-    def forward(ctx, x, w, stride: int):
+    def forward(ctx, x, w, stride: int, interior_first: bool = False):
         from repro_torch.kernels import ops
         ctx.save_for_backward(x, w)
         ctx.stride = stride
-        return ops.conv2d(x, w, stride=stride)
+        return ops.conv2d(x, w, stride=stride, interior_first=interior_first)
 
     @staticmethod
     def backward(ctx, gy):
@@ -201,4 +248,52 @@ class Conv2d(torch.autograd.Function):
                 x.permute(0, 3, 1, 2),
                 (w.shape[3], w.shape[2], w.shape[0], w.shape[1]), g,
                 stride=s).permute(2, 3, 1, 0)
-        return dx, dw, None
+        return dx, dw, None, None
+
+
+def conv2d_emulated(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                    interior_first: bool = False) -> torch.Tensor:
+    """`csrc/conv2d.cu`'s tiling in plain PyTorch (any device; meant for
+    the CPU): VALID conv, NHWC x HWIO -> NHWC in x's dtype, as `conv2d`.
+
+    It follows `plan` and `tile_order`: C and F zero-padded; the pixel
+    tiles in the kernel's order, each written once (a tile left unwritten
+    stays NaN); per tile and filter tile, the K steps (tap by tap, tile_k
+    channels at a time, channels past the padded C cut off) split over
+    `splits` ranges, each range's fp32 partial summed over its steps, the
+    partials then added in split order; the stores cut at the last pixel
+    and the real F; the result rounded once to x's dtype (bf16 operands
+    are exact in their fp32 products)."""
+    check_args(x, w, stride)
+    p = plan(tuple(x.shape), tuple(w.shape), stride, x.dtype)
+    xp, wp = pad_operands(x, w, p)
+    n, h, wd, cp = xp.shape
+    kh, kw, _, f = w.shape
+    ho, wo = (h - kh) // stride + 1, (wd - kw) // stride + 1
+    m = n * ho * wo
+    taps = [xp[:, i:i + (ho - 1) * stride + 1:stride,
+               j:j + (wo - 1) * stride + 1:stride, :].reshape(m, cp).float()
+            for i in range(kh) for j in range(kw)]
+    wf = wp.float().reshape(kh * kw, cp, p.f_pad)
+    csteps = _ceil(cp, p.tile_k)
+    ksteps = kh * kw * csteps
+    per = _ceil(ksteps, p.splits)
+    tiles = _ceil(m, p.tile_m)
+    order = tile_order(tuple(x.shape), tuple(w.shape), stride, x.dtype,
+                       interior_first) or tuple(range(tiles))
+    y = torch.full((m, f), float("nan"), dtype=x.dtype, device=x.device)
+    for t in order:
+        rows = slice(t * p.tile_m, min((t + 1) * p.tile_m, m))
+        for f0 in range(0, f, p.tile_n):
+            total = None
+            for z in range(p.splits):
+                acc = torch.zeros((rows.stop - rows.start, p.tile_n),
+                                  device=x.device)
+                for ks in range(z * per, min((z + 1) * per, ksteps)):
+                    tap, c0 = ks // csteps, (ks % csteps) * p.tile_k
+                    b = wf[tap, c0:c0 + p.tile_k, f0:f0 + p.tile_n]
+                    acc[:, :b.shape[1]] += taps[tap][rows, c0:c0 + p.tile_k] @ b
+                total = acc if total is None else total + acc
+            cols = min(p.tile_n, f - f0)
+            y[rows, f0:f0 + cols] = total[:, :cols].to(x.dtype)
+    return y.reshape(n, ho, wo, f)

@@ -48,6 +48,14 @@
 //   blockIdx.y; each split writes fp32 partials to a workspace and
 //   `repro_conv2d_splitk_reduce` sums them in split order into x's dtype.
 //   No atomics: the result is deterministic.
+//
+// Tile order.  The Pallas kernel's `interior_first` visits its interior
+// row blocks before the two that read the halo rows (the §IV-A schedule
+// inside the kernel).  Here a CTA's pixels may span rows and samples, so
+// the wrapper passes the pixel tiles as a permutation (`tile_order`):
+// every tile holding an output row that reads the first or last SAME-pad
+// rows of its sample comes after all the others.  The same tiles compute
+// the same sums, so the output is bit-identical to the plain order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +76,16 @@ struct Geom {
   int f_tiles;                 // ceil(F / BN)
   int csteps, ksteps;          // K steps per tap, in all
   int per_split;               // K steps per split
+  const int32_t* order;        // pixel tile of each grid position, or null
 };
+
+// the pixel tile a CTA computes: blockIdx.x walks the pixel tiles in the
+// wrapper's `tile_order` (interior first: the tiles reading the halo rows
+// last), or in order where none is given; the filter tile is the fastest
+__device__ __forceinline__ int64_t pixel_tile(const Geom& g) {
+  const int pos = blockIdx.x / g.f_tiles;
+  return g.order ? g.order[pos] : pos;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -156,7 +173,7 @@ repro_conv2d_f32_kernel(const float* __restrict__ x,
   float* Bs = As + ST * BM * BK;                    // [ST][BK][BN]
 
   const int tid = threadIdx.x;
-  const int64_t m0 = (int64_t)(blockIdx.x / g.f_tiles) * BM;
+  const int64_t m0 = pixel_tile(g) * BM;
   const int64_t f0 = (int64_t)(blockIdx.x % g.f_tiles) * BN;
 
   // per K step this thread copies 4 channels of A_PER pixels (rows
@@ -404,7 +421,7 @@ repro_conv2d_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
 
   const int tid = threadIdx.x;
-  const int64_t m0 = (int64_t)(blockIdx.x / g.f_tiles) * TM;
+  const int64_t m0 = pixel_tile(g) * TM;
   const int64_t f0 = (int64_t)(blockIdx.x % g.f_tiles) * BN;
 
   // A: pixel rows tid/8 + 32r (r < AR), chunk tid%8 = channels
@@ -587,14 +604,16 @@ cudaError_t launch_bf16(const void* x, const void* w, void* y, void* ws,
 // or 256 x 128 for bf16; tile_k the channels per K step (f32: 8 or 16;
 // bf16: 64);
 // with splits > 1, ws is an fp32 workspace of splits * n * h_out * w_out *
-// f elements.  Every launch goes on `stream`.  Returns the cudaError_t of
-// the launches (0 on success).
+// f elements.  order is null, or a device array of the ceil(n * h_out *
+// w_out / tile_m) pixel tiles in the order their CTAs are numbered (a
+// permutation: every tile once).  Every launch goes on `stream`.  Returns
+// the cudaError_t of the launches (0 on success).
 extern "C" int repro_conv2d(const void* x, const void* w, void* y, void* ws,
                             int dtype, int64_t n, int64_t h, int64_t wd,
                             int64_t c, int64_t kh, int64_t kw, int64_t f,
                             int64_t fp, int64_t s, int64_t tile_m,
                             int64_t tile_n, int64_t tile_k, int64_t splits,
-                            void* stream) {
+                            const void* order, void* stream) {
   const int64_t align = dtype == 0 ? 4 : 8;
   if ((dtype != 0 && dtype != 1) || n < 1 || c < 1 || f < 1 || fp < f ||
       s < 1 || kh < 1 || kw < 1 || h < kh || wd < kw || kh > 64 || kw > 64 ||
@@ -620,6 +639,7 @@ extern "C" int repro_conv2d(const void* x, const void* w, void* y, void* ws,
   g.csteps = (int)csteps;
   g.ksteps = (int)ksteps;
   g.per_split = (int)((ksteps + splits - 1) / splits);
+  g.order = static_cast<const int32_t*>(order);
   const dim3 grid((unsigned)tiles, (unsigned)splits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* out = splits > 1 ? ws : y;

@@ -17,11 +17,14 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import ssd as _ssd
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, *,
-           stride: int = 1) -> torch.Tensor:
-    """VALID conv, NHWC x HWIO -> NHWC (x's dtype, fp32 accumulation)."""
+def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+           interior_first: bool = False) -> torch.Tensor:
+    """VALID conv, NHWC x HWIO -> NHWC (x's dtype, fp32 accumulation).
+    `interior_first` orders the kernel's tiles (the plain version computes
+    the same result at once)."""
     if x.is_cuda:
-        return _conv.conv2d(x, w, stride=stride)
+        return _conv.conv2d(x, w, stride=stride,
+                            interior_first=interior_first)
     if x.device.type == "cpu":
         _conv.check_args(x, w, stride)
         return _ref.conv2d_ref(x, w, stride=stride)

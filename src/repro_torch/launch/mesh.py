@@ -1,0 +1,231 @@
+"""The device mesh over `torch.distributed`, port of `repro.launch.mesh`.
+
+One process per device.  The mesh names its axes as the reference does:
+("data", "model"), with "pod" in front when it has more than one pod.
+Axis roles are the reference's: pod and data shard the sample (N)
+dimension; model is the paper's fine-grained axis (spatial H for the
+CNNs).  Ranks are laid out major-to-minor over the axes, so rank =
+(pod * data + d) * model + m.
+
+A collective over a tuple of axes (one axis, or several forming one
+product axis) runs on the process group of the ranks that differ only in
+those axes; `Mesh` creates every such group when it is built, in one
+order on every rank, because `dist.new_group` is itself collective.  A
+shard's index along a tuple of axes is its coordinates linearized
+major-to-minor in tuple order (`core/halo.py`'s convention).
+
+Transport follows the backend.  NCCL moves device tensors.  gloo moves
+host tensors: a CUDA tensor is copied to the host and back explicitly
+(`to_wire`, `wire_buffer`), and each all-reduce staged so adds one to
+`Mesh.staged` (the halo exchange counts its own in `core.halo.staged`).
+"""
+from __future__ import annotations
+
+import itertools
+import os
+
+import torch
+import torch.distributed as dist
+
+DATA_AXES = ("pod", "data")     # axes that shard the sample (N) dimension
+MODEL_AXIS = "model"            # the paper's fine-grained axis
+
+
+def axes_tuple(axis) -> tuple[str, ...]:
+    """A mesh axis spec (None, a name, or a tuple of names) as a tuple."""
+    if axis is None:
+        return ()
+    return tuple(axis) if isinstance(axis, (tuple, list)) else (axis,)
+
+
+class Mesh:
+    """Axis names and sizes, this rank's coordinates, and the process group
+    of every tuple of axes.
+
+    `shape` maps each axis name to its size, in layout order; their product
+    must be the world size of the running process group.  A mesh of one
+    rank needs no process group.  Given `rank`, the mesh only answers
+    layout questions (coordinates, indices, ranks) for that rank and makes
+    no group."""
+
+    def __init__(self, shape: dict[str, int], *, rank: int | None = None):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+        self.size = 1
+        for n in self.shape.values():
+            self.size *= n
+        self._groups: dict[tuple[int, ...], object] = {}
+        self.staged = 0
+        if rank is not None:
+            self.rank, self.backend = rank, "none"
+        elif self.size > 1 or dist.is_initialized():
+            world = dist.get_world_size()
+            if world != self.size:
+                raise ValueError(f"mesh {self.shape} has {self.size} ranks "
+                                 f"but the process group has {world}")
+            self.rank, self.backend = dist.get_rank(), dist.get_backend()
+            if self.size > 1:
+                self._make_groups()
+        else:
+            self.rank, self.backend = 0, "none"
+        if not 0 <= self.rank < self.size:
+            raise ValueError(f"rank {self.rank} outside mesh {self.shape}")
+        self.coords = dict(zip(self.axis_names, self._unravel(self.rank)))
+
+    def _unravel(self, rank: int) -> list[int]:
+        out = []
+        for n in reversed(list(self.shape.values())):
+            out.append(rank % n)
+            rank //= n
+        return out[::-1]
+
+    def rank_of(self, coords: dict[str, int]) -> int:
+        r = 0
+        for a in self.axis_names:
+            r = r * self.shape[a] + coords[a]
+        return r
+
+    def ranks(self, axes) -> list[int]:
+        """The ranks of this rank's group along `axes`, in shard-index
+        order (major-to-minor in tuple order)."""
+        axes = axes_tuple(axes)
+        out = []
+        for idx in itertools.product(*(range(self.shape[a]) for a in axes)):
+            c = dict(self.coords)
+            c.update(zip(axes, idx))
+            out.append(self.rank_of(c))
+        return out
+
+    def _make_groups(self) -> None:
+        """One process group per distinct rank set of every axis subset.
+        Every rank runs the same loop, so `new_group` is called in one
+        order everywhere, also for the groups this rank is not in."""
+        names = self.axis_names
+        for k in range(1, len(names) + 1):
+            for axes in itertools.combinations(names, k):
+                rest = [a for a in names if a not in axes]
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in rest)):
+                    base = dict(zip(rest, fixed))
+                    members = []
+                    for idx in itertools.product(
+                            *(range(self.shape[a]) for a in axes)):
+                        c = dict(base)
+                        c.update(zip(axes, idx))
+                        members.append(self.rank_of(c))
+                    key = tuple(sorted(members))
+                    if len(key) > 1 and key not in self._groups:
+                        self._groups[key] = dist.new_group(list(key))
+
+    def axis_size(self, axes) -> int:
+        """Total shard count of a (possibly product) axis."""
+        n = 1
+        for a in axes_tuple(axes):
+            n *= self.shape[a]
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's shard index along `axes`, linearized major-to-minor
+        in tuple order."""
+        i = 0
+        for a in axes_tuple(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axes):
+        """The process group of `axes` (None where it is one rank)."""
+        return self._groups.get(tuple(sorted(self.ranks(axes))))
+
+    # ---------------------------------------------------------- transport
+
+    def to_wire(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` as the backend sends it: NCCL takes device tensors as they
+        are, gloo host tensors (a CUDA tensor is copied out)."""
+        if self.stages(t.device):
+            return t.detach().cpu().contiguous()
+        return t.detach().contiguous()
+
+    def wire_buffer(self, shape, dtype, device) -> torch.Tensor:
+        """An empty receive buffer where the backend receives: on the host
+        for gloo, on `device` for NCCL."""
+        dev = torch.device("cpu") if self.backend == "gloo" else device
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    def stages(self, device: torch.device) -> bool:
+        """Whether a tensor on `device` goes through the host."""
+        return self.backend == "gloo" and device.type == "cuda"
+
+    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """Sum of `t` over the ranks of `axes`, as a new tensor on t's
+        device (`t` itself where the group is one rank).  Not
+        differentiable: `core.spatial_norm` wraps it for autograd."""
+        group = self.group(axes)
+        if group is None:
+            return t
+        buf = self.to_wire(t)
+        buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
+        dist.all_reduce(buf, group=group)
+        if buf.device != t.device:
+            self.staged += 1
+            buf = buf.to(t.device)
+        return buf
+
+
+def make_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
+    """The mesh of the running process group: ("pod", "data", "model")
+    with pod > 1, else ("data", "model"), as the reference names them."""
+    if pod > 1:
+        return Mesh({"pod": pod, "data": data, "model": model})
+    return Mesh({"data": data, "model": model})
+
+
+def init_distributed(device: torch.device) -> tuple[int, int, int]:
+    """Join the process group and return (rank, world size, local rank).
+
+    A process group that already exists is used as it is (how
+    `chip_smoke.py` runs gloo ranks on one card).  Otherwise torchrun's
+    environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT)
+    names it, with NCCL for a CUDA device and gloo for the CPU; without
+    that environment the process runs alone."""
+    if dist.is_initialized():
+        rank = dist.get_rank()
+        return rank, dist.get_world_size(), int(
+            os.environ.get("LOCAL_RANK", rank))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return 0, 1, 0
+    rank = int(os.environ["RANK"])
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    if device.type == "cuda":
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(
+        backend="nccl" if device.type == "cuda" else "gloo",
+        rank=rank, world_size=world)
+    return rank, world, local
+
+
+def elastic_factorization(n: int, *, batch: int | None = None
+                          ) -> tuple[int, int]:
+    """A (data, model) factorization of `n` devices: the most balanced
+    split whose data size divides the global batch; when nothing divides,
+    everything lands on the model axis."""
+    best = 1
+    for data in range(1, int(n ** 0.5) + 1):
+        if n % data == 0 and (batch is None or batch % data == 0):
+            best = data
+    return best, n // best
+
+
+def batch_axes(mesh: Mesh | None) -> tuple[str, ...]:
+    if mesh is None:
+        return ()
+    return tuple(a for a in DATA_AXES if a in mesh.axis_names)
+
+
+def model_axis_size(mesh: Mesh | None) -> int:
+    return 1 if mesh is None else mesh.shape.get(MODEL_AXIS, 1)
+
+
+def mesh_shape(mesh: Mesh | None) -> dict[str, int] | None:
+    """The axis sizes of `mesh` (None for one device)."""
+    return None if mesh is None else dict(mesh.shape)

@@ -1,8 +1,11 @@
-"""The trainer on one device, port of the single-device paths of
-`repro.launch.train`: the mesh-tangling CNNs and the ported LM archs.
+"""The trainer, port of `repro.launch.train`: the mesh-tangling CNNs on one
+device or on a (pod, data, model) mesh of processes, and the ported LM
+archs on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mesh1k \
       --steps 3 --batch 2 [--device cuda|cpu] [--smoke]
+  PYTHONPATH=src torchrun --nproc-per-node M -m repro_torch.launch.train \
+      --arch mesh1k --model M [--data D] [--pod P] --batch B
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --steps 3 --batch 1 --seq 2048 [--bf16] [--device cuda|cpu] [--smoke]
 
@@ -15,8 +18,16 @@ every SSD intra-chunk pass through the SSD-chunk kernel
 with SGD + momentum on a warmup(10) + cosine schedule; the LMs train with
 AdamW on a warmup(20) + cosine schedule, under FP32 unless `--bf16`
 (bf16 compute, fp32 master weights), on `synthetic_lm_batch` token
-batches of `--seq` tokens.  The reference's `--strategy`, `--calibrate`,
-`--mem-limit`, `--remat`, the mesh flags, checkpoints, `--elastic` and
+batches of `--seq` tokens.
+
+With more than one process (torchrun's environment, or a process group
+that already exists), the CNNs train under the reference's uniform plan,
+`ConvSharding(batch_axes=("pod", "data"), h_axis="model")`: N over the
+data axes, H over the model axis, a halo exchange and the §IV-A
+interior/boundary conv split at every layer.  `--batch` is the global
+batch; rank r runs on `cuda:(local_rank % device_count)` (NCCL) or the
+CPU (gloo); only rank 0 prints and writes metrics.  `--strategy auto`,
+`--calibrate`, `--mem-limit`, `--remat`, checkpoints, `--elastic` and
 `--chaos` come with their slices and are refused until then.
 """
 from __future__ import annotations
@@ -30,6 +41,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.data import pipeline
+from repro_torch.launch.mesh import batch_axes, init_distributed, make_mesh
 from repro_torch.models.cnn import meshnet
 from repro_torch.models.lm import transformer
 from repro_torch.optim.optimizer import adamw, sgd, warmup_cosine
@@ -58,71 +70,142 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="BF16 precision: bf16 compute, fp32 master weights "
                          "(LM archs; the CNNs train in FP32)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--data", type=int, default=1,
+                    help="mesh data axis (sample parallelism)")
+    ap.add_argument("--model", type=int, default=1,
+                    help="mesh model axis (spatial H for the CNNs)")
+    ap.add_argument("--pod", type=int, default=1,
+                    help="mesh pod axis (sample parallelism across pods)")
+    ap.add_argument("--strategy", default="uniform",
+                    choices=["uniform", "auto"],
+                    help="per-layer plan: the uniform sample x spatial plan "
+                         "(auto: the solver, not ported yet)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics", nargs="?", const="METRICS.jsonl",
                     default=None, metavar="PATH",
                     help="write JSONL step records to PATH")
     args = ap.parse_args(argv)
+    if args.strategy == "auto":
+        ap.error("--strategy auto needs the strategy solver "
+                 "(core/{distribution,perfmodel,strategy}.py, the solver "
+                 "slice), which is not ported yet; use --strategy uniform")
+    if min(args.data, args.model, args.pod) < 1:
+        ap.error("--data, --model and --pod must be >= 1")
+    if args.batch % (args.data * args.pod):
+        ap.error(f"--batch {args.batch} (the global batch) must divide over "
+                 f"the data axes (pod {args.pod} x data {args.data})")
     if args.bf16 and registry.canon(args.arch) in registry.CNN_ARCHS:
         ap.error("--bf16 covers the LM archs; the CNN archs train in FP32, "
                  "as in the reference")
     return args
 
 
-def set_fp32_numerics(device: torch.device) -> None:
+def set_fp32_numerics(device: torch.device, echo: bool = True) -> None:
     """FP32 means full fp32 on the card: cuDNN would otherwise run the
     backward convs (and cuBLAS any matmul) in TF32."""
     if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        print("fp32 precision: TF32 off for cuDNN and cuBLAS")
+        if echo:
+            print("fp32 precision: TF32 off for cuDNN and cuBLAS")
 
 
-def build(args: argparse.Namespace, device: torch.device):
-    """(cfg, params, optimizer, loss_fn, batch factory, precision) of the
-    arch.  Params are drawn from a CPU generator seeded with `--seed`, so
-    the card and the CPU start from the same weights."""
+def check_fits(cfg, plan: ConvSharding, mesh) -> None:
+    """Refuse a mesh on which some layer's geometry drops a spatial axis
+    (§III-A): that layer would need a reshard, which comes with the plan
+    slice."""
+    shape = dict(mesh.shape)
+    for name, _, hw, _, k, s in meshnet.layer_geometry(cfg):
+        if plan.fit(hw, hw, k, s, shape) != plan:
+            raise SystemExit(
+                f"layer {name} ({k}x{k} stride {s} at {hw}x{hw}) cannot be "
+                f"split over {plan.h_axis} on mesh {shape} (§III-A: each "
+                f"shard must divide evenly and hold at least max(k, s) "
+                f"rows); it would need a reshard, which comes with the "
+                f"plan slice")
+
+
+def build(args: argparse.Namespace, device: torch.device, mesh=None):
+    """(cfg, params, optimizer, loss_fn, batch factory, precision, plan) of
+    the arch.  Params are drawn from a CPU generator seeded with `--seed`,
+    so every rank, the card and the CPU start from the same weights.  On a
+    mesh the batch factory returns this rank's block of the global batch."""
     cfg = registry.get(args.arch, smoke=args.smoke)
     gen = torch.Generator().manual_seed(args.seed)
     if registry.canon(args.arch) in registry.CNN_ARCHS:
-        # the uniform one-device plan.  A JAX mesh of size 1 with the
-        # reference's uniform ConvSharding(h_axis="model") computes the
-        # same SAME conv: the halos of an axis of size 1 are zeros.
+        if mesh is None:
+            # one device.  A JAX mesh of size 1 under the reference's
+            # uniform ConvSharding(h_axis="model") computes the same SAME
+            # conv: the halos of an axis of size 1 are zeros.
+            plan = ConvSharding()
+        else:
+            plan = ConvSharding(batch_axes=batch_axes(mesh),
+                                h_axis="model")
+            check_fits(cfg, plan, mesh)
         params = meshnet.MeshNet(cfg, generator=gen, device=device).params()
         opt = sgd(warmup_cosine(args.lr, 10, args.steps), momentum=0.9)
-        loss = functools.partial(meshnet.loss_fn, cfg=cfg,
-                                 plan=ConvSharding())
-        mk = functools.partial(pipeline.synthetic_mesh_batch,
-                               batch=args.batch, hw=cfg.input_hw,
-                               channels=cfg.in_channels, out_hw=cfg.out_hw)
-        return cfg, params, opt, loss, mk, FP32
+        loss = functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
+                                 mesh=mesh)
+        mk_global = functools.partial(
+            pipeline.synthetic_mesh_batch, batch=args.batch,
+            hw=cfg.input_hw, channels=cfg.in_channels, out_hw=cfg.out_hw)
+
+        def mk(step):
+            return pipeline.shard_batch(mk_global(step), mesh, plan)
+        return cfg, params, opt, loss, mk, FP32, plan
+    if mesh is not None:
+        raise SystemExit(f"{cfg.name} trains on one device in this port "
+                         f"(the ring over torch.distributed is not ported "
+                         f"yet); run it without a mesh")
     params = transformer.init(gen, cfg, device=device)
     opt = adamw(warmup_cosine(args.lr, 20, args.steps))
     loss = functools.partial(transformer.loss_fn, cfg=cfg)
     mk = functools.partial(pipeline.synthetic_lm_batch, batch=args.batch,
                            seq=args.seq, vocab=cfg.vocab)
-    return cfg, params, opt, loss, mk, BF16 if args.bf16 else FP32
+    return cfg, params, opt, loss, mk, BF16 if args.bf16 else FP32, None
+
+
+def setup(args: argparse.Namespace):
+    """(device, mesh, rank) of this process: joins the process group where
+    there is one (`launch.mesh.init_distributed`), checks that its size is
+    pod x data x model, and picks `cuda:(local_rank % device_count)`."""
+    device = resolve_device(args.device)
+    rank, world, local = init_distributed(device)
+    n = args.pod * args.data * args.model
+    if world != n:
+        raise SystemExit(f"{world} processes for a mesh of pod {args.pod} x "
+                         f"data {args.data} x model {args.model} = {n}")
+    if device.type == "cuda":
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    mesh = make_mesh(args.data, args.model, args.pod) if world > 1 else None
+    return device, mesh, rank
 
 
 def run(args: argparse.Namespace) -> dict:
     """Train `args.steps` steps; returns the config it trained, the losses,
     the seconds of each step (batch included) and of its batch's wait and
-    copy."""
-    device = resolve_device(args.device)
-    set_fp32_numerics(device)
-    cfg, params, opt, loss, mk, prec = build(args, device)
+    copy, and the trained params."""
+    device, mesh, rank = setup(args)
+    lead = rank == 0
+    set_fp32_numerics(device, echo=lead)
+    cfg, params, opt, loss, mk, prec, plan = build(args, device, mesh)
     n_params = sum(p.numel() for p in tree_leaves(params))
     tstep = make_train_step(loss, opt, TrainStepConfig(
-        grad_accum=args.grad_accum, precision=prec))
+        grad_accum=args.grad_accum, precision=prec), mesh=mesh)
     opt_state = opt.init(params)
-    print(f"arch={cfg.name} params={human_count(n_params)} device={device}")
+    where = f"mesh={dict(mesh.shape)} plan={plan}" if mesh else ""
+    if lead:
+        print(f"arch={cfg.name} params={human_count(n_params)} "
+              f"device={device} {where}".rstrip())
 
     losses, step_s, data_s = [], [], []
     pf = pipeline.Prefetcher(mk)
-    mlog = MetricsLogger(args.metrics)
+    mlog = MetricsLogger(args.metrics if lead else None, echo=lead)
     try:
         mlog.log_run(arch=cfg.name, n_params=n_params, device=str(device),
-                     batch=args.batch, steps=args.steps, strategy="uniform")
+                     batch=args.batch, steps=args.steps, strategy="uniform",
+                     mesh=dict(mesh.shape) if mesh else None)
         for step in range(args.steps):
             t0 = time.perf_counter()
             batch = pipeline.to_device(pf.get(step), device)
@@ -133,15 +216,16 @@ def run(args: argparse.Namespace) -> dict:
             mlog.log_step(step, losses[-1], step_time_s=step_s[-1],
                           samples_per_s=args.batch / step_s[-1],
                           grad_norm=float(m["grad_norm"]),
-                          echo=step % args.log_every == 0)
+                          echo=lead and step % args.log_every == 0)
         mlog.log_done(args.steps, loss=losses[-1] if losses else None)
     finally:
         pf.close()
         mlog.close()
-    if losses:
+    if losses and lead:
         print(f"done at step {args.steps}; final loss {losses[-1]:.4f}")
     return {"cfg": cfg, "losses": losses, "step_s": step_s,
-            "data_s": data_s, "n_params": n_params}
+            "data_s": data_s, "n_params": n_params, "params": params,
+            "mesh": mesh}
 
 
 def main(argv=None) -> dict:

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.spatial_conv import ConvSharding
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.cnn import layers as L
 
 VGG_WIDTHS = (64, 128, 256, 512, 512, 512)
@@ -63,34 +64,70 @@ def layer_names(cfg: MeshNetConfig) -> list[str]:
             for i in range(cfg.convs_per_block)] + ["pred"]
 
 
+def layer_geometry(cfg: MeshNetConfig) -> list[tuple]:
+    """(name, c_in, hw_in, f, k, stride) of every conv, in execution
+    order: the stride-2 conv at each block head, then the 1x1 pred."""
+    out, c, hw = [], cfg.in_channels, cfg.input_hw
+    names = layer_names(cfg)
+    for b, width in enumerate(cfg.widths):
+        for i in range(cfg.convs_per_block):
+            s = 2 if i == 0 else 1
+            out.append((names[len(out)], c, hw, width, 3, s))
+            hw //= s
+            c = width
+    out.append(("pred", c, hw, cfg.n_classes, 1, 1))
+    return out
+
+
 def apply(params: Sequence[dict], x: torch.Tensor, cfg: MeshNetConfig,
-          plan: ConvSharding | None = None) -> torch.Tensor:
-    """x: (N, H, W, C_in) -> per-pixel logits (N, H/64, W/64, n_classes).
+          plan: ConvSharding | None = None, mesh: Mesh | None = None,
+          overlap: bool = True) -> torch.Tensor:
+    """This rank's block x (N, H, W, C_in) -> its block of the per-pixel
+    logits (N, H/64, W/64, n_classes).
 
     `plan`: one ConvSharding for every layer (None: `ConvSharding()`, the
-    one-device plan).  Per-layer plans come with the solver slice."""
+    one-device plan); per-layer plans come with the solver slice.  `mesh`:
+    the process mesh the plan's axes name (None: one device).  Each layer
+    fits the plan to its global extents (§III-A); BN takes the conv
+    output's 1x1 fit, as the reference."""
     sh = plan or ConvSharding()
     for li in range(len(params) - 1):
         lp = params[li]
         stride = 2 if li % cfg.convs_per_block == 0 else 1
-        x = L.conv_apply(lp["conv"], x, stride=stride, sharding=sh)
-        x = L.bn_apply(lp["bn"], x, sharding=sh, scope=cfg.bn_scope)
+        x = L.conv_apply(lp["conv"], x, stride=stride, sharding=sh,
+                         mesh=mesh, overlap=overlap)
+        x = L.bn_apply(lp["bn"], x, sharding=L.fitted(sh, x, 1, 1, mesh),
+                       mesh=mesh, scope=cfg.bn_scope)
         x = L.relu(x)
-    return L.conv_apply(params[-1]["conv"], x, stride=1, sharding=sh)
+    return L.conv_apply(params[-1]["conv"], x, stride=1, sharding=sh,
+                        mesh=mesh, overlap=overlap)
 
 
 def loss_fn(params: Sequence[dict], batch: dict, cfg: MeshNetConfig,
-            plan: ConvSharding | None = None) -> torch.Tensor:
-    """Per-pixel sigmoid BCE of the model's logits."""
-    return bce_loss(apply(params, batch["image"], cfg, plan), batch["label"])
+            plan: ConvSharding | None = None, mesh: Mesh | None = None,
+            overlap: bool = True) -> torch.Tensor:
+    """Per-pixel sigmoid BCE of the model's logits: this rank's share of
+    the global mean, its local BCE sum over the GLOBAL element count.
+    Summed over the ranks (`Mesh.all_reduce`) it is the global mean; its
+    gradient, summed over the ranks, is the global mean's."""
+    sh = plan or ConvSharding()
+    logits = apply(params, batch["image"], cfg, plan, mesh, overlap)
+    shards = 1 if mesh is None else \
+        mesh.axis_size(tuple(sh.batch_axes) + sh.spatial_axes)
+    return bce_sum(logits, batch["label"]) / (logits.numel() * shards)
 
 
-def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean sigmoid BCE in fp32, written out as the reference does."""
+def bce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Sum of the sigmoid BCE in fp32, written out as the reference does."""
     logits = logits.float()
     bce = torch.clamp_min(logits, 0) - logits * labels \
         + torch.log1p(torch.exp(-logits.abs()))
-    return bce.mean()
+    return bce.sum()
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid BCE in fp32 (one device)."""
+    return bce_sum(logits, labels) / logits.numel()
 
 
 class MeshNet(nn.Module):

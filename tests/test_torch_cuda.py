@@ -107,6 +107,48 @@ def test_function_grads_match_plain(cuda, h, w, c, f, k, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", [1, 2])
+def test_interior_first_is_bit_identical_at_mesh1k_shapes(cuda, dtype,
+                                                          model):
+    """The tile order is a pure reorder: at every mesh1k conv, batch 2, on
+    one device and on a 2-way H shard (halo rows included), the output
+    with `interior_first` equals the plain order's bit for bit."""
+    from repro_torch.models.cnn import meshnet
+    from repro_torch.utils import same_pads
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for name, c, hw, f, k, s in meshnet.layer_geometry(meshnet.MESH1K):
+        lo, hi = same_pads(k, s)
+        x = torch.randn((2, hw // model + lo + hi, hw + lo + hi, c),
+                        generator=gen, device=cuda).to(tdt)
+        w = (torch.randn((k, k, c, f), generator=gen, device=cuda)
+             * 0.1).to(tdt)
+        plain = tconv.conv2d(x, w, stride=s)
+        first = tconv.conv2d(x, w, stride=s, interior_first=True)
+        torch.cuda.synchronize()
+        assert torch.equal(plain, first), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c,f,k,s", SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_emulation_matches_the_kernel(cuda, h, w, c, f, k, s, dtype):
+    """The CPU emulation of the tiling against the kernel on the card, at
+    the kernel's tolerance."""
+    x, wt = _inputs(h, w, c, f, k)
+    tdt = getattr(torch, dtype)
+    xd = torch.from_numpy(x).to(cuda, tdt)
+    wd = torch.from_numpy(wt).to(cuda, tdt)
+    got = tconv.conv2d(xd, wd, stride=s, interior_first=True)
+    torch.cuda.synchronize()
+    emu = tconv.conv2d_emulated(xd.cpu(), wd.cpu(), stride=s,
+                                interior_first=True)
+    np.testing.assert_allclose(got.float().cpu().numpy(), emu.float().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(1, 6, 6, 4, device=cuda)
     w = torch.zeros(3, 3, 4, 8, device=cuda)

@@ -42,7 +42,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.lm.config",
                 "repro_torch.models.lm.modules",
                 "repro_torch.models.lm.transformer",
-                "repro_torch.configs.hymba_1_5b"}
+                "repro_torch.configs.hymba_1_5b",
+                "repro_torch.launch.mesh", "repro_torch.core.halo",
+                "repro_torch.core.spatial_conv",
+                "repro_torch.core.spatial_norm",
+                "repro_torch.models.cnn.layers"}
     assert expected <= set(out["modules"])
 
 

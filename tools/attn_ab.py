@@ -55,7 +55,7 @@ def step_only(src: str) -> dict:
     args = train_cli.parse_args(["--arch", "hymba-1.5b", "--batch", "1",
                                  "--seq", "2048"])
     train_cli.set_fp32_numerics(dev)
-    _, params, _, loss, mk, _ = train_cli.build(args, dev)
+    _, params, _, loss, mk, _, _ = train_cli.build(args, dev)
     batch = pipeline.to_device(mk(0), dev)
     out = {"src": src}
     for name, prec in (("fp32", FP32), ("bf16", BF16)):
