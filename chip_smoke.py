@@ -40,6 +40,19 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    one more step profiled and the gradient all-reduce timed; then 4
    ranks (2 x 2, H x W) for block 1's two conv shapes.  Two processes
    sharing one card over gloo: not a scaling result;
+4c. the auto plan, the paper's own loop: solve full-width mesh1k at batch
+   2 on data 1 x model 2 with the H100 preset (it must have a CF layer
+   and a reshard) and print it with each reshard's bytes; spawn 2 ranks
+   on the card over gloo: CF conv parity at conv4_2, conv5_1 and conv6_3 (channel mode at
+   chunks 1 and 2, filter mode: each rank's blocks of y, dx and the
+   summed dw against the float64 conv, the kernel's plan at each shard
+   shape), 3 training steps through the trainer's own entry
+   (`--strategy auto`): equal losses and params, the conv launches a step
+   the plan derives, the bytes the reshards send; the forward loss of one
+   global batch under the plan against 2 gloo CPU ranks' (plain
+   versions); one more step profiled, with the host time of the
+   `cf_reduce_scatter`, `cf_all_gather` and `reshard` ranges.  Not a
+   scaling result either;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
    2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
    32 x 3 launches of each LM kernel;
@@ -74,7 +87,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import hymba_1_5b  # noqa: E402
-from repro_torch.core import halo  # noqa: E402
+from repro_torch.core import channel_conv, collectives, halo  # noqa: E402
+from repro_torch.core import plan as plan_lib  # noqa: E402
+from repro_torch.core.perfmodel import H100  # noqa: E402
 from repro_torch.core.spatial_conv import (  # noqa: E402
     ConvSharding, conv_calls, spatial_conv2d, split_rows)
 from repro_torch.data import pipeline  # noqa: E402
@@ -85,7 +100,7 @@ from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     conv2d_ref, flash_attention_ref, ssd_chunked_ref)
 from repro_torch.launch import train as train_cli  # noqa: E402
-from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
 from repro_torch.models.cnn import meshnet  # noqa: E402
 from repro_torch.models.lm import modules as lm_modules  # noqa: E402
 from repro_torch.models.lm import transformer  # noqa: E402
@@ -510,10 +525,12 @@ def _block(t: torch.Tensor, mesh, sh: ConvSharding) -> torch.Tensor:
 
 
 def _conv_f64(x: torch.Tensor, w: torch.Tensor, s: int) -> torch.Tensor:
-    """The SAME conv in float64 through the plain version: the exact
-    reference both f32 paths are held against."""
+    """The SAME conv in float64 (`F.conv2d` on NCHW / OIHW views of the
+    padded input; `conv2d_ref` sums in fp32): the exact reference the f32
+    paths are held against."""
     pads = same_pads(w.shape[0], s)
-    return conv2d_ref(F.pad(x, (0, 0) + pads + pads), w, stride=s)
+    xp = F.pad(x, (0, 0) + pads + pads).permute(0, 3, 1, 2)
+    return F.conv2d(xp, w.permute(3, 2, 0, 1), stride=s).permute(0, 2, 3, 1)
 
 
 def conv_parity(mesh, sh: ConvSharding, layers) -> list[dict]:
@@ -785,6 +802,353 @@ def spatial_phase(card: str) -> dict:
               f"through gloo) {b['grad_all_reduce_ms']:.2f} ms ({card})")
     return {"ranks": ranks, "hw_ranks": hw4, "launches_per_step": per_step,
             "staged_per_step": halo_step, "loss_rel_diff": rel}
+
+
+# ------------------------------------------------------ the auto plan --
+
+AUTO_MESH = {"data": 1, "model": SPATIAL_MODEL}
+# the CF conv-parity layers of full-width mesh1k: (layer, mode, chunks)
+CF_PARITY = [(layer, mode, chunks) for layer in ("conv4_2", "conv5_1",
+                                                 "conv6_3")
+             for mode, chunks in (("channel", 1), ("channel", 2),
+                                  ("filter", 1))]
+# the record_function ranges of the plan's collectives (host time)
+AUTO_RANGES = ("cf_reduce_scatter", "cf_all_gather", "reshard")
+
+
+def auto_plan():
+    """The plan `--strategy auto` solves on the card for full-width mesh1k
+    at batch BATCH on AUTO_MESH (the H100 preset)."""
+    return plan_lib.plan_line(H100, meshnet.layer_specs(
+        meshnet.MESH1K, BATCH), AUTO_MESH)
+
+
+def plan_kinds(plan) -> list[str]:
+    """Each layer's kind: CF, or the spatial split, or sample, or R."""
+    out = []
+    for lp in plan.layers.values():
+        sh = lp.sharding
+        out.append("CF" if getattr(sh, "cf_axis", None) else
+                   "HW"[0 if sh.h_axis else 1] if sh.is_spatial else
+                   "N" if sh.batch_axes else "R")
+    return out
+
+
+def plan_conv_calls(plan, specs) -> int:
+    """Conv kernel launches of one forward under `plan` on one rank: one a
+    sample, replicated or channel/filter layer (`chunks` in chunked
+    channel mode), `conv_calls` of its local extent a spatially split
+    one (CF x spatial too)."""
+    n = 0
+    for spec in specs:
+        sh = plan.sharding(spec.name)
+        cf = getattr(sh, "cf_axis", None) is not None
+        if sh.is_spatial:
+            axis = sh.w_axis if sh.w_axis is not None else sh.h_axis
+            ext = spec.w if sh.w_axis is not None else spec.h
+            n += conv_calls(ext // Mesh(AUTO_MESH, rank=0).axis_size(axis),
+                            spec.k, spec.s)
+        elif cf and sh.mode == "channel":
+            n += min(channel_conv.default_channel_chunks(),
+                     spec.c // SPATIAL_MODEL)
+        else:
+            n += 1
+    return n
+
+
+def plan_staged(plan, specs, scope: str) -> int:
+    """Collectives one training step under `plan` stages through the host
+    on one rank (gloo, CUDA tensors; halos apart): a BN whose statistics
+    are summed over more than one rank, and each CF collective and each
+    reshard's all-gather or all-to-all, forward and backward alike; then
+    the gradient and the loss all-reduces."""
+    shape = Mesh(AUTO_MESH, rank=0)
+    n = 2
+    for i, spec in enumerate(specs):
+        lp = plan.layers[spec.name]
+        if lp.reshard_in:
+            prev = plan.out_sharding(specs[i - 1].name)
+            n += 2 * sum(op != "slice" for op, *_ in
+                         collectives.reshard_steps(
+                             collectives.layout(prev),
+                             collectives.layout(lp.sharding)))
+        sh = lp.sharding
+        if getattr(sh, "cf_axis", None) is not None:
+            n += 2 * (1 if sh.is_spatial or sh.mode == "filter" else
+                      min(channel_conv.default_channel_chunks(),
+                          spec.c // SPATIAL_MODEL))
+        if spec.name == "pred":
+            continue
+        bn = lp.out_sharding
+        if getattr(bn, "cf_axis", None) is not None or bn.is_spatial:
+            axes = () if scope == "local" else bn.spatial_axes + (
+                tuple(bn.batch_axes) if scope == "global" else ())
+        else:
+            axes = tuple(bn.batch_axes)
+        n += 2 * (shape.axis_size(axes) > 1)
+    return n
+
+
+def cf_parity(mesh) -> list[dict]:
+    """At each CF_PARITY row of full-width mesh1k, batch BATCH, f32: this
+    rank's block of y (F-sharded), of dx (C-sharded) and the mesh-summed
+    dw of `cf_conv2d`, each against the conv in float64 on the card, with
+    the conv kernel's plan at the shard shape and its launches."""
+    dev, rows = torch.device("cuda"), []
+    geo = {g[0]: g for g in meshnet.layer_geometry(meshnet.MESH1K)}
+    p = mesh.axis_size("model")
+    for li, (name, mode, chunks) in enumerate(CF_PARITY):
+        _, c, hw, f, k, s = geo[name]
+        gen = torch.Generator(device=dev).manual_seed(200 + li)
+        x = torch.randn((BATCH, hw, hw, c), generator=gen, device=dev)
+        w = torch.randn((k, k, c, f), generator=gen, device=dev) \
+            * math.sqrt(2.0 / (k * k * c))
+        g = torch.randn((BATCH, hw // s, hw // s, f), generator=gen,
+                        device=dev)
+        a = x.double().requires_grad_()
+        b = w.double().requires_grad_()
+        y64 = _conv_f64(a, b, s)
+        (y64 * g.double()).sum().backward()
+        dx64, dw64 = a.grad, b.grad
+        del a, b
+        xl = pipeline.shard_dim(x, 3, mesh, "model").contiguous() \
+            .requires_grad_()
+        wl = w.clone().requires_grad_()
+        sh = channel_conv.CFSharding(cf_axis="model", mode=mode)
+        before = kconv.conv2d.launches
+        y = channel_conv.cf_conv2d(xl, wl, strides=(s, s), sharding=sh,
+                                   mesh=mesh, channel_chunks=chunks)
+        calls = kconv.conv2d.launches - before
+        (y * pipeline.shard_dim(g, 3, mesh, "model")).sum().backward()
+        dw = reduce_replicated_grads([wl.grad], mesh)[0]
+        torch.cuda.synchronize()
+        lo, hi = same_pads(k, s)
+        c_loc = c // p // chunks if mode == "channel" else c
+        f_loc = f if mode == "channel" else f // p
+        kp = kconv.plan((BATCH, hw + lo + hi, hw + lo + hi, c_loc),
+                        (k, k, c_loc, f_loc), s, torch.float32)
+        what = f"CF conv {name} {mode} chunks {chunks} rank {mesh.rank}"
+        row = {"layer": name, "mode": mode, "chunks": chunks,
+               "x": [BATCH, hw, hw, c], "f": f, "stride": s,
+               "shard": [BATCH, hw + lo + hi, hw + lo + hi, c_loc, f_loc],
+               "plan": dataclasses.asdict(kp), "calls": calls,
+               "want_calls": chunks if mode == "channel" else 1}
+        for nm, got, exact, tol in (
+                ("y", y.detach(), pipeline.shard_dim(y64, 3, mesh, "model"),
+                 SPATIAL_FWD_TOL),
+                ("dx", xl.grad, pipeline.shard_dim(dx64, 3, mesh, "model"),
+                 SPATIAL_BWD_TOL),
+                ("dw", dw, dw64, SPATIAL_BWD_TOL)):
+            row[f"err_{nm}"] = _check_close(f"{what} {nm}", got, exact, tol)
+        rows.append(row)
+        del x, w, g, y64, dx64, dw64, xl, wl, y, dw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _plan_loss(plan_spec: dict, mesh, dev: torch.device) -> float:
+    """The full-width mesh1k forward loss of global batch 0 (seed-0
+    params) under the plan `plan_spec` lowers to, summed over the ranks."""
+    cfg = meshnet.MESH1K
+    specs = meshnet.layer_specs(cfg, BATCH)
+    plan = plan_lib.plan_from_spec(plan_spec, specs, AUTO_MESH)
+    model = meshnet.MeshNet(cfg, generator=torch.Generator().manual_seed(0),
+                            device=dev)
+    nb = pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
+                                       cfg.in_channels, out_hw=cfg.out_hw)
+    b = pipeline.to_device(pipeline.shard_batch(
+        nb, mesh, plan.sharding(specs[0].name), plan.sharding("pred")), dev)
+    with torch.no_grad():
+        part = meshnet.loss_fn(model.params(), b, cfg, plan, mesh)
+        return float(mesh.all_reduce(part, mesh.axis_names))
+
+
+def auto_cpu_rank(rank: int, world: int, plan_spec: dict) -> dict:
+    """One of 2 gloo ranks on the CPU (plain versions): `_plan_loss`."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    mesh = make_mesh(**AUTO_MESH)
+    t0 = time.perf_counter()
+    loss = _plan_loss(plan_spec, mesh, torch.device("cpu"))
+    return {"loss": loss, "seconds": time.perf_counter() - t0}
+
+
+def auto_rank(rank: int, world: int) -> dict:
+    """One of 2 ranks on the card: (a) the CF conv-parity rows; (b) 3
+    training steps through the trainer's own entry under `--strategy auto`,
+    with its conv launches, staged
+    messages and bytes sent by each collective; (c) the forward loss of
+    one global batch under that plan; (d) one more step profiled."""
+    mesh = make_mesh(**AUTO_MESH)
+    rows = cf_parity(mesh)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    halo.reset_staged()
+    collectives.reset_sent()
+    res = train_cli.main(["--arch", "mesh1k", "--batch", str(BATCH),
+                          "--steps", str(STEPS), "--model",
+                          str(SPATIAL_MODEL), "--device", "cuda",
+                          "--strategy", "auto", "--log-every", "1"])
+    launches, staged = ops.launch_counts()["conv2d"], halo.staged
+    collectives_staged, sent = res["mesh"].staged, dict(collectives.sent)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = res["plan"]
+    spec = plan.to_spec(AUTO_MESH)
+    loss = _plan_loss(spec, mesh, torch.device("cuda"))
+    breakdown = auto_step_breakdown(res["params"], mesh, plan)
+    return {"cf_rows": rows, "losses": res["losses"],
+            "step_s": res["step_s"], "data_s": res["data_s"],
+            "launches": launches, "staged": staged,
+            "collectives_staged": collectives_staged, "sent": sent,
+            "peak_gib": peak, "plan_spec": spec,
+            "describe": plan.describe(), "loss_card": loss,
+            "breakdown": breakdown,
+            "digest": [float(p.detach().double().sum())
+                       for p in tree_leaves(res["params"])]}
+
+
+def auto_step_breakdown(params, mesh, plan) -> dict:
+    """One more training step of this rank under `plan` (batch on the card,
+    lr 0) under torch.profiler: device kernels by kind (the copies that
+    stage gloo's collectives apart), and the host time of the plan's
+    collective ranges (AUTO_RANGES)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg, dev = meshnet.MESH1K, torch.device("cuda")
+    specs = meshnet.layer_specs(cfg, BATCH)
+    opt = sgd(0.0, momentum=0.9)
+    step = make_train_step(functools.partial(
+        meshnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh), opt,
+        TrainStepConfig(precision=FP32), mesh=mesh)
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.shard_batch(
+        pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
+                                      cfg.in_channels, out_hw=cfg.out_hw),
+        mesh, plan.sharding(specs[0].name), plan.sharding("pred")), dev)
+    float(step(params, state, batch)[2]["loss"])        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(step(params, state, batch)[2]["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict[str, float] = {}
+    ranges = {k: 0.0 for k in AUTO_RANGES}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n_kernels += 1
+            name = e.name.lower()
+            g = "memcpy (gloo's host staging)" if "memcpy" in name \
+                else cnn_kind(name)
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+        elif e.name in ranges:
+            ranges[e.name] += e.time_range.elapsed_us() / 1e3
+    return {"wall_ms": wall_ms, "groups": groups, "n_kernels": n_kernels,
+            "device_ms": sum(groups.values()), "host_ranges_ms": ranges}
+
+
+def auto_phase(card: str) -> dict:
+    """The paper's own loop, `--strategy auto`, as 2 processes sharing the
+    one card over gloo (not a scaling result): the solve on the H100
+    preset, 3 trainer steps, the CF conv parity at the CF
+    shard shapes, the card's forward loss under the plan against 2 gloo
+    CPU ranks' and one profiled step."""
+    specs = meshnet.layer_specs(meshnet.MESH1K, BATCH)
+    solved = auto_plan()
+    kinds = plan_kinds(solved)
+    if "CF" not in kinds or solved.n_reshards == 0:
+        raise AssertionError(f"auto plan without a CF layer or a reshard: "
+                             f"{kinds}")
+    ranks = spawn_ranks(auto_rank, SPATIAL_MODEL)
+    if ranks[0]["plan_spec"]["layers"] != solved.to_spec()["layers"]:
+        raise AssertionError("the trainer ran another plan than the one "
+                             "solved here:\n" + ranks[0]["describe"])
+    report = solved.reshard_report(specs, AUTO_MESH)
+    print(f"auto plan, full-width mesh1k, batch {BATCH}, mesh {AUTO_MESH}, "
+          f"layer kinds {' '.join(kinds)}:")
+    print(solved.describe())
+    print(plan_lib.reshard_lines(report))
+
+    print(f"CF conv parity, f32, batch {BATCH}, 2 ranks: max |error| of each "
+          f"rank's block of y, dx and of dw (summed over the ranks) against "
+          f"the conv in float64 on the card, with the conv kernel's plan at "
+          f"the shard shape ({card}):")
+    for i, row in enumerate(ranks[0]["cf_rows"]):
+        rs = [r["cf_rows"][i] for r in ranks]
+        for r in rs:
+            if r["calls"] != r["want_calls"]:
+                raise AssertionError(f"CF {r['layer']} {r['mode']}: "
+                                     f"{r['calls']} conv launches, want "
+                                     f"{r['want_calls']}")
+        kp = row["plan"]
+        print(f"  {row['layer']:8s} {row['mode']:7s} chunks {row['chunks']} "
+              f"x {tuple(row['x'])} stride {row['stride']} shard (N,H,W,C)"
+              f"xF {tuple(row['shard'][:4])}x{row['shard'][4]}: plan "
+              f"{kp['path']} {kp['tile_m']}x{kp['tile_n']} k{kp['tile_k']} "
+              f"splits {kp['splits']}; calls {row['calls']}; err y "
+              f"{max(r['err_y'] for r in rs):.2e} dx "
+              f"{max(r['err_dx'] for r in rs):.2e} dw "
+              f"{max(r['err_dw'] for r in rs):.2e}", flush=True)
+
+    cpu = spawn_ranks(auto_cpu_rank, SPATIAL_MODEL, ranks[0]["plan_spec"])
+    lg, lc = ranks[0]["loss_card"], cpu[0]["loss"]
+    rel = abs(lg - lc) / abs(lc)
+    print(f"auto forward check, full-width mesh1k, batch {BATCH}, 2 ranks "
+          f"under the plan: loss card {lg!r} ({ranks[1]['loss_card']!r} on "
+          f"rank 1), 2 gloo CPU ranks {lc!r} ({cpu[0]['seconds']:.1f} s), "
+          f"rel diff {rel:.3e} (tol {LOSS_RTOL}) ({card})")
+    if not (math.isfinite(lg) and rel <= LOSS_RTOL
+            and ranks[1]["loss_card"] == lg and cpu[1]["loss"] == lc):
+        raise AssertionError(f"auto plan loss {lg} vs CPU {lc}")
+
+    per_step = plan_conv_calls(solved, specs)
+    staged_step = plan_staged(solved, specs, meshnet.MESH1K.bn_scope)
+    reshard_bytes = 2 * sum(r["bytes"] for r in report)    # fwd + bwd
+    for r, out in enumerate(ranks):
+        if out["losses"] != ranks[0]["losses"] or \
+                out["digest"] != ranks[0]["digest"]:
+            raise AssertionError(f"rank {r} diverged: losses "
+                                 f"{out['losses']} vs {ranks[0]['losses']}")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"non-finite loss: {out['losses']}")
+        if out["launches"] != per_step * STEPS:
+            raise AssertionError(f"rank {r}: {out['launches']} conv launches "
+                                 f"in {STEPS} steps, want {per_step} x "
+                                 f"{STEPS}")
+        if out["collectives_staged"] != staged_step * STEPS:
+            raise AssertionError(f"rank {r}: {out['collectives_staged']} "
+                                 f"collectives staged, want {staged_step} "
+                                 f"x {STEPS}")
+        if out["sent"].get("reshard", 0) != reshard_bytes * STEPS:
+            raise AssertionError(f"rank {r}: reshards sent "
+                                 f"{out['sent'].get('reshard', 0)} bytes, "
+                                 f"want {reshard_bytes} x {STEPS}")
+        steady = out["step_s"][1:]
+        print(f"auto train rank {r}/{SPATIAL_MODEL} (2 processes sharing one "
+              f"card over gloo: not a scaling result): full-width mesh1k, "
+              f"global batch {BATCH}, losses {out['losses']}; step seconds "
+              f"{out['step_s']} (batch wait + copy {out['data_s']}); steps "
+              f"2..{STEPS}: {sum(steady) / len(steady):.4f} s/step; peak "
+              f"memory {out['peak_gib']:.2f} GiB; conv launches "
+              f"{out['launches']} ({per_step} a step); halo messages staged "
+              f"{out['staged']}; collectives staged through the host "
+              f"{out['collectives_staged']} ({staged_step} a step); bytes "
+              f"sent {out['sent']} (reshards "
+              f"{reshard_bytes} a step) ({card})")
+        b = out["breakdown"]
+        print(f"auto step breakdown rank {r} (one step, host clock "
+              f"{b['wall_ms']:.2f} ms): device kernels {b['device_ms']:.2f} "
+              f"ms in {b['n_kernels']} kernels, idle share "
+              f"{1 - b['device_ms'] / b['wall_ms']:.3f}; " + "; ".join(
+                  f"{k} {v:.2f} ms" for k, v in sorted(b["groups"].items()))
+              + "; host ranges: " + "; ".join(
+                  f"{k} {v:.2f} ms"
+                  for k, v in b["host_ranges_ms"].items()) + f" ({card})")
+    return {"ranks": ranks, "cpu": cpu, "kinds": kinds,
+            "n_reshards": solved.n_reshards, "reshard_report": report,
+            "launches_per_step": per_step, "staged_per_step": staged_step,
+            "loss_rel_diff": rel}
 
 
 # ---------------------------------------------------------------- LM path --
@@ -1059,7 +1423,8 @@ def lm_forward_check() -> dict:
     types = cfg.layer_types()
     if types != ["hybrid_g", "hybrid_s", "hybrid_g", "hybrid_g"]:
         raise AssertionError(f"check layers {types}")
-    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
     nb = pipeline.synthetic_lm_batch(0, 1, CHECK_SEQ, cfg.vocab)
     out = {}
     with torch.no_grad():
@@ -1222,6 +1587,11 @@ def main() -> int:
     spatial["phase_s"] = time.perf_counter() - t_spatial
     print(f"spatial phases (interior copy, 2 and 4 spawned ranks) took "
           f"{spatial['phase_s']:.1f} s of this run ({card})")
+    t_auto = time.perf_counter()
+    auto = auto_phase(card)
+    auto["phase_s"] = time.perf_counter() - t_auto
+    print(f"auto-plan phase (2 card ranks, 2 CPU ranks) took "
+          f"{auto['phase_s']:.1f} s of this run ({card})")
     lm_train = lm_train_phase()
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
@@ -1234,6 +1604,7 @@ def main() -> int:
                    "train": train, "forward_check": fwd,
                    "step_breakdown": breakdown,
                    "interior_copy": interior, "spatial": spatial,
+                   "auto": auto,
                    "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
@@ -1277,7 +1648,9 @@ def main() -> int:
                    "src/repro/kernels/conv2d.py:43", train["launches"], rows,
                    "one mesh1k forward, batch 2, float32: 19 conv calls"),
              spatial_launches_per_rank=[r["launches"]
-                                        for r in spatial["ranks"]]),
+                                        for r in spatial["ranks"]],
+             auto_launches_per_rank=[r["launches"]
+                                     for r in auto["ranks"]]),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:77",

@@ -86,6 +86,11 @@ class ConvSharding:
     def spatial_axes(self) -> tuple[str, ...]:
         return self.h_axes + self.w_axes
 
+    def x_spec(self) -> tuple:
+        """NHWC placement, the reference's PartitionSpec as a tuple: N on
+        the batch axes, H and W on the spatial axes, C replicated."""
+        return (self.batch_axes or None, self.h_axis, self.w_axis, None)
+
     def fit(self, h: int, w: int, k: int, s: int,
             mesh_shape: Mapping[str, int] | None) -> "ConvSharding":
         """Drop spatial axes this layer's geometry cannot support (§III-A);
@@ -96,15 +101,6 @@ class ConvSharding:
         return dataclasses.replace(
             self, h_axis=fit_spatial_axis(h, self.h_axis, k, s, mesh_shape),
             w_axis=fit_spatial_axis(w, self.w_axis, k, s, mesh_shape))
-
-    def global_hw(self, x: torch.Tensor, mesh: Mesh | None
-                  ) -> tuple[int, int]:
-        """The global H and W of local block `x`: local extent times the
-        shard count of the axis that splits it."""
-        if mesh is None:
-            return x.shape[1], x.shape[2]
-        return (x.shape[1] * mesh.axis_size(self.h_axis),
-                x.shape[2] * mesh.axis_size(self.w_axis))
 
 
 def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, strides, pads,

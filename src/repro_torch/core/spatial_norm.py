@@ -10,6 +10,11 @@ Three statistics scopes, over (N, H, W) of an NHWC tensor:
             sum x^2) all-reduced over `sharding.spatial_axes`.
   'global'  aggregated over every batch and spatial shard.
 
+A sharding with no spatial axis (sample parallelism) normalises by the
+statistics of the whole batch at every scope, summed over the batch
+axes: the reference applies its one-device BN to the global array there
+and GSPMD sums over the shards.
+
 The all-reduce is an autograd Function whose backward all-reduces the
 cotangent over the same ranks (the transpose of a psum is a psum).
 gamma and beta are replicated; their gradients are summed over the mesh
@@ -53,18 +58,20 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, *,
     computes the variance another way and keeps running buffers):
     var = E[x^2] - mean^2 in fp32, then (x - mean) * rsqrt(var + eps),
     scaled by gamma and shifted by beta."""
-    if scope == "local" or not sharding.is_spatial:
-        comm: tuple[str, ...] = ()
+    if scope not in ("local", "spatial", "global"):
+        raise ValueError(f"unknown BN scope {scope!r}")
+    if not sharding.is_spatial:
+        comm: tuple[str, ...] = tuple(sharding.batch_axes or ())
+    elif scope == "local":
+        comm = ()
     elif scope == "spatial":
         comm = sharding.spatial_axes
-    elif scope == "global":
-        comm = tuple(sharding.batch_axes or ()) + sharding.spatial_axes
     else:
-        raise ValueError(f"unknown BN scope {scope!r}")
+        comm = tuple(sharding.batch_axes or ()) + sharding.spatial_axes
     xf = x.float()
     n = x.shape[0] * x.shape[1] * x.shape[2]
     stats = torch.stack([xf.sum((0, 1, 2)), xf.square().sum((0, 1, 2))])
-    if comm:
+    if comm and mesh is not None:
         stats = all_reduce(stats, mesh, comm)
         n *= mesh.axis_size(comm)
     mean = stats[0] / n

@@ -46,26 +46,24 @@ def shard_dim(a, dim: int, mesh, axis):
     return a[(slice(None),) * dim + (slice(i * n, (i + 1) * n),)]
 
 
-def shard_batch(batch: dict, mesh, sharding) -> dict:
-    """This rank's block of a global CNN batch: N over the batch axes, H
-    and W over `sharding`'s spatial axes.
+def shard_batch(batch: dict, mesh, sharding, label_sharding=None) -> dict:
+    """This rank's block of a global CNN batch.
 
     Every rank draws the same global batch and keeps its block, so a step
     sees the same data on any mesh.  The image is cut by `sharding` as
-    given (the first layer's fit); the labels as the pred layer's output
-    is, by `sharding` fitted 1x1 to the label grid (in the reference
-    GSPMD cuts them).  Blocks are contiguous copies."""
+    given (the first layer's fitted sharding: N, H, W and, under a
+    CFSharding, C); the labels as the pred layer's output is, by
+    `label_sharding` (default `sharding`) fitted 1x1 to the label grid (in
+    the reference GSPMD cuts them).  Blocks are contiguous copies."""
     if mesh is None:
         return batch
     out = {}
     for k, v in batch.items():
-        sh = sharding if k == "image" else \
-            sharding.fit(v.shape[1], v.shape[2], 1, 1, dict(mesh.shape))
-        v = shard_dim(v, 0, mesh, tuple(sh.batch_axes))
-        if sh.h_axis is not None:
-            v = shard_dim(v, 1, mesh, sh.h_axis)
-        if sh.w_axis is not None:
-            v = shard_dim(v, 2, mesh, sh.w_axis)
+        sh = sharding if k == "image" else (label_sharding or sharding).fit(
+            v.shape[1], v.shape[2], 1, 1, dict(mesh.shape))
+        for dim, axes in enumerate(sh.x_spec()):
+            if axes:
+                v = shard_dim(v, dim, mesh, axes)
         out[k] = np.ascontiguousarray(v)
     return out
 

@@ -16,8 +16,9 @@ major-to-minor in tuple order (`core/halo.py`'s convention).
 
 Transport follows the backend.  NCCL moves device tensors.  gloo moves
 host tensors: a CUDA tensor is copied to the host and back explicitly
-(`to_wire`, `wire_buffer`), and each all-reduce staged so adds one to
-`Mesh.staged` (the halo exchange counts its own in `core.halo.staged`).
+(`to_wire`, `wire_buffer`), and each collective staged so (all-reduce,
+all-gather, reduce-scatter, all-to-all) adds one to `Mesh.staged` (the
+halo exchange counts its own in `core.halo.staged`).
 """
 from __future__ import annotations
 
@@ -165,10 +166,76 @@ class Mesh:
         buf = self.to_wire(t)
         buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
         dist.all_reduce(buf, group=group)
-        if buf.device != t.device:
+        return self._land(buf, t.device)
+
+    def _land(self, buf: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """A collective's result on `device`, counted in `staged` where it
+        came through the host."""
+        if buf.device != device:
             self.staged += 1
-            buf = buf.to(t.device)
+            buf = buf.to(device)
         return buf
+
+    def _group_order(self, axes) -> list[int]:
+        """The shard index along `axes` of each rank of their process
+        group, in the group's rank order (ascending global rank), which
+        the dim-0 collectives below concatenate and scatter in."""
+        order = self.ranks(axes)
+        return [order.index(r) for r in sorted(order)]
+
+    def all_gather(self, t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+        """The blocks of `t` of every rank of `axes`, concatenated along
+        `dim` in shard-index order (`t` itself where the group is one
+        rank).  The collective works on dim 0: `dim` is moved to the
+        front and back.  Not differentiable (`core.collectives`)."""
+        group = self.group(axes)
+        if group is None:
+            return t
+        src = self.to_wire(t.movedim(dim, 0))
+        order = self._group_order(axes)
+        out = torch.empty((len(order) * src.shape[0],) + tuple(src.shape[1:]),
+                          dtype=src.dtype, device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+        out = out.view((len(order),) + tuple(src.shape))[torch.tensor(
+            sorted(range(len(order)), key=order.__getitem__))]
+        out = self._land(out.flatten(0, 1), t.device)
+        return out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, t: torch.Tensor, axes, dim: int
+                       ) -> torch.Tensor:
+        """This rank's block along `dim` of the sum of `t` over the ranks
+        of `axes`: `dim` cut into one block per shard index."""
+        group = self.group(axes)
+        if group is None:
+            return t
+        p = len(self.ranks(axes))
+        src = t.movedim(dim, 0)
+        src = src.reshape((p, src.shape[0] // p) + tuple(src.shape[1:]))
+        src = self.to_wire(src[torch.tensor(self._group_order(axes))])
+        out = torch.empty(tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.reduce_scatter_tensor(out, src.flatten(0, 1), group=group)
+        return self._land(out, t.device).movedim(0, dim).contiguous()
+
+    def all_to_all(self, t: torch.Tensor, axes, split_dim: int,
+                   cat_dim: int) -> torch.Tensor:
+        """`split_dim` cut into one block per shard index of `axes`, block
+        j sent to shard j, and the blocks received concatenated along
+        `cat_dim` in shard-index order."""
+        group = self.group(axes)
+        if group is None:
+            return t
+        order = self._group_order(axes)
+        p = len(order)
+        src = t.movedim(split_dim, 0)
+        src = src.reshape((p, src.shape[0] // p) + tuple(src.shape[1:]))
+        src = self.to_wire(src[torch.tensor(order)])
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=group)
+        out = self._land(out, t.device)
+        out = out[torch.tensor(sorted(range(p), key=order.__getitem__))]
+        out = out.movedim(1, split_dim + 1).movedim(0, cat_dim)
+        return out.flatten(cat_dim, cat_dim + 1).contiguous()
 
 
 def make_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:

@@ -21,25 +21,42 @@ AdamW on a warmup(20) + cosine schedule, under FP32 unless `--bf16`
 batches of `--seq` tokens.
 
 With more than one process (torchrun's environment, or a process group
-that already exists), the CNNs train under the reference's uniform plan,
-`ConvSharding(batch_axes=("pod", "data"), h_axis="model")`: N over the
-data axes, H over the model axis, a halo exchange and the §IV-A
-interior/boundary conv split at every layer.  `--batch` is the global
-batch; rank r runs on `cuda:(local_rank % device_count)` (NCCL) or the
-CPU (gloo); only rank 0 prints and writes metrics.  `--strategy auto`,
-`--calibrate`, `--mem-limit`, `--remat`, checkpoints, `--elastic` and
-`--chaos` come with their slices and are refused until then.
+that already exists), the CNNs train on a (pod, data, model) mesh under a
+per-layer plan (`core.plan.NetworkPlan`, printed at startup):
+
+  --strategy uniform  the reference's uniform plan,
+      `ConvSharding(batch_axes=("pod", "data"), h_axis="model")` (N over
+      the data axes, H over the model axis, a halo exchange and the §IV-A
+      interior/boundary conv split at every layer), fitted to each layer:
+      a layer whose geometry drops the spatial axis (§III-A) takes a
+      reshard;
+  --strategy auto  the §V-C solve (`core.plan.plan_line`) of sample /
+      spatial / channel-filter distributions over `meshnet.layer_specs`,
+      compiled with its demotions and reshard points, on the `H100`
+      preset's constants on CUDA and on `LASSEN`'s (the paper's machine)
+      on the CPU; `--search`, `--no-cf` and `--mem-limit` as in the
+      reference.
+
+`--batch` is the global batch; rank r runs on
+`cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
+prints and writes metrics.  `--calibrate`, `--remat`, checkpoints,
+`--elastic` and `--chaos` come with their slices and are refused until
+then.
 """
 from __future__ import annotations
 
 import argparse
 import functools
+import os
 import time
 
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import plan as plan_lib
+from repro_torch.core.perfmodel import H100, LASSEN
 from repro_torch.core.spatial_conv import ConvSharding
+from repro_torch.core.strategy import parse_search
 from repro_torch.data import pipeline
 from repro_torch.launch.mesh import batch_axes, init_distributed, make_mesh
 from repro_torch.models.cnn import meshnet
@@ -47,8 +64,8 @@ from repro_torch.models.lm import transformer
 from repro_torch.optim.optimizer import adamw, sgd, warmup_cosine
 from repro_torch.train.metrics import MetricsLogger
 from repro_torch.train.train_loop import TrainStepConfig, make_train_step
-from repro_torch.utils import (BF16, FP32, human_count, resolve_device,
-                               tree_leaves)
+from repro_torch.utils import (BF16, FP32, human_bytes, human_count,
+                               resolve_device, tree_leaves)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -79,16 +96,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--strategy", default="uniform",
                     choices=["uniform", "auto"],
                     help="per-layer plan: the uniform sample x spatial plan "
-                         "(auto: the solver, not ported yet)")
+                         "or the §V-C solve (CNN archs)")
+    ap.add_argument("--search", default="greedy",
+                    help="--strategy auto search mode: greedy | beam[:N] | "
+                         "hillclimb")
+    ap.add_argument("--no-cf", action="store_true",
+                    help="--strategy auto: no channel/filter candidates")
+    ap.add_argument("--mem-limit", default=None, metavar="BYTES|auto",
+                    help="--strategy auto: per-device memory limit (auto: "
+                         "the card's memory, or the host's free memory "
+                         "shared among the ranks on the CPU)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics", nargs="?", const="METRICS.jsonl",
                     default=None, metavar="PATH",
                     help="write JSONL step records to PATH")
     args = ap.parse_args(argv)
-    if args.strategy == "auto":
-        ap.error("--strategy auto needs the strategy solver "
-                 "(core/{distribution,perfmodel,strategy}.py, the solver "
-                 "slice), which is not ported yet; use --strategy uniform")
+    try:
+        parse_search(args.search)
+    except ValueError as e:
+        ap.error(str(e))
+    if args.mem_limit is not None and args.mem_limit.lower() != "auto":
+        try:
+            float(args.mem_limit)
+        except ValueError:
+            ap.error(f"--mem-limit takes bytes or 'auto', got "
+                     f"{args.mem_limit!r}")
     if min(args.data, args.model, args.pod) < 1:
         ap.error("--data, --model and --pod must be >= 1")
     if args.batch % (args.data * args.pod):
@@ -110,22 +142,67 @@ def set_fp32_numerics(device: torch.device, echo: bool = True) -> None:
             print("fp32 precision: TF32 off for cuDNN and cuBLAS")
 
 
-def check_fits(cfg, plan: ConvSharding, mesh) -> None:
-    """Refuse a mesh on which some layer's geometry drops a spatial axis
-    (§III-A): that layer would need a reshard, which comes with the plan
-    slice."""
-    shape = dict(mesh.shape)
-    for name, _, hw, _, k, s in meshnet.layer_geometry(cfg):
-        if plan.fit(hw, hw, k, s, shape) != plan:
-            raise SystemExit(
-                f"layer {name} ({k}x{k} stride {s} at {hw}x{hw}) cannot be "
-                f"split over {plan.h_axis} on mesh {shape} (§III-A: each "
-                f"shard must divide evenly and hold at least max(k, s) "
-                f"rows); it would need a reshard, which comes with the "
-                f"plan slice")
+def parse_mem_limit(value, device: torch.device, ranks: int = 1
+                    ) -> float | None:
+    """--mem-limit BYTES|auto -> bytes a device (None: no limit).  'auto'
+    is the card's memory (`torch.cuda.mem_get_info`); on the CPU the
+    host's available memory shared among the `ranks` processes (the
+    reference's host fallback)."""
+    if value is None:
+        return None
+    if str(value).lower() != "auto":
+        return float(value)
+    if device.type == "cuda":
+        return float(torch.cuda.mem_get_info(device)[1])
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") \
+        / max(ranks, 1)
 
 
-def build(args: argparse.Namespace, device: torch.device, mesh=None):
+def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
+                   mesh=None, echo: bool = True) -> plan_lib.NetworkPlan:
+    """--strategy uniform: the uniform plan fitted to every layer.
+    --strategy auto: the §V-C solve over `specs` on the mesh, compiled
+    (core.plan.plan_line)."""
+    shape = {"pod": args.pod, "data": args.data, "model": args.model}
+    if args.pod == 1:
+        del shape["pod"]
+    machine = H100 if device.type == "cuda" else LASSEN
+    where = "the H100 preset" if device.type == "cuda" else \
+        "LASSEN (the paper's machine; the CPU has no preset)"
+    mem_limit = parse_mem_limit(args.mem_limit, device,
+                                1 if mesh is None else mesh.size)
+    if args.strategy == "auto":
+        t0 = time.time()
+        if mem_limit and echo:
+            print(f"memory limit: {human_bytes(mem_limit)}/device")
+        plan = plan_lib.plan_line(machine, specs, shape,
+                                  allow_channel_filter=not args.no_cf,
+                                  mem_limit=mem_limit, search=args.search)
+        head = f"strategy optimizer ({time.time() - t0:.2f}s, search " \
+            f"{args.search}) on {where}:"
+    else:
+        if mem_limit and echo:
+            print("--mem-limit constrains the --strategy auto solve only; "
+                  "the uniform plan is not validated")
+        if mesh is None:
+            # one device: a JAX mesh of size 1 under the reference's
+            # uniform ConvSharding(h_axis="model") computes the same SAME
+            # conv (the halos of an axis of size 1 are zeros)
+            return plan_lib.NetworkPlan.uniform(
+                ConvSharding(), [s.name for s in specs])
+        plan = plan_lib.NetworkPlan.uniform(
+            ConvSharding(batch_axes=batch_axes(mesh), h_axis="model"),
+            specs=specs, mesh=mesh)
+        head = "uniform plan:"
+    if echo:
+        print(head)
+        print(plan.describe())
+        print(plan_lib.reshard_lines(plan.reshard_report(specs, shape)))
+    return plan
+
+
+def build(args: argparse.Namespace, device: torch.device, mesh=None,
+          echo: bool = True):
     """(cfg, params, optimizer, loss_fn, batch factory, precision, plan) of
     the arch.  Params are drawn from a CPU generator seeded with `--seed`,
     so every rank, the card and the CPU start from the same weights.  On a
@@ -133,15 +210,8 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None):
     cfg = registry.get(args.arch, smoke=args.smoke)
     gen = torch.Generator().manual_seed(args.seed)
     if registry.canon(args.arch) in registry.CNN_ARCHS:
-        if mesh is None:
-            # one device.  A JAX mesh of size 1 under the reference's
-            # uniform ConvSharding(h_axis="model") computes the same SAME
-            # conv: the halos of an axis of size 1 are zeros.
-            plan = ConvSharding()
-        else:
-            plan = ConvSharding(batch_axes=batch_axes(mesh),
-                                h_axis="model")
-            check_fits(cfg, plan, mesh)
+        specs = meshnet.layer_specs(cfg, args.batch)
+        plan = build_cnn_plan(args, specs, device, mesh, echo)
         params = meshnet.MeshNet(cfg, generator=gen, device=device).params()
         opt = sgd(warmup_cosine(args.lr, 10, args.steps), momentum=0.9)
         loss = functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
@@ -150,9 +220,17 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None):
             pipeline.synthetic_mesh_batch, batch=args.batch,
             hw=cfg.input_hw, channels=cfg.in_channels, out_hw=cfg.out_hw)
 
+        first, last = plan.sharding(specs[0].name), plan.sharding("pred")
+
         def mk(step):
-            return pipeline.shard_batch(mk_global(step), mesh, plan)
+            return pipeline.shard_batch(mk_global(step), mesh, first, last)
         return cfg, params, opt, loss, mk, FP32, plan
+    if args.strategy == "auto":
+        raise SystemExit(
+            f"--strategy auto covers the solvable CNN archs "
+            f"{registry.CNN_ARCHS}; {cfg.name!r} is an LM arch the §V-C "
+            f"optimizer has no candidate space for (drop --strategy auto "
+            f"to train it with the uniform sharding)")
     if mesh is not None:
         raise SystemExit(f"{cfg.name} trains on one device in this port "
                          f"(the ring over torch.distributed is not ported "
@@ -183,18 +261,20 @@ def setup(args: argparse.Namespace):
 
 
 def run(args: argparse.Namespace) -> dict:
-    """Train `args.steps` steps; returns the config it trained, the losses,
-    the seconds of each step (batch included) and of its batch's wait and
-    copy, and the trained params."""
+    """Train `args.steps` steps; returns the config it trained, the plan,
+    the losses, the seconds of each step (batch included) and of its
+    batch's wait and copy, and the trained params."""
     device, mesh, rank = setup(args)
     lead = rank == 0
     set_fp32_numerics(device, echo=lead)
-    cfg, params, opt, loss, mk, prec, plan = build(args, device, mesh)
+    cfg, params, opt, loss, mk, prec, plan = build(args, device, mesh,
+                                                   echo=lead)
     n_params = sum(p.numel() for p in tree_leaves(params))
     tstep = make_train_step(loss, opt, TrainStepConfig(
         grad_accum=args.grad_accum, precision=prec), mesh=mesh)
     opt_state = opt.init(params)
-    where = f"mesh={dict(mesh.shape)} plan={plan}" if mesh else ""
+    where = f"mesh={dict(mesh.shape)} strategy={args.strategy}" \
+        if mesh else f"strategy={args.strategy}"
     if lead:
         print(f"arch={cfg.name} params={human_count(n_params)} "
               f"device={device} {where}".rstrip())
@@ -204,7 +284,8 @@ def run(args: argparse.Namespace) -> dict:
     mlog = MetricsLogger(args.metrics if lead else None, echo=lead)
     try:
         mlog.log_run(arch=cfg.name, n_params=n_params, device=str(device),
-                     batch=args.batch, steps=args.steps, strategy="uniform",
+                     batch=args.batch, steps=args.steps,
+                     strategy=args.strategy,
                      mesh=dict(mesh.shape) if mesh else None)
         for step in range(args.steps):
             t0 = time.perf_counter()
@@ -225,7 +306,7 @@ def run(args: argparse.Namespace) -> dict:
         print(f"done at step {args.steps}; final loss {losses[-1]:.4f}")
     return {"cfg": cfg, "losses": losses, "step_s": step_s,
             "data_s": data_s, "n_params": n_params, "params": params,
-            "mesh": mesh}
+            "mesh": mesh, "plan": plan}
 
 
 def main(argv=None) -> dict:

@@ -2,9 +2,11 @@
 
 Every layer is (init, apply) over explicit parameter dicts with the
 reference's names.  `apply` takes this rank's block and the layer's
-`ConvSharding`; conv and pool route through the halo-exchange
-implementations of `core.spatial_conv`, BN through `core.spatial_norm`.
-Element-wise ops parallelize trivially under any distribution.
+sharding: under a `ConvSharding` conv and pool route through the
+halo-exchange implementations of `core.spatial_conv` and BN through
+`core.spatial_norm`; under a `CFSharding` (§III-D) conv and BN route
+through `core.channel_conv`.  Element-wise ops parallelize trivially
+under any distribution.
 """
 from __future__ import annotations
 
@@ -12,25 +14,32 @@ import math
 
 import torch
 
+from repro_torch.core.channel_conv import (CFSharding, cf_batch_norm,
+                                           cf_conv2d)
 from repro_torch.core.spatial_conv import (ConvSharding, spatial_conv2d,
                                            spatial_pool)
 from repro_torch.core.spatial_norm import all_reduce, batch_norm
 from repro_torch.launch.mesh import Mesh, mesh_shape
 
 
-def fitted(sharding: ConvSharding, x: torch.Tensor, k: int, s: int,
-           mesh: Mesh | None) -> ConvSharding:
+def fitted(sharding, x: torch.Tensor, k: int, s: int, mesh: Mesh | None):
     """`sharding.fit` at x's GLOBAL extents (local extent x shard count).
 
-    A spatial axis that the fit drops while x is split over it needs a
-    §III-C reshard, which comes with the plan slice: that raises."""
-    h, w = sharding.global_hw(x, mesh)
+    x is already split as `sharding` says, so a spatial axis that the fit
+    drops here is a plan that was not fitted to the layers' geometry
+    (`core.plan`: compile_plan, or NetworkPlan.uniform with the layer
+    specs, which put a reshard before such a layer): that raises."""
+    _, h_axis, w_axis, _ = sharding.x_spec()
+    h, w = x.shape[1], x.shape[2]
+    if mesh is not None:
+        h, w = h * mesh.axis_size(h_axis), w * mesh.axis_size(w_axis)
     sh = sharding.fit(h, w, k, s, mesh_shape(mesh))
     if sh != sharding:
-        raise NotImplementedError(
+        raise ValueError(
             f"{sharding} does not fit a {k}x{k} stride-{s} layer at "
-            f"{h}x{w} on mesh {mesh_shape(mesh)} (§III-A) and would need a "
-            f"reshard, which comes with the plan slice (core/plan.py)")
+            f"{h}x{w} on mesh {mesh_shape(mesh)} (§III-A): the plan was not "
+            f"fitted to the layer geometry (core.plan.compile_plan, or "
+            f"NetworkPlan.uniform with specs)")
     return sh
 
 
@@ -43,9 +52,12 @@ def conv_init(gen: torch.Generator, k: int, c_in: int, c_out: int,
     return {"w": w.to(dtype)}
 
 
-def conv_apply(params, x, *, stride=1, sharding: ConvSharding,
-               mesh: Mesh | None = None, overlap: bool = True):
+def conv_apply(params, x, *, stride=1, sharding, mesh: Mesh | None = None,
+               overlap: bool = True):
     sh = fitted(sharding, x, params["w"].shape[0], stride, mesh)
+    if isinstance(sh, CFSharding):
+        return cf_conv2d(x, params["w"], strides=(stride, stride),
+                         sharding=sh, mesh=mesh, overlap=overlap)
     return spatial_conv2d(x, params["w"], strides=(stride, stride),
                           sharding=sh, mesh=mesh, overlap=overlap)
 
@@ -55,8 +67,11 @@ def bn_init(c: int, dtype=torch.float32) -> dict:
             "beta": torch.zeros((c,), dtype=dtype)}
 
 
-def bn_apply(params, x, *, sharding: ConvSharding, mesh: Mesh | None = None,
+def bn_apply(params, x, *, sharding, mesh: Mesh | None = None,
              scope: str = "local"):
+    if isinstance(sharding, CFSharding):
+        return cf_batch_norm(x, params["gamma"], params["beta"],
+                             sharding=sharding, mesh=mesh, scope=scope)
     return batch_norm(x, params["gamma"], params["beta"], sharding=sharding,
                       mesh=mesh, scope=scope)
 

@@ -8,6 +8,13 @@ Parameters are a list of dicts in execution order, named as in the
 reference (`{"conv": {"w"}, "bn": {"gamma", "beta"}}`, the last layer
 `{"conv": {"w"}}`).  `MeshNet` holds them as an `nn.Module` and loads the
 reference's params with `params_from_jax`.
+
+`apply` and `loss_fn` take a `core.plan.NetworkPlan` (per-layer
+shardings with §III-C reshard points, keyed by the `layer_specs` names),
+a single ConvSharding or CFSharding (one for every layer), or a list of
+them; the last two are fitted to the layers' geometry first, with a
+reshard wherever the fit drops a spatial axis.  Each layer reshards its
+input, then runs conv -> BN -> ReLU.
 """
 from __future__ import annotations
 
@@ -18,7 +25,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.spatial_conv import ConvSharding
+from repro_torch.core.perfmodel import ConvLayer
+from repro_torch.core.plan import NetworkPlan
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.cnn import layers as L
 
@@ -79,42 +87,62 @@ def layer_geometry(cfg: MeshNetConfig) -> list[tuple]:
     return out
 
 
-def apply(params: Sequence[dict], x: torch.Tensor, cfg: MeshNetConfig,
-          plan: ConvSharding | None = None, mesh: Mesh | None = None,
-          overlap: bool = True) -> torch.Tensor:
-    """This rank's block x (N, H, W, C_in) -> its block of the per-pixel
-    logits (N, H/64, W/64, n_classes).
+def layer_specs(cfg: MeshNetConfig, n: int) -> list[ConvLayer]:
+    """Perf-model view (paper §V): one ConvLayer per conv."""
+    return [ConvLayer(name, n=n, c=c, h=hw, w=hw, f=f, k=k, s=s)
+            for name, c, hw, f, k, s in layer_geometry(cfg)]
 
-    `plan`: one ConvSharding for every layer (None: `ConvSharding()`, the
-    one-device plan); per-layer plans come with the solver slice.  `mesh`:
-    the process mesh the plan's axes name (None: one device).  Each layer
-    fits the plan to its global extents (§III-A); BN takes the conv
-    output's 1x1 fit, as the reference."""
-    sh = plan or ConvSharding()
-    for li in range(len(params) - 1):
-        lp = params[li]
+
+def network_plan(cfg: MeshNetConfig, plan, mesh: Mesh | None
+                 ) -> NetworkPlan:
+    """`plan` as a NetworkPlan over cfg's layers (`NetworkPlan.of`): a
+    NetworkPlan as it is; a sharding (None: `ConvSharding()`) or a list of
+    them fitted to the layers' geometry on `mesh`."""
+    return NetworkPlan.of(plan, specs=layer_specs(cfg, 1), mesh=mesh)
+
+
+def apply(params: Sequence[dict], x: torch.Tensor, cfg: MeshNetConfig,
+          plan=None, mesh: Mesh | None = None,
+          overlap: bool = True) -> torch.Tensor:
+    """This rank's block x (N, H, W, C_in), cut by the first layer's
+    sharding -> its block of the per-pixel logits (N, H/64, W/64,
+    n_classes) under the pred layer's.
+
+    `plan`: see `network_plan`.  `mesh`: the process mesh the plan's axes
+    name (None: one device).  BN takes the conv output's 1x1 fit, as the
+    reference."""
+    plan = network_plan(cfg, plan, mesh)
+    names = layer_names(cfg)
+    for li, (name, lp) in enumerate(zip(names, params)):
+        sh = plan.sharding(name)
+        x = plan.reshard(x, name, mesh)
+        if name == "pred":
+            return L.conv_apply(lp["conv"], x, stride=1, sharding=sh,
+                                mesh=mesh, overlap=overlap)
         stride = 2 if li % cfg.convs_per_block == 0 else 1
         x = L.conv_apply(lp["conv"], x, stride=stride, sharding=sh,
                          mesh=mesh, overlap=overlap)
-        x = L.bn_apply(lp["bn"], x, sharding=L.fitted(sh, x, 1, 1, mesh),
-                       mesh=mesh, scope=cfg.bn_scope)
+        x = plan.reshard_out(x, name, mesh)
+        x = L.bn_apply(lp["bn"], x, sharding=L.fitted(
+            plan.out_sharding(name), x, 1, 1, mesh), mesh=mesh,
+            scope=cfg.bn_scope)
         x = L.relu(x)
-    return L.conv_apply(params[-1]["conv"], x, stride=1, sharding=sh,
-                        mesh=mesh, overlap=overlap)
+    raise ValueError("meshnet params end without the pred layer")
 
 
 def loss_fn(params: Sequence[dict], batch: dict, cfg: MeshNetConfig,
-            plan: ConvSharding | None = None, mesh: Mesh | None = None,
+            plan=None, mesh: Mesh | None = None,
             overlap: bool = True) -> torch.Tensor:
     """Per-pixel sigmoid BCE of the model's logits: this rank's share of
-    the global mean, its local BCE sum over the GLOBAL element count.
-    Summed over the ranks (`Mesh.all_reduce`) it is the global mean; its
-    gradient, summed over the ranks, is the global mean's."""
-    sh = plan or ConvSharding()
+    the global mean.  Its logits are its block under the pred layer's
+    sharding, whose blocks tile the global logits once per replica (the
+    mesh axes it leaves unassigned), so the global count times the
+    replication is the local count times the mesh size.  Summed over the
+    ranks (`Mesh.all_reduce`) it is the global mean; its gradient, summed
+    over the ranks, is the global mean's."""
     logits = apply(params, batch["image"], cfg, plan, mesh, overlap)
-    shards = 1 if mesh is None else \
-        mesh.axis_size(tuple(sh.batch_axes) + sh.spatial_axes)
-    return bce_sum(logits, batch["label"]) / (logits.numel() * shards)
+    ranks = 1 if mesh is None else mesh.size
+    return bce_sum(logits, batch["label"]) / (logits.numel() * ranks)
 
 
 def bce_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -79,12 +79,12 @@ def _block_init(gen: torch.Generator, cfg: LMConfig, btype: str,
 
 
 def init(gen: torch.Generator, cfg: LMConfig, *,
-         device: torch.device | str = "cpu") -> dict:
+         device: torch.device | str) -> dict:
     """Random fp32 params drawn from `gen` (on the generator's device)
     with the reference's scales: N(0, 1/fan_in) weights, ones for norms and
     the SSD's D, zeros for biases, A_log = log(linspace(1, 16)).  Each
-    tensor is moved to `device` as soon as it is drawn; the leaves require
-    grad."""
+    tensor is moved to `device` (required, as `MeshNet`'s is) as soon as
+    it is drawn; the leaves require grad."""
     _check_ported(cfg)
     params: dict[str, Any] = {
         "embed": M.normal_init(gen, (cfg.vocab, cfg.d_model),

@@ -6,10 +6,18 @@ tests: what needs several devices runs here, in a subprocess with
 
 what: `bn_local` (local-scope BN under N over data, H over model, forward
 and the gradients of sum(y * gy), on the (1, 2), (2, 2) and (2, 4)
-meshes), or
+meshes),
 `meshnet` (the small meshnet's loss and gradients under the uniform plan
 on both meshes, and a 3-step SGD trajectory on (1, 2), with the params in
-DIR/inputs.npz).  Inputs are `torch_dist_cases`' (numpy seeds).
+DIR/inputs.npz),
+`cf` (`cf_conv2d` of every `CF_CONFIGS` row and geometry, and
+`cf_batch_norm` / `cf_bias_add` of every `CF_BN_CONFIGS` row: global y and
+the gradients of sum(y * gy)), or
+`plan [K/P]` (part K of P of the cases of DIR/plans.json, into
+DIR/planK.npz: the meshnet loss and gradients under each case's plan, as
+`torch_dist_cases.case_plan`, and on one device where the case asks).  Inputs are
+`torch_dist_cases`' (numpy seeds).  The local convs run on XLA, the
+reference's default backend.
 """
 import os
 import subprocess
@@ -113,22 +121,126 @@ def _meshnet(d):
     np.savez(os.path.join(d, "meshnet.npz"), **out)
 
 
-def run(what: str, d: str, timeout: int = 300) -> None:
-    """Run `what` in a subprocess with 8 host devices; its arrays land in
-    DIR/<what>.npz."""
+def _mesh(dims):
+    import jax
+    from repro.launch.mesh import make_mesh
+    return make_mesh(data=dims[0], model=dims[1],
+                     devices=jax.devices()[:dims[0] * dims[1]])
+
+
+def _cf(d):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch_dist_cases as cases
+    from repro.core import channel_conv as cc
+    out = {}
+    for key, dims, kw, mode, chunks in cases.CF_CONFIGS:
+        mesh = _mesh(dims)
+        sh = cc.CFSharding(mode=mode, **kw)
+        for gi, geom in enumerate(cases.CF_GEOMS):
+            s = geom[1]
+            x, w, gy = (jnp.asarray(a) for a in cases.cf_inputs(geom))
+
+            def f(x, w):
+                return cc.cf_conv2d(x, w, strides=(s, s), sharding=sh,
+                                    mesh=mesh, channel_chunks=chunks)
+            with mesh:
+                y, vjp = jax.vjp(jax.jit(f), x, w)
+                dx, dw = vjp(gy)
+            out.update({f"{key}/{gi}/y": y, f"{key}/{gi}/dx": dx,
+                        f"{key}/{gi}/dw": dw})
+    x, g, b, gy = (jnp.asarray(a) for a in cases.cf_bn_inputs())
+    for key, dims, kw in cases.CF_BN_CONFIGS:
+        mesh = _mesh(dims)
+        sh = cc.CFSharding(**kw)
+        for scope in cases.BN_SCOPES + ("bias",):
+            def f(x, g, b):
+                if scope == "bias":
+                    return cc.cf_bias_add(x, b, sharding=sh, mesh=mesh)
+                return cc.cf_batch_norm(x, g, b, sharding=sh, mesh=mesh,
+                                        scope=scope)
+            with mesh:
+                y, vjp = jax.vjp(jax.jit(f), x, g, b)
+                dx, dg, db = vjp(gy)
+            out.update({f"bn_{key}_{scope}/y": y,
+                        f"bn_{key}_{scope}/dx": dx,
+                        f"bn_{key}_{scope}/dgamma": dg,
+                        f"bn_{key}_{scope}/dbeta": db})
+    np.savez(os.path.join(d, "cf.npz"),
+             **{k: np.asarray(v) for k, v in out.items()})
+
+
+def _plan(d, part="0/1"):
+    import functools
+    import jax
+    import numpy as np
+    import torch_dist_cases as cases
+    from repro.core import plan as plan_lib
+    from repro.core.spatial_conv import ConvSharding
+    from repro.data.pipeline import synthetic_mesh_batch
+    from repro.models.cnn import meshnet
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    k, parts = (int(v) for v in part.split("/"))
+    out = {}
+    for c in cases.plan_cases(d)[k::parts]:
+        cfg = meshnet.MeshNetConfig(**{**c["cfg"],
+                                       "widths": tuple(c["cfg"]["widths"])})
+        mesh = _mesh(tuple(c["dims"]))
+        params = [{k: {pk: flat[f"{c['name']}/{i}.{k}.{pk}"] for pk in sub}
+                   for k, sub in layer.items()}
+                  for i, layer in enumerate(meshnet.init(
+                      jax.random.PRNGKey(0), cfg))]
+        specs = meshnet.layer_specs(cfg, c["batch"])
+        plan = ConvSharding(batch_axes=("data",), h_axis="model") \
+            if c["spec"] is None else \
+            plan_lib.plan_from_spec(c["spec"], specs, mesh)
+        loss = functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
+                                 mesh=mesh)
+        b = synthetic_mesh_batch(0, c["batch"], cfg.input_hw,
+                                 cfg.in_channels, out_hw=cfg.out_hw)
+        with mesh:
+            l, g = jax.jit(jax.value_and_grad(loss))(params, b)
+        out[f"{c['name']}/loss"] = np.asarray(l)
+        for i, leaf in enumerate(jax.tree.leaves(g)):
+            out[f"{c['name']}/grad{i}"] = np.asarray(leaf)
+        if not c["one_device"]:
+            continue
+        l, g = jax.jit(jax.value_and_grad(functools.partial(
+            meshnet.loss_fn, cfg=cfg)))(params, b)
+        out[f"{c['name']}/one/loss"] = np.asarray(l)
+        for i, leaf in enumerate(jax.tree.leaves(g)):
+            out[f"{c['name']}/one/grad{i}"] = np.asarray(leaf)
+    np.savez(os.path.join(d, f"plan{k}.npz"), **out)
+
+
+def popen(what: str, d: str, *args: str) -> subprocess.Popen:
+    """Start `what` (with `args`) in a subprocess with 8 host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(os.path.dirname(here),
                                                       "src"), here])
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     env["JAX_PLATFORMS"] = "cpu"
-    r = subprocess.run([sys.executable, os.path.abspath(__file__), what, d],
-                       capture_output=True, text=True, timeout=timeout,
-                       env=env)
-    if r.returncode != 0:
-        raise AssertionError(f"JAX oracle {what} failed:\n"
-                             f"{r.stderr[-6000:]}")
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             what, d, *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env)
+
+
+def wait(p: subprocess.Popen, timeout: int = 300) -> None:
+    """Wait for a `popen`ed oracle; raise with its errors if it failed."""
+    _, err = p.communicate(timeout=timeout)
+    if p.returncode != 0:
+        raise AssertionError(f"JAX oracle {p.args[2:]} failed:\n"
+                             f"{err[-6000:]}")
+
+
+def run(what: str, d: str, timeout: int = 300) -> None:
+    """Run `what` in a subprocess with 8 host devices; its arrays land in
+    DIR/<what>.npz."""
+    wait(popen(what, d), timeout)
 
 
 if __name__ == "__main__":
-    {"bn_local": _bn_local, "meshnet": _meshnet}[sys.argv[1]](sys.argv[2])
+    {"bn_local": _bn_local, "meshnet": _meshnet, "cf": _cf,
+     "plan": _plan}[sys.argv[1]](*sys.argv[2:])

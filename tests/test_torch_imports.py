@@ -1,6 +1,6 @@
 """Import hygiene of the port: every `repro_torch` module and the chip
-smoke script load without jax and without anything of the `repro`
-package (the card's machine need not have jax)."""
+smoke script load without jax, networkx and anything of the `repro`
+package (the card's machine has neither jax nor networkx)."""
 import json
 import os
 import subprocess
@@ -18,7 +18,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "networkx"))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -46,7 +46,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.launch.mesh", "repro_torch.core.halo",
                 "repro_torch.core.spatial_conv",
                 "repro_torch.core.spatial_norm",
-                "repro_torch.models.cnn.layers"}
+                "repro_torch.models.cnn.layers",
+                "repro_torch.core.distribution",
+                "repro_torch.core.perfmodel", "repro_torch.core.strategy",
+                "repro_torch.core.collectives",
+                "repro_torch.core.channel_conv", "repro_torch.core.plan"}
     assert expected <= set(out["modules"])
 
 
@@ -64,5 +68,6 @@ def test_port_sources_name_no_jax():
                 s = line.strip()
                 if s.startswith(("import ", "from ")):
                     mod = s.split()[1].split(".")[0]
-                    assert mod not in ("jax", "jaxlib", "repro"), \
+                    assert mod not in ("jax", "jaxlib", "repro",
+                                       "networkx"), \
                         f"{path}:{i}: {s}"

@@ -346,10 +346,18 @@ def test_params_from_jax_unstacks_segments_in_order():
                     (("hybrid_g",), 1), (("hybrid_s",), 14),
                     (("hybrid_g",), 1)]
     # the port's own init has the same tree and shapes
-    mine = tT.init(torch.Generator().manual_seed(0), thymba.SMOKE)
+    mine = tT.init(torch.Generator().manual_seed(0), thymba.SMOKE,
+                   device="cpu")
     assert [tuple(t.shape) for t in tutils.tree_leaves(mine)] == \
         [tuple(t.shape) for t in tutils.tree_leaves(params)]
     assert all(t.requires_grad for t in tutils.tree_leaves(mine))
+
+
+def test_init_needs_a_device():
+    """The LM init is an entry point: it names its device, as `MeshNet`
+    does, and runs on no default one."""
+    with pytest.raises(TypeError, match="device"):
+        tT.init(torch.Generator().manual_seed(0), thymba.SMOKE)
 
 
 def test_params_from_jax_unstacks_a_repeated_segment():

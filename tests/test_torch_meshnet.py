@@ -333,6 +333,6 @@ def test_train_cli_smoke_on_cpu(tmp_path):
     assert sum(r["kind"] == "step" for r in recs) == 2
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-         "--device", "cpu", "--strategy", "auto"],
+         "--device", "cpu", "--strategy", "auto", "--search", "dfs"],
         capture_output=True, text=True, timeout=120, env=env, cwd=tmp_path)
-    assert bad.returncode == 2 and "solver" in bad.stderr
+    assert bad.returncode == 2 and "unknown search mode" in bad.stderr

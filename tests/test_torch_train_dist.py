@@ -5,7 +5,9 @@ LOCAL_RANK, MASTER_ADDR, MASTER_PORT on a free port), and once through
 torchrun itself, train the smoke mesh1k under the uniform plan with
 `--model 2`: both exit 0 with the same losses and the same params, and
 only rank 0 prints.  Four ranks at pod 2 x model 2 train exactly as at
-data 2 x model 2.  The mesh flags' refusals are checked in process.
+data 2 x model 2.  The mesh flags' refusals are checked in process, and
+the uniform plan's reshard points where a layer's geometry drops the
+spatial axis (once refused, before there were reshards).
 """
 import json
 import os
@@ -17,9 +19,11 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core.plan import NetworkPlan
 from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.launch import train
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models.cnn import meshnet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARGS = ["--arch", "mesh1k", "--smoke", "--model", "2", "--steps", "2",
@@ -110,7 +114,7 @@ def test_mesh_flags_are_checked():
     with pytest.raises(SystemExit):
         train.parse_args(ARGS[:-2] + ["--batch", "3", "--data", "2"])
     with pytest.raises(SystemExit):
-        train.parse_args(ARGS + ["--strategy", "auto"])
+        train.parse_args(ARGS + ["--strategy", "auto", "--search", "dfs"])
 
 
 @pytest.mark.parametrize("arch,smoke,model,fits", [
@@ -119,14 +123,17 @@ def test_mesh_flags_are_checked():
     ("mesh2k", False, 8, True)])
 def test_check_fits_refuses_layers_that_need_a_reshard(arch, smoke, model,
                                                        fits):
+    """The meshes that were refused before there were reshards: the
+    uniform plan, fitted to every layer, has reshard points exactly
+    there, and each one's layer is demoted (§III-A)."""
     cfg = registry.get(arch, smoke=smoke)
     mesh = Mesh({"data": 1, "model": model}, rank=0)
-    plan = ConvSharding(batch_axes=("data",), h_axis="model")
-    if fits:
-        train.check_fits(cfg, plan, mesh)
-    else:
-        with pytest.raises(SystemExit, match="reshard"):
-            train.check_fits(cfg, plan, mesh)
+    sh = ConvSharding(batch_axes=("data",), h_axis="model")
+    plan = NetworkPlan.uniform(sh, specs=meshnet.layer_specs(cfg, 1),
+                               mesh=mesh)
+    assert (plan.n_reshards == 0) == fits
+    for lp in plan.layers.values():
+        assert lp.reshard_in == ("demoted h_axis" in lp.note)
 
 
 def test_one_process_keeps_the_one_device_plan():
@@ -135,4 +142,6 @@ def test_one_process_keeps_the_one_device_plan():
     device, mesh, rank = train.setup(args)
     assert mesh is None and rank == 0 and device == torch.device("cpu")
     plan = train.build(args, device, mesh)[-1]
-    assert plan == ConvSharding()
+    assert plan.n_reshards == 0
+    assert all(plan.sharding(n) == ConvSharding()
+               for n in meshnet.layer_names(registry.get("mesh1k", True)))

@@ -49,6 +49,43 @@ HALO_CASES = [("h_1_1", "model", 1, 1, 1, 0.0),
 BN_SCOPES = ("local", "spatial", "global")
 MESHNET = {"input_hw": 64, "in_channels": 4, "convs_per_block": 2,
            "widths": (8, 16)}
+# §III-D CF conv: (K, s, H, W, C, F), C and F divisible by 4
+CF_GEOMS = [(3, 1, 8, 8, 8, 12), (3, 2, 8, 8, 8, 4)]
+# (key, mesh dims, CFSharding kwargs but mode, mode, channel chunks)
+CF_CONFIGS = [
+    ("m2_channel_c1", (1, 2), {"cf_axis": "model"}, "channel", 1),
+    ("m2_channel_c2", (1, 2), {"cf_axis": "model"}, "channel", 2),
+    ("m2_filter", (1, 2), {"cf_axis": "model"}, "filter", 1),
+    ("m4_channel_c1", (1, 4), {"cf_axis": "model"}, "channel", 1),
+    ("m4_channel_c2", (1, 4), {"cf_axis": "model"}, "channel", 2),
+    ("m4_filter", (1, 4), {"cf_axis": "model"}, "filter", 1),
+    ("nd_channel_c2", (2, 2), {"batch_axes": ("data",), "cf_axis": "model"},
+     "channel", 2),
+    ("nd_filter", (2, 2), {"batch_axes": ("data",), "cf_axis": "model"},
+     "filter", 1),
+    ("hd_channel", (2, 2), {"cf_axis": "model", "h_axis": "data"},
+     "channel", 1),
+    ("hd_filter", (2, 2), {"cf_axis": "model", "h_axis": "data"},
+     "filter", 1),
+]
+# cf_batch_norm / cf_bias_add: (key, mesh dims, CFSharding kwargs)
+CF_BN_CONFIGS = [
+    ("m4", (1, 4), {"cf_axis": "model"}),
+    ("nd", (2, 2), {"batch_axes": ("data",), "cf_axis": "model"}),
+    ("hd", (2, 2), {"batch_axes": (), "cf_axis": "model", "h_axis": "data"}),
+]
+# the reshard's layouts, one per kind of sharding: the mesh axes of N, H,
+# W and C; on 2 x 2 with product axes (W's against the mesh order)
+RESHARD_KINDS = {
+    (1, 2): {"N": (("model",), (), (), ()), "H": ((), ("model",), (), ()),
+             "W": ((), (), ("model",), ()), "CF": ((), (), (), ("model",)),
+             "R": ((), (), (), ())},
+    (2, 2): {"N": (("data", "model"), (), (), ()),
+             "H": (("data",), ("model",), (), ()),
+             "W": ((), (), ("model", "data"), ()),
+             "CF": ((), ("data",), (), ("model",)),
+             "R": ((), (), (), ())},
+}
 
 
 # ------------------------------------------------------------- layout --
@@ -73,9 +110,9 @@ def shard(rank: int, dims: tuple, axis) -> tuple[int, int]:
 
 
 def block(a: np.ndarray, rank: int, dims: tuple, batch_axes=(),
-          h_axis=None, w_axis=None) -> np.ndarray:
+          h_axis=None, w_axis=None, c_axis=None) -> np.ndarray:
     """rank's block of global NHWC `a`."""
-    for dim, axis in ((0, batch_axes), (1, h_axis), (2, w_axis)):
+    for dim, axis in enumerate((batch_axes, h_axis, w_axis, c_axis)):
         i, n = shard(rank, dims, axis)
         m = a.shape[dim] // n
         a = a[(slice(None),) * dim + (slice(i * m, (i + 1) * m),)]
@@ -83,19 +120,17 @@ def block(a: np.ndarray, rank: int, dims: tuple, batch_axes=(),
 
 
 def stitch(blocks: list, dims: tuple, batch_axes=(), h_axis=None,
-           w_axis=None) -> np.ndarray:
+           w_axis=None, c_axis=None) -> np.ndarray:
     """The global array from every rank's block (ranks replicating a block
     must agree)."""
-    nb, nh, nw = (shard(0, dims, a)[1] for a in (batch_axes, h_axis, w_axis))
+    axes = (batch_axes, h_axis, w_axis, c_axis)
     b0 = blocks[0]
-    out = np.full((b0.shape[0] * nb, b0.shape[1] * nh, b0.shape[2] * nw)
-                  + b0.shape[3:], np.nan, b0.dtype)
+    ns = [shard(0, dims, a)[1] for a in axes]
+    out = np.full(tuple(e * n for e, n in zip(b0.shape, ns)) + b0.shape[4:],
+                  np.nan, b0.dtype)
     for r, b in enumerate(blocks):
-        (i, _), (j, _), (k, _) = (shard(r, dims, a)
-                                  for a in (batch_axes, h_axis, w_axis))
-        s = (slice(i * b.shape[0], (i + 1) * b.shape[0]),
-             slice(j * b.shape[1], (j + 1) * b.shape[1]),
-             slice(k * b.shape[2], (k + 1) * b.shape[2]))
+        s = tuple(slice(i * e, (i + 1) * e) for (i, _), e in
+                  zip((shard(r, dims, a) for a in axes), b.shape))
         prev = out[s]
         if not np.isnan(prev).all():
             np.testing.assert_array_equal(prev, b)
@@ -135,6 +170,35 @@ def pool_input(n=4, h=32, w=16, c=5, seed=5):
     rng = np.random.default_rng(seed)
     return rng.standard_normal((n, h, w, c)).astype(np.float32), \
         rng.standard_normal((n, h // 2, w // 2, c)).astype(np.float32)
+
+
+def cf_inputs(geom, n=2, seed=7):
+    k, s, h, w, c, f = geom
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, c, f)) * 0.3).astype(np.float32)
+    gy = rng.standard_normal((n, h // s, w // s, f)).astype(np.float32)
+    return x, wt, gy
+
+
+def cf_bn_inputs(seed=8):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((4, 8, 8, 8)) * 2 + 0.5).astype(np.float32)
+    g = rng.standard_normal(8).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32)
+    gy = rng.standard_normal(x.shape).astype(np.float32)
+    return x, g, b, gy
+
+
+def cf_spec(kw: dict) -> dict:
+    """CFSharding kwargs as `block`'s axis arguments."""
+    return {"batch_axes": tuple(kw.get("batch_axes", ())),
+            "h_axis": kw.get("h_axis"), "w_axis": kw.get("w_axis"),
+            "c_axis": kw["cf_axis"]}
+
+
+def reshard_input(seed=9):
+    return np.random.default_rng(seed).standard_normal((4, 8, 8, 4))
 
 
 # -------------------------------------------------------------- cases --
@@ -338,9 +402,149 @@ def case_trajectory(mesh, d):
     return out
 
 
+def case_cf(mesh, d):
+    """Every CF_CONFIGS row on this mesh: each rank's blocks of y and dx
+    and the mesh-summed dw of sum(y * gy), for each CF_GEOMS geometry;
+    then cf_batch_norm at each scope and cf_bias_add."""
+    import torch
+    from repro_torch.core import channel_conv as cc
+    from repro_torch.train.train_loop import reduce_replicated_grads
+    r, dims = mesh.rank, tuple(mesh.shape.values())
+    out = {}
+    for key, cdims, kw, mode, chunks in CF_CONFIGS:
+        if cdims != dims:
+            continue
+        sh = cc.CFSharding(mode=mode, **kw)
+        spec = cf_spec(kw)
+        for gi, geom in enumerate(CF_GEOMS):
+            s = geom[1]
+            x_g, w_g, gy_g = cf_inputs(geom)
+            x = _t(block(x_g, r, dims, **spec), grad=True)
+            w = _t(w_g, grad=True)
+            y = cc.cf_conv2d(x, w, strides=(s, s), sharding=sh, mesh=mesh,
+                             channel_chunks=chunks)
+            (y * _t(block(gy_g, r, dims, **spec))).sum().backward()
+            out[f"{key}/{gi}/y"] = y.detach().numpy()
+            out[f"{key}/{gi}/dx"] = x.grad.numpy()
+            out[f"{key}/{gi}/dw"] = reduce_replicated_grads(
+                [w.grad], mesh)[0].numpy()
+    x_g, g_g, b_g, gy_g = cf_bn_inputs()
+    for key, cdims, kw in CF_BN_CONFIGS:
+        if cdims != dims:
+            continue
+        sh = cc.CFSharding(**kw)
+        spec = cf_spec(kw)
+        for scope in BN_SCOPES + ("bias",):
+            x = _t(block(x_g, r, dims, **spec), grad=True)
+            g, b = _t(g_g, grad=True), _t(b_g, grad=True)
+            if scope == "bias":
+                y = cc.cf_bias_add(x, b, sharding=sh, mesh=mesh)
+                g.grad = torch.zeros_like(g)
+            else:
+                y = cc.cf_batch_norm(x, g, b, sharding=sh, mesh=mesh,
+                                     scope=scope)
+            (y * _t(block(gy_g, r, dims, **spec))).sum().backward()
+            dg, db = reduce_replicated_grads([g.grad, b.grad], mesh)
+            out.update({f"bn_{key}_{scope}/y": y.detach().numpy(),
+                        f"bn_{key}_{scope}/dx": x.grad.numpy(),
+                        f"bn_{key}_{scope}/dgamma": dg.numpy(),
+                        f"bn_{key}_{scope}/dbeta": db.numpy()})
+    return out
+
+
+def case_reshard(mesh, d):
+    """Every ordered pair of RESHARD_KINDS: this rank's block after the
+    reshard of its block of `reshard_input` (float64), the bytes it sent
+    and the bytes `reshard_bytes` predicts, and the two sides of the
+    adjoint identity <R v, u> = <v, R^T u> summed over the ranks, v and u
+    independent random blocks on every rank (replicas too)."""
+    import torch
+    from repro_torch.core import collectives as co
+    r, dims = mesh.rank, tuple(mesh.shape.values())
+    kinds = RESHARD_KINDS[dims]
+    x_g = reshard_input()
+    out = {}
+    for a, src in kinds.items():
+        for b, dst in kinds.items():
+            x = _t(block(x_g, r, dims, *src))
+            co.reset_sent()
+            y = co.reshard(x, src, dst, mesh)
+            out[f"{a}_{b}/y"] = y.numpy()
+            out[f"{a}_{b}/sent"] = np.array(sum(co.sent.values()))
+            out[f"{a}_{b}/want_sent"] = np.array(co.reshard_bytes(
+                x_g.shape, src, dst, dict(mesh.shape), 8))
+            rng = np.random.default_rng(1000 + r)
+            v = _t(rng.standard_normal(x.shape), grad=True)
+            u = torch.from_numpy(rng.standard_normal(tuple(y.shape)))
+            ry = co.reshard(v, src, dst, mesh)
+            (g,) = torch.autograd.grad(ry, v, u)
+            sides = torch.stack([(ry * u).sum(), (v * g).sum()]).detach()
+            out[f"{a}_{b}/adjoint"] = mesh.all_reduce(
+                sides, mesh.axis_names).numpy()
+    return out
+
+
+def plan_cases(d) -> list[dict]:
+    with open(os.path.join(d, "plans.json")) as f:
+        return json.load(f)
+
+
+def case_plan(mesh, d):
+    """Each case of DIR/plans.json on this mesh: the meshnet of its
+    config with its params (DIR/inputs.npz, `<case>/<i>.<k>.<pk>`) under
+    its plan (a repro/plan@1 record lowered by plan_from_spec, or the
+    uniform sharding where it has none), on global batch 0 of its batch
+    size: the loss summed over the ranks and every param's gradient
+    summed over the mesh."""
+    import torch
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.spatial_conv import ConvSharding
+    from repro_torch.data import pipeline
+    from repro_torch.models.cnn import meshnet
+    from repro_torch.train.train_loop import reduce_replicated_grads
+    from repro_torch.utils import tree_leaves
+    dims = tuple(mesh.shape.values())
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    out = {}
+    for c in plan_cases(d):
+        if tuple(c["dims"]) != dims:
+            continue
+        cfg = meshnet.MeshNetConfig(**{**c["cfg"],
+                                       "widths": tuple(c["cfg"]["widths"])})
+        model = meshnet.MeshNet(cfg, generator=torch.Generator(),
+                                device="cpu")
+        model.params_from_jax([
+            {k: {pk: flat[f"{c['name']}/{i}.{k}.{pk}"] for pk in sub}
+             for k, sub in layer.items()}
+            for i, layer in enumerate(model.params())])
+        specs = meshnet.layer_specs(cfg, c["batch"])
+        if c["spec"] is None:
+            plan = ConvSharding(batch_axes=("data",), h_axis="model")
+            net = meshnet.network_plan(cfg, plan, mesh)
+        else:
+            plan = net = plan_lib.plan_from_spec(c["spec"], specs, mesh)
+        b = pipeline.synthetic_mesh_batch(0, c["batch"], cfg.input_hw,
+                                          cfg.in_channels, out_hw=cfg.out_hw)
+        b = pipeline.to_device(pipeline.shard_batch(
+            b, mesh, net.sharding(specs[0].name), net.sharding("pred")),
+            torch.device("cpu"))
+        params = model.params()
+        loss = meshnet.loss_fn(params, b, cfg, plan, mesh)
+        grads = reduce_replicated_grads(
+            list(torch.autograd.grad(loss, tree_leaves(params))), mesh)
+        key = c["name"]
+        out[f"{key}/loss"] = mesh.all_reduce(loss.detach(),
+                                             mesh.axis_names).numpy()
+        out[f"{key}/n_reshards"] = np.array(net.n_reshards)
+        out.update({f"{key}/grad{i}": g.numpy()
+                    for i, g in enumerate(grads)})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
-         "meshnet": case_meshnet, "trajectory": case_trajectory}
+         "meshnet": case_meshnet, "trajectory": case_trajectory,
+         "cf": case_cf, "reshard": case_reshard, "plan": case_plan}
 
 
 # ------------------------------------------------------------ launcher --
@@ -362,23 +566,34 @@ def _rank_main(rank: int, case: str, dims: tuple, d: str) -> None:
         dist.destroy_process_group()
 
 
-def run(case: str, dims: tuple, d: str, timeout: int = 300) -> list[dict]:
-    """Run `case` on a (data, model) = `dims` mesh of gloo ranks in a
-    subprocess; returns each rank's arrays."""
+def start(case: str, dims: tuple, d: str) -> subprocess.Popen:
+    """Start `case` on a (data, model) = `dims` mesh of gloo ranks in a
+    subprocess."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src")
     env["OMP_NUM_THREADS"] = "1"
-    r = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), case,
-         ",".join(map(str, dims)), str(d)],
-        capture_output=True, text=True, timeout=timeout, env=env, cwd=REPO)
-    if r.returncode != 0:
-        raise AssertionError(f"ranks of {case} on {dims} failed "
-                             f"(rc {r.returncode}):\n{r.stdout[-2000:]}\n"
-                             f"{r.stderr[-6000:]}")
-    world = dims[0] * dims[1]
+         ",".join(map(str, dims)), str(d)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=REPO)
+
+
+def collect(p: subprocess.Popen, dims: tuple, d: str,
+            timeout: int = 300) -> list[dict]:
+    """Wait for a `start`ed run; each rank's arrays."""
+    out, err = p.communicate(timeout=timeout)
+    if p.returncode != 0:
+        raise AssertionError(f"ranks {p.args[2:4]} failed (rc "
+                             f"{p.returncode}):\n{out[-2000:]}\n"
+                             f"{err[-6000:]}")
     return [dict(np.load(os.path.join(d, f"rank{i}.npz")))
-            for i in range(world)]
+            for i in range(dims[0] * dims[1])]
+
+
+def run(case: str, dims: tuple, d: str, timeout: int = 300) -> list[dict]:
+    """Run `case` on a (data, model) = `dims` mesh of gloo ranks in a
+    subprocess; returns each rank's arrays."""
+    return collect(start(case, dims, d), dims, d, timeout)
 
 
 def main(argv) -> int:
