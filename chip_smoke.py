@@ -53,6 +53,24 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    versions); one more step profiled, with the host time of the
    `cf_reduce_scatter`, `cf_all_gather` and `reshard` ranges.  Not a
    scaling result either;
+4d. ResNet-50, the branchy network: the conv kernel against its plain
+   version at the 23 distinct forward conv shapes of full-width ResNet-50
+   at batch 32 (53 calls a forward), f32 and bf16, also element by
+   element (tests/test_torch_cuda.py's TOL), each row with its plan (path,
+   tile, K step, K splits, C/F after padding), kernel, plain and
+   `F.conv2d` times and the bound, and their sums over one forward; the
+   trainer's own entry on full-width ResNet-50, batch 32, 3 steps (finite
+   losses, 53 x 3 conv launches); the forward loss at batch 2 on the
+   card against the CPU; one profiled step by kind of kernel, and the
+   max-pool alone (time and memory); then `--strategy auto`: the
+   §V-C longest-path-first solve on the H100 preset on data 1 x model 2
+   (it must have a CF layer and a residual-add reshard), printed with the
+   reshards the port executes, 2 ranks spawned on the card over gloo: 3
+   trainer steps with equal losses and params, the conv launches and
+   staged collectives the plan derives, the reshard bytes its report
+   predicts, the forward loss of one global batch under the plan against
+   the one-device card loss, one profiled step with its host ranges.  Not
+   a scaling result;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
    2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
    32 x 3 launches of each LM kernel;
@@ -101,7 +119,8 @@ from repro_torch.kernels.ref import (  # noqa: E402
     conv2d_ref, flash_attention_ref, ssd_chunked_ref)
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
-from repro_torch.models.cnn import meshnet  # noqa: E402
+from repro_torch.models.cnn import layers as cnn_layers  # noqa: E402
+from repro_torch.models.cnn import meshnet, resnet  # noqa: E402
 from repro_torch.models.lm import modules as lm_modules  # noqa: E402
 from repro_torch.models.lm import transformer  # noqa: E402
 from repro_torch.optim.optimizer import adamw, sgd  # noqa: E402
@@ -256,7 +275,8 @@ def _timings(fn_kernel, fn_plain, fn_library, flops: float, nbytes: float,
             "gflops": flops / 1e9, "tflops_s": flops / kernel_s / 1e12}
 
 
-def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
+def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator,
+                elem_tol: dict | None = None) -> dict:
     dev = torch.device("cuda")
     n, hp, wp, c = sh["x"]
     k, f, s = sh["k"], sh["f"], sh["stride"]
@@ -283,6 +303,15 @@ def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
             f"|w| {w.abs().max()}, |kernel - library| "
             f"{(y.float() - lib).abs().max()}, |plain - library| "
             f"{(yr.float() - lib).abs().max()}")
+    if elem_tol is not None:
+        # element by element as well: |kernel - plain| <= tol (1 + |plain|)
+        tol = elem_tol[dtype]
+        worst = float(((y.float() - yr.float()).abs()
+                       / (1.0 + yr.float().abs())).max())
+        if not worst <= tol:
+            raise AssertionError(f"{sh['layer']} {dtype}: kernel vs plain "
+                                 f"element error {worst} > {tol} (1 + "
+                                 f"|plain|)")
 
     # the autograd Function (kernel forward, cuDNN backward) vs autograd
     # through the plain version, through one random cotangent
@@ -316,25 +345,30 @@ def check_shape(sh: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
     return row
 
 
-def kernel_phase(card: str) -> list[dict]:
+def kernel_phase(card: str, shapes=None, elem_tol=None) -> list[dict]:
+    """Kernel-vs-plain rows (`check_shape`) of every conv shape in
+    `shapes` (default: mesh1k's at batch 2), float32 then bfloat16."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = shapes or mesh_conv_shapes(meshnet.MESH1K)
     rows = []
-    print(f"{'layer':8s} {'dtype':8s} {'x (N,H,W,C)':22s} {'k':>2s} "
-          f"{'F':>4s} {'s':>2s} {'n':>2s} {'path tile splits':18s} "
+    print(f"{'layer':15s} {'dtype':8s} {'x (N,H,W,C)':22s} {'k':>2s} "
+          f"{'F':>4s} {'s':>2s} {'n':>2s} {'path tile k splits C/F':29s} "
           f"{'kernel_ms':>10s} "
           f"{'plain_ms':>9s} {'library_ms':>10s} {'bound_ms':>9s} "
           f"{'TFLOP/s':>8s} {'max_err':>9s}   ({card})")
     for dtype in (torch.float32, torch.bfloat16):
-        for sh in mesh_conv_shapes(meshnet.MESH1K):
-            r = check_shape(sh, dtype, gen)
+        for sh in shapes:
+            r = check_shape(sh, dtype, gen, elem_tol)
             rows.append(r)
             p = r["plan"]
-            plan = f"{p['path']} {p['tile_m']}x{p['tile_n']} {p['splits']}"
-            print(f"{r['layer']:8s} {r['dtype']:8s} {str(tuple(r['x'])):22s} "
+            plan = f"{p['path']} {p['tile_m']}x{p['tile_n']} " \
+                f"k{p['tile_k']} {p['splits']} {p['c_pad']}/{p['f_pad']}"
+            print(f"{r['layer']:15s} {r['dtype']:8s} "
+                  f"{str(tuple(r['x'])):22s} "
                   f"{r['k']:2d} {r['f']:4d} {r['stride']:2d} "
-                  f"{r['count']:2d} {plan:18s} {r['ms']:10.4f} "
+                  f"{r['count']:2d} {plan:29s} {r['ms']:10.4f} "
                   f"{r['plain_ms']:9.4f} "
                   f"{r['library_ms']:10.4f} {r['bound_ms']:9.4f} "
                   f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}",
@@ -856,36 +890,47 @@ def plan_conv_calls(plan, specs) -> int:
     return n
 
 
+def _reshard_staged(src, dst) -> int:
+    """Collectives a reshard from sharding `src` to `dst` stages, forward
+    and backward: each all-gather or all-to-all (a slice sends nothing)."""
+    return 2 * sum(op != "slice" for op, *_ in collectives.reshard_steps(
+        collectives.layout(src), collectives.layout(dst)))
+
+
+def _layer_staged(lp, spec, scope: str, bn: bool) -> int:
+    """Collectives a layer's conv and BN stage, forward and backward: each
+    CF collective, and a BN whose statistics are summed over more than
+    one rank."""
+    shape = Mesh(AUTO_MESH, rank=0)
+    n, sh = 0, lp.sharding
+    if getattr(sh, "cf_axis", None) is not None:
+        n += 2 * (1 if sh.is_spatial or sh.mode == "filter" else
+                  min(channel_conv.default_channel_chunks(),
+                      spec.c // SPATIAL_MODEL))
+    if not bn:
+        return n
+    out = lp.out_sharding
+    if getattr(out, "cf_axis", None) is not None or out.is_spatial:
+        axes = () if scope == "local" else out.spatial_axes + (
+            tuple(out.batch_axes) if scope == "global" else ())
+    else:
+        axes = tuple(out.batch_axes)
+    return n + 2 * (shape.axis_size(axes) > 1)
+
+
 def plan_staged(plan, specs, scope: str) -> int:
     """Collectives one training step under `plan` stages through the host
     on one rank (gloo, CUDA tensors; halos apart): a BN whose statistics
     are summed over more than one rank, and each CF collective and each
     reshard's all-gather or all-to-all, forward and backward alike; then
     the gradient and the loss all-reduces."""
-    shape = Mesh(AUTO_MESH, rank=0)
     n = 2
     for i, spec in enumerate(specs):
         lp = plan.layers[spec.name]
         if lp.reshard_in:
-            prev = plan.out_sharding(specs[i - 1].name)
-            n += 2 * sum(op != "slice" for op, *_ in
-                         collectives.reshard_steps(
-                             collectives.layout(prev),
-                             collectives.layout(lp.sharding)))
-        sh = lp.sharding
-        if getattr(sh, "cf_axis", None) is not None:
-            n += 2 * (1 if sh.is_spatial or sh.mode == "filter" else
-                      min(channel_conv.default_channel_chunks(),
-                          spec.c // SPATIAL_MODEL))
-        if spec.name == "pred":
-            continue
-        bn = lp.out_sharding
-        if getattr(bn, "cf_axis", None) is not None or bn.is_spatial:
-            axes = () if scope == "local" else bn.spatial_axes + (
-                tuple(bn.batch_axes) if scope == "global" else ())
-        else:
-            axes = tuple(bn.batch_axes)
-        n += 2 * (shape.axis_size(axes) > 1)
+            n += _reshard_staged(plan.out_sharding(specs[i - 1].name),
+                                 lp.sharding)
+        n += _layer_staged(lp, spec, scope, bn=spec.name != "pred")
     return n
 
 
@@ -1009,22 +1054,31 @@ def auto_rank(rank: int, world: int) -> dict:
 
 def auto_step_breakdown(params, mesh, plan) -> dict:
     """One more training step of this rank under `plan` (batch on the card,
-    lr 0) under torch.profiler: device kernels by kind (the copies that
-    stage gloo's collectives apart), and the host time of the plan's
-    collective ranges (AUTO_RANGES)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    cfg, dev = meshnet.MESH1K, torch.device("cuda")
+    lr 0) under torch.profiler (`plan_step_breakdown`)."""
+    cfg = meshnet.MESH1K
     specs = meshnet.layer_specs(cfg, BATCH)
-    opt = sgd(0.0, momentum=0.9)
-    step = make_train_step(functools.partial(
-        meshnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh), opt,
-        TrainStepConfig(precision=FP32), mesh=mesh)
-    state = opt.init(params)
-    batch = pipeline.to_device(pipeline.shard_batch(
+    batch = pipeline.shard_batch(
         pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
                                       cfg.in_channels, out_hw=cfg.out_hw),
-        mesh, plan.sharding(specs[0].name), plan.sharding("pred")), dev)
+        mesh, plan.sharding(specs[0].name), plan.sharding("pred"))
+    return plan_step_breakdown(functools.partial(
+        meshnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh), params, mesh,
+        batch, cnn_kind)
+
+
+def plan_step_breakdown(loss, params, mesh, batch, classify) -> dict:
+    """One training step of this rank of `loss` (lr 0) on its block
+    `batch` on the card, after a warm one, under torch.profiler: device
+    kernels by kind (`classify`; the copies that stage gloo's collectives
+    apart), and the host time of the plan's collective ranges
+    (AUTO_RANGES)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    opt = sgd(0.0, momentum=0.9)
+    step = make_train_step(loss, opt, TrainStepConfig(precision=FP32),
+                           mesh=mesh)
+    state = opt.init(params)
+    batch = pipeline.to_device(batch, torch.device("cuda"))
     float(step(params, state, batch)[2]["loss"])        # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1040,7 +1094,7 @@ def auto_step_breakdown(params, mesh, plan) -> dict:
             n_kernels += 1
             name = e.name.lower()
             g = "memcpy (gloo's host staging)" if "memcpy" in name \
-                else cnn_kind(name)
+                else classify(name)
             groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
         elif e.name in ranges:
             ranges[e.name] += e.time_range.elapsed_us() / 1e3
@@ -1148,6 +1202,355 @@ def auto_phase(card: str) -> dict:
     return {"ranks": ranks, "cpu": cpu, "kinds": kinds,
             "n_reshards": solved.n_reshards, "reshard_report": report,
             "launches_per_step": per_step, "staged_per_step": staged_step,
+            "loss_rel_diff": rel}
+
+
+# ------------------------------------------------------------ ResNet-50 --
+
+RESNET = resnet.RESNET50
+RESNET_BATCH = 32
+# the 23 conv shapes, kernel vs plain element by element as well
+# (tests/test_torch_cuda.py's TOL): |kernel - plain| <= tol (1 + |plain|)
+RESNET_ELEM_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# full-width forward loss at batch 2, card vs CPU (as mesh1k's)
+RESNET_CHECK_BATCH = 2
+# the auto plan's forward loss of one global batch against the one-device
+# card loss on the same params and batch: the same function (every BN of
+# the plan normalises as one device does), sums split over 2 ranks
+RESNET_PLAN_RTOL = 1e-5
+RESNET_MESH = AUTO_MESH
+
+
+def resnet_conv_shapes(cfg, batch: int) -> list[dict]:
+    """The distinct conv calls of one ResNet forward, in graph order, with
+    how many convs make each: padded input (N, H, W, C), K, F, stride."""
+    g = resnet.resnet_graph(batch, cfg)
+    shapes: dict[tuple, dict] = {}
+    for name in g.nodes:
+        spec = g.nodes[name]["layer"]
+        if spec.kind == "pool":
+            continue
+        lo, hi = same_pads(spec.k, spec.s)
+        key = (batch, spec.h + lo + hi, spec.w + lo + hi, spec.c, spec.k,
+               spec.f, spec.s)
+        if key not in shapes:
+            shapes[key] = {"layer": name, "x": key[:4], "k": spec.k,
+                           "f": spec.f, "stride": spec.s, "count": 0}
+        shapes[key]["count"] += 1
+    return list(shapes.values())
+
+
+def resnet_n_convs(cfg) -> int:
+    return sum(s.kind != "pool" for s in resnet.all_specs(1, cfg))
+
+
+def resnet_kind(name: str) -> str:
+    """`cnn_kind`, with the max-pool's amax reduction (a max-reducing
+    `reduce_kernel`, the only one a ResNet step runs) apart."""
+    if "reduce_kernel" in name and "max" in name:
+        return "max-pool amax (forward)"
+    return cnn_kind(name)
+
+
+def resnet_train_phase(card: str) -> dict:
+    """The trainer's own entry on full-width ResNet-50, batch 32, 3 steps:
+    finite losses and 53 x 3 conv launches."""
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train_cli.main(["--arch", "resnet50", "--batch",
+                          str(RESNET_BATCH), "--steps", str(STEPS),
+                          "--device", "cuda", "--log-every", "1"])
+    launches = ops.launch_counts()["conv2d"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_convs = resnet_n_convs(RESNET)
+    if not all(math.isfinite(l) for l in res["losses"]):
+        raise AssertionError(f"non-finite loss: {res['losses']}")
+    if launches != n_convs * STEPS:
+        raise AssertionError(f"conv kernel launched {launches} times in "
+                             f"{STEPS} steps, want {n_convs} x {STEPS}")
+    steady = res["step_s"][1:]
+    step_s = sum(steady) / len(steady)
+    compute = [t - d for t, d in zip(res["step_s"], res["data_s"])][1:]
+    compute_s = sum(compute) / len(compute)
+    print(f"resnet50 train: {STEPS} steps of full-width ResNet-50 "
+          f"({res['n_params']} params) at batch {RESNET_BATCH}; losses "
+          f"{res['losses']}; step seconds {res['step_s']} (batch wait + "
+          f"copy {res['data_s']}); steps 2..{STEPS}: {step_s:.4f} s/step, "
+          f"{RESNET_BATCH / step_s:.2f} samples/s; without the batch wait "
+          f"{compute_s:.4f} s/step, {RESNET_BATCH / compute_s:.2f} "
+          f"samples/s; peak memory {peak:.2f} GiB; conv launches "
+          f"{launches} ({n_convs} a forward) ({card})")
+    return {"launches": launches, "losses": res["losses"],
+            "step_s": res["step_s"], "data_s": res["data_s"],
+            "steady_step_s": step_s, "steady_compute_s": compute_s,
+            "peak_gib": peak, "n_params": res["n_params"]}
+
+
+def resnet_profile_phase(card: str) -> dict:
+    """Device time of one full-width ResNet-50 training step (batch 32 on
+    the card) by kind of kernel, and the max-pool alone: its forward and
+    forward + backward times (CUDA events) and the memory it adds, at
+    conv1's output (32, 112, 112, 64)."""
+    dev = torch.device("cuda")
+    model = resnet.ResNet(RESNET, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    params = model.params()
+    opt = sgd(0.0, momentum=0.9)
+    step = make_train_step(functools.partial(resnet.loss_fn, cfg=RESNET),
+                           opt, TrainStepConfig(precision=FP32))
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.synthetic_imagenet_batch(
+        0, RESNET_BATCH, RESNET.input_hw, RESNET.n_classes), dev)
+    params, state, _ = step(params, state, batch)     # warm
+
+    def run_step():
+        float(step(params, state, batch)[2]["loss"])
+
+    wall_ms, groups, n_kernels = _device_breakdown(run_step, resnet_kind)
+    busy = sum(groups.values())
+    del model, params, state, batch
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.relu(torch.randn((RESNET_BATCH, RESNET.input_hw // 2,
+                                RESNET.input_hw // 2, 64), generator=gen,
+                               device=dev)).requires_grad_()
+    sh = ConvSharding()
+
+    def pool():
+        return cnn_layers.max_pool(x, window=3, stride=2, sharding=sh)
+
+    def pool_fwd_bwd():
+        return torch.autograd.grad(pool().sum(), x)[0]
+
+    fwd_ms = time_fn(pool, reps=10, warmup=2) * 1e3
+    fwd_bwd_ms = time_fn(pool_fwd_bwd, reps=10, warmup=2) * 1e3
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    y = pool()
+    held = torch.cuda.memory_allocated() - base      # output + saved taps
+    torch.autograd.grad(y.sum(), x)
+    pool_peak = torch.cuda.max_memory_allocated() - base
+    del x, y
+    torch.cuda.empty_cache()
+    if n_kernels == 0:
+        print("resnet50 step breakdown: the profiler saw no device kernels "
+              "(not measured)")
+    else:
+        print(f"resnet50 step breakdown (one step, batch {RESNET_BATCH} on "
+              f"the card, host clock {wall_ms:.2f} ms): device kernels "
+              f"{busy:.2f} ms in {n_kernels} kernels, idle share "
+              f"{1 - busy / wall_ms:.3f}; " + "; ".join(
+                  f"{k} {v:.2f} ms" for k, v in sorted(groups.items()))
+              + f" ({card})")
+    print(f"resnet50 max-pool (plain PyTorch: 9 stacked taps, amax) at "
+          f"(32, 112, 112, 64): forward {fwd_ms:.3f} ms, forward + "
+          f"backward {fwd_bwd_ms:.3f} ms; held after the forward "
+          f"{held / 2**20:.1f} MiB, peak over the input through the "
+          f"backward {pool_peak / 2**20:.1f} MiB ({card})")
+    return {"wall_ms": wall_ms, "device_ms": busy if n_kernels else None,
+            "groups": groups, "n_kernels": n_kernels,
+            "pool_fwd_ms": fwd_ms, "pool_fwd_bwd_ms": fwd_bwd_ms,
+            "pool_held_mib": held / 2**20, "pool_peak_mib": pool_peak / 2**20}
+
+
+def resnet_forward_check(card: str) -> dict:
+    """Full-width ResNet-50 forward loss at batch 2 (seed-0 params): card
+    vs CPU."""
+    nb = pipeline.synthetic_imagenet_batch(0, RESNET_CHECK_BATCH,
+                                           RESNET.input_hw, RESNET.n_classes)
+    out = {}
+    with torch.no_grad():
+        for dev in ("cuda", "cpu"):
+            d = torch.device(dev)
+            model = resnet.ResNet(RESNET, generator=torch.Generator()
+                                  .manual_seed(0), device=d)
+            b = pipeline.to_device(nb, d)
+            t0 = time.perf_counter()
+            out[dev] = float(resnet.loss_fn(model.params(), b, RESNET))
+            out[dev + "_s"] = time.perf_counter() - t0
+            del model, b
+    lg, lc = out["cuda"], out["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    print(f"resnet50 forward check, batch {RESNET_CHECK_BATCH}: loss card "
+          f"{lg!r} cpu {lc!r} ({out['cpu_s']:.1f} s) rel diff {rel:.3e} "
+          f"(tol {LOSS_RTOL}) ({card})")
+    if not (math.isfinite(lg) and rel <= LOSS_RTOL):
+        raise AssertionError(f"card loss {lg} vs cpu loss {lc}: rel {rel}")
+    return {"loss_cuda": lg, "loss_cpu": lc, "rel_diff": rel}
+
+
+def resnet_auto_plan():
+    """The plan `--strategy auto` solves on the card for full-width
+    ResNet-50 at batch 32 on RESNET_MESH (the H100 preset)."""
+    return plan_lib.plan_graph(H100, resnet.resnet_graph(RESNET_BATCH),
+                               resnet.layer_specs(RESNET_BATCH), RESNET_MESH)
+
+
+def resnet_staged(plan, cfg) -> int:
+    """Collectives one ResNet training step under `plan` stages through
+    the host on one rank (gloo, CUDA tensors; halos apart): each layer's
+    (`_layer_staged`; the pool has no BN), each reshard of `resnet.flow`
+    (the residual adds' included), the head's gather of a CF-sharded or
+    sum of a spatially sharded last output, forward and backward alike;
+    then the gradient and the loss all-reduces."""
+    shape = Mesh(RESNET_MESH, rank=0)
+    n = 2
+    for spec in resnet.all_specs(1, cfg):
+        n += _layer_staged(plan.layers[spec.name], spec, cfg.bn_scope,
+                           bn=spec.kind != "pool")
+    for src, name, kind in resnet.flow(cfg):
+        dst = plan.sharding(name) if kind == "in" else \
+            plan.out_sharding(name)
+        n += _reshard_staged(plan.out_sharding(src), dst)
+    last = plan.out_sharding(resnet.last_layer(cfg))
+    n += 2 * (shape.axis_size(last.spatial_axes) > 1)
+    n += 2 * (getattr(last, "cf_axis", None) is not None)
+    return n
+
+
+def _resnet_plan_loss(plan, mesh, dev: torch.device) -> float:
+    """The full-width ResNet-50 forward loss of global batch 0 (seed-0
+    params) under `plan`, summed over the ranks (one device: mesh None)."""
+    model = resnet.ResNet(RESNET, generator=torch.Generator().manual_seed(0),
+                          device=dev)
+    nb = pipeline.synthetic_imagenet_batch(0, RESNET_BATCH, RESNET.input_hw,
+                                           RESNET.n_classes)
+    if mesh is not None:
+        nb = pipeline.shard_batch(nb, mesh, plan.sharding("conv1"),
+                                  plan.out_sharding(resnet.last_layer(
+                                      RESNET)))
+    with torch.no_grad():
+        part = resnet.loss_fn(model.params(), pipeline.to_device(nb, dev),
+                              RESNET, plan, mesh)
+        if mesh is None:
+            return float(part)
+        return float(mesh.all_reduce(part, mesh.axis_names))
+
+
+def resnet_auto_rank(rank: int, world: int) -> dict:
+    """One of 2 ranks on the card: (a) 3 training steps of full-width
+    ResNet-50 through the trainer's own entry under `--strategy auto`,
+    with its conv launches, staged collectives and bytes sent by each;
+    (b) the forward loss of one global batch under that plan; (c) one
+    more step profiled."""
+    mesh = make_mesh(**RESNET_MESH)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    halo.reset_staged()
+    collectives.reset_sent()
+    res = train_cli.main(["--arch", "resnet50", "--batch",
+                          str(RESNET_BATCH), "--steps", str(STEPS),
+                          "--model", str(SPATIAL_MODEL), "--device", "cuda",
+                          "--strategy", "auto", "--log-every", "1"])
+    launches, staged = ops.launch_counts()["conv2d"], halo.staged
+    collectives_staged, sent = res["mesh"].staged, dict(collectives.sent)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = res["plan"]
+    loss = _resnet_plan_loss(plan, mesh, torch.device("cuda"))
+    batch = pipeline.shard_batch(
+        pipeline.synthetic_imagenet_batch(0, RESNET_BATCH, RESNET.input_hw,
+                                          RESNET.n_classes),
+        mesh, plan.sharding("conv1"),
+        plan.out_sharding(resnet.last_layer(RESNET)))
+    breakdown = plan_step_breakdown(functools.partial(
+        resnet.loss_fn, cfg=RESNET, plan=plan, mesh=mesh), res["params"],
+        mesh, batch, resnet_kind)
+    return {"losses": res["losses"], "step_s": res["step_s"],
+            "data_s": res["data_s"], "launches": launches,
+            "staged": staged, "collectives_staged": collectives_staged,
+            "sent": sent, "peak_gib": peak,
+            "plan_spec": plan.to_spec(RESNET_MESH),
+            "describe": plan.describe(), "loss_card": loss,
+            "breakdown": breakdown,
+            "digest": [float(p.detach().double().sum())
+                       for p in tree_leaves(res["params"])]}
+
+
+def resnet_auto_phase(card: str) -> dict:
+    """§V-C longest-path-first on ResNet-50, `--strategy auto`, as 2
+    processes sharing the one card over gloo (not a scaling result): the
+    solve on the H100 preset (it must have a CF layer and a residual-add
+    reshard), 3 trainer steps, the forward loss under the plan against
+    the one-device card loss, one profiled step."""
+    specs = resnet.all_specs(RESNET_BATCH)
+    solved = resnet_auto_plan()
+    kinds = plan_kinds(solved)
+    report = solved.reshard_report(specs, RESNET_MESH,
+                                   flow=resnet.flow(RESNET))
+    if "CF" not in kinds or not any(r["layer"].endswith("(add)")
+                                    for r in report):
+        raise AssertionError(f"auto ResNet-50 plan without a CF layer or a "
+                             f"residual-add reshard: {kinds}")
+    print(f"auto plan, full-width ResNet-50, batch {RESNET_BATCH}, mesh "
+          f"{RESNET_MESH}, layer kinds {' '.join(kinds)}:")
+    print(solved.describe())
+    print(plan_lib.reshard_lines(report))
+    one = _resnet_plan_loss(None, None, torch.device("cuda"))
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(resnet_auto_rank, SPATIAL_MODEL)
+    if ranks[0]["plan_spec"]["layers"] != solved.to_spec()["layers"]:
+        raise AssertionError("the trainer ran another plan than the one "
+                             "solved here:\n" + ranks[0]["describe"])
+    lg = ranks[0]["loss_card"]
+    rel = abs(lg - one) / abs(one)
+    print(f"auto resnet50 forward check, batch {RESNET_BATCH}, 2 ranks under "
+          f"the plan: loss {lg!r} ({ranks[1]['loss_card']!r} on rank 1), "
+          f"one device {one!r}, rel diff {rel:.3e} (tol {RESNET_PLAN_RTOL}) "
+          f"({card})")
+    if not (math.isfinite(lg) and rel <= RESNET_PLAN_RTOL
+            and ranks[1]["loss_card"] == lg):
+        raise AssertionError(f"auto plan loss {lg} vs one device {one}")
+    per_step = plan_conv_calls(solved, [s for s in specs
+                                        if s.kind != "pool"])
+    staged_step = resnet_staged(solved, RESNET)
+    reshard_bytes = 2 * sum(r["bytes"] for r in report)    # fwd + bwd
+    for r, out in enumerate(ranks):
+        if out["losses"] != ranks[0]["losses"] or \
+                out["digest"] != ranks[0]["digest"]:
+            raise AssertionError(f"rank {r} diverged: losses "
+                                 f"{out['losses']} vs {ranks[0]['losses']}")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"non-finite loss: {out['losses']}")
+        if out["launches"] != per_step * STEPS:
+            raise AssertionError(f"rank {r}: {out['launches']} conv launches "
+                                 f"in {STEPS} steps, want {per_step} x "
+                                 f"{STEPS}")
+        if out["collectives_staged"] != staged_step * STEPS:
+            raise AssertionError(f"rank {r}: {out['collectives_staged']} "
+                                 f"collectives staged, want {staged_step} "
+                                 f"x {STEPS}")
+        if out["sent"].get("reshard", 0) != reshard_bytes * STEPS:
+            raise AssertionError(f"rank {r}: reshards sent "
+                                 f"{out['sent'].get('reshard', 0)} bytes, "
+                                 f"want {reshard_bytes} x {STEPS}")
+        steady = out["step_s"][1:]
+        step_s = sum(steady) / len(steady)
+        print(f"auto resnet50 train rank {r}/{SPATIAL_MODEL} (2 processes "
+              f"sharing one card over gloo: not a scaling result): "
+              f"full-width ResNet-50, global batch {RESNET_BATCH}, losses "
+              f"{out['losses']}; step seconds {out['step_s']} (batch wait + "
+              f"copy {out['data_s']}); steps 2..{STEPS}: {step_s:.4f} "
+              f"s/step, {RESNET_BATCH / step_s:.2f} samples/s (both ranks); "
+              f"peak memory {out['peak_gib']:.2f} GiB; conv launches "
+              f"{out['launches']} ({per_step} a step); halo messages "
+              f"staged {out['staged']}; collectives staged through the "
+              f"host {out['collectives_staged']} ({staged_step} a step); "
+              f"bytes sent {out['sent']} (reshards {reshard_bytes} a step) "
+              f"({card})")
+        b = out["breakdown"]
+        print(f"auto resnet50 step breakdown rank {r} (one step, host clock "
+              f"{b['wall_ms']:.2f} ms): device kernels {b['device_ms']:.2f} "
+              f"ms in {b['n_kernels']} kernels, idle share "
+              f"{1 - b['device_ms'] / b['wall_ms']:.3f}; " + "; ".join(
+                  f"{k} {v:.2f} ms" for k, v in sorted(b["groups"].items()))
+              + "; host ranges: " + "; ".join(
+                  f"{k} {v:.2f} ms"
+                  for k, v in b["host_ranges_ms"].items()) + f" ({card})")
+    return {"ranks": ranks, "kinds": kinds, "n_reshards": solved.n_reshards,
+            "reshard_report": report, "launches_per_step": per_step,
+            "staged_per_step": staged_step, "loss_one_device": one,
             "loss_rel_diff": rel}
 
 
@@ -1592,6 +1995,30 @@ def main() -> int:
     auto["phase_s"] = time.perf_counter() - t_auto
     print(f"auto-plan phase (2 card ranks, 2 CPU ranks) took "
           f"{auto['phase_s']:.1f} s of this run ({card})")
+    t_resnet = time.perf_counter()
+    print(f"resnet50 conv shapes, batch {RESNET_BATCH}: kernel vs plain "
+          f"(and element by element within {RESNET_ELEM_TOL[torch.float32]} "
+          f"/ {RESNET_ELEM_TOL[torch.bfloat16]} (1 + |plain|)), plan "
+          f"(path, tile, k step, K splits, C/F after padding), times:")
+    resnet_rows = kernel_phase(card, resnet_conv_shapes(RESNET, RESNET_BATCH),
+                               RESNET_ELEM_TOL)
+    for dt in ("float32", "bfloat16"):
+        sel = [r for r in resnet_rows if r["dtype"] == dt]
+        tot = {k: sum(r[k] * r["count"] for r in sel)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "gflops")}
+        print(f"resnet50 conv, one forward ({sum(r['count'] for r in sel)} "
+              f"calls, {tot['gflops']:.2f} GFLOP) {dt}: kernel "
+              f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms, "
+              f"F.conv2d {tot['library_ms']:.3f} ms, bound "
+              f"{tot['bound_ms']:.3f} ms ({card})")
+    resnet_train = resnet_train_phase(card)
+    resnet_fwd = resnet_forward_check(card)
+    resnet_breakdown = resnet_profile_phase(card)
+    resnet_auto = resnet_auto_phase(card)
+    resnet_s = time.perf_counter() - t_resnet
+    print(f"resnet50 phases (conv rows, train, forward check, breakdown, "
+          f"2-rank auto plan) took {resnet_s:.1f} s of this run ({card})")
     lm_train = lm_train_phase()
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
@@ -1605,6 +2032,11 @@ def main() -> int:
                    "step_breakdown": breakdown,
                    "interior_copy": interior, "spatial": spatial,
                    "auto": auto,
+                   "resnet50": {"shapes": resnet_rows,
+                                "train": resnet_train,
+                                "forward_check": resnet_fwd,
+                                "step_breakdown": resnet_breakdown,
+                                "auto": resnet_auto, "phase_s": resnet_s},
                    "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
@@ -1650,7 +2082,15 @@ def main() -> int:
              spatial_launches_per_rank=[r["launches"]
                                         for r in spatial["ranks"]],
              auto_launches_per_rank=[r["launches"]
-                                     for r in auto["ranks"]]),
+                                     for r in auto["ranks"]],
+             resnet50=dict(entry(
+                 "conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
+                 "src/repro/kernels/conv2d.py:43", resnet_train["launches"],
+                 resnet_rows, f"one ResNet-50 forward, batch {RESNET_BATCH}, "
+                 f"float32: {resnet_n_convs(RESNET)} conv calls at "
+                 f"{len(resnet_rows) // 2} shapes"),
+                 auto_launches_per_rank=[r["launches"] for r in
+                                         resnet_auto["ranks"]])),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:77",

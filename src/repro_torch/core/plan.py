@@ -7,12 +7,16 @@ per layer; this module lowers it into a `NetworkPlan` the models execute:
   * each layer's `Dist` becomes the runtime sharding descriptor: a
     `ConvSharding` for sample/spatial distributions (core.spatial_conv) or
     a `CFSharding` for channel/filter ones (§III-D, core.channel_conv);
-  * a distribution change between consecutive layers becomes a reshard
-    point, the paper's Shuffle(D_i, D_j) (§III-C).  The reference lowers
-    it to `with_sharding_constraint`; here `NetworkPlan.reshard` moves
-    this rank's block from the previous layer's (fitted) sharding to this
-    layer's with `core.collectives.reshard` — all-to-alls, all-gathers
-    and local slices, each differentiable;
+  * a distribution change between a layer and the one that feeds it
+    becomes a reshard point, the paper's Shuffle(D_i, D_j) (§III-C).  The
+    reference lowers it to `with_sharding_constraint` and lets GSPMD find
+    the source layout; here the model names the producer at each call
+    (`NetworkPlan.reshard(x, name, mesh, src)`), and this rank's block
+    moves from the producer's output sharding to the layer's with
+    `core.collectives.reshard` — all-to-alls, all-gathers and local
+    slices, each differentiable.  A residual add joins its shortcut to
+    the block's last conv output sharding (`NetworkPlan.reshard_add`), a
+    move GSPMD makes unasked in the reference;
   * every layer is validated against its geometry (§III-A): a
     distribution the runtime would demote is demoted at compile time and
     recorded in the layer's note, so the cost report stays honest, and
@@ -25,9 +29,11 @@ per layer; this module lowers it into a `NetworkPlan` the models execute:
 geometry it is fitted per layer too, with a reshard wherever the fit
 drops a spatial axis.
 
-The branchy-network solve (`plan_graph`) comes with ResNet-50, and the
-static audit and the attribution report with the calibrate/trace and
-analysis slices.
+Line networks (meshnet) solve with `plan_line`; branchy ones (ResNet-50)
+with `plan_graph`, the §V-C longest-path-first solve over a
+`core.dag.DiGraph`, whose reshard flags follow the graph's predecessors.
+The static audit and the attribution report come with the
+calibrate/trace and analysis slices.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, dag
 from repro_torch.core.channel_conv import CFSharding, chunks_decision
 from repro_torch.core.distribution import Dist
 from repro_torch.core.perfmodel import (ConvLayer, Machine, cf_mode_for,
@@ -45,7 +51,8 @@ from repro_torch.core.perfmodel import (ConvLayer, Machine, cf_mode_for,
                                         shuffle_block_bytes, shuffle_time)
 from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.core.strategy import (CapacityError, candidate_dists,
-                                       parse_search, solve_hillclimb,
+                                       parse_search, solve_dag,
+                                       solve_dag_beam, solve_hillclimb,
                                        solve_line)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.utils import human_bytes
@@ -237,25 +244,35 @@ def _demotion_note(sh, fitted, spec: ConvLayer) -> str:
 
 
 def _fitted_layers(shardings, specs: Sequence[ConvLayer],
-                   mesh_shape: Mapping[str, int]) -> dict[str, LayerPlan]:
+                   mesh_shape: Mapping[str, int],
+                   graph: dag.DiGraph | None = None) -> dict[str, LayerPlan]:
     """One LayerPlan a layer, as the reference runs an unfitted sharding:
     the conv under the sharding fitted to its input geometry (§III-A),
     with a demotion note where the fit dropped an axis; its output (BN)
-    under the sharding fitted 1x1 to the conv's output, except at the last
-    layer, which has no BN; a reshard wherever the block layout changes."""
-    out, prev = {}, None
+    under the sharding fitted 1x1 to the conv's output, except where the
+    layer has no BN (a pool, and a line's last layer); a reshard wherever
+    the block layout changes from the layer that feeds it (the previous
+    one, or its predecessors in `graph`)."""
+    out, outs = {}, {}
     for i, (sh, spec) in enumerate(zip(shardings, specs)):
         fitted = sh.fit(spec.h, spec.w, spec.k, spec.s, mesh_shape)
         lay = _layout(fitted, mesh_shape)
-        after = fitted if i == len(specs) - 1 else \
+        no_bn = spec.kind == "pool" or (graph is None and
+                                        i == len(specs) - 1)
+        after = fitted if no_bn else \
             sh.fit(spec.h_out, spec.w_out, 1, 1, mesh_shape)
         lay_out = _layout(after, mesh_shape)
+        if graph is None:
+            prev = [outs[specs[i - 1].name]] if i else []
+        else:
+            prev = [outs[p] for p in graph.predecessors(spec.name)
+                    if p in outs]
         out[spec.name] = LayerPlan(
             spec.name, fitted, _sharding_to_dist(fitted),
-            reshard_in=prev is not None and lay != prev,
+            reshard_in=any(p != lay for p in prev),
             note="" if fitted == sh else _demotion_note(sh, fitted, spec),
             out=after if lay_out != lay else None)
-        prev = lay_out
+        outs[spec.name] = lay_out
     return out
 
 
@@ -275,16 +292,18 @@ class NetworkPlan:
     # -- construction -------------------------------------------------------
     @classmethod
     def uniform(cls, sharding: ConvSharding, names: Sequence[str] = (), *,
-                specs: Sequence[ConvLayer] = (), mesh=None
-                ) -> "NetworkPlan":
+                specs: Sequence[ConvLayer] = (), mesh=None,
+                graph: dag.DiGraph | None = None) -> "NetworkPlan":
         """One sharding for every layer.  Given the layers' `specs` and a
         `mesh`, each layer gets the sharding fitted to its geometry, and a
-        layer whose fit drops a spatial axis a reshard point (§III-C);
+        layer whose fit drops a spatial axis a reshard point (§III-C),
+        flagged against its `graph` predecessors where a graph is given;
         else every layer gets `sharding` as it is, with no reshard."""
         mesh_shape = _mesh_shape(mesh)
         if specs and mesh_shape:
             return cls(layers=_fitted_layers([sharding] * len(specs), specs,
-                                             mesh_shape), default=sharding)
+                                             mesh_shape, graph),
+                       default=sharding)
         d = _sharding_to_dist(sharding)
         return cls(layers={n: LayerPlan(n, sharding, d) for n in names},
                    default=sharding)
@@ -303,11 +322,12 @@ class NetworkPlan:
                            for n, s in zip(names, shardings)})
 
     @classmethod
-    def of(cls, obj, *, specs: Sequence[ConvLayer] = (), mesh=None
-           ) -> "NetworkPlan":
+    def of(cls, obj, *, specs: Sequence[ConvLayer] = (), mesh=None,
+           graph: dag.DiGraph | None = None) -> "NetworkPlan":
         """Normalize NetworkPlan | ConvSharding | CFSharding | None (one
         sharding for every layer) | a list of them (one a layer) into a
-        plan, fitted to the layers' `specs` on `mesh` where given."""
+        plan, fitted to the layers' `specs` on `mesh` where given (a
+        branchy network's with its `graph`)."""
         if isinstance(obj, NetworkPlan):
             return obj
         names = [s.name for s in specs]
@@ -316,7 +336,8 @@ class NetworkPlan:
         if obj is None:
             obj = ConvSharding()
         if isinstance(obj, (ConvSharding, CFSharding)):
-            return cls.uniform(obj, names, specs=specs, mesh=mesh)
+            return cls.uniform(obj, names, specs=specs, mesh=mesh,
+                               graph=graph)
         raise TypeError(f"cannot build a NetworkPlan from {type(obj)}")
 
     # -- queries ------------------------------------------------------------
@@ -338,6 +359,14 @@ class NetworkPlan:
     def n_reshards(self) -> int:
         return sum(lp.reshard_in + (lp.out is not None)
                    for lp in self.layers.values())
+
+    def input_spec(self, name: str, h: int, w: int, k: int, s: int,
+                   mesh=None) -> tuple:
+        """The placement (NHWC mesh axes, the reference's PartitionSpec as
+        a tuple) of the tensor feeding layer `name`, with the geometry fit
+        applied, so that a batch can be cut by it directly."""
+        return self.sharding(name).fit(h, w, k, s,
+                                       _mesh_shape(mesh) or None).x_spec()
 
     # -- persistence --------------------------------------------------------
     def to_spec(self, mesh=None, *, mem_limit: float | None = None,
@@ -363,23 +392,33 @@ class NetworkPlan:
                 "calibration_fingerprint": calibration_fingerprint}
 
     # -- execution ----------------------------------------------------------
-    def _previous(self, name: str) -> LayerPlan | None:
-        names = list(self.layers)
-        i = names.index(name)
-        return self.layers[names[i - 1]] if i else None
-
-    def reshard(self, x: torch.Tensor, name: str, mesh: Mesh | None = None
-                ) -> torch.Tensor:
-        """Apply the §III-C shuffle entering layer `name`: this rank's
-        block moves from the previous layer's (fitted) sharding to this
-        layer's (`core.collectives.reshard`, differentiable)."""
-        lp = self.layers.get(name)
-        if lp is None or not lp.reshard_in or mesh is None:
+    def _move(self, x: torch.Tensor, src, dst, mesh: Mesh | None
+              ) -> torch.Tensor:
+        if mesh is None:
             return x
         shape = dict(mesh.shape)
-        prev = self._previous(name)
-        return collectives.reshard(x, _layout(prev.out_sharding, shape),
-                                   _layout(lp.sharding, shape), mesh)
+        return collectives.reshard(x, _layout(src, shape),
+                                   _layout(dst, shape), mesh)
+
+    def reshard(self, x: torch.Tensor, name: str, mesh: Mesh | None = None,
+                src: str | None = None) -> torch.Tensor:
+        """Apply the §III-C shuffle entering layer `name`: this rank's
+        block moves from the output sharding of layer `src`, which made
+        `x`, to `name`'s sharding (`core.collectives.reshard`,
+        differentiable; nothing moves where the layouts agree).  `src`
+        None: `x` is the network's input, cut by `name`'s sharding."""
+        if src is None or name not in self.layers:
+            return x
+        return self._move(x, self.out_sharding(src), self.sharding(name),
+                          mesh)
+
+    def reshard_add(self, x: torch.Tensor, src: str, name: str,
+                    mesh: Mesh | None = None) -> torch.Tensor:
+        """The shortcut of a residual add, made by layer `src` (a
+        projection, or the block input's producer), moved to the output
+        sharding of layer `name`, the branch it is added to."""
+        return self._move(x, self.out_sharding(src), self.out_sharding(name),
+                          mesh)
 
     def reshard_out(self, x: torch.Tensor, name: str,
                     mesh: Mesh | None = None) -> torch.Tensor:
@@ -393,19 +432,33 @@ class NetworkPlan:
                                    _layout(lp.out, shape), mesh)
 
     def reshard_report(self, specs: Sequence[ConvLayer], mesh,
-                       wordsize: int = 4) -> list[dict]:
-        """Each reshard point of the plan over `specs`: the collectives it
+                       wordsize: int = 4,
+                       flow: Sequence[tuple] | None = None) -> list[dict]:
+        """Each reshard the plan executes over `specs`: the collectives it
         runs, the bytes one rank sends in its forward (the backward sends
         as many) and the perf model's per-rank shuffle block
-        (`perfmodel.shuffle_block_bytes` of the layer before it)."""
+        (`perfmodel.shuffle_block_bytes` of the layer that made the
+        tensor).
+
+        `flow` lists the tensors that move between layers, each (src,
+        name, "in") for layer `src`'s output feeding layer `name`, or
+        (src, name, "add") for a shortcut made by `src` added to `name`'s
+        output (`reshard_add`); None: a line, each layer feeding the next.
+        A (src, name) pair whose layouts agree moves nothing and is not
+        listed."""
         shape = _mesh_shape(mesh)
         p = 1
         for n in shape.values():
             p *= n
+        by_name = {s.name: s for s in specs}
+        if flow is None:
+            flow = [(a.name, b.name, "in") for a, b in zip(specs, specs[1:])]
         out = []
 
         def point(where, layer, src, dst, dims):
             src, dst = _layout(src, shape), _layout(dst, shape)
+            if src == dst:
+                return
             out.append({
                 "layer": where,
                 "steps": collectives.reshard_steps(src, dst),
@@ -413,17 +466,25 @@ class NetworkPlan:
                                                    wordsize),
                 "model_bytes": shuffle_block_bytes(layer, p, wordsize)})
 
-        for i, spec in enumerate(specs):
+        into = {}
+        for src, name, kind in flow:
+            into.setdefault(name, []).append((src, kind))
+        for spec in specs:
             lp = self.layers.get(spec.name)
             if lp is None:
                 continue
-            if lp.reshard_in and i:
-                point(spec.name, specs[i - 1],
-                      self.out_sharding(specs[i - 1].name), lp.sharding,
-                      (spec.n, spec.h, spec.w, spec.c))
+            for src, kind in into.get(spec.name, ()):
+                if kind == "in":
+                    point(spec.name, by_name[src], self.out_sharding(src),
+                          lp.sharding, (spec.n, spec.h, spec.w, spec.c))
             if lp.out is not None:
                 point(spec.name + " (out)", spec, lp.sharding, lp.out,
                       (spec.n, spec.h_out, spec.w_out, spec.f))
+            for src, kind in into.get(spec.name, ()):
+                if kind == "add":
+                    point(spec.name + " (add)", by_name[src],
+                          self.out_sharding(src), lp.out_sharding,
+                          (spec.n, spec.h_out, spec.w_out, spec.f))
         return out
 
     # -- reporting ----------------------------------------------------------
@@ -505,8 +566,10 @@ def _mesh_shape(mesh) -> dict[str, int]:
 
 def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
                  specs: Sequence[ConvLayer], mesh=None, *,
+                 graph: dag.DiGraph | None = None,
                  machine: Machine | None = None,
                  overlap: bool = True,
+                 cost_specs: Sequence[ConvLayer] | None = None,
                  mem_limit: float | None = None,
                  opt_words: float = 1.0
                  ) -> NetworkPlan:
@@ -514,10 +577,16 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
 
     dists:   {layer name: Dist} (solve_dag) or a Dist per spec (solve_line).
     specs:   ConvLayers in execution order (the geometry to validate against).
+    graph:   optional DiGraph: reshard points are flagged against the
+             layer's predecessors compiled before it instead of list
+             order (branchy networks), as the reference flags them.
     machine: if given, attach the §V-B cost report under the *compiled*
-             (post-demotion) distributions.  The report
-             carries the §VI memory rollup too (predicted['memory']:
-             per-layer LayerMemory breakdowns + peak_bytes/peak_layer).
+             (post-demotion) distributions, evaluated over `cost_specs`
+             (default: `specs`) — branchy networks pass their main path so
+             side branches are not costed as line continuations.  The
+             report carries the §VI memory rollup too (predicted['memory']:
+             per-layer LayerMemory breakdowns + peak_bytes/peak_layer),
+             over every compiled layer.
     mem_limit: per-device capacity in bytes.  The compiled (post-demotion)
              plan is validated against it: a plan whose per-layer resident
              set or whole-network peak exceeds the limit raises PlanError
@@ -589,8 +658,13 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
                          f"{human_bytes(lm.total)} > "
                          f"{human_bytes(mem_limit)}/device "
                          f"({lm.breakdown()})")
-        prev = final.get(specs[i - 1].name) if i else None
-        reshard = prev is not None and not prev.same_as(d)
+        if graph is not None:
+            preds = [final[p] for p in graph.predecessors(spec.name)
+                     if p in final]
+            reshard = any(not p.same_as(d) for p in preds)
+        else:
+            prev = final.get(specs[i - 1].name) if i else None
+            reshard = prev is not None and not prev.same_as(d)
         compiled[spec.name] = LayerPlan(
             spec.name, sh, d, reshard_in=reshard, note=note,
             solved=None if d_solved.same_as(d) else d_solved)
@@ -601,8 +675,9 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
         raise PlanError("mem_limit validation needs a `machine` (the memory "
                         "model's wordsize and accounting live there)")
     if machine is not None and mesh_shape:
-        dists_f = [final[l.name] for l in specs]
-        predicted = network_cost(machine, specs, dists_f, mesh_shape, None,
+        cs = list(cost_specs if cost_specs is not None else specs)
+        dists_c = [final[l.name] for l in cs]
+        predicted = network_cost(machine, cs, dists_c, mesh_shape, None,
                                  overlap)
         # per-layer η-scaled overlap credit: the seconds of communication
         # the schedule is credited with hiding (0 when nothing overlaps),
@@ -610,17 +685,16 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
         predicted["overlap_eta"] = machine.overlap_eta if overlap else 0.0
         predicted["overlap_credit"] = {
             l.name: c.overlap_credit
-            for l, c in zip(specs, predicted["per_layer"])}
+            for l, c in zip(cs, predicted["per_layer"])}
         # name-keyed views of the per-layer cost terms.  The shuffle of
         # transition i -> i+1 is charged to the *receiving* layer (where
         # NetworkPlan.reshard executes it).
         predicted["layer_costs"] = {
-            l.name: c for l, c in zip(specs, predicted["per_layer"])}
-        predicted["shuffle_per_layer"] = {specs[0].name: 0.0} \
-            if specs else {}
-        for i in range(len(specs) - 1):
-            predicted["shuffle_per_layer"][specs[i + 1].name] = shuffle_time(
-                machine, specs[i], dists_f[i], dists_f[i + 1], mesh_shape,
+            l.name: c for l, c in zip(cs, predicted["per_layer"])}
+        predicted["shuffle_per_layer"] = {cs[0].name: 0.0} if cs else {}
+        for i in range(len(cs) - 1):
+            predicted["shuffle_per_layer"][cs[i + 1].name] = shuffle_time(
+                machine, cs[i], dists_c[i], dists_c[i + 1], mesh_shape,
                 None)
         # the priced-collective inventory (perfmodel.layer_collectives).
         # first=True: training losses grad wrt params only, so the first
@@ -629,8 +703,13 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
             l.name: layer_collectives(
                 machine, l, final[l.name], mesh_shape, overlap=overlap,
                 first=(i == 0), channel_chunks=cf_chunks.get(l.name, 1))
-            for i, l in enumerate(specs)}
-        mem = network_memory(machine, list(specs), dists_f, mesh_shape,
+            for i, l in enumerate(cs)}
+        # memory rolls up over ALL compiled layers: a side branch's
+        # weights and stashes are resident too, so a branchy network does
+        # not escape the capacity validation because its time is costed
+        # over the main path (cost_specs) only.
+        mem = network_memory(machine, list(specs),
+                             [final[l.name] for l in specs], mesh_shape,
                              opt_words)
         mem["per_layer"] = {l.name: lm
                             for l, lm in zip(specs, mem["per_layer"])}
@@ -686,7 +765,7 @@ def plan_from_spec(spec: Mapping, specs: Sequence[ConvLayer], mesh, *,
     — both recorded in the plan notes.  Pass the checkpoint's own
     `mem_limit` to re-validate capacity on the new mesh; a spec that
     cannot fit (or that covers different layers than `specs`) raises
-    PlanError, at which point the caller re-solves plan_line
+    PlanError, at which point the caller re-solves plan_line/plan_graph
     from scratch under the same limit.
     """
     dists = dists_from_spec(spec)
@@ -707,7 +786,7 @@ def plan_from_spec(spec: Mapping, specs: Sequence[ConvLayer], mesh, *,
 # the per-layer capacity constraint (strategy.prune_by_memory) bounds each
 # layer's own resident set, but the whole-network peak also accumulates the
 # forward stashes of earlier layers — so a per-layer-feasible solve can
-# still overflow.  plan_line close that gap by re-solving with a
+# still overflow.  plan_line and plan_graph close that gap by re-solving with a
 # tightened per-layer budget, scaled by the overflow ratio, a few times.
 _MEM_REFINE_ROUNDS = 4
 
@@ -781,5 +860,72 @@ def plan_line(machine: Machine, specs: Sequence[ConvLayer], mesh, *,
         return compile_plan(dists, specs, mesh, machine=machine,
                             overlap=overlap,
                             mem_limit=validate_limit, opt_words=opt_words)
+
+    return _solve_under_limit(solve, compile_, mem_limit)
+
+
+def compile_order(graph: dag.DiGraph,
+                  specs: Sequence[ConvLayer]) -> list[ConvLayer]:
+    """The layers a branchy network's plan holds, in the order
+    `plan_graph` compiles them: `specs` (its main path), then the graph's
+    other nodes (side branches) in graph order."""
+    names = {l.name for l in specs}
+    return list(specs) + [graph.nodes[n]["layer"] for n in graph.nodes
+                          if n not in names]
+
+
+def plan_graph(machine: Machine, graph: dag.DiGraph,
+               specs: Sequence[ConvLayer], mesh, *,
+               overlap: bool = True,
+               allow_w_split: bool = True,
+               allow_channel_filter: bool = True,
+               mem_limit: float | None = None,
+               opt_words: float = 1.0,
+               search: str = "greedy") -> NetworkPlan:
+    """Branchy networks (ResNet): §V-C longest-path-first over the DAG.
+
+    `specs` fixes the execution/validation order and may be a subset of the
+    graph (e.g. the main path); side-branch nodes present in the graph but
+    not in `specs` are compiled too, after them, in graph order.
+    `mem_limit` applies the same capacity constraint as plan_line.
+
+    `search` = "beam[:N]" replaces longest-path-first with the global
+    reshard-cost-aware beam DP (strategy.solve_dag_beam) over the wide
+    candidate set — every cross edge between paths is priced, not just
+    the fixed paths'.  "hillclimb" runs the stochastic baseline over the
+    DAG's full edge set.
+    """
+    mode, width = parse_search(search)
+    mesh_shape = _mesh_shape(mesh)
+    all_specs = compile_order(graph, specs)
+
+    def candidate_fn(l):
+        return executable_candidates(l, mesh_shape, allow_w_split,
+                                     allow_channel_filter,
+                                     wide=mode != "greedy")
+
+    def solve(limit):
+        if mode == "beam":
+            return solve_dag_beam(machine, graph, mesh_shape, candidate_fn,
+                                  None, overlap, mem_limit=limit,
+                                  opt_words=opt_words, width=width)
+        if mode == "hillclimb":
+            order = list(graph.nodes)
+            pos = {n: i for i, n in enumerate(order)}
+            layers = [graph.nodes[n]["layer"] for n in order]
+            res = solve_hillclimb(
+                machine, layers, [candidate_fn(l) for l in layers],
+                mesh_shape, None, overlap,
+                edges=[(pos[u], pos[v]) for u, v in graph.edges],
+                mem_limit=limit, opt_words=opt_words)
+            return {n: d for n, d in zip(order, res.dists)}
+        return solve_dag(machine, graph, mesh_shape, candidate_fn, None,
+                         overlap, mem_limit=limit, opt_words=opt_words)
+
+    def compile_(dists, validate_limit):
+        return compile_plan(dists, all_specs, mesh, graph=graph,
+                            machine=machine, overlap=overlap,
+                            cost_specs=specs, mem_limit=validate_limit,
+                            opt_words=opt_words)
 
     return _solve_under_limit(solve, compile_, mem_limit)

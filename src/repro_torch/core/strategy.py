@@ -10,8 +10,11 @@ layer:
      edge (D_i at ℓ_i) -> (D_j at ℓ_{i+1}) costs Cost_{D_i}(ℓ_i) +
      Shuffle(D_i, D_j); solved by DP in topological order (linear time).
 
-The branchy-network solvers (`solve_dag`, `solve_dag_beam`) come with
-ResNet-50; they are only reached through `plan_graph`.
+  3. branchy networks (ResNet-50): longest-path-first over the layer DAG
+     (`solve_dag`): solve the most compute-intensive path as a line, fix
+     it, zero its edges and repeat; or the global beam DP over the whole
+     DAG (`solve_dag_beam`).  The DAG is `core.dag.DiGraph`, whose order
+     and tie-breaking are networkx's, so both solve the reference's plan.
 
 Channel/filter parallelism — sketched-only in the paper (§III-D) — is a
 selectable candidate here (beyond-paper), so the optimizer can discover it
@@ -24,9 +27,10 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Mapping, Sequence
+from typing import Callable, Mapping, Sequence
 
 
+from repro_torch.core import dag
 from repro_torch.core.distribution import Dist
 from repro_torch.core.perfmodel import (ConvLayer, EmpiricalTable, Machine,
                                         layer_cost, layer_memory,
@@ -190,9 +194,107 @@ def solve_line(m: Machine, layers: Sequence[ConvLayer],
 
 
 # ---------------------------------------------------------------------------
-# global search (beyond-paper: Jia et al. 1802.04924): a stochastic
-# hill-climbing baseline
+# branchy networks: longest-path-first (paper §V-C)
 # ---------------------------------------------------------------------------
+
+def solve_dag(m: Machine, graph: dag.DiGraph,
+              mesh_shape: Mapping[str, int],
+              candidate_fn: Callable[[ConvLayer], Sequence[Dist]],
+              table: EmpiricalTable | None = None,
+              overlap: bool = True,
+              mem_limit: float | None = None,
+              opt_words: float = 1.0) -> dict[str, Dist]:
+    """graph: a DiGraph whose nodes carry a 'layer': ConvLayer attribute.
+
+    `candidate_fn(layer) -> [Dist]` gives each layer's candidates — the plan
+    compiler (core.plan) passes the distributions the runtime can execute.
+    `mem_limit` applies the per-device capacity constraint to every path
+    solve (see solve_line).
+
+    Returns {layer name: Dist}.
+    """
+    if not dag.is_dag(graph):
+        raise ValueError("solve_dag needs an acyclic graph")
+    fixed: dict[str, Dist] = {}
+    g = graph.copy()
+    for u, v in g.edges:
+        g[u][v]["w"] = g.nodes[u]["layer"].flops_fwd()
+
+    while len(fixed) < graph.number_of_nodes():
+        # longest (most compute-intensive) path among unfixed-containing ones
+        path = dag.dag_longest_path(g, weight="w")
+        if all(p in fixed for p in path):
+            # fall back: any unfixed node, treated as a singleton path
+            path = [next(n for n in g.nodes if n not in fixed)]
+        layers = [graph.nodes[p]["layer"] for p in path]
+        cands = [[fixed[p]] if p in fixed else candidate_fn(layers[i])
+                 for i, p in enumerate(path)]
+        res = solve_line(m, layers, cands, mesh_shape, table, overlap,
+                         mem_limit=mem_limit, opt_words=opt_words)
+        for p, d in zip(path, res.dists):
+            fixed.setdefault(p, d)
+        # de-prioritize the fixed path so the next longest path is found
+        for u, v in zip(path, path[1:]):
+            if g.has_edge(u, v):
+                g[u][v]["w"] = 0.0
+    return fixed
+
+
+# ---------------------------------------------------------------------------
+# global search (beyond-paper: Jia et al. 1802.04924): reshard-cost-aware
+# beam DP over the whole DAG, and a stochastic hill-climbing baseline
+# ---------------------------------------------------------------------------
+
+def solve_dag_beam(m: Machine, graph: dag.DiGraph,
+                   mesh_shape: Mapping[str, int],
+                   candidate_fn: Callable[[ConvLayer], Sequence[Dist]],
+                   table: EmpiricalTable | None = None,
+                   overlap: bool = True,
+                   mem_limit: float | None = None,
+                   opt_words: float = 1.0,
+                   width: int = 4) -> dict[str, Dist]:
+    """Global beam-searched DP over the *whole* DAG in topological order.
+
+    Unlike longest-path-first (solve_dag), which zeroes already-fixed path
+    edges and so never re-prices the cross edges between paths, every beam
+    state here carries a full partial assignment and each extension pays the
+    shuffle cost on *every* incoming DAG edge.  `width` beam states survive
+    per layer; width -> inf is the exact (exponential) DP.
+
+    Returns {layer name: Dist}.
+    """
+    if not dag.is_dag(graph):
+        raise ValueError("solve_dag_beam needs an acyclic graph")
+    order = dag.topological_sort(graph)
+    pos = {name: i for i, name in enumerate(order)}
+    layers = [graph.nodes[p]["layer"] for p in order]
+    cands: list[list[Dist]] = []
+    for lay in layers:
+        cs = list(candidate_fn(lay))
+        if mem_limit:
+            cs = prune_by_memory(m, lay, cs, mesh_shape, mem_limit,
+                                 opt_words)
+        cands.append(cs)
+    lcost = [[layer_cost(m, layers[i], d, mesh_shape, table, overlap).total
+              for d in cands[i]] for i in range(len(order))]
+    preds = [[pos[u] for u in graph.predecessors(p)] for p in order]
+
+    # beam state: (cost, (dist index per already-placed layer, ...))
+    beam: list[tuple[float, tuple[int, ...]]] = [(0.0, ())]
+    for i in range(len(order)):
+        nxt = []
+        for cost, picks in beam:
+            for j, dj in enumerate(cands[i]):
+                w = cost + lcost[i][j]
+                for u in preds[i]:
+                    w += shuffle_time(m, layers[u], cands[u][picks[u]], dj,
+                                      mesh_shape, table)
+                nxt.append((w, picks + (j,)))
+        nxt.sort(key=lambda s: s[0])
+        beam = nxt[:max(width, 1)]
+    _, picks = beam[0]
+    return {order[i]: cands[i][picks[i]] for i in range(len(order))}
+
 
 def solve_hillclimb(m: Machine, layers: Sequence[ConvLayer],
                     candidates: Sequence[Sequence[Dist]],

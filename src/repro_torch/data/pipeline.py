@@ -26,6 +26,16 @@ def synthetic_mesh_batch(step: int, batch: int, hw: int, channels: int = 18,
     return {"image": x, "label": y}
 
 
+def synthetic_imagenet_batch(step: int, batch: int, hw: int = 224,
+                             n_classes: int = 1000) -> dict:
+    """ImageNet-shaped batch: standard-normal NHWC RGB images and uniform
+    class labels (N,)."""
+    rng = np.random.default_rng(4321 + step)
+    x = rng.standard_normal((batch, hw, hw, 3), dtype=np.float32)
+    y = rng.integers(0, n_classes, size=(batch,), dtype=np.int32)
+    return {"image": x, "label": y}
+
+
 def synthetic_lm_batch(step: int, batch: int, seq: int, vocab: int) -> dict:
     """Uniform random token ids; labels are the tokens shifted by one."""
     rng = np.random.default_rng(9876 + step)
@@ -52,16 +62,19 @@ def shard_batch(batch: dict, mesh, sharding, label_sharding=None) -> dict:
     Every rank draws the same global batch and keeps its block, so a step
     sees the same data on any mesh.  The image is cut by `sharding` as
     given (the first layer's fitted sharding: N, H, W and, under a
-    CFSharding, C); the labels as the pred layer's output is, by
-    `label_sharding` (default `sharding`) fitted 1x1 to the label grid (in
-    the reference GSPMD cuts them).  Blocks are contiguous copies."""
+    CFSharding, C); the labels as the output they are compared with is,
+    by `label_sharding` (default `sharding`): a per-pixel label grid
+    (N, H, W, 1) fitted 1x1 to the grid, class labels (N,) along its batch
+    axes (in the reference GSPMD cuts them).  Blocks are contiguous
+    copies."""
     if mesh is None:
         return batch
     out = {}
     for k, v in batch.items():
-        sh = sharding if k == "image" else (label_sharding or sharding).fit(
-            v.shape[1], v.shape[2], 1, 1, dict(mesh.shape))
-        for dim, axes in enumerate(sh.x_spec()):
+        sh = sharding if k == "image" else label_sharding or sharding
+        if k != "image" and v.ndim == 4:
+            sh = sh.fit(v.shape[1], v.shape[2], 1, 1, dict(mesh.shape))
+        for dim, axes in enumerate(sh.x_spec()[:v.ndim]):
             if axes:
                 v = shard_dim(v, dim, mesh, axes)
         out[k] = np.ascontiguousarray(v)

@@ -1,11 +1,15 @@
-"""The trainer, port of `repro.launch.train`: the mesh-tangling CNNs on one
-device or on a (pod, data, model) mesh of processes, and the ported LM
-archs on one device.
+"""The trainer, port of `repro.launch.train`: the CNNs (ResNet-50 and the
+mesh-tangling nets) on one device or on a (pod, data, model) mesh of
+processes, and the ported LM archs on one device.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mesh1k \
       --steps 3 --batch 2 [--device cuda|cpu] [--smoke]
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \
+      --steps 3 --batch 32 [--device cuda|cpu] [--smoke]
   PYTHONPATH=src torchrun --nproc-per-node M -m repro_torch.launch.train \
-      --arch mesh1k --model M [--data D] [--pod P] --batch B
+      --arch mesh1k|resnet50 --model M [--data D] [--pod P] --batch B \
+      [--strategy auto [--search greedy|beam[:N]|hillclimb] [--no-cf] \
+      [--mem-limit BYTES|auto]]
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --steps 3 --batch 1 --seq 2048 [--bf16] [--device cuda|cpu] [--smoke]
 
@@ -15,7 +19,9 @@ hand-written conv kernel (`kernels/csrc/conv2d.cu`), every attention
 through the flash-attention kernel (`kernels/csrc/flash_attention.cu`) and
 every SSD intra-chunk pass through the SSD-chunk kernel
 (`kernels/csrc/ssd.cu`).  As in the reference, the CNNs train under FP32
-with SGD + momentum on a warmup(10) + cosine schedule; the LMs train with
+with SGD + momentum on a warmup(10) + cosine schedule (ResNet-50 on
+`synthetic_imagenet_batch`, the mesh nets on `synthetic_mesh_batch`);
+the LMs train with
 AdamW on a warmup(20) + cosine schedule, under FP32 unless `--bf16`
 (bf16 compute, fp32 master weights), on `synthetic_lm_batch` token
 batches of `--seq` tokens.
@@ -30,12 +36,14 @@ per-layer plan (`core.plan.NetworkPlan`, printed at startup):
       interior/boundary conv split at every layer), fitted to each layer:
       a layer whose geometry drops the spatial axis (§III-A) takes a
       reshard;
-  --strategy auto  the §V-C solve (`core.plan.plan_line`) of sample /
-      spatial / channel-filter distributions over `meshnet.layer_specs`,
-      compiled with its demotions and reshard points, on the `H100`
-      preset's constants on CUDA and on `LASSEN`'s (the paper's machine)
-      on the CPU; `--search`, `--no-cf` and `--mem-limit` as in the
-      reference.
+  --strategy auto  the §V-C solve of sample / spatial / channel-filter
+      distributions, compiled with its demotions and reshard points, on
+      the `H100` preset's constants on CUDA and on `LASSEN`'s (the
+      paper's machine) on the CPU: a line's (`core.plan.plan_line` over
+      `meshnet.layer_specs`) or, for ResNet-50, the longest-path-first
+      solve of the branchy DAG (`core.plan.plan_graph` over
+      `resnet.resnet_graph`, costed on the main path); `--search`,
+      `--no-cf` and `--mem-limit` as in the reference.
 
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
@@ -59,7 +67,7 @@ from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.core.strategy import parse_search
 from repro_torch.data import pipeline
 from repro_torch.launch.mesh import batch_axes, init_distributed, make_mesh
-from repro_torch.models.cnn import meshnet
+from repro_torch.models.cnn import meshnet, resnet
 from repro_torch.models.lm import transformer
 from repro_torch.optim.optimizer import adamw, sgd, warmup_cosine
 from repro_torch.train.metrics import MetricsLogger
@@ -159,10 +167,15 @@ def parse_mem_limit(value, device: torch.device, ranks: int = 1
 
 
 def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
-                   mesh=None, echo: bool = True) -> plan_lib.NetworkPlan:
+                   mesh=None, echo: bool = True, graph=None,
+                   flow=None) -> plan_lib.NetworkPlan:
     """--strategy uniform: the uniform plan fitted to every layer.
     --strategy auto: the §V-C solve over `specs` on the mesh, compiled
-    (core.plan.plan_line)."""
+    (core.plan.plan_line), or over the branchy `graph` whose main path
+    `specs` is (core.plan.plan_graph).  `flow`: the tensors that move
+    between layers, for the reshard report (None: a line)."""
+    every = list(specs) if graph is None else \
+        plan_lib.compile_order(graph, specs)
     shape = {"pod": args.pod, "data": args.data, "model": args.model}
     if args.pod == 1:
         del shape["pod"]
@@ -175,9 +188,11 @@ def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
         t0 = time.time()
         if mem_limit and echo:
             print(f"memory limit: {human_bytes(mem_limit)}/device")
-        plan = plan_lib.plan_line(machine, specs, shape,
-                                  allow_channel_filter=not args.no_cf,
-                                  mem_limit=mem_limit, search=args.search)
+        kw = dict(allow_channel_filter=not args.no_cf, mem_limit=mem_limit,
+                  search=args.search)
+        plan = plan_lib.plan_line(machine, specs, shape, **kw) \
+            if graph is None else \
+            plan_lib.plan_graph(machine, graph, specs, shape, **kw)
         head = f"strategy optimizer ({time.time() - t0:.2f}s, search " \
             f"{args.search}) on {where}:"
     else:
@@ -189,15 +204,16 @@ def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
             # uniform ConvSharding(h_axis="model") computes the same SAME
             # conv (the halos of an axis of size 1 are zeros)
             return plan_lib.NetworkPlan.uniform(
-                ConvSharding(), [s.name for s in specs])
+                ConvSharding(), [s.name for s in every])
         plan = plan_lib.NetworkPlan.uniform(
             ConvSharding(batch_axes=batch_axes(mesh), h_axis="model"),
-            specs=specs, mesh=mesh)
+            specs=every, mesh=mesh, graph=graph)
         head = "uniform plan:"
     if echo:
         print(head)
         print(plan.describe())
-        print(plan_lib.reshard_lines(plan.reshard_report(specs, shape)))
+        print(plan_lib.reshard_lines(plan.reshard_report(every, shape,
+                                                         flow=flow)))
     return plan
 
 
@@ -209,22 +225,37 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
     mesh the batch factory returns this rank's block of the global batch."""
     cfg = registry.get(args.arch, smoke=args.smoke)
     gen = torch.Generator().manual_seed(args.seed)
-    if registry.canon(args.arch) in registry.CNN_ARCHS:
-        specs = meshnet.layer_specs(cfg, args.batch)
-        plan = build_cnn_plan(args, specs, device, mesh, echo)
-        params = meshnet.MeshNet(cfg, generator=gen, device=device).params()
+    arch = registry.canon(args.arch)
+    if arch in registry.CNN_ARCHS:
+        if arch == "resnet50":
+            specs = resnet.layer_specs(args.batch, cfg)
+            plan = build_cnn_plan(args, specs, device, mesh, echo,
+                                  graph=resnet.resnet_graph(args.batch, cfg),
+                                  flow=resnet.flow(cfg))
+            model, loss_fn = resnet.ResNet(cfg, generator=gen,
+                                           device=device), resnet.loss_fn
+            mk_global = functools.partial(
+                pipeline.synthetic_imagenet_batch, batch=args.batch,
+                hw=cfg.input_hw, n_classes=cfg.n_classes)
+            # the labels are cut as the head's input is
+            last = plan.out_sharding(resnet.last_layer(cfg))
+        else:
+            specs = meshnet.layer_specs(cfg, args.batch)
+            plan = build_cnn_plan(args, specs, device, mesh, echo)
+            model, loss_fn = meshnet.MeshNet(cfg, generator=gen,
+                                             device=device), meshnet.loss_fn
+            mk_global = functools.partial(
+                pipeline.synthetic_mesh_batch, batch=args.batch,
+                hw=cfg.input_hw, channels=cfg.in_channels,
+                out_hw=cfg.out_hw)
+            last = plan.sharding("pred")
+        first = plan.sharding(specs[0].name)
         opt = sgd(warmup_cosine(args.lr, 10, args.steps), momentum=0.9)
-        loss = functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
-                                 mesh=mesh)
-        mk_global = functools.partial(
-            pipeline.synthetic_mesh_batch, batch=args.batch,
-            hw=cfg.input_hw, channels=cfg.in_channels, out_hw=cfg.out_hw)
-
-        first, last = plan.sharding(specs[0].name), plan.sharding("pred")
+        loss = functools.partial(loss_fn, cfg=cfg, plan=plan, mesh=mesh)
 
         def mk(step):
             return pipeline.shard_batch(mk_global(step), mesh, first, last)
-        return cfg, params, opt, loss, mk, FP32, plan
+        return cfg, model.params(), opt, loss, mk, FP32, plan
     if args.strategy == "auto":
         raise SystemExit(
             f"--strategy auto covers the solvable CNN archs "

@@ -5,7 +5,8 @@ reference's names.  `apply` takes this rank's block and the layer's
 sharding: under a `ConvSharding` conv and pool route through the
 halo-exchange implementations of `core.spatial_conv` and BN through
 `core.spatial_norm`; under a `CFSharding` (§III-D) conv and BN route
-through `core.channel_conv`.  Element-wise ops parallelize trivially
+through `core.channel_conv`, and the global average pool gathers the
+channels for the head.  Element-wise ops parallelize trivially
 under any distribution.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.channel_conv import (CFSharding, cf_batch_norm,
                                            cf_conv2d)
 from repro_torch.core.spatial_conv import (ConvSharding, spatial_conv2d,
@@ -87,13 +89,23 @@ def max_pool(x, *, window=3, stride=2, sharding: ConvSharding,
                         sharding=sh, mesh=mesh, kind="max")
 
 
-def global_avg_pool(x, *, sharding: ConvSharding, mesh: Mesh | None = None):
+def global_avg_pool(x, *, sharding, mesh: Mesh | None = None):
     """Mean over H, W: a local mean, then a sum over the spatial axes
-    divided by their size (one value per sample and channel moves)."""
+    divided by their size (one value per sample and channel moves).
+    Under a CFSharding each rank holds its block of the channels, and the
+    head needs them all: an all-gather over the CF axis
+    (`collectives.all_gather`, whose backward reduce-scatters the
+    gradient's shares) gives every rank every channel."""
+    y = x.mean(dim=(1, 2))
+    if mesh is None:
+        return y
     axes = sharding.spatial_axes
-    if not axes or mesh is None:
-        return x.mean(dim=(1, 2))
-    return all_reduce(x.mean(dim=(1, 2)), mesh, axes) / mesh.axis_size(axes)
+    if axes:
+        y = all_reduce(y, mesh, axes) / mesh.axis_size(axes)
+    if isinstance(sharding, CFSharding) and sharding.cf_axis is not None:
+        y = collectives.all_gather(y, mesh, sharding.cf_axis, 1,
+                                   "cf_all_gather")
+    return y
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,

@@ -115,7 +115,7 @@ def apply(params: Sequence[dict], x: torch.Tensor, cfg: MeshNetConfig,
     names = layer_names(cfg)
     for li, (name, lp) in enumerate(zip(names, params)):
         sh = plan.sharding(name)
-        x = plan.reshard(x, name, mesh)
+        x = plan.reshard(x, name, mesh, src=names[li - 1] if li else None)
         if name == "pred":
             return L.conv_apply(lp["conv"], x, stride=1, sharding=sh,
                                 mesh=mesh, overlap=overlap)

@@ -15,10 +15,14 @@ DIR/inputs.npz),
 the gradients of sum(y * gy)), or
 `plan [K/P]` (part K of P of the cases of DIR/plans.json, into
 DIR/planK.npz: the meshnet loss and gradients under each case's plan, as
-`torch_dist_cases.case_plan`, and on one device where the case asks).  Inputs are
+`torch_dist_cases.case_plan`, and on one device where the case asks), or
+`resnet [K/P]` (the same for the ResNet cases of DIR/resnet.json, into
+DIR/resnetK.npz, and the one-device SGD trajectory of a case with
+`steps`).  Inputs are
 `torch_dist_cases`' (numpy seeds).  The local convs run on XLA, the
 reference's default backend.
 """
+import contextlib
 import os
 import subprocess
 import sys
@@ -214,6 +218,83 @@ def _plan(d, part="0/1"):
     np.savez(os.path.join(d, f"plan{k}.npz"), **out)
 
 
+def _resnet(d, part="0/1"):
+    """Part K of P of the cases of DIR/resnet.json, into DIR/resnetK.npz:
+    the ResNet loss and gradients of global batch 0 under each case's plan
+    on its mesh (the solved Dists compiled against the graph, or the
+    uniform N x H ConvSharding), or on one device where the case asks;
+    for a case with `steps`, that many SGD-momentum steps on one device
+    (as `torch_dist_cases.case_resnet_trajectory`): the losses and the
+    params after."""
+    import functools
+    import jax
+    import numpy as np
+    import torch_dist_cases as cases
+    from repro.core import plan as plan_lib
+    from repro.core.spatial_conv import ConvSharding
+    from repro.data.pipeline import synthetic_imagenet_batch
+    from repro.models.cnn import resnet
+    from repro.optim import optimizer as jopt
+    from repro.train import train_loop as jtl
+    from repro.utils import FP32
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    k, parts = (int(v) for v in part.split("/"))
+    out = {}
+    for c in cases.resnet_cases(d)[k::parts]:
+        cfg = resnet.ResNetConfig(**{**c["cfg"], "stages": tuple(
+            c["cfg"]["stages"]), "widths": tuple(c["cfg"]["widths"])})
+        treedef = jax.tree.structure(resnet.init(jax.random.PRNGKey(0), cfg))
+        params = jax.tree.unflatten(treedef, [
+            flat[f"{c['name']}/{i}"] for i in range(treedef.num_leaves)])
+        key = c["name"]
+        if c.get("steps"):
+            mesh = _mesh((1, 1))
+            opt = jopt.sgd(jopt.warmup_cosine(0.1, 1, c["steps"]),
+                           momentum=0.9)
+            step = jtl.make_train_step(
+                functools.partial(resnet.loss_fn, cfg=cfg), opt, mesh,
+                jtl.TrainStepConfig(precision=FP32))
+            state, losses = opt.init(params), []
+            with mesh:
+                for s in range(c["steps"]):
+                    b = synthetic_imagenet_batch(s, c["batch"],
+                                                 cfg.input_hw, cfg.n_classes)
+                    params, state, _, m = step(params, state, None, b)
+                    losses.append(float(m["loss"]))
+            out[f"{key}/losses"] = np.array(losses)
+            for i, leaf in enumerate(jax.tree.leaves(params)):
+                out[f"{key}/param{i}"] = np.asarray(leaf)
+            continue
+        b = synthetic_imagenet_batch(0, c["batch"], cfg.input_hw,
+                                     cfg.n_classes)
+        if c["one_device"]:
+            l, g = jax.jit(jax.value_and_grad(functools.partial(
+                resnet.loss_fn, cfg=cfg)))(params, b)
+            out[f"{key}/one/loss"] = np.asarray(l)
+            for i, leaf in enumerate(jax.tree.leaves(g)):
+                out[f"{key}/one/grad{i}"] = np.asarray(leaf)
+            continue
+        mesh = _mesh(tuple(c["dims"]))
+        if c["spec"] is None:
+            plan = ConvSharding(batch_axes=("data",), h_axis="model")
+        else:
+            graph = resnet.resnet_graph(c["batch"], cfg)
+            main = resnet.layer_specs(c["batch"], cfg)
+            names = {l.name for l in main}
+            specs = main + [graph.nodes[n]["layer"] for n in graph.nodes
+                            if n not in names]
+            plan = plan_lib.compile_plan(
+                plan_lib.dists_from_spec(c["spec"]), specs, mesh,
+                graph=graph)
+        with mesh:
+            l, g = jax.jit(jax.value_and_grad(functools.partial(
+                resnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh)))(params, b)
+        out[f"{key}/loss"] = np.asarray(l)
+        for i, leaf in enumerate(jax.tree.leaves(g)):
+            out[f"{key}/grad{i}"] = np.asarray(leaf)
+    np.savez(os.path.join(d, f"resnet{k}.npz"), **out)
+
+
 def popen(what: str, d: str, *args: str) -> subprocess.Popen:
     """Start `what` (with `args`) in a subprocess with 8 host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -241,6 +322,22 @@ def run(what: str, d: str, timeout: int = 300) -> None:
     wait(popen(what, d), timeout)
 
 
+@contextlib.contextmanager
+def reference_eta_unmeasured():
+    """The reference's in-process state as the port models it: no measured
+    η, so its chunked-CF default is 1 ("eta unmeasured"), as the port's
+    `chunks_decision` always is.  A reference test that calibrates (e.g.
+    test_shuffle.py, with a fake timer) installs an η and leaves it in its
+    process, which changes the plans `repro.core.plan` compiles there."""
+    from repro.core import channel_conv
+    before = channel_conv.measured_eta()
+    channel_conv.set_measured_eta(None)
+    try:
+        yield
+    finally:
+        channel_conv.set_measured_eta(before)
+
+
 if __name__ == "__main__":
     {"bn_local": _bn_local, "meshnet": _meshnet, "cf": _cf,
-     "plan": _plan}[sys.argv[1]](*sys.argv[2:])
+     "plan": _plan, "resnet": _resnet}[sys.argv[1]](*sys.argv[2:])

@@ -50,7 +50,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.distribution",
                 "repro_torch.core.perfmodel", "repro_torch.core.strategy",
                 "repro_torch.core.collectives",
-                "repro_torch.core.channel_conv", "repro_torch.core.plan"}
+                "repro_torch.core.channel_conv", "repro_torch.core.plan",
+                "repro_torch.core.dag", "repro_torch.models.cnn.resnet",
+                "repro_torch.configs.resnet50"}
     assert expected <= set(out["modules"])
 
 

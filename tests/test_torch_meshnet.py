@@ -281,7 +281,7 @@ def test_registry_refuses_unported_archs():
     assert treg.get("mesh2k").name == "mesh2k"
     assert treg.get("mesh1k", smoke=True).input_hw == 64
     with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("resnet50")
+        treg.get("olmo-1b")
     with pytest.raises(ValueError, match="not ported yet"):
         treg.get("qwen1.5-0.5b")
 

@@ -58,6 +58,13 @@ from repro_torch.core import collectives
 from repro_torch.core import plan as tplan
 from repro_torch.models.cnn import meshnet as tmesh
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_eta_unmeasured():
+    with jax_mesh_oracles.reference_eta_unmeasured():
+        yield
+
+
 # a meshnet of mesh1k's depth and layer names at narrow widths
 DEEP = jmesh.MeshNetConfig("deep19", input_hw=128, in_channels=4,
                            convs_per_block=3, widths=(8, 8, 16, 16, 16, 16))

@@ -29,6 +29,7 @@ import sys
 
 import pytest
 
+import jax_mesh_oracles
 from repro.analysis import workloads
 from repro.core import perfmodel as jpm
 from repro.core import plan as jplan
@@ -40,6 +41,13 @@ from repro_torch.core import plan as tplan
 from repro_torch.core import strategy as tst
 from repro_torch.launch import train as train_cli
 from repro_torch.models.cnn import meshnet as tmesh
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_eta_unmeasured():
+    with jax_mesh_oracles.reference_eta_unmeasured():
+        yield
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = {"mesh1k": jmesh.MESH1K, "mesh2k": jmesh.MESH2K,

@@ -541,10 +541,133 @@ def case_plan(mesh, d):
     return out
 
 
+def resnet_cases(d) -> list[dict]:
+    with open(os.path.join(d, "resnet.json")) as f:
+        return json.load(f)
+
+
+def unflatten(tree, leaves):
+    """`leaves` (an iterator, in `tree_leaves` order: dict keys sorted) in
+    the structure of `tree`."""
+    if isinstance(tree, dict):
+        return {k: unflatten(tree[k], leaves) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return [unflatten(t, leaves) for t in tree]
+    return next(leaves)
+
+
+def resnet_setup(c: dict, mesh, d):
+    """The ResNet of case `c` (DIR/resnet.json) with its params
+    (DIR/inputs.npz, `<case>/<leaf index>`, loaded by params_from_jax),
+    its plan on `mesh` (the solved Dists of `c["spec"]` compiled against
+    the graph, or the uniform N x H sharding where it has none) and this
+    rank's block of its batch of `step`."""
+    import torch
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.spatial_conv import ConvSharding
+    from repro_torch.data import pipeline
+    from repro_torch.models.cnn import resnet
+    cfg = resnet.ResNetConfig(**{**c["cfg"], "stages": tuple(c["cfg"][
+        "stages"]), "widths": tuple(c["cfg"]["widths"])})
+    model = resnet.ResNet(cfg, generator=torch.Generator(), device="cpu")
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    n_leaves = sum(k.startswith(f"{c['name']}/") for k in flat)
+    model.params_from_jax(unflatten(model.params(), iter(
+        flat[f"{c['name']}/{i}"] for i in range(n_leaves))))
+    if c["spec"] is None:
+        plan = resnet.network_plan(cfg, ConvSharding(
+            batch_axes=("data",), h_axis="model"), mesh)
+    else:
+        plan = plan_lib.compile_plan(
+            plan_lib.dists_from_spec(c["spec"]),
+            resnet.all_specs(c["batch"], cfg), mesh,
+            graph=resnet.resnet_graph(c["batch"], cfg))
+
+    def batch(step):
+        b = pipeline.synthetic_imagenet_batch(step, c["batch"], cfg.input_hw,
+                                              cfg.n_classes)
+        return pipeline.to_device(pipeline.shard_batch(
+            b, mesh, plan.sharding("conv1"),
+            plan.out_sharding(resnet.last_layer(cfg))), torch.device("cpu"))
+    return cfg, model, plan, batch
+
+
+def case_resnet(mesh, d):
+    """Each case of DIR/resnet.json on this mesh: the ResNet loss of
+    global batch 0 under the case's plan summed over the ranks, every
+    param's gradient summed over the mesh, the plan's reshard points, and
+    the bytes this rank's forward reshards sent beside what
+    `reshard_report` predicts."""
+    import torch
+    from repro_torch.core import collectives as co
+    from repro_torch.models.cnn import resnet
+    from repro_torch.train.train_loop import reduce_replicated_grads
+    from repro_torch.utils import tree_leaves
+    dims = tuple(mesh.shape.values())
+    out = {}
+    for c in resnet_cases(d):
+        if tuple(c["dims"]) != dims or c.get("steps"):
+            continue
+        cfg, model, plan, batch = resnet_setup(c, mesh, d)
+        params = model.params()
+        b = batch(0)
+        co.reset_sent()
+        loss = resnet.loss_fn(params, b, cfg, plan, mesh)
+        sent = co.sent.get("reshard", 0)
+        grads = reduce_replicated_grads(
+            list(torch.autograd.grad(loss, tree_leaves(params))), mesh)
+        report = plan.reshard_report(resnet.all_specs(c["batch"], cfg),
+                                     mesh, flow=resnet.flow(cfg))
+        key = c["name"]
+        out[f"{key}/loss"] = mesh.all_reduce(loss.detach(),
+                                             mesh.axis_names).numpy()
+        out[f"{key}/n_reshards"] = np.array(plan.n_reshards)
+        out[f"{key}/sent"] = np.array(sent)
+        out[f"{key}/want_sent"] = np.array(sum(r["bytes"] for r in report))
+        out[f"{key}/n_moves"] = np.array(len(report))
+        out.update({f"{key}/grad{i}": g.numpy()
+                    for i, g in enumerate(grads)})
+    return out
+
+
+def case_resnet_trajectory(mesh, d):
+    """The cases of DIR/resnet.json with `steps`: that many SGD-momentum
+    steps (lr 0.1 on warmup(1) + cosine) of the train step under the
+    case's plan, batches 0, 1, ...: the losses and the params after."""
+    import functools
+    from repro_torch.models.cnn import resnet
+    from repro_torch.optim import optimizer as opt_lib
+    from repro_torch.train import train_loop
+    from repro_torch.utils import FP32, tree_leaves
+    dims = tuple(mesh.shape.values())
+    out = {}
+    for c in resnet_cases(d):
+        if tuple(c["dims"]) != dims or not c.get("steps"):
+            continue
+        cfg, model, plan, batch = resnet_setup(c, mesh, d)
+        steps = c["steps"]
+        opt = opt_lib.sgd(opt_lib.warmup_cosine(0.1, 1, steps), momentum=0.9)
+        step = train_loop.make_train_step(
+            functools.partial(resnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh),
+            opt, train_loop.TrainStepConfig(precision=FP32), mesh=mesh)
+        params = model.params()
+        state = opt.init(params)
+        losses = []
+        for s in range(steps):
+            params, state, m = step(params, state, batch(s))
+            losses.append(float(m["loss"]))
+        key = c["name"]
+        out[f"{key}/losses"] = np.array(losses)
+        out.update({f"{key}/param{i}": p.detach().numpy()
+                    for i, p in enumerate(tree_leaves(params))})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
-         "cf": case_cf, "reshard": case_reshard, "plan": case_plan}
+         "cf": case_cf, "reshard": case_reshard, "plan": case_plan,
+         "resnet": case_resnet, "resnet_trajectory": case_resnet_trajectory}
 
 
 # ------------------------------------------------------------ launcher --
