@@ -18,8 +18,10 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    TF32 off: the yardstick, never called by the port); compute the bound;
    then the same for the flash-attention kernel at hymba-1.5b's shapes
    (window 1024 and none, each row with its plan, the bf16 ones on
-   `wgmma` and held element by element to one bf16 ulp of A + |o32|;
-   yardstick `F.scaled_dot_product_attention`) and
+   `wgmma` and held element by element to one bf16 ulp of A + |o32|, and
+   the CPU emulation of its tiling, `flash_attention_emulated`, run on
+   the same inputs, held against it; yardstick
+   `F.scaled_dot_product_attention`) and
    the SSD-chunk kernel at hymba's and mamba2-780m's shapes (each row
    with its plan, the bf16 ones on `mma.sync` and held element by element
    to 2^-7 |y32| + 2^-12 |M|.|xdt|; no yardstick: no one PyTorch call
@@ -71,6 +73,21 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    predicts, the forward loss of one global batch under the plan against
    the one-device card loss, one profiled step with its host ranges.  Not
    a scaling result;
+4e. the paper's §V calibration loop: 2 ranks spawned on the card over
+   gloo run `python -m repro_torch.core.calibrate`'s path for full-width
+   mesh1k at batch 2 on data 1 x model 2 (every conv table entry timed on
+   the conv kernel: its launches must cover each conv key's 6 calls;
+   coverage 1.0; one fingerprint on both ranks), print the fitted
+   constants beside the H100 preset's and each table row beside the
+   preset's analytic time; the plan solved on the calibration beside the
+   preset's, the layers whose kind changed marked; 3 trainer steps under
+   `--strategy auto --calibrate` (equal losses and params, the forward
+   loss against 2 gloo CPU ranks'); `--profile` of that plan, its
+   predicted-vs-measured attribution over all 19 layers; then
+   full-width ResNet-50 at batch 32 solved on a table of 64 keys measured
+   in this process (no live communication) beside the preset's plan.
+   Not a scaling result: 2 processes share one card, and their α/β are
+   gloo's through the host, not NVLink's;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
    2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
    32 x 3 launches of each LM kernel;
@@ -105,8 +122,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import hymba_1_5b  # noqa: E402
-from repro_torch.core import channel_conv, collectives, halo  # noqa: E402
+from repro_torch.core import calibrate, channel_conv  # noqa: E402
+from repro_torch.core import collectives, halo, perfmodel  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
+from repro_torch.core import trace as trace_lib  # noqa: E402
 from repro_torch.core.perfmodel import H100  # noqa: E402
 from repro_torch.core.spatial_conv import (  # noqa: E402
     ConvSharding, conv_calls, spatial_conv2d, split_rows)
@@ -406,6 +425,13 @@ def train_phase() -> dict:
             "steady_step_s": step_s, "steady_compute_s": compute_s}
 
 
+def _annotation(e) -> bool:
+    """Whether a profiler event is a `record_function` range's span on
+    the device timeline (a layer or a named region, `core.trace`), not a
+    kernel: its time is its kernels', counted already."""
+    return bool(getattr(e, "is_user_annotation", False))
+
+
 def _device_breakdown(run_step, classify) -> tuple[float, dict, int]:
     """One call of `run_step` (which must end in a device sync) under
     torch.profiler: (host ms, {group: device ms}, device kernels), each
@@ -421,7 +447,7 @@ def _device_breakdown(run_step, classify) -> tuple[float, dict, int]:
     groups: dict[str, float] = {}
     n_kernels = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or _annotation(e):
             continue
         n_kernels += 1
         g = classify(e.name.lower())
@@ -1090,14 +1116,18 @@ def plan_step_breakdown(loss, params, mesh, batch, classify) -> dict:
     ranges = {k: 0.0 for k in AUTO_RANGES}
     n_kernels = 0
     for e in prof.events():
+        if e.device_type == DeviceType.CUDA and _annotation(e):
+            continue
         if e.device_type == DeviceType.CUDA:
             n_kernels += 1
             name = e.name.lower()
             g = "memcpy (gloo's host staging)" if "memcpy" in name \
                 else classify(name)
             groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
-        elif e.name in ranges:
-            ranges[e.name] += e.time_range.elapsed_us() / 1e3
+        elif e.name.rsplit("/", 1)[-1] in ranges:
+            # `<layer>/<region>` (core.trace.annotate), summed by region
+            ranges[e.name.rsplit("/", 1)[-1]] += \
+                e.time_range.elapsed_us() / 1e3
     return {"wall_ms": wall_ms, "groups": groups, "n_kernels": n_kernels,
             "device_ms": sum(groups.values()), "host_ranges_ms": ranges}
 
@@ -1554,6 +1584,243 @@ def resnet_auto_phase(card: str) -> dict:
             "loss_rel_diff": rel}
 
 
+# ------------------------------- calibrate -> solve -> profile (4e) --
+
+CALIB_DIR = os.path.join(HERE, "build", "calibrate")
+# calibrate.main's timing: one warmup call and CALIB_REPS timed calls a
+# table key, so each conv key launches the conv kernel at least 6 times
+CALIB_REPS = 5
+
+
+def calib_rank(rank: int, world: int, path: str, trace_path: str) -> dict:
+    """One of 2 ranks on the card: (a) `python -m repro_torch.core.
+    calibrate`'s path for full-width mesh1k at batch BATCH on AUTO_MESH
+    into `path`, with the conv launches it makes; (b) 3 training steps
+    through the trainer's own entry under `--strategy auto --calibrate
+    path`; (c) the forward loss of one global batch under that plan; (d)
+    `--profile` on that plan, with its attribution report."""
+    mesh = make_mesh(**AUTO_MESH)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cal = calibrate.main(["--arch", "mesh1k", "--batch", str(BATCH),
+                          "--data", "1", "--model", str(SPATIAL_MODEL),
+                          "--device", "cuda", "--reps", str(CALIB_REPS),
+                          "--out", path])
+    cal_s = time.perf_counter() - t0
+    cal_launches = ops.launch_counts()["conv2d"]
+    args = ["--arch", "mesh1k", "--batch", str(BATCH), "--model",
+            str(SPATIAL_MODEL), "--device", "cuda", "--strategy", "auto",
+            "--calibrate", path]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train_cli.main(args + ["--steps", str(STEPS), "--log-every", "1"])
+    launches = ops.launch_counts()["conv2d"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plan = res["plan"]
+    spec = plan.to_spec(AUTO_MESH)
+    loss = _plan_loss(spec, mesh, torch.device("cuda"))
+    t0 = time.perf_counter()
+    prof = train_cli.main(args + ["--profile", trace_path])
+    return {"fingerprint": cal.fingerprint, "cal_s": cal_s,
+            "cal_launches": cal_launches,
+            "train_fingerprint": plan.predicted["calibration"]["fingerprint"],
+            "losses": res["losses"], "step_s": res["step_s"],
+            "launches": launches, "peak_gib": peak, "plan_spec": spec,
+            "describe": plan.describe(),
+            "predicted_step_s": plan.predicted["total"], "loss_card": loss,
+            "eta": channel_conv.measured_eta(),
+            "chunks": list(channel_conv.chunks_decision()),
+            "report": prof["report"], "trace_step": prof["trace"].step,
+            "trace_meta": {k: v for k, v in prof["trace"].meta.items()
+                           if k != "attribution"},
+            "profile_s": time.perf_counter() - t0,
+            "digest": [float(p.detach().double().sum())
+                       for p in tree_leaves(res["params"])]}
+
+
+def calib_cpu_rank(rank: int, world: int, plan_spec: dict,
+                   eta: float | None) -> dict:
+    """One of 2 gloo ranks on the CPU (plain versions) with the card
+    ranks' measured η installed (so the same chunked-CF default):
+    `_plan_loss`."""
+    channel_conv.set_measured_eta(eta)
+    return auto_cpu_rank(rank, world, plan_spec)
+
+
+def _kind_changes(specs, before, after) -> list[str]:
+    """The layers whose kind (plan_kinds) differs between two plans."""
+    return [f"{s.name} {a} -> {b}" for s, a, b in
+            zip(specs, plan_kinds(before), plan_kinds(after)) if a != b]
+
+
+def calibrate_phase(card: str) -> dict:
+    """The paper's §V loop on the card: calibrate (2 ranks over gloo,
+    every conv table entry timed on the conv kernel), solve on the
+    calibration, train 3 steps under it, profile it against its
+    prediction; then ResNet-50's solve on a table measured in this one
+    process.  Not a scaling result: 2 processes share one card."""
+    os.makedirs(CALIB_DIR, exist_ok=True)
+    path = os.path.join(CALIB_DIR, "mesh1k_calibration.json")
+    trace_path = os.path.join(CALIB_DIR, "mesh1k_step_trace.json")
+    for p in (path, trace_path):
+        if os.path.exists(p):
+            os.remove(p)
+    cfg = meshnet.MESH1K
+    specs = meshnet.layer_specs(cfg, BATCH)
+    ranks = spawn_ranks(calib_rank, SPATIAL_MODEL, path, trace_path)
+    cal = calibrate.Calibration.load(path)
+    fps = {r[k] for r in ranks for k in ("fingerprint", "train_fingerprint")}
+    if fps != {cal.fingerprint}:
+        raise AssertionError(f"the ranks hold other calibrations: {fps} vs "
+                             f"the file's {cal.fingerprint}")
+    conv_keys = sorted(k for k in cal.table.entries if k[0] == "conv")
+    want = len(conv_keys) * (1 + CALIB_REPS)
+    if ranks[0]["cal_launches"] < want:
+        raise AssertionError(f"calibration launched the conv kernel "
+                             f"{ranks[0]['cal_launches']} times, want >= "
+                             f"{len(conv_keys)} conv keys x "
+                             f"{1 + CALIB_REPS}")
+    cov = calibrate.coverage(cal, specs, AUTO_MESH)
+    if cov != 1.0:
+        raise AssertionError(f"calibration coverage {cov} != 1.0")
+    m, meta = cal.machine, cal.meta
+    print(f"calibration, full-width mesh1k, batch {BATCH}, mesh {AUTO_MESH}, "
+          f"2 ranks over gloo on one card ({ranks[0]['cal_s']:.1f} s; "
+          f"{meta.get('card', card)}): {cal.summary()}")
+    print(f"  fingerprint {cal.fingerprint} on both ranks; coverage {cov}; "
+          f"{len(cal.table)} table entries ({len(conv_keys)} conv, "
+          f"{sum(k[0] == 'pool' for k in cal.table.entries)} pool, "
+          f"{sum(k[0].startswith('shuffle') for k in cal.table.entries)} "
+          f"shuffle); conv launches on rank 0 {ranks[0]['cal_launches']} "
+          f"(>= {want})")
+    print(f"  fitted: achieved peak {m.peak_flops / 1e12:.3f} TFLOP/s, "
+          f"efficiency {m.compute_efficiency:.3f}, halfwork "
+          f"{m.eff_halfwork:.3e} FLOP, mem_bw {m.mem_bw / 1e9:.1f} GB/s, "
+          f"p2p alpha {m.alpha * 1e6:.2f} us beta 1/{1 / m.beta / 1e9:.3f} "
+          f"GB/s, coll alpha {m.alpha_coll * 1e6:.2f} us beta "
+          f"1/{1 / m.beta_coll / 1e9:.3f} GB/s (gloo through the host on "
+          f"one card, not NVLink), eta {m.overlap_eta!r} (samples "
+          f"{meta['eta_fit']['samples']}), shuffle x{m.shuffle_factor:.3f} "
+          f"(samples {meta['shuffle_fit']['samples']}), composed cf "
+          f"x{m.composed_cf_factor:.3f} halo x{m.composed_halo_factor:.3f}; "
+          f"H100 preset: peak {H100.peak_flops / 1e12:.1f} TFLOP/s x eff "
+          f"{H100.compute_efficiency}, mem_bw {H100.mem_bw / 1e9:.0f} GB/s, "
+          f"alpha {H100.alpha * 1e6:.1f} us beta 1/"
+          f"{1 / H100.beta / 1e9:.0f} GB/s, coll alpha "
+          f"{H100.alpha_coll * 1e6:.1f} us")
+    print("  p2p samples (axis, bytes, s): " + str(meta["p2p_samples"]))
+    print("  collective samples (op, axis, p, bytes, s): "
+          + str(meta["collective_samples"]))
+    print(f"  table (kind, n, c, h, w, f, k, s): measured on the conv kernel "
+          f"/ the H100 preset's analytic time, ms ({card}):")
+    for key in sorted((k for k in cal.table.entries
+                       if k[0] in ("conv", "pool")),
+                      key=lambda k: calibrate._conv_flops_bytes(k)[0]):
+        kind, n, c, h, w, f, k, st = key
+        layer = perfmodel.ConvLayer("key", n=n, c=c, h=h, w=w, f=f, k=k,
+                                    s=st, kind=kind)
+        pre = perfmodel.conv_compute_time(H100, layer, n, c, h, w, f)
+        t = cal.table.entries[key]
+        print(f"    {str(key):42s} {t * 1e3:9.4f} / {pre * 1e3:9.4f}  "
+              f"(x{t / pre:.2f})")
+
+    preset = auto_plan()
+    solved = plan_lib.plan_line(cal.machine, specs, AUTO_MESH,
+                                table=cal.table)
+    if ranks[0]["plan_spec"]["layers"] != solved.to_spec()["layers"]:
+        raise AssertionError("the trainer ran another plan than the "
+                             "calibration solves:\n" + ranks[0]["describe"])
+    changed = _kind_changes(specs, preset, solved)
+    print(f"calibrated plan, full-width mesh1k, batch {BATCH}, layer kinds "
+          f"{' '.join(plan_kinds(solved))} (H100 preset: "
+          f"{' '.join(plan_kinds(preset))}); changed: "
+          f"{', '.join(changed) or 'none'}; chunked CF "
+          f"{ranks[0]['chunks']}:")
+    print(ranks[0]["describe"])
+    print("H100 preset plan:")
+    print(preset.describe())
+
+    for r, out in enumerate(ranks):
+        if out["losses"] != ranks[0]["losses"] or \
+                out["digest"] != ranks[0]["digest"]:
+            raise AssertionError(f"rank {r} diverged: losses "
+                                 f"{out['losses']} vs {ranks[0]['losses']}")
+        if not all(math.isfinite(x) for x in out["losses"]):
+            raise AssertionError(f"non-finite loss: {out['losses']}")
+    cpu = spawn_ranks(calib_cpu_rank, SPATIAL_MODEL, ranks[0]["plan_spec"],
+                      ranks[0]["eta"])
+    lg, lc = ranks[0]["loss_card"], cpu[0]["loss"]
+    rel = abs(lg - lc) / abs(lc)
+    steady = ranks[0]["step_s"][1:]
+    print(f"calibrated train (2 processes sharing one card over gloo: not a "
+          f"scaling result): losses {ranks[0]['losses']} on both ranks; "
+          f"steps 2..{STEPS}: {sum(steady) / len(steady):.4f} s/step "
+          f"(predicted {ranks[0]['predicted_step_s'] * 1e3:.3f} ms); peak "
+          f"{ranks[0]['peak_gib']:.2f} GiB; conv launches "
+          f"{ranks[0]['launches']}; forward loss card {lg!r}, 2 gloo CPU "
+          f"ranks {lc!r}, rel diff {rel:.3e} (tol {LOSS_RTOL}) ({card})")
+    if not (math.isfinite(lg) and rel <= LOSS_RTOL
+            and ranks[1]["loss_card"] == lg and cpu[1]["loss"] == lc):
+        raise AssertionError(f"calibrated plan loss {lg} vs CPU {lc}")
+
+    report = ranks[0]["report"]
+    if list(report["per_layer"]) != [s.name for s in specs]:
+        raise AssertionError(f"the attribution covers "
+                             f"{list(report['per_layer'])}, not the "
+                             f"{len(specs)} layers")
+    ts = ranks[0]["trace_step"]
+    print(f"attribution of the calibrated plan, {len(report['per_layer'])} "
+          f"layers, each timed alone on rank 0 of 2 (the max over the "
+          f"ranks; profile {ranks[0]['profile_s']:.1f} s; step fwd "
+          f"{ts['fwd_s'] * 1e3:.3f} ms, fwd+bwd {ts['fwd_bwd_s'] * 1e3:.3f} "
+          f"ms; peak {ranks[0]['trace_meta']['measured_peak_bytes']} B; "
+          f"{card}):")
+    print(trace_lib.format_attribution(report))
+    print(f"  flagged (x{report['tolerance']} either way): "
+          f"{report['flagged']}; worst term {report['worst_term']}; terms "
+          + "; ".join(f"{k} predicted {v['predicted_s'] * 1e3:.3f} ms "
+                      f"drift x{v['drift']:.2f}"
+                      for k, v in report["terms"].items()))
+
+    t0 = time.perf_counter()
+    rspecs = resnet.layer_specs(RESNET_BATCH)
+    rcal = calibrate.calibrate(rspecs, RESNET_MESH, device="cuda")
+    rcov = calibrate.coverage(rcal, rspecs, RESNET_MESH)
+    if rcov != 1.0 or len(rcal.table) != min(
+            64, rcal.meta["shapes"]["requested"]):
+        raise AssertionError(f"resnet50 calibration: coverage {rcov}, "
+                             f"{len(rcal.table)} entries of "
+                             f"{rcal.meta['shapes']}")
+    rgraph = resnet.resnet_graph(RESNET_BATCH)
+    rsolved = plan_lib.plan_graph(rcal.machine, rgraph, rspecs, RESNET_MESH,
+                                  table=rcal.table)
+    rpreset = resnet_auto_plan()
+    every = plan_lib.compile_order(rgraph, rspecs)
+    rchanged = _kind_changes(every, rpreset, rsolved)
+    resnet_s = time.perf_counter() - t0
+    print(f"resnet50 calibration, batch {RESNET_BATCH}, shapes of mesh "
+          f"{RESNET_MESH}, one process, no live communication "
+          f"({resnet_s:.1f} s with the solve; "
+          f"{rcal.meta.get('card', card)}): "
+          f"{rcal.summary()}; {rcal.meta['shapes']}, coverage {rcov}")
+    print(f"calibrated resnet50 plan, layer kinds "
+          f"{' '.join(plan_kinds(rsolved))}; changed from the H100 preset's: "
+          f"{', '.join(rchanged) or 'none'}:")
+    print(rsolved.describe())
+    print("H100 preset resnet50 plan:")
+    print(rpreset.describe())
+    return {"calibration": cal.to_json(), "ranks": ranks, "cpu": cpu,
+            "coverage": cov, "loss_rel_diff": rel, "changed": changed,
+            "kinds": plan_kinds(solved), "preset_kinds": plan_kinds(preset),
+            "resnet50": {"calibration": rcal.to_json(),
+                         "kinds": plan_kinds(rsolved),
+                         "preset_kinds": plan_kinds(rpreset),
+                         "changed": rchanged,
+                         "predicted_s": rsolved.predicted["total"],
+                         "preset_predicted_s": rpreset.predicted["total"],
+                         "seconds": resnet_s}}
+
+
 # ---------------------------------------------------------------- LM path --
 
 def admitted_pairs(s: int, window: int | None) -> int:
@@ -1596,6 +1863,12 @@ def check_attention(case: dict, dtype: torch.dtype,
     torch.cuda.synchronize()
     err = _check_close(what, o, flash_attention_ref(q, k, v, window=window),
                        LM_FWD_TOL[dtype])
+    # the CPU emulation of the kernel's tiling, run here on the same
+    # inputs, against the kernel itself
+    emu_err = _check_close(f"{what} emulation vs kernel",
+                           kfa.flash_attention_emulated(q, k, v,
+                                                        window=window),
+                           o, LM_FWD_TOL[dtype])
     elem = None
     if dtype == torch.bfloat16:
         want, limit = attention_limit(q, k, v, window=window)
@@ -1640,6 +1913,7 @@ def check_attention(case: dict, dtype: torch.dtype,
            "dtype": str(dtype).split(".")[-1], "count": case["count"],
            "q": [b, s, hq, d], "kv": [b, s, hkv, d], "max_abs_err": err,
            "max_err_over_elem_limit": elem,
+           "emulation_vs_kernel_err": emu_err,
            "library_vs_kernel_err": lib_err, "plan": dataclasses.asdict(p),
            "plan_str": f"{p.path} {p.tile_q}x{p.tile_k}"}
     row.update(_timings(
@@ -1774,7 +2048,10 @@ def lm_kernel_phase(card: str) -> list[dict]:
                   f"{r['tflops_s']:8.2f} {r['max_abs_err']:9.2e}"
                   + ("" if r.get("max_err_over_elem_limit") is None else
                      f"  err/elem limit "
-                     f"{r['max_err_over_elem_limit']:.3f}"),
+                     f"{r['max_err_over_elem_limit']:.3f}")
+                  + ("" if r.get("emulation_vs_kernel_err") is None else
+                     f"  emulation vs kernel "
+                     f"{r['emulation_vs_kernel_err']:.2e}"),
                   flush=True)
             torch.cuda.empty_cache()
     return rows
@@ -2019,6 +2296,12 @@ def main() -> int:
     resnet_s = time.perf_counter() - t_resnet
     print(f"resnet50 phases (conv rows, train, forward check, breakdown, "
           f"2-rank auto plan) took {resnet_s:.1f} s of this run ({card})")
+    t_calib = time.perf_counter()
+    calib = calibrate_phase(card)
+    calib["phase_s"] = time.perf_counter() - t_calib
+    print(f"calibrate-solve-profile phase (2 card ranks, 2 CPU ranks, the "
+          f"resnet50 table) took {calib['phase_s']:.1f} s of this run "
+          f"({card})")
     lm_train = lm_train_phase()
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
@@ -2037,6 +2320,7 @@ def main() -> int:
                                 "forward_check": resnet_fwd,
                                 "step_breakdown": resnet_breakdown,
                                 "auto": resnet_auto, "phase_s": resnet_s},
+                   "calibrate": calib,
                    "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
@@ -2083,6 +2367,8 @@ def main() -> int:
                                         for r in spatial["ranks"]],
              auto_launches_per_rank=[r["launches"]
                                      for r in auto["ranks"]],
+             calibrate_launches_per_rank=[r["cal_launches"]
+                                          for r in calib["ranks"]],
              resnet50=dict(entry(
                  "conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
                  "src/repro/kernels/conv2d.py:43", resnet_train["launches"],

@@ -31,7 +31,8 @@ globally addressed and are sliced per rank; a rank's gradient of w is
 then zero outside its block, and the sum over the mesh of every
 replicated param's gradient (`train.train_loop.reduce_replicated_grads`)
 puts the blocks together into dL/dw.  The collectives are
-`core.collectives`' (named `cf_all_gather` / `cf_reduce_scatter`).
+`core.collectives`', in the named regions `cf_all_gather` /
+`cf_reduce_scatter` (`core.trace.annotate`).
 
 BN under a CF sharding needs no communication at 'local' scope (each
 channel lives on one rank of the CF axis); 'spatial' and 'global' sum the
@@ -45,7 +46,7 @@ from typing import Mapping
 
 import torch
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, trace
 from repro_torch.core.spatial_conv import (ConvSharding, _conv_nhwc,
                                            _local_conv, axes_tuple,
                                            cast_to_weight_dtype,
@@ -57,12 +58,40 @@ from repro_torch.utils import same_pads
 MODES = ("channel", "filter")
 
 
+# the measured achieved-overlap efficiency (Machine.overlap_eta), installed
+# by core.calibrate whenever a calibration with live overlap samples runs or
+# loads; None: no measurement yet
+_MEASURED_ETA: float | None = None
+
+# chunking must hide at least this fraction of the hideable min(comm,
+# compute) to pay for its extra per-block collective launches and slices.
+ETA_CHUNK_THRESHOLD = 0.5
+
+
+def set_measured_eta(eta: float | None) -> None:
+    """Install (or clear with None) the measured η that `chunks_decision`
+    reads; core.calibrate calls it after a fit or load that carries live
+    overlap samples.  Every rank of a mesh installs the same η (the
+    calibration is one for all of them), or their chunk counts, and so
+    their collectives, would differ."""
+    global _MEASURED_ETA
+    _MEASURED_ETA = eta
+
+
+def measured_eta() -> float | None:
+    return _MEASURED_ETA
+
+
 def chunks_decision() -> tuple[int, str]:
-    """The 'channel'-mode chunk default, with its reason.  Chunking pays
-    for its extra per-block collectives only where a measured overlap
-    efficiency says they hide behind compute; nothing measures it yet
-    (calibration, ROADMAP Queue 1 item 7), so the default is 1."""
-    return 1, "eta unmeasured"
+    """The 'channel'-mode chunk default, with its reason.  Chunking
+    pipelines the reduce-scatter of block b with the conv of block b+1,
+    which pays only where a measured η >= ETA_CHUNK_THRESHOLD says the
+    machine hides collectives behind compute; unmeasured, it stays off."""
+    if _MEASURED_ETA is None:
+        return 1, "eta unmeasured"
+    if _MEASURED_ETA >= ETA_CHUNK_THRESHOLD:
+        return 2, f"measured eta {_MEASURED_ETA:.2f} >= {ETA_CHUNK_THRESHOLD}"
+    return 1, f"measured eta {_MEASURED_ETA:.2f} < {ETA_CHUNK_THRESHOLD}"
 
 
 def default_channel_chunks() -> int:
@@ -159,7 +188,8 @@ def _local_cf_conv(x, w, *, strides, sharding: CFSharding, mesh: Mesh,
     if sharding.mode == "filter":
         # column-parallel: full C, my F block; the all-gather's adjoint
         # reduce-scatters dL/dx
-        xg = collectives.all_gather(x, mesh, ax, 3, "cf_all_gather")
+        with trace.annotate("cf_all_gather", x):
+            xg = collectives.all_gather(x, mesh, ax, 3, "cf_all_gather")
         return _conv_local_block(xg, collectives.take_block(w, mesh, ax, 3),
                                  strides=strides, sharding=sharding,
                                  mesh=mesh, overlap=overlap)
@@ -180,8 +210,9 @@ def _local_cf_conv(x, w, *, strides, sharding: CFSharding, mesh: Mesh,
         partial = _conv_local_block(xs, ws, strides=strides,
                                     sharding=sharding, mesh=mesh,
                                     overlap=overlap)
-        scat = collectives.reduce_scatter(partial, mesh, ax, 3,
-                                          "cf_reduce_scatter")
+        with trace.annotate("cf_reduce_scatter", partial):
+            scat = collectives.reduce_scatter(partial, mesh, ax, 3,
+                                              "cf_reduce_scatter")
         y = scat if y is None else y + scat
     return y
 

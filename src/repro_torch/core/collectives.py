@@ -23,15 +23,16 @@ moves from one dim to another is one all-to-all on that axis's group,
 an axis that stops sharding a dim is an all-gather, and an axis that
 starts sharding a dim is a local slice.
 
-Every collective is named (`torch.profiler.record_function`, forward and
-backward alike) and the bytes this rank sends in it are added to
-`sent[name]`.
+Every collective is a named region (`core.trace.annotate`, forward and
+backward alike, qualified by the layer that runs it:
+`conv4_2/cf_reduce_scatter`) and the bytes this rank sends in it are
+added to `sent[name]`.
 """
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
+from repro_torch.core import trace
 from repro_torch.launch.mesh import Mesh, axes_tuple
 
 Layout = tuple[tuple[str, ...], tuple[str, ...], tuple[str, ...],
@@ -53,24 +54,26 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _gather(t, mesh: Mesh, axes, dim: int, name: str) -> torch.Tensor:
+def _gather(t, mesh: Mesh, axes, dim: int, name: str,
+            layer: str | None = None) -> torch.Tensor:
     p = mesh.axis_size(axes)
-    with record_function(name):
+    with trace.annotate(name, t, layer):
         _count(name, _nbytes(t) * (p - 1))
         return mesh.all_gather(t, axes, dim)
 
 
-def _scatter(t, mesh: Mesh, axes, dim: int, name: str) -> torch.Tensor:
+def _scatter(t, mesh: Mesh, axes, dim: int, name: str,
+             layer: str | None = None) -> torch.Tensor:
     p = mesh.axis_size(axes)
-    with record_function(name):
+    with trace.annotate(name, t, layer):
         _count(name, _nbytes(t) * (p - 1) // p)
         return mesh.reduce_scatter(t, axes, dim)
 
 
 def _exchange(t, mesh: Mesh, axes, split_dim: int, cat_dim: int,
-              name: str) -> torch.Tensor:
+              name: str, layer: str | None = None) -> torch.Tensor:
     p = mesh.axis_size(axes)
-    with record_function(name):
+    with trace.annotate(name, t, layer):
         _count(name, _nbytes(t) * (p - 1) // p)
         return mesh.all_to_all(t, axes, split_dim, cat_dim)
 
@@ -78,7 +81,7 @@ def _exchange(t, mesh: Mesh, axes, split_dim: int, cat_dim: int,
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes, dim, name):
-        ctx.args = (mesh, axes, dim, name)
+        ctx.args = (mesh, axes, dim, name, trace.current_layer())
         return _gather(t, mesh, axes, dim, name)
 
     @staticmethod
@@ -89,7 +92,7 @@ class _AllGather(torch.autograd.Function):
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes, dim, name):
-        ctx.args = (mesh, axes, dim, name)
+        ctx.args = (mesh, axes, dim, name, trace.current_layer())
         return _scatter(t, mesh, axes, dim, name)
 
     @staticmethod
@@ -100,13 +103,14 @@ class _ReduceScatter(torch.autograd.Function):
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes, split_dim, cat_dim, name):
-        ctx.args = (mesh, axes, split_dim, cat_dim, name)
+        ctx.args = (mesh, axes, split_dim, cat_dim, name,
+                    trace.current_layer())
         return _exchange(t, mesh, axes, split_dim, cat_dim, name)
 
     @staticmethod
     def backward(ctx, g):
-        mesh, axes, split_dim, cat_dim, name = ctx.args
-        return (_exchange(g, mesh, axes, cat_dim, split_dim, name),
+        mesh, axes, split_dim, cat_dim, name, layer = ctx.args
+        return (_exchange(g, mesh, axes, cat_dim, split_dim, name, layer),
                 None, None, None, None, None)
 
 

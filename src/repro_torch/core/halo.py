@@ -24,6 +24,9 @@ they are in flight (§IV-A).  The backward exchange is synchronous: the
 mirrored schedule (boundary-gradient sends under the interior dL/dx) is
 not ported.
 
+Each transfer, its wait and the backward's exchange is the named region
+`halo_exchange` (`core.trace.annotate`) of the layer that built it.
+
 Transport follows the backend (`Mesh.to_wire`): NCCL sends device
 tensors; gloo sends host tensors, so a CUDA halo goes through host memory
 explicitly, and every message sent or received that way adds one to
@@ -34,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import trace
 from repro_torch.launch.mesh import Mesh, axes_tuple  # noqa: F401 — re-export
 
 # halo messages this process sent or received through host memory (gloo
@@ -88,6 +92,7 @@ class _Exchange:
                  edge_value: float):
         self.dim, self.lo, self.hi, self.edge = dim, lo, hi, edge_value
         self.axis, self.mesh = axis, mesh
+        self.layer = trace.current_layer()
         ranks = [0] if mesh is None else mesh.ranks(axis)
         i = 0 if mesh is None else mesh.index(axis)
         self.prev = ranks[i - 1] if i > 0 else None
@@ -104,6 +109,10 @@ class _Exchange:
     def issue(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Post the sends of x's tail (to next) and head (to prev) and the
         receives of both halos; fill the global-edge halos."""
+        with trace.annotate("halo_exchange", x, self.layer):
+            return self._issue(x)
+
+    def _issue(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         dim, lo, hi = self.dim, self.lo, self.hi
         h_lo, h_hi = self._halo(x, lo), self._halo(x, hi)
         sends, recvs = [], []
@@ -130,6 +139,10 @@ class _Exchange:
         return h_lo, h_hi
 
     def wait(self) -> None:
+        with trace.annotate("halo_exchange", layer=self.layer):
+            self._wait()
+
+    def _wait(self) -> None:
         for w in self._works:
             w.wait()
         self._works, self._sending = [], []
@@ -141,6 +154,11 @@ class _Exchange:
                  ) -> torch.Tensor:
         """dx of the halo outputs: g_lo to prev, g_hi to next; next's g_lo
         adds into this block's tail, prev's g_hi into its head."""
+        with trace.annotate("halo_exchange", g_lo, self.layer):
+            return self._backward(x_shape, g_lo, g_hi)
+
+    def _backward(self, x_shape, g_lo: torch.Tensor, g_hi: torch.Tensor
+                  ) -> torch.Tensor:
         dim, lo, hi = self.dim, self.lo, self.hi
         dx = g_lo.new_zeros(x_shape)
         sends, recvs, landing = [], [], []

@@ -32,21 +32,25 @@ drops a spatial axis.
 Line networks (meshnet) solve with `plan_line`; branchy ones (ResNet-50)
 with `plan_graph`, the §V-C longest-path-first solve over a
 `core.dag.DiGraph`, whose reshard flags follow the graph's predecessors.
-The static audit and the attribution report come with the
-calibrate/trace and analysis slices.
+Both take `table=`, a measured `EmpiricalTable` (core.calibrate), and
+price the solve and the report on it.  `NetworkPlan.attribution_report`
+joins a measured `core.trace.StepTrace` with the report.  Every reshard
+is the named region `reshard` (`core.trace.annotate`).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Sequence
 
 import torch
 
-from repro_torch.core import collectives, dag
+from repro_torch.core import collectives, dag, trace
 from repro_torch.core.channel_conv import CFSharding, chunks_decision
 from repro_torch.core.distribution import Dist
-from repro_torch.core.perfmodel import (ConvLayer, Machine, cf_mode_for,
-                                        layer_collectives, layer_memory,
+from repro_torch.core.perfmodel import (ConvLayer, EmpiricalTable, Machine,
+                                        cf_mode_for, layer_collectives,
+                                        layer_memory,
                                         network_cost, network_memory,
                                         shuffle_block_bytes, shuffle_time)
 from repro_torch.core.spatial_conv import ConvSharding
@@ -397,8 +401,9 @@ class NetworkPlan:
         if mesh is None:
             return x
         shape = dict(mesh.shape)
-        return collectives.reshard(x, _layout(src, shape),
-                                   _layout(dst, shape), mesh)
+        with trace.annotate("reshard", x):
+            return collectives.reshard(x, _layout(src, shape),
+                                       _layout(dst, shape), mesh)
 
     def reshard(self, x: torch.Tensor, name: str, mesh: Mesh | None = None,
                 src: str | None = None) -> torch.Tensor:
@@ -425,11 +430,9 @@ class NetworkPlan:
         """The reshard from layer `name`'s conv output to its output
         sharding, where a LayerPlan has one (`LayerPlan.out`)."""
         lp = self.layers.get(name)
-        if lp is None or lp.out is None or mesh is None:
+        if lp is None or lp.out is None:
             return x
-        shape = dict(mesh.shape)
-        return collectives.reshard(x, _layout(lp.sharding, shape),
-                                   _layout(lp.out, shape), mesh)
+        return self._move(x, lp.sharding, lp.out, mesh)
 
     def reshard_report(self, specs: Sequence[ConvLayer], mesh,
                        wordsize: int = 4,
@@ -486,6 +489,105 @@ class NetworkPlan:
                           self.out_sharding(src), lp.out_sharding,
                           (spec.n, spec.h_out, spec.w_out, spec.f))
         return out
+
+    # -- attribution --------------------------------------------------------
+    def attribution_report(self, trace, *, tol: float = 5.0) -> dict:
+        """Join a measured `core.trace.StepTrace` with this plan's
+        perf-model predictions, per layer and per cost term.
+
+        Per layer: predicted fwd (layer_cost fp + the incoming shuffle) and
+        bwd (bpx + bpw + bpa) seconds next to the trace's measured isolated
+        fwd/bwd, with ratio = measured / predicted; layers whose ratio
+        exceeds `tol` in either direction are flagged.
+
+        Per term: the model's cost decomposition {fp_compute, fp_comm,
+        bp_compute, bp_comm, bpa, shuffle} each gets a drift estimate — the
+        predicted-seconds-weighted mean of the per-layer measured/predicted
+        ratio in that term's direction (fwd or bwd).  The measurement only
+        resolves whole fwd/bwd segments, so a term's drift is the layer
+        ratio weighted by how much of the prediction that term carries:
+        terms that dominate the predicted time in layers that drift most
+        are named as `worst_term` — the §V model-vs-measured mystery
+        decomposed into named per-term suspects.
+
+        Requires a plan compiled with a `machine` (predicted cost report).
+        """
+        if not self.predicted or "layer_costs" not in self.predicted:
+            raise PlanError("attribution needs a plan compiled with a "
+                            "`machine` (no predicted layer costs attached)")
+        costs = self.predicted["layer_costs"]
+        shuf = self.predicted.get("shuffle_per_layer", {})
+        missing = [n for n in costs if n not in trace.layers]
+        if missing:
+            raise PlanError(f"trace has no measurement for plan layers "
+                            f"{missing} (knows {list(trace.layers)[:8]}...)")
+
+        per_layer: dict[str, dict] = {}
+        flagged: list[str] = []
+        for name, c in costs.items():
+            # float() everywhere: perf-model terms may be numpy scalars,
+            # and the report must stay json.dump-able as-is
+            pf = float(c.fp + shuf.get(name, 0.0))
+            pb = float(c.bpx + c.bpw + c.bpa)
+            mf = float(trace.layers[name]["fwd_s"])
+            mb = float(trace.layers[name]["bwd_s"])
+            ratio = (mf + mb) / (pf + pb) if pf + pb > 0 else float("nan")
+            flag = bool(ratio == ratio
+                        and (ratio > tol or ratio < 1.0 / tol))
+            if flag:
+                flagged.append(name)
+            per_layer[name] = {
+                "predicted_fwd_s": pf, "measured_fwd_s": mf,
+                "predicted_bwd_s": pb, "measured_bwd_s": mb,
+                "ratio_total": ratio, "flagged": flag}
+
+        # per-term drift: terms split by the direction they live in
+        def terms_of(name):
+            c = costs[name]
+            return {"fp_compute": (float(c.fp_compute), "f"),
+                    "fp_comm": (float(c.fp - c.fp_compute + c.fp_saved),
+                                "f"),
+                    "shuffle": (float(shuf.get(name, 0.0)), "f"),
+                    "bp_compute": (float(c.bp_compute), "b"),
+                    "bp_comm": (float(c.bpx + c.bpw - c.bp_compute
+                                      + c.bp_saved), "b"),
+                    "bpa": (float(c.bpa), "b")}
+
+        acc: dict[str, list[float]] = {}
+        for name in costs:
+            r = per_layer[name]
+            dir_ratio = {
+                "f": (r["measured_fwd_s"] / r["predicted_fwd_s"]
+                      if r["predicted_fwd_s"] > 0 else None),
+                "b": (r["measured_bwd_s"] / r["predicted_bwd_s"]
+                      if r["predicted_bwd_s"] > 0 else None)}
+            for term, (w, d) in terms_of(name).items():
+                if w > 0 and dir_ratio[d] is not None:
+                    s = acc.setdefault(term, [0.0, 0.0])
+                    s[0] += w * dir_ratio[d]
+                    s[1] += w
+        terms = {t: {"drift": s[0] / s[1], "predicted_s": s[1]}
+                 for t, s in acc.items() if s[1] > 0}
+        worst = None
+        if terms:
+            worst = max(terms, key=lambda t: abs(math.log(
+                max(terms[t]["drift"], 1e-12))))
+
+        pred_total = sum(r["predicted_fwd_s"] + r["predicted_bwd_s"]
+                         for r in per_layer.values())
+        meas_total = sum(r["measured_fwd_s"] + r["measured_bwd_s"]
+                         for r in per_layer.values())
+        return {"schema": "repro/attribution@1",
+                "tolerance": tol,
+                "per_layer": per_layer,
+                "flagged": flagged,
+                "terms": terms,
+                "worst_term": worst,
+                "totals": {"predicted_s": pred_total,
+                           "measured_s": meas_total,
+                           "ratio": (meas_total / pred_total
+                                     if pred_total > 0 else float("nan")),
+                           "step_measured_s": trace.step["fwd_bwd_s"]}}
 
     # -- reporting ----------------------------------------------------------
     def describe(self) -> str:
@@ -568,6 +670,7 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
                  specs: Sequence[ConvLayer], mesh=None, *,
                  graph: dag.DiGraph | None = None,
                  machine: Machine | None = None,
+                 table: EmpiricalTable | None = None,
                  overlap: bool = True,
                  cost_specs: Sequence[ConvLayer] | None = None,
                  mem_limit: float | None = None,
@@ -587,6 +690,8 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
              report carries the §VI memory rollup too (predicted['memory']:
              per-layer LayerMemory breakdowns + peak_bytes/peak_layer),
              over every compiled layer.
+    table:   measured local conv and shuffle costs (core.calibrate) the
+             report prices before the analytic model.
     mem_limit: per-device capacity in bytes.  The compiled (post-demotion)
              plan is validated against it: a plan whose per-layer resident
              set or whole-network peak exceeds the limit raises PlanError
@@ -677,7 +782,7 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
     if machine is not None and mesh_shape:
         cs = list(cost_specs if cost_specs is not None else specs)
         dists_c = [final[l.name] for l in cs]
-        predicted = network_cost(machine, cs, dists_c, mesh_shape, None,
+        predicted = network_cost(machine, cs, dists_c, mesh_shape, table,
                                  overlap)
         # per-layer η-scaled overlap credit: the seconds of communication
         # the schedule is credited with hiding (0 when nothing overlaps),
@@ -695,7 +800,7 @@ def compile_plan(dists: Mapping[str, Dist] | Sequence[Dist],
         for i in range(len(cs) - 1):
             predicted["shuffle_per_layer"][cs[i + 1].name] = shuffle_time(
                 machine, cs[i], dists_c[i], dists_c[i + 1], mesh_shape,
-                None)
+                table)
         # the priced-collective inventory (perfmodel.layer_collectives).
         # first=True: training losses grad wrt params only, so the first
         # layer's backward input halos are never sent.
@@ -753,6 +858,7 @@ def dists_from_spec(spec: Mapping) -> dict[str, Dist]:
 
 def plan_from_spec(spec: Mapping, specs: Sequence[ConvLayer], mesh, *,
                    machine: Machine | None = None,
+                   table: EmpiricalTable | None = None,
                    overlap: bool = True,
                    mem_limit: float | None = None,
                    opt_words: float = 1.0) -> NetworkPlan:
@@ -774,7 +880,7 @@ def plan_from_spec(spec: Mapping, specs: Sequence[ConvLayer], mesh, *,
         raise PlanError(
             f"stored plan ({PLAN_SCHEMA}) has no entry for layers "
             f"{missing} — the architecture changed; re-solve instead")
-    return compile_plan(dists, specs, mesh, machine=machine,
+    return compile_plan(dists, specs, mesh, machine=machine, table=table,
                         overlap=overlap, mem_limit=mem_limit,
                         opt_words=opt_words)
 
@@ -819,7 +925,7 @@ def _solve_under_limit(solve, compile_, mem_limit):
 
 
 def plan_line(machine: Machine, specs: Sequence[ConvLayer], mesh, *,
-              overlap: bool = True,
+              table: EmpiricalTable | None = None, overlap: bool = True,
               allow_w_split: bool = True,
               allow_channel_filter: bool = True,
               mem_limit: float | None = None,
@@ -848,17 +954,17 @@ def plan_line(machine: Machine, specs: Sequence[ConvLayer], mesh, *,
 
     def solve(limit):
         if mode == "hillclimb":
-            return solve_hillclimb(machine, specs, cands, mesh_shape, None,
+            return solve_hillclimb(machine, specs, cands, mesh_shape, table,
                                    overlap, mem_limit=limit,
                                    opt_words=opt_words).dists
         # a line's beam search IS the exact DP (solve_line); the widened
         # candidate set is where beam mode's advantage lives
-        return solve_line(machine, specs, cands, mesh_shape, None, overlap,
+        return solve_line(machine, specs, cands, mesh_shape, table, overlap,
                           mem_limit=limit, opt_words=opt_words).dists
 
     def compile_(dists, validate_limit):
         return compile_plan(dists, specs, mesh, machine=machine,
-                            overlap=overlap,
+                            table=table, overlap=overlap,
                             mem_limit=validate_limit, opt_words=opt_words)
 
     return _solve_under_limit(solve, compile_, mem_limit)
@@ -876,6 +982,7 @@ def compile_order(graph: dag.DiGraph,
 
 def plan_graph(machine: Machine, graph: dag.DiGraph,
                specs: Sequence[ConvLayer], mesh, *,
+               table: EmpiricalTable | None = None,
                overlap: bool = True,
                allow_w_split: bool = True,
                allow_channel_filter: bool = True,
@@ -907,7 +1014,7 @@ def plan_graph(machine: Machine, graph: dag.DiGraph,
     def solve(limit):
         if mode == "beam":
             return solve_dag_beam(machine, graph, mesh_shape, candidate_fn,
-                                  None, overlap, mem_limit=limit,
+                                  table, overlap, mem_limit=limit,
                                   opt_words=opt_words, width=width)
         if mode == "hillclimb":
             order = list(graph.nodes)
@@ -915,16 +1022,16 @@ def plan_graph(machine: Machine, graph: dag.DiGraph,
             layers = [graph.nodes[n]["layer"] for n in order]
             res = solve_hillclimb(
                 machine, layers, [candidate_fn(l) for l in layers],
-                mesh_shape, None, overlap,
+                mesh_shape, table, overlap,
                 edges=[(pos[u], pos[v]) for u, v in graph.edges],
                 mem_limit=limit, opt_words=opt_words)
             return {n: d for n, d in zip(order, res.dists)}
-        return solve_dag(machine, graph, mesh_shape, candidate_fn, None,
+        return solve_dag(machine, graph, mesh_shape, candidate_fn, table,
                          overlap, mem_limit=limit, opt_words=opt_words)
 
     def compile_(dists, validate_limit):
         return compile_plan(dists, all_specs, mesh, graph=graph,
-                            machine=machine, overlap=overlap,
+                            machine=machine, table=table, overlap=overlap,
                             cost_specs=specs, mem_limit=validate_limit,
                             opt_words=opt_words)
 

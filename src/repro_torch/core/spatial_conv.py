@@ -19,6 +19,10 @@ read the halo.  The halo transfers are posted first
 flight, and the boundary convs run after `pin` has waited for them.
 Every piece runs through the conv kernel (`kernels.conv2d.Conv2d`).
 
+The pieces are named regions (`core.trace.annotate`): `conv_interior`,
+`conv_boundary`, and `conv_serialized` for the conv that waits for its
+halo first.
+
 The interior block is an H-slice of the local block, which for N > 1 is
 not contiguous.  Its W padding (`F.pad`) copies it into a contiguous
 tensor, the same one copy per layer that the unsplit conv's padding makes;
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import halo as halo_lib
+from repro_torch.core import trace
 from repro_torch.core.halo import axes_tuple, product_size  # noqa: F401
 from repro_torch.kernels.conv2d import Conv2d
 from repro_torch.launch.mesh import Mesh
@@ -175,29 +180,34 @@ def _split_dim_conv(x, w, *, dim, s, k, lo, hi, axis, mesh, other_pads,
         # one conv over lo + local + hi rows; where the shard is too small
         # to split and the halo rides along H, the kernel still runs the
         # tiles that read it last
-        h_lo, h_hi = sched.halos()
-        parts = [p for p in (h_lo, x, h_hi) if p is not None]
-        return conv(torch.cat(parts, dim), (0, 0),
-                    interior_first=overlap and dim == 1)
+        with trace.annotate("conv_serialized", x):
+            h_lo, h_hi = sched.halos()
+            parts = [p for p in (h_lo, x, h_hi) if p is not None]
+            return conv(torch.cat(parts, dim), (0, 0),
+                        interior_first=overlap and dim == 1)
 
     # interior first: rows [t_lo, i_hi) read input [t_lo*s - lo,
     # (i_hi-1)s - lo + k), no halo
     start = t_lo * s - lo
     inner_in = x.narrow(dim, start, (i_hi - 1) * s - lo + k - start)
-    interior = conv(inner_in, (0, 0))
+    with trace.annotate("conv_interior", x):
+        interior = conv(inner_in, (0, 0))
     interior, halo_lo, halo_hi = sched.pin(interior)
 
     blocks = []
-    if t_lo > 0:
-        # top boundary: rows [0, t_lo) read input [-lo, (t_lo-1)s - lo + k)
-        top_in = torch.cat([halo_lo, x.narrow(dim, 0, (t_lo - 1) * s - lo
-                                              + k)], dim)
-        blocks.append(conv(top_in, (0, 0)))
-    blocks.append(interior)
-    if t_hi > 0:
-        start = i_hi * s - lo
-        bot_in = torch.cat([x.narrow(dim, start, hl - start), halo_hi], dim)
-        blocks.append(conv(bot_in, (0, 0)))
+    with trace.annotate("conv_boundary", x):
+        if t_lo > 0:
+            # top boundary: rows [0, t_lo) read input [-lo, (t_lo-1)s - lo
+            # + k)
+            top_in = torch.cat([halo_lo, x.narrow(
+                dim, 0, (t_lo - 1) * s - lo + k)], dim)
+            blocks.append(conv(top_in, (0, 0)))
+        blocks.append(interior)
+        if t_hi > 0:
+            start = i_hi * s - lo
+            bot_in = torch.cat([x.narrow(dim, start, hl - start), halo_hi],
+                               dim)
+            blocks.append(conv(bot_in, (0, 0)))
     return torch.cat(blocks, dim) if len(blocks) > 1 else blocks[0]
 
 

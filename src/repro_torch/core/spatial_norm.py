@@ -15,16 +15,18 @@ statistics of the whole batch at every scope, summed over the batch
 axes: the reference applies its one-device BN to the global array there
 and GSPMD sums over the shards.
 
-The all-reduce is an autograd Function whose backward all-reduces the
-cotangent over the same ranks (the transpose of a psum is a psum).
+The statistics' all-reduce is the named region `bn_collective`
+(`core.trace.annotate`), an autograd Function whose backward all-reduces
+the cotangent over the same ranks (the transpose of a psum is a psum).
 gamma and beta are replicated; their gradients are summed over the mesh
-once a step by `train.train_loop.reduce_replicated_grads`.  Training mode
+once a step by `train.train_loop.reduce_replicated_grads`. Training mode
 only, without running statistics, like the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.launch.mesh import Mesh
 
@@ -35,11 +37,14 @@ class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh: Mesh, axes):
         ctx.mesh, ctx.axes = mesh, axes
-        return mesh.all_reduce(t, axes)
+        ctx.layer = trace.current_layer()
+        with trace.annotate("bn_collective", t):
+            return mesh.all_reduce(t, axes)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_reduce(g, ctx.axes), None, None
+        with trace.annotate("bn_collective", g, ctx.layer):
+            return ctx.mesh.all_reduce(g, ctx.axes), None, None
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh | None, axes) -> torch.Tensor:

@@ -193,3 +193,92 @@ class FlashAttention(torch.autograd.Function):
             o = flash_attention_ref(q, k, v, **ctx.opts)
             dq, dk, dv = torch.autograd.grad(o, (q, k, v), go)
         return dq, dk, dv, None, None, None, None
+
+
+_LOG2E = 1.4426950408889634
+_NEG_BIG = -1e30
+
+
+def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: int | None = None,
+                             softcap: float | None = None,
+                             scale: float | None = None) -> torch.Tensor:
+    """`csrc/flash_attention.cu`'s tiling in plain PyTorch (any device;
+    meant for the CPU): q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) -> (B,Sq,Hq,D) in
+    q's dtype, as `flash_attention`.
+
+    It follows `plan`: query tiles of tile_q rows, longest first under
+    causality (each written once; a tile left unwritten stays NaN), each
+    walking its key tiles of tile_k keys from the first one the window
+    admits to the last one causality admits.  Per key tile: S = Q.K^T in
+    fp32; logits in log2 units, the softcap applied first, and on the
+    tiles that a diagonal, a window edge or the end of Sk crosses the
+    masked ones at -1e30 (keys past Sk, which add exactly 0 in the
+    kernel, are left out); the fp32 running max m
+    and sum l rescaled by 2^(m_old - m_new), as is the accumulator; on the
+    `wgmma` path P rounded to bf16 before P.V (l sums it in fp32).  At the
+    end l is clamped at 1e-30 and the output rounded once to q's
+    dtype."""
+    check_args(q, k, v, window, softcap, scale)
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    p = plan(tuple(q.shape), tuple(k.shape), q.dtype, causal, window)
+    bq, bk = p.tile_q, p.tile_k
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    # (B, Hkv, G, S, D) and (B, Hkv, S, D) in fp32 (bf16 is exact in it)
+    qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.float().permute(0, 2, 1, 3)
+    vf = v.float().permute(0, 2, 1, 3)
+    o = torch.full((b, hkv, g, sq, d), float("nan"), dtype=q.dtype,
+                   device=q.device)
+    tiles_q = -(-sq // bq)
+    order = range(tiles_q - 1, -1, -1) if causal else range(tiles_q)
+    for qt in order:
+        q0 = qt * bq
+        q_last = min(q0 + bq - 1, sq - 1)
+        k_lo, k_hi = 0, sk - 1
+        if causal:
+            k_hi = min(k_hi, q_last)
+        if window is not None:
+            k_lo = max(k_lo, q0 - window + 1)
+        qpos = torch.arange(q0, q_last + 1, device=q.device)[:, None]
+        m = torch.full((b, hkv, g, q_last + 1 - q0), float("-inf"),
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(m.shape + (d,), device=q.device)
+        for kt in range(k_lo // bk, k_hi // bk + 1 if k_hi >= k_lo else 0):
+            k0 = kt * bk
+            k1 = min(k0 + bk, sk)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, q0:q_last + 1],
+                             kf[:, :, k0:k1])
+            edge = k0 + bk > sk or (causal and k0 + bk - 1 > q0) or \
+                (window is not None and q_last - k0 >= window)
+            if softcap or edge:
+                x = s * scale
+                if softcap:
+                    x = softcap * torch.tanh(x / softcap)
+                kpos = torch.arange(k0, k1, device=q.device)[None, :]
+                keep = torch.ones_like(kpos - qpos, dtype=torch.bool)
+                if causal:
+                    keep &= qpos >= kpos
+                if window is not None:
+                    keep &= (qpos - kpos) < window
+                x = torch.where(keep, x * _LOG2E, x.new_tensor(
+                    _NEG_BIG * _LOG2E))
+            else:
+                x = s * (scale * _LOG2E)
+            m_new = torch.maximum(m, x.amax(-1))
+            corr = torch.exp2(m - m_new)
+            pt = torch.exp2(x - m_new[..., None])
+            l = l * corr + pt.sum(-1)
+            if p.path == "wgmma":
+                pt = pt.to(torch.bfloat16).float()
+            vt = vf[:, :, k0:k1]
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", pt, vt)
+            m = m_new
+        o[:, :, :, q0:q_last + 1] = (acc / l.clamp_min(1e-30)[..., None]) \
+            .to(q.dtype)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)

@@ -168,6 +168,19 @@ class Mesh:
         dist.all_reduce(buf, group=group)
         return self._land(buf, t.device)
 
+    def all_max(self, values) -> list[float]:
+        """Each of the floats `values` as its max over every rank of the
+        mesh (the same list, in the same order, on every rank): what a
+        timing takes when a step lasts as long as its slowest rank."""
+        if self.backend == "none":
+            return [float(v) for v in values]
+        dev = torch.device("cuda") if self.backend == "nccl" else \
+            torch.device("cpu")
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64,
+                         device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t.tolist()
+
     def _land(self, buf: torch.Tensor, device: torch.device) -> torch.Tensor:
         """A collective's result on `device`, counted in `staged` where it
         came through the host."""

@@ -9,7 +9,7 @@ processes, and the ported LM archs on one device.
   PYTHONPATH=src torchrun --nproc-per-node M -m repro_torch.launch.train \
       --arch mesh1k|resnet50 --model M [--data D] [--pod P] --batch B \
       [--strategy auto [--search greedy|beam[:N]|hillclimb] [--no-cf] \
-      [--mem-limit BYTES|auto]]
+      [--mem-limit BYTES|auto] [--calibrate[=PATH]]] [--profile[=PATH]]
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --steps 3 --batch 1 --seq 2048 [--bf16] [--device cuda|cpu] [--smoke]
 
@@ -43,19 +43,30 @@ per-layer plan (`core.plan.NetworkPlan`, printed at startup):
       `meshnet.layer_specs`) or, for ResNet-50, the longest-path-first
       solve of the branchy DAG (`core.plan.plan_graph` over
       `resnet.resnet_graph`, costed on the main path); `--search`,
-      `--no-cf` and `--mem-limit` as in the reference.
+      `--no-cf` and `--mem-limit` as in the reference.  With
+      `--calibrate[=PATH]` the solve runs on measured costs
+      (`core.calibrate.load_or_run`: PATH, default
+      BENCH_calibration.json, is loaded when it exists, else measured on
+      the card, every conv shard shape timed on the conv kernel, and
+      written): its fitted `Machine` and `EmpiricalTable` for the line
+      and the DAG alike, its fingerprint in the run header.
+
+`--profile[=PATH]` (mesh1k / mesh2k) trains nothing: it times every
+plan layer's forward and backward alone (`core.trace.trace_plan`), prints
+the predicted-vs-measured attribution under `--strategy auto`
+(`NetworkPlan.attribution_report`), writes the StepTrace to PATH (default
+BENCH_step_trace.json) and a Chrome trace to `<PATH>.chrome.json`, and
+exits.
 
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
-prints and writes metrics.  `--calibrate`, `--remat`, checkpoints,
-`--elastic` and `--chaos` come with their slices and are refused until
-then.
+prints and writes metrics.  `--remat`, checkpoints, `--elastic` and
+`--chaos` come with their slices and are refused until then.
 """
 from __future__ import annotations
 
 import argparse
 import functools
-import os
 import time
 
 import torch
@@ -114,6 +125,20 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="--strategy auto: per-device memory limit (auto: "
                          "the card's memory, or the host's free memory "
                          "shared among the ranks on the CPU)")
+    ap.add_argument("--calibrate", nargs="?", const="BENCH_calibration.json",
+                    default=None, metavar="PATH",
+                    help="--strategy auto on measured costs: load the "
+                         "calibration at PATH (default "
+                         "BENCH_calibration.json), else measure it on the "
+                         "device and write it there (core.calibrate)")
+    ap.add_argument("--profile", nargs="?", const="BENCH_step_trace.json",
+                    default=None, metavar="PATH",
+                    help="profile instead of train: time every plan "
+                         "layer alone (core.trace.trace_plan), print the "
+                         "predicted-vs-measured attribution, write the "
+                         "StepTrace to PATH (default "
+                         "BENCH_step_trace.json) and a Chrome trace "
+                         "beside it, then exit (mesh1k / mesh2k)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics", nargs="?", const="METRICS.jsonl",
                     default=None, metavar="PATH",
@@ -134,9 +159,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.batch % (args.data * args.pod):
         ap.error(f"--batch {args.batch} (the global batch) must divide over "
                  f"the data axes (pod {args.pod} x data {args.data})")
-    if args.bf16 and registry.canon(args.arch) in registry.CNN_ARCHS:
+    arch = registry.canon(args.arch)
+    if args.bf16 and arch in registry.CNN_ARCHS:
         ap.error("--bf16 covers the LM archs; the CNN archs train in FP32, "
                  "as in the reference")
+    if args.calibrate and arch not in registry.CNN_ARCHS:
+        ap.error(f"--calibrate covers the CNN archs {registry.CNN_ARCHS}")
+    if args.profile and arch not in ("mesh1k", "mesh2k"):
+        ap.error("--profile covers the meshnet archs (mesh1k / mesh2k): "
+                 "the segmented profiler walks meshnet.layer_fns")
     return args
 
 
@@ -153,17 +184,16 @@ def set_fp32_numerics(device: torch.device, echo: bool = True) -> None:
 def parse_mem_limit(value, device: torch.device, ranks: int = 1
                     ) -> float | None:
     """--mem-limit BYTES|auto -> bytes a device (None: no limit).  'auto'
-    is the card's memory (`torch.cuda.mem_get_info`); on the CPU the
-    host's available memory shared among the `ranks` processes (the
-    reference's host fallback)."""
+    is `core.calibrate.detect_mem_capacity`: the card's memory
+    (`torch.cuda.mem_get_info`); on the CPU the host's available memory
+    shared among the `ranks` processes (the reference's host
+    fallback)."""
     if value is None:
         return None
     if str(value).lower() != "auto":
         return float(value)
-    if device.type == "cuda":
-        return float(torch.cuda.mem_get_info(device)[1])
-    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") \
-        / max(ranks, 1)
+    from repro_torch.core.calibrate import detect_mem_capacity
+    return detect_mem_capacity(device, ranks)
 
 
 def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
@@ -182,17 +212,39 @@ def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
     machine = H100 if device.type == "cuda" else LASSEN
     where = "the H100 preset" if device.type == "cuda" else \
         "LASSEN (the paper's machine; the CPU has no preset)"
+    table, cal = None, None
+    if args.calibrate and args.strategy != "auto":
+        if echo:
+            print(f"--calibrate only feeds the --strategy auto solve; "
+                  f"skipping calibration for --strategy {args.strategy}")
+    elif args.calibrate:
+        from repro_torch.core import calibrate as calib
+        t0 = time.time()
+        # --no-cf: no time spent on shapes the solve may not pick
+        cal = calib.load_or_run(args.calibrate, specs,
+                                mesh if mesh is not None else shape,
+                                allow_channel_filter=not args.no_cf,
+                                device=device)
+        machine, table = cal.machine, cal.table
+        where = f"the calibration {args.calibrate} ({cal.machine.name})"
+        if echo:
+            print(f"calibration ready ({time.time() - t0:.2f}s, "
+                  f"{len(cal.table)} table entries, fingerprint "
+                  f"{cal.fingerprint})")
     mem_limit = parse_mem_limit(args.mem_limit, device,
                                 1 if mesh is None else mesh.size)
     if args.strategy == "auto":
         t0 = time.time()
         if mem_limit and echo:
             print(f"memory limit: {human_bytes(mem_limit)}/device")
-        kw = dict(allow_channel_filter=not args.no_cf, mem_limit=mem_limit,
-                  search=args.search)
+        kw = dict(table=table, allow_channel_filter=not args.no_cf,
+                  mem_limit=mem_limit, search=args.search)
         plan = plan_lib.plan_line(machine, specs, shape, **kw) \
             if graph is None else \
             plan_lib.plan_graph(machine, graph, specs, shape, **kw)
+        if cal is not None:
+            plan.predicted["calibration"] = {"path": args.calibrate,
+                                             "fingerprint": cal.fingerprint}
         head = f"strategy optimizer ({time.time() - t0:.2f}s, search " \
             f"{args.search}) on {where}:"
     else:
@@ -306,9 +358,14 @@ def run(args: argparse.Namespace) -> dict:
     opt_state = opt.init(params)
     where = f"mesh={dict(mesh.shape)} strategy={args.strategy}" \
         if mesh else f"strategy={args.strategy}"
+    calib = (plan.predicted or {}).get("calibration") if plan else None
+    if calib:
+        where += f" calibration={calib['fingerprint']}"
     if lead:
         print(f"arch={cfg.name} params={human_count(n_params)} "
               f"device={device} {where}".rstrip())
+    if args.profile:
+        return profile(args, cfg, params, mk, device, mesh, plan, lead)
 
     losses, step_s, data_s = [], [], []
     pf = pipeline.Prefetcher(mk)
@@ -317,7 +374,8 @@ def run(args: argparse.Namespace) -> dict:
         mlog.log_run(arch=cfg.name, n_params=n_params, device=str(device),
                      batch=args.batch, steps=args.steps,
                      strategy=args.strategy,
-                     mesh=dict(mesh.shape) if mesh else None)
+                     mesh=dict(mesh.shape) if mesh else None,
+                     **({"calibration": calib} if calib else {}))
         for step in range(args.steps):
             t0 = time.perf_counter()
             batch = pipeline.to_device(pf.get(step), device)
@@ -338,6 +396,39 @@ def run(args: argparse.Namespace) -> dict:
     return {"cfg": cfg, "losses": losses, "step_s": step_s,
             "data_s": data_s, "n_params": n_params, "params": params,
             "mesh": mesh, "plan": plan}
+
+
+def profile(args: argparse.Namespace, cfg, params, mk, device, mesh, plan,
+            lead: bool) -> dict:
+    """--profile: the segmented per-layer measurement instead of training
+    (`core.trace.trace_plan` on this rank's block of batch 0), the
+    predicted-vs-measured attribution where the plan carries a perf-model
+    report (--strategy auto), the StepTrace JSON (attribution in its meta)
+    and a Chrome trace beside it, written by rank 0."""
+    from repro_torch.core.trace import format_attribution, trace_plan
+    batch = pipeline.to_device(mk(0), device)
+    t0 = time.time()
+    trace = trace_plan(plan, params, batch, cfg=cfg, mesh=mesh, reps=2,
+                       rounds=2)
+    report = None
+    if plan.predicted and "layer_costs" in plan.predicted:
+        report = plan.attribution_report(trace)
+        trace.meta["attribution"] = report
+    if lead:
+        print(f"profiled {len(trace.layers)} layers in "
+              f"{time.time() - t0:.1f}s (step fwd+bwd "
+              f"{trace.step['fwd_bwd_s']*1e3:.3f} ms, layer sum "
+              f"{trace.layer_sum_s*1e3:.3f} ms)")
+        print(format_attribution(report) if report else
+              "no perf-model prediction on this plan (use --strategy auto "
+              "for the predicted-vs-measured attribution)")
+        trace.save(args.profile)
+        chrome = args.profile[:-5] if args.profile.endswith(".json") \
+            else args.profile
+        trace.save_chrome(chrome + ".chrome.json")
+        print(f"wrote {args.profile} and {chrome}.chrome.json")
+    return {"cfg": cfg, "trace": trace, "report": report, "plan": plan,
+            "mesh": mesh, "params": params}
 
 
 def main(argv=None) -> dict:

@@ -13,8 +13,9 @@ reference's params with `params_from_jax`.
 shardings with §III-C reshard points, keyed by the `layer_specs` names),
 a single ConvSharding or CFSharding (one for every layer), or a list of
 them; the last two are fitted to the layers' geometry first, with a
-reshard wherever the fit drops a spatial axis.  Each layer reshards its
-input, then runs conv -> BN -> ReLU.
+reshard wherever the fit drops a spatial axis.  `apply` runs the
+per-layer callables of `layer_fns`: each layer reshards its input, then
+runs conv -> BN -> ReLU, under its name (`core.trace.layer_context`).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import trace
 from repro_torch.core.perfmodel import ConvLayer
 from repro_torch.core.plan import NetworkPlan
 from repro_torch.launch.mesh import Mesh
@@ -101,33 +103,65 @@ def network_plan(cfg: MeshNetConfig, plan, mesh: Mesh | None
     return NetworkPlan.of(plan, specs=layer_specs(cfg, 1), mesh=mesh)
 
 
+def layer_fns(cfg: MeshNetConfig, plan=None, mesh: Mesh | None = None,
+              overlap: bool = True) -> list[tuple]:
+    """Execution-order ``(name, fn)`` pairs, ``fn(layer_params, x) -> y``.
+
+    Each fn runs one layer end to end under `trace.layer_context(name)`:
+    the §III-C reshard from the previous layer's output sharding into this
+    layer's, the conv (stride 2 at each block head), and for body layers
+    the reshard to the output sharding, BN (under the conv output's 1x1
+    fit, as the reference) and ReLU.  `apply` is the composition of these
+    fns, so the whole network and the segmented profiler
+    (`core.trace.trace_plan`, which times each fn alone) share one
+    definition of a layer.  `plan`: see `network_plan`."""
+    plan = network_plan(cfg, plan, mesh)
+    names = layer_names(cfg)
+
+    def body_fn(li, name, stride):
+        def fn(lp, x):
+            with trace.layer_context(name):
+                x = plan.reshard(x, name, mesh,
+                                 src=names[li - 1] if li else None)
+                x = L.conv_apply(lp["conv"], x, stride=stride,
+                                 sharding=plan.sharding(name), mesh=mesh,
+                                 overlap=overlap)
+                x = plan.reshard_out(x, name, mesh)
+                x = L.bn_apply(lp["bn"], x, sharding=L.fitted(
+                    plan.out_sharding(name), x, 1, 1, mesh), mesh=mesh,
+                    scope=cfg.bn_scope)
+                return L.relu(x)
+        return fn
+
+    def pred_fn(lp, x):
+        with trace.layer_context("pred"):
+            x = plan.reshard(x, "pred", mesh, src=names[-2])
+            return L.conv_apply(lp["conv"], x, stride=1,
+                                sharding=plan.sharding("pred"), mesh=mesh,
+                                overlap=overlap)
+
+    fns = [(name, body_fn(li, name, 2 if li % cfg.convs_per_block == 0
+                          else 1))
+           for li, name in enumerate(names[:-1])]
+    return fns + [("pred", pred_fn)]
+
+
 def apply(params: Sequence[dict], x: torch.Tensor, cfg: MeshNetConfig,
           plan=None, mesh: Mesh | None = None,
           overlap: bool = True) -> torch.Tensor:
     """This rank's block x (N, H, W, C_in), cut by the first layer's
     sharding -> its block of the per-pixel logits (N, H/64, W/64,
-    n_classes) under the pred layer's.
+    n_classes) under the pred layer's: the `layer_fns` in turn.
 
     `plan`: see `network_plan`.  `mesh`: the process mesh the plan's axes
-    name (None: one device).  BN takes the conv output's 1x1 fit, as the
-    reference."""
-    plan = network_plan(cfg, plan, mesh)
-    names = layer_names(cfg)
-    for li, (name, lp) in enumerate(zip(names, params)):
-        sh = plan.sharding(name)
-        x = plan.reshard(x, name, mesh, src=names[li - 1] if li else None)
-        if name == "pred":
-            return L.conv_apply(lp["conv"], x, stride=1, sharding=sh,
-                                mesh=mesh, overlap=overlap)
-        stride = 2 if li % cfg.convs_per_block == 0 else 1
-        x = L.conv_apply(lp["conv"], x, stride=stride, sharding=sh,
-                         mesh=mesh, overlap=overlap)
-        x = plan.reshard_out(x, name, mesh)
-        x = L.bn_apply(lp["bn"], x, sharding=L.fitted(
-            plan.out_sharding(name), x, 1, 1, mesh), mesh=mesh,
-            scope=cfg.bn_scope)
-        x = L.relu(x)
-    raise ValueError("meshnet params end without the pred layer")
+    name (None: one device)."""
+    fns = layer_fns(cfg, plan, mesh, overlap)
+    if len(params) != len(fns):
+        raise ValueError(f"{len(params)} layers of params for the "
+                         f"{len(fns)} layers of {cfg.name}")
+    for (_, fn), lp in zip(fns, params):
+        x = fn(lp, x)
+    return x
 
 
 def loss_fn(params: Sequence[dict], batch: dict, cfg: MeshNetConfig,

@@ -79,18 +79,28 @@ def _on_cuda(out: Any) -> bool:
     return bool(leaves) and leaves[0].is_cuda
 
 
-def time_fn(fn, *args, reps: int = 5, warmup: int = 1) -> float:
+def _sync(out: Any) -> None:
+    if _on_cuda(out):
+        torch.cuda.synchronize()
+
+
+def time_fn(fn, *args, reps: int = 5, warmup: int = 1,
+            return_samples: bool = False, host: bool = False):
     """Seconds per call of `fn(*args)`, trimmed mean over `reps` samples.
 
     When the result lies on the card each sample is taken with CUDA events
-    on the current stream (device time, launch queue included); otherwise
-    with the host clock.  Warmup calls absorb kernel builds and autotuning.
+    on the current stream (device time, launch queue included); otherwise,
+    or with `host`, with the host clock, each call ended by
+    `torch.cuda.synchronize()` where the result is on the card (what a
+    gloo collective staged through the host takes).  Warmup calls absorb
+    kernel builds and autotuning.  With `return_samples` returns
+    ``(estimate, samples)``, the per-rep seconds beside the estimate.
     """
     out = None
     for _ in range(max(warmup, 1)):
         out = fn(*args)
     samples = []
-    if _on_cuda(out):
+    if _on_cuda(out) and not host:
         torch.cuda.synchronize()
         for _ in range(max(reps, 1)):
             start = torch.cuda.Event(enable_timing=True)
@@ -101,11 +111,40 @@ def time_fn(fn, *args, reps: int = 5, warmup: int = 1) -> float:
             end.synchronize()
             samples.append(start.elapsed_time(end) / 1e3)
     else:
+        _sync(out)
         for _ in range(max(reps, 1)):
             t0 = time.perf_counter()
-            fn(*args)
+            _sync(fn(*args))
             samples.append(time.perf_counter() - t0)
-    return trimmed_mean(samples)
+    est = trimmed_mean(samples)
+    return (est, samples) if return_samples else est
+
+
+def interleaved_samples(fns, reps: int = 5, rounds: int = 4
+                        ) -> dict[str, list[float]]:
+    """Per-round mean seconds a call of competing zero-argument callables,
+    {tag: [round means]}, on the host clock.
+
+    The candidates are timed in alternating rounds (A, B, A, B, ...), so
+    load drift during the run hits every one equally; a round of `reps`
+    calls ends in `torch.cuda.synchronize()` where the result is on the
+    card.  Warm every callable first."""
+    samples = {tag: [] for tag in fns}
+    for _ in range(rounds):
+        for tag, fn in fns.items():
+            t0 = time.perf_counter()
+            for _ in range(max(reps, 1)):
+                out = fn()
+            _sync(out)
+            samples[tag].append((time.perf_counter() - t0) / max(reps, 1))
+    return samples
+
+
+def interleaved_min(fns, reps: int = 5, rounds: int = 4) -> dict[str, float]:
+    """{tag: seconds a call}: the minimum over `interleaved_samples`'
+    round means, the round the host interfered least with."""
+    return {tag: min(ts)
+            for tag, ts in interleaved_samples(fns, reps, rounds).items()}
 
 
 @dataclasses.dataclass(frozen=True)

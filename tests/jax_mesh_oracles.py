@@ -326,9 +326,10 @@ def run(what: str, d: str, timeout: int = 300) -> None:
 def reference_eta_unmeasured():
     """The reference's in-process state as the port models it: no measured
     η, so its chunked-CF default is 1 ("eta unmeasured"), as the port's
-    `chunks_decision` always is.  A reference test that calibrates (e.g.
-    test_shuffle.py, with a fake timer) installs an η and leaves it in its
-    process, which changes the plans `repro.core.plan` compiles there."""
+    `chunks_decision` is while no calibration has installed one.  A
+    reference test that calibrates (e.g. test_shuffle.py, with a fake
+    timer) installs an η and leaves it in its process, which changes the
+    plans `repro.core.plan` compiles there."""
     from repro.core import channel_conv
     before = channel_conv.measured_eta()
     channel_conv.set_measured_eta(None)

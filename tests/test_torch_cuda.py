@@ -232,6 +232,27 @@ def test_flash_kernel_matches_plain(cuda, b, sq, hq, hkv, d, causal, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap", ATTN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_emulation_matches_the_kernel(cuda, b, sq, hq, hkv, d, causal,
+                                            window, cap, dtype):
+    """`flash_attention_emulated`, the CPU emulation of the kernel's
+    tiling (tests/test_torch_attention_emulation.py), run on the card on
+    the kernel's inputs, agrees with the kernel at TOL."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, tdt)
+               for a in _attn_inputs(b, sq, hq, hkv, d))
+    opts = dict(causal=causal, window=window, softcap=cap)
+    got = tfa.flash_attention(q, k, v, **opts)
+    emu = tfa.flash_attention_emulated(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert not torch.isnan(emu.float()).any()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               emu.float().cpu().numpy(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap",
                          [a for a in ATTN if a[4] == 64])
 def test_flash_bf16_at_d64_runs_on_wgmma(cuda, b, sq, hq, hkv, d, causal,

@@ -663,11 +663,97 @@ def case_resnet_trajectory(mesh, d):
     return out
 
 
+# the reference tests' calibration net (tests/test_calibrate.py's CFG at
+# batch 4) and the 2-rank profile's plans of the mesh1k SMOKE net
+CALIB_NET = {"input_hw": 32, "in_channels": 4, "convs_per_block": 1,
+             "widths": (8, 16)}
+CALIB_BATCH = 4
+TRACE_PLANS = {"uniform": ("uniform", 2), "auto": ("auto", 1)}
+
+
+def rank_fake_timer(rank: int):
+    """The reference tests' fake timer (seconds from the argument sizes
+    only, `fn` never called), scaled by 1 + rank: every rank measures a
+    different time."""
+    def timer(fn, *args):
+        return (1 + rank) * (2e-6 + 1e-9 * sum(int(np.prod(a.shape))
+                                                for a in args))
+    return timer
+
+
+def case_calibrate(mesh, d):
+    """`calibrate.load_or_run` into DIR/cal.json with a fake timer that
+    differs on every rank, then again (it must load: a timer that raises
+    proves it), and the plan `plan_line` solves on the calibration."""
+    from repro_torch.core import calibrate, plan as plan_lib
+    from repro_torch.models.cnn import meshnet
+    specs = meshnet.layer_specs(meshnet.MeshNetConfig("t", **CALIB_NET),
+                                CALIB_BATCH)
+    path = os.path.join(d, "cal.json")
+    cal = calibrate.load_or_run(path, specs, mesh, device="cpu",
+                                timer=rank_fake_timer(mesh.rank))
+
+    def boom(fn, *a):
+        raise AssertionError("re-measured instead of loading")
+    again = calibrate.load_or_run(path, specs, mesh, device="cpu",
+                                  timer=boom)
+    plan = plan_lib.plan_line(cal.machine, specs, dict(mesh.shape),
+                              table=cal.table)
+    return {"cal": np.array(json.dumps(cal.to_json(), sort_keys=True)),
+            "again": np.array(json.dumps(again.to_json(), sort_keys=True)),
+            "fingerprint": np.array(cal.fingerprint),
+            "plan": np.array(json.dumps(plan.to_spec(), sort_keys=True))}
+
+
+def case_trace(mesh, d):
+    """`trace.trace_plan` of the mesh1k SMOKE net under each TRACE_PLANS
+    plan (the uniform sample x spatial plan at batch 2; the auto plan on
+    LASSEN at batch 1, with CF layers and a reshard) and its attribution
+    where the plan has a prediction: per layer fwd_s, bwd_s, fwd_bwd_s."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train
+    from repro_torch.models.cnn import meshnet
+    from repro_torch.core import trace
+    cfg = registry.get("mesh1k", smoke=True)
+    out = {}
+    for key, (strategy, batch) in TRACE_PLANS.items():
+        args = train.parse_args(["--arch", "mesh1k", "--smoke", "--batch",
+                                 str(batch), "--model", str(mesh.size),
+                                 "--device", "cpu", "--strategy", strategy])
+        specs = meshnet.layer_specs(cfg, batch)
+        plan = train.build_cnn_plan(args, specs, torch.device("cpu"), mesh,
+                                    echo=False)
+        model = meshnet.MeshNet(cfg, generator=torch.Generator()
+                                .manual_seed(0), device="cpu")
+        b = pipeline.to_device(pipeline.shard_batch(
+            pipeline.synthetic_mesh_batch(0, batch, cfg.input_hw,
+                                          cfg.in_channels,
+                                          out_hw=cfg.out_hw),
+            mesh, plan.sharding(specs[0].name), plan.sharding("pred")),
+            torch.device("cpu"))
+        tr = trace.trace_plan(plan, model.params(), b, cfg=cfg, mesh=mesh,
+                              reps=1, rounds=2)
+        for name, r in tr.layers.items():
+            for k, v in r.items():
+                out[f"{key}/{name}/{k}"] = np.array(v)
+        out[f"{key}/step"] = np.array([tr.step["fwd_s"], tr.step["bwd_s"],
+                                       tr.step["fwd_bwd_s"]])
+        out[f"{key}/n_reshards"] = np.array(plan.n_reshards)
+        out[f"{key}/kinds"] = np.array(plan.describe())
+        if plan.predicted:
+            rep = plan.attribution_report(tr)
+            out[f"{key}/report"] = np.array(json.dumps(rep))
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
          "cf": case_cf, "reshard": case_reshard, "plan": case_plan,
-         "resnet": case_resnet, "resnet_trajectory": case_resnet_trajectory}
+         "resnet": case_resnet, "resnet_trajectory": case_resnet_trajectory,
+         "calibrate": case_calibrate, "trace": case_trace}
 
 
 # ------------------------------------------------------------ launcher --
