@@ -88,6 +88,22 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    in this process (no live communication) beside the preset's plan.
    Not a scaling result: 2 processes share one card, and their α/β are
    gloo's through the host, not NVLink's;
+4f. resilient training (`--ckpt-dir`, `--chaos`, `--elastic`), every
+   forward conv on the kernel: full-width ResNet-50 at batch 32 trained 4
+   steps, then 2 with a checkpoint, resumed to 4 (losses within 1e-5 of
+   the uninterrupted run's, 53 x 2 conv launches), and trained with
+   `--chaos raise@3` (rolled back to step 2, step 3 within 1e-5), with
+   the bytes of a checkpoint, the host ms of `save()` and the ms of the
+   thread's write; the reference's checkpoint-overhead bench on
+   full-width mesh1k at batch 2 (the bare step and the step with one
+   async save, interleaved: both medians and their ratio, gating
+   nothing); full-width mesh1k on 4 ranks spawned on the card over gloo,
+   `--data 2 --model 2 --strategy auto --elastic --chaos kill@5x2`: the
+   fault, remesh (2 ranks) and rollback (step 4) records, ranks 2-3
+   leaving at 5, the survivors' equal losses, the conv launches each
+   plan derives before and after the remesh, and steps 4-5 within 1e-5
+   of a 2-rank `--data 1 --model 2` run resumed from a copy of the same
+   step-4 checkpoint.  Not a scaling result;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
    2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
    32 x 3 launches of each LM kernel;
@@ -106,6 +122,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import json
 import math
 import os
@@ -118,9 +135,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa
 from repro_torch.configs import hymba_1_5b  # noqa: E402
 from repro_torch.core import calibrate, channel_conv  # noqa: E402
 from repro_torch.core import collectives, halo, perfmodel  # noqa: E402
@@ -142,11 +161,12 @@ from repro_torch.models.cnn import layers as cnn_layers  # noqa: E402
 from repro_torch.models.cnn import meshnet, resnet  # noqa: E402
 from repro_torch.models.lm import modules as lm_modules  # noqa: E402
 from repro_torch.models.lm import transformer  # noqa: E402
-from repro_torch.optim.optimizer import adamw, sgd  # noqa: E402
+from repro_torch.optim.optimizer import (  # noqa: E402
+    adamw, sgd, state_tree)
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainStepConfig, make_train_step, reduce_replicated_grads)
 from repro_torch.utils import (  # noqa: E402
-    FP32, same_pads, time_fn, tree_leaves, tree_map)
+    FP32, interleaved_samples, same_pads, time_fn, tree_leaves, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 on the CUDA cores
@@ -894,11 +914,12 @@ def plan_kinds(plan) -> list[str]:
     return out
 
 
-def plan_conv_calls(plan, specs) -> int:
-    """Conv kernel launches of one forward under `plan` on one rank: one a
-    sample, replicated or channel/filter layer (`chunks` in chunked
-    channel mode), `conv_calls` of its local extent a spatially split
-    one (CF x spatial too)."""
+def plan_conv_calls(plan, specs, shape=AUTO_MESH) -> int:
+    """Conv kernel launches of one forward under `plan` on one rank of a
+    mesh of `shape`: one a sample, replicated or channel/filter layer
+    (`chunks` in chunked channel mode), `conv_calls` of its local extent
+    a spatially split one (CF x spatial too)."""
+    layout = Mesh(shape, rank=0)
     n = 0
     for spec in specs:
         sh = plan.sharding(spec.name)
@@ -906,11 +927,10 @@ def plan_conv_calls(plan, specs) -> int:
         if sh.is_spatial:
             axis = sh.w_axis if sh.w_axis is not None else sh.h_axis
             ext = spec.w if sh.w_axis is not None else spec.h
-            n += conv_calls(ext // Mesh(AUTO_MESH, rank=0).axis_size(axis),
-                            spec.k, spec.s)
+            n += conv_calls(ext // layout.axis_size(axis), spec.k, spec.s)
         elif cf and sh.mode == "channel":
             n += min(channel_conv.default_channel_chunks(),
-                     spec.c // SPATIAL_MODEL)
+                     spec.c // layout.axis_size(sh.cf_axis))
         else:
             n += 1
     return n
@@ -1821,6 +1841,289 @@ def calibrate_phase(card: str) -> dict:
                          "seconds": resnet_s}}
 
 
+# ------------------------------------------------ resilient training --
+
+RESILIENT_DIR = os.path.join(HERE, "build", "resilient")
+# a resumed or rolled-back step against the uninterrupted run's: the same
+# ops on the same values.  cuDNN's default backward algorithms are not
+# deterministic, and ResNet-50 at init amplifies their rounding by about
+# 10x a step (5.7e-4 at step 3 in one run, PERF.md §6), so these
+# runs pick cuDNN's deterministic algorithms: the compare is of the
+# checkpoint, not of cuDNN's order of summation
+RESUME_RTOL = 1e-5
+RESUME_STEPS = 4
+# the elastic run: mesh1k on 4 gloo ranks, the chaos kill at step 5 drops
+# 2 (elastic_factorization(2, batch=4): data 1 x model 2), the rollback
+# lands on step 4
+ELASTIC_ARGS = ["--arch", "mesh1k", "--batch", "4", "--strategy", "auto",
+                "--ckpt-every", "2", "--device", "cuda", "--log-every", "1"]
+ELASTIC_STEPS, ELASTIC_KILL = 6, 5
+
+
+def _fresh_dir(*parts) -> str:
+    path = os.path.join(RESILIENT_DIR, *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def _loss_at(res: dict) -> dict:
+    """{step: loss} of a trainer run (a rolled-back step's last run)."""
+    return dict(zip(res["steps"], res["losses"]))
+
+
+def _events(path: str) -> list[dict]:
+    """The records of a metrics JSONL other than the steps."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if r["kind"] != "step"]
+
+
+def _check_steps(what: str, got: dict, want: dict, steps) -> float:
+    """The largest relative difference of `got`'s losses from `want`'s at
+    `steps`; raises above RESUME_RTOL."""
+    rel = max(abs(got[s] - want[s]) / abs(want[s]) for s in steps)
+    if not rel <= RESUME_RTOL:
+        raise AssertionError(f"{what}: losses {[got[s] for s in steps]} vs "
+                             f"{[want[s] for s in steps]} (rel {rel:.2e} > "
+                             f"{RESUME_RTOL})")
+    return rel
+
+
+def ckpt_resume_phase(card: str) -> dict:
+    """Full-width ResNet-50 at batch 32 in this process, every forward conv
+    on the kernel, on cuDNN's deterministic algorithms (RESUME_RTOL): run
+    A trains RESUME_STEPS steps; run B 2 steps with a checkpoint at 2; run
+    C resumes B's and trains to RESUME_STEPS (its losses within
+    RESUME_RTOL of A's); run D trains with `--chaos raise@3` and rolls
+    back to step 2 (its step 3 within RESUME_RTOL of A's).  The bytes a
+    checkpoint holds, the host ms of `save()` (the copy the caller waits
+    for) and the ms of the thread's write; and, before them, A on the
+    default algorithms, to show how far those move the losses."""
+    base = ["--arch", "resnet50", "--batch", str(RESNET_BATCH), "--device",
+            "cuda", "--log-every", "1", "--ckpt-every", "2"]
+    default = train_cli.main(base + ["--steps", str(RESUME_STEPS)])
+    prev, torch.backends.cudnn.deterministic = \
+        torch.backends.cudnn.deterministic, True
+    try:
+        out = _resume_runs(card, base)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    spread = max(abs(x - y) / abs(y) for x, y in
+                 zip(default["losses"], out["losses"]))
+    print(f"ckpt resume: the uninterrupted run on cuDNN's default "
+          f"algorithms {default['losses']}, rel {spread:.2e} from the "
+          f"deterministic one ({card})")
+    out["default_algorithms"] = {"losses": default["losses"],
+                                 "rel": spread}
+    return out
+
+
+def _resume_runs(card: str, base: list) -> dict:
+    """ckpt_resume_phase's runs A-D."""
+    a = train_cli.main(base + ["--steps", str(RESUME_STEPS)])
+    want = _loss_at(a)
+    b_dir = _fresh_dir("resume")
+    b = train_cli.main(base + ["--steps", "2", "--ckpt-dir", b_dir])
+    ops.reset_launch_counts()
+    c = train_cli.main(base + ["--steps", str(RESUME_STEPS), "--ckpt-dir",
+                               b_dir])
+    resume_launches = ops.launch_counts()["conv2d"]
+    n_convs = resnet_n_convs(RESNET)
+    if c["steps"] != list(range(2, RESUME_STEPS)):
+        raise AssertionError(f"resumed run took steps {c['steps']}")
+    if resume_launches != n_convs * (RESUME_STEPS - 2):
+        raise AssertionError(f"resumed run launched the conv kernel "
+                             f"{resume_launches} times, want {n_convs} x "
+                             f"{RESUME_STEPS - 2}")
+    rel_c = _check_steps("resume", _loss_at(c), want,
+                         range(2, RESUME_STEPS))
+    d_metrics = os.path.join(RESILIENT_DIR, "raise.jsonl")
+    d = train_cli.main(base + ["--steps", str(RESUME_STEPS), "--ckpt-dir",
+                               _fresh_dir("raise"), "--chaos", "raise@3",
+                               "--metrics", d_metrics])
+    rollbacks = [e["step"] for e in _events(d_metrics)
+                 if e["kind"] == "rollback"]
+    if rollbacks != [2] or d["steps"] != [0, 1, 2, 2, 3]:
+        raise AssertionError(f"raise@3: rollbacks {rollbacks}, steps "
+                             f"{d['steps']}")
+    rel_d = _check_steps("raise@3 rollback", _loss_at(d), want, [3])
+    ck = b["checkpoint"]
+    print(f"ckpt resume, full-width ResNet-50 at batch {RESNET_BATCH}: "
+          f"losses {a['losses']}; resumed at 2: {c['losses']} (rel "
+          f"{rel_c:.2e}); raise@3 rolled back to 2, steps {d['steps']}, "
+          f"step 3 rel {rel_d:.2e}; conv launches of the resumed run "
+          f"{resume_launches} ({n_convs} a forward); checkpoint "
+          f"{ck['bytes']} bytes, save() host copy {ck['copy_s'] * 1e3:.2f} "
+          f"ms, thread write {ck['write_s'] * 1e3:.2f} ms ({card})")
+    return {"losses": a["losses"], "resumed": c["losses"],
+            "raise_steps": d["steps"], "raise_losses": d["losses"],
+            "rel_resume": rel_c, "rel_rollback": rel_d,
+            "resume_launches": resume_launches, "checkpoint": ck,
+            "resumed_step_s": c["step_s"], "checkpoint_run": {
+                k: d["checkpoint"][k] for k in ("copy_s", "write_s",
+                                                "bytes")}}
+
+
+def ckpt_overhead_phase(card: str, cfg=meshnet.MESH1K,
+                        device: str = "cuda") -> dict:
+    """The reference's `benchmarks/strategy_exec.py` checkpoint-overhead
+    bench on the card: full-width mesh1k at batch BATCH in this process,
+    the bare train step (lr 0, a batch on the card) and the step plus one
+    async `save` of `(params, OptState, None)` in interleaved rounds.
+    Both arms' median round (seconds a call), their ratio, the saves'
+    host copy and the last write.  A measurement: it gates nothing."""
+    dev = torch.device(device)
+    model = meshnet.MeshNet(cfg, generator=torch.Generator().manual_seed(0),
+                            device=dev)
+    params = model.params()
+    opt = sgd(0.0, momentum=0.9)
+    step = make_train_step(functools.partial(meshnet.loss_fn, cfg=cfg), opt,
+                           TrainStepConfig(precision=FP32))
+    state = opt.init(params)
+    batch = pipeline.to_device(pipeline.synthetic_mesh_batch(
+        0, BATCH, cfg.input_hw, cfg.in_channels, out_hw=cfg.out_hw), dev)
+    ck = CheckpointManager(_fresh_dir("overhead"), keep=2, async_save=True)
+    counter, copies = itertools.count(), []
+
+    def with_save():
+        out = step(params, state, batch)
+        ck.save(next(counter), state_tree(params, state), extra={"step": 0})
+        copies.append(ck.last_save["copy_s"])
+        return out
+    bare = functools.partial(step, params, state, batch)
+    bare()
+    with_save()
+    ck.wait()
+    copies.clear()
+    samples = interleaved_samples({"no_ckpt": bare, "async_ckpt": with_save},
+                                  reps=3, rounds=5)
+    t0 = time.perf_counter()
+    ck.wait()
+    drain_s = time.perf_counter() - t0
+    med = {k: float(np.median(v)) for k, v in samples.items()}
+    ratio = med["async_ckpt"] / med["no_ckpt"]
+    copy_ms = float(np.median(copies)) * 1e3
+    print(f"ckpt overhead, full-width mesh1k at batch {BATCH}: step "
+          f"{med['no_ckpt'] * 1e3:.2f} ms bare, {med['async_ckpt'] * 1e3:.2f}"
+          f" ms with one async save a step (median of {len(samples['no_ckpt'])}"
+          f" rounds of 3), ratio {ratio:.3f}; save() host copy median "
+          f"{copy_ms:.2f} ms of {ck.last_save['bytes']} bytes; last write "
+          f"{ck.last_write_s * 1e3:.2f} ms; queue drained {drain_s:.2f} s "
+          f"after the last round ({card})")
+    return {"samples_s": samples, "median_s": med, "ratio": ratio,
+            "copy_ms": [c * 1e3 for c in copies], "bytes":
+            ck.last_save["bytes"], "write_s": ck.last_write_s,
+            "drain_s": drain_s}
+
+
+def elastic_rank(rank: int, world: int, args: list) -> dict:
+    """One of the spawned ranks of an elastic run (or of its resume), on
+    cuDNN's deterministic algorithms: the trainer's own entry with `args`,
+    the conv launches it made before and after its remesh (build is
+    called once at the start and once by the remesh) and the describe()
+    of each plan it built."""
+    torch.backends.cudnn.deterministic = True      # see RESUME_RTOL
+    marks, plans, build = [], [], train_cli.build
+
+    def marked(args, *a, **k):
+        marks.append(ops.launch_counts()["conv2d"])
+        out = build(args, *a, **k)
+        plans.append((out[-1], {"data": args.data, "model": args.model}))
+        return out
+    train_cli.build = marked
+    ops.reset_launch_counts()
+    try:
+        res = train_cli.main(args)
+    finally:
+        train_cli.build = build
+    total = ops.launch_counts()["conv2d"]
+    before = marks[1] if len(marks) > 1 else total
+    specs = meshnet.layer_specs(meshnet.MESH1K, int(args[args.index(
+        "--batch") + 1]))
+    return {"steps": res["steps"], "losses": res["losses"],
+            "step_s": res["step_s"], "left_at": res["left_at"],
+            "plans": [p.describe() for p, _ in plans],
+            "calls_per_step": [plan_conv_calls(p, specs, shape)
+                               for p, shape in plans],
+            "launches_before": before, "launches_after": total - before}
+
+
+def _split_s(r: dict) -> tuple[float | None, float | None]:
+    """Mean seconds a step before the remesh (its first step left out)
+    and after it (the step that repeats the rolled-back one left out)."""
+    steps, ts = r["steps"], r["step_s"]
+    cut = next((i for i in range(1, len(steps)) if steps[i] <= steps[i - 1]),
+               len(steps))
+    pre, post = ts[1:cut], ts[cut + 1:]
+    return (sum(pre) / len(pre) if pre else None,
+            sum(post) / len(post) if post else None)
+
+
+def elastic_phase(card: str) -> dict:
+    """Full-width mesh1k on 4 ranks spawned on the card over gloo (NCCL
+    refuses two ranks on one card: not a scaling result), `--data 2
+    --model 2 --strategy auto --steps 6 --ckpt-every 2 --elastic --chaos
+    kill@5x2`: the kill drops ranks 2-3, the survivors remesh onto data 1
+    x model 2, re-solve, roll back to step 4 and finish.  Held: the
+    metrics' fault, remesh (2 ranks) and rollback (step 4) records, ranks
+    2-3 leaving at 5, equal losses on the survivors, and their steps 4-5
+    within RESUME_RTOL of a 2-rank `--data 1 --model 2` run resumed from
+    a copy of the same step-4 checkpoint."""
+    ckdir = _fresh_dir("elastic")
+    metrics = os.path.join(RESILIENT_DIR, "elastic.jsonl")
+    ranks = spawn_ranks(elastic_rank, 4, ELASTIC_ARGS + [
+        "--data", "2", "--model", "2", "--steps", str(ELASTIC_STEPS),
+        "--ckpt-dir", ckdir, "--elastic", "--chaos",
+        f"kill@{ELASTIC_KILL}x2", "--metrics", metrics])
+    events = _events(metrics)
+    remesh = [e for e in events if e["kind"] == "remesh"]
+    rollbacks = [e["step"] for e in events if e["kind"] == "rollback"]
+    if not any(e["kind"] == "fault" for e in events) or \
+            [e["n_devices"] for e in remesh] != [2] or \
+            rollbacks != [ELASTIC_KILL - 1]:
+        raise AssertionError(f"elastic events: {events}")
+    left = [r["left_at"] for r in ranks]
+    if left != [None, None, ELASTIC_KILL, ELASTIC_KILL]:
+        raise AssertionError(f"left_at per rank: {left}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"survivors' losses differ: "
+                             f"{[r['losses'] for r in ranks[:2]]}")
+    for r in ranks:      # every forward conv on the kernel, on both meshes
+        calls = r["calls_per_step"] + [0]
+        want = [calls[0] * ELASTIC_KILL,
+                calls[1] * (ELASTIC_STEPS - ELASTIC_KILL + 1)]
+        if [r["launches_before"], r["launches_after"]] != want:
+            raise AssertionError(f"conv launches before / after the remesh "
+                                 f"{r['launches_before']} / "
+                                 f"{r['launches_after']}, the plans derive "
+                                 f"{want}")
+    resume_dir = _fresh_dir("elastic_resume")
+    shutil.copytree(os.path.join(ckdir, f"step-{ELASTIC_KILL - 1}"),
+                    os.path.join(resume_dir, f"step-{ELASTIC_KILL - 1}"))
+    resumed = spawn_ranks(elastic_rank, 2, ELASTIC_ARGS + [
+        "--data", "1", "--model", "2", "--steps", str(ELASTIC_STEPS),
+        "--ckpt-dir", resume_dir])
+    after = range(ELASTIC_KILL - 1, ELASTIC_STEPS)
+    rel = _check_steps("elastic vs its 2-rank resume",
+                       _loss_at(ranks[0]), _loss_at(resumed[0]), after)
+    split = [_split_s(r) for r in ranks]
+    for r, (pre, post) in enumerate(split):
+        print(f"rank {r}: elastic steps {ranks[r]['steps']}, losses "
+              f"{ranks[r]['losses']}, left at {ranks[r]['left_at']}, conv "
+              f"launches {ranks[r]['launches_before']} before the remesh, "
+              f"{ranks[r]['launches_after']} after; s/step "
+              f"{pre if pre is None else round(pre, 4)} before, "
+              f"{post if post is None else round(post, 4)} after")
+    for when, plan in zip(("before", "after"), ranks[0]["plans"]):
+        print(f"elastic plan {when} the remesh:\n{plan}")
+    print(f"elastic mesh1k 4 -> 2 gloo ranks on one card: steps "
+          f"{list(after)} within {rel:.2e} of the 2-rank resume from "
+          f"step-{ELASTIC_KILL - 1} ({resumed[0]['losses']}) ({card})")
+    return {"ranks": ranks, "resumed": resumed, "events": events,
+            "rel_resume": rel, "s_per_step": split}
+
+
 # ---------------------------------------------------------------- LM path --
 
 def admitted_pairs(s: int, window: int | None) -> int:
@@ -2302,6 +2605,14 @@ def main() -> int:
     print(f"calibrate-solve-profile phase (2 card ranks, 2 CPU ranks, the "
           f"resnet50 table) took {calib['phase_s']:.1f} s of this run "
           f"({card})")
+    t_res = time.perf_counter()
+    resume = ckpt_resume_phase(card)
+    overhead = ckpt_overhead_phase(card)
+    elastic = elastic_phase(card)
+    resilient_s = time.perf_counter() - t_res
+    print(f"resilient-training phases (ResNet-50 resume and rollback, "
+          f"checkpoint overhead, 4 -> 2 elastic ranks) took "
+          f"{resilient_s:.1f} s of this run ({card})")
     lm_train = lm_train_phase()
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
@@ -2321,6 +2632,8 @@ def main() -> int:
                                 "step_breakdown": resnet_breakdown,
                                 "auto": resnet_auto, "phase_s": resnet_s},
                    "calibrate": calib,
+                   "ckpt_resume": resume, "ckpt_overhead": overhead,
+                   "elastic": elastic, "resilient_phase_s": resilient_s,
                    "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
@@ -2369,6 +2682,10 @@ def main() -> int:
                                      for r in auto["ranks"]],
              calibrate_launches_per_rank=[r["cal_launches"]
                                           for r in calib["ranks"]],
+             resume_launches=resume["resume_launches"],
+             elastic_launches_per_rank=[[r["launches_before"],
+                                         r["launches_after"]]
+                                        for r in elastic["ranks"]],
              resnet50=dict(entry(
                  "conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
                  "src/repro/kernels/conv2d.py:43", resnet_train["launches"],

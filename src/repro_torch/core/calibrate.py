@@ -300,19 +300,16 @@ def _lead(live: Mesh | None) -> bool:
 
 def _barrier(live: Mesh | None) -> None:
     if live is not None:
-        import torch.distributed as dist
-        dist.barrier()
+        live.barrier()
 
 
 def _broadcast(obj, live: Mesh | None):
     """Rank 0's JSON-able `obj` on every rank (its own through a JSON
     round trip too, so every rank holds the same values)."""
+    blob = json.dumps(obj) if live is None or live.rank == 0 else None
     if live is not None:
-        import torch.distributed as dist
-        box = [json.dumps(obj) if live.rank == 0 else None]
-        dist.broadcast_object_list(box, src=0)
-        return json.loads(box[0])
-    return json.loads(json.dumps(obj))
+        blob = live.broadcast_object(blob)
+    return json.loads(blob)
 
 
 def _comm_timer(timer: Timer, live: Mesh | None) -> Timer:

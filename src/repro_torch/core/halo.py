@@ -95,8 +95,10 @@ class _Exchange:
         self.layer = trace.current_layer()
         ranks = [0] if mesh is None else mesh.ranks(axis)
         i = 0 if mesh is None else mesh.index(axis)
-        self.prev = ranks[i - 1] if i > 0 else None
-        self.next = ranks[i + 1] if i < len(ranks) - 1 else None
+        # peers by process-group rank: the mesh may span a subset
+        peer = (lambda r: r) if mesh is None else mesh.global_rank
+        self.prev = peer(ranks[i - 1]) if i > 0 else None
+        self.next = peer(ranks[i + 1]) if i < len(ranks) - 1 else None
         self._works: list = []
         self._sending: list = []
         self._landing: list = []
@@ -257,7 +259,7 @@ def _rotate(x: torch.Tensor, axis, mesh: Mesh, step: int) -> torch.Tensor:
     n = mesh.axis_size(axis)
     i = mesh.index(axis)
     buf = mesh.wire_buffer(x.shape, x.dtype, x.device)
-    ranks = mesh.ranks(axis)
+    ranks = [mesh.global_rank(r) for r in mesh.ranks(axis)]
     for w in _p2p([(_wire(mesh, x), ranks[(i + step) % n])],
                   [(buf, ranks[(i - step) % n])]):
         w.wait()

@@ -7,12 +7,24 @@ dimension; model is the paper's fine-grained axis (spatial H for the
 CNNs).  Ranks are laid out major-to-minor over the axes, so rank =
 (pod * data + d) * model + m.
 
+A mesh may span a subset of the process group (`members`, its global
+ranks in ascending order; the reference's `make_mesh(devices=)`): mesh
+rank i is global rank `members[i]`, and `Mesh.rank`, `ranks`, `index`
+and the coordinates speak of mesh ranks.  This is how an elastic restart
+runs on the survivors (launch.train --elastic).
+
 A collective over a tuple of axes (one axis, or several forming one
 product axis) runs on the process group of the ranks that differ only in
 those axes; `Mesh` creates every such group when it is built, in one
-order on every rank, because `dist.new_group` is itself collective.  A
-shard's index along a tuple of axes is its coordinates linearized
-major-to-minor in tuple order (`core/halo.py`'s convention).
+order on every rank, because `dist.new_group` is itself collective: over
+the whole process group, members or not.  So every process of the group
+builds a subset's `Mesh` too; on a process outside `members` it makes the
+groups and nothing else (`member` False).  (gloo's
+`new_group(use_local_synchronization=True)`, which only the members
+call, hangs in torch 2.13 where one rank's local groups overlap another
+rank's in another order.)  A shard's index along a tuple of axes is its
+coordinates linearized major-to-minor in tuple order (`core/halo.py`'s
+convention).
 
 Transport follows the backend.  NCCL moves device tensors.  gloo moves
 host tensors: a CUDA tensor is copied to the host and back explicitly
@@ -44,12 +56,13 @@ class Mesh:
     of every tuple of axes.
 
     `shape` maps each axis name to its size, in layout order; their product
-    must be the world size of the running process group.  A mesh of one
-    rank needs no process group.  Given `rank`, the mesh only answers
-    layout questions (coordinates, indices, ranks) for that rank and makes
-    no group."""
+    must be the world size of the running process group, or the number of
+    `members` (global ranks, ascending).  A mesh of one rank needs no
+    process group.  Given `rank`, the mesh only answers layout questions
+    (coordinates, indices, ranks) for that rank and makes no group."""
 
-    def __init__(self, shape: dict[str, int], *, rank: int | None = None):
+    def __init__(self, shape: dict[str, int], *, rank: int | None = None,
+                 members: list[int] | None = None):
         self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
         self.size = 1
@@ -57,16 +70,34 @@ class Mesh:
             self.size *= n
         self._groups: dict[tuple[int, ...], object] = {}
         self.staged = 0
+        self.members = list(range(self.size))
+        self.member = True
         if rank is not None:
             self.rank, self.backend = rank, "none"
-        elif self.size > 1 or dist.is_initialized():
+        elif self.size > 1 or dist.is_initialized() or members is not None:
             world = dist.get_world_size()
-            if world != self.size:
+            if members is not None:
+                self.members = [int(r) for r in members]
+                if self.members != sorted(set(self.members)) or \
+                        not 0 <= self.members[0] <= self.members[-1] < world:
+                    raise ValueError(f"mesh members {members}: distinct "
+                                     f"global ranks below {world}, "
+                                     f"ascending")
+            elif world != self.size:
                 raise ValueError(f"mesh {self.shape} has {self.size} ranks "
                                  f"but the process group has {world}")
-            self.rank, self.backend = dist.get_rank(), dist.get_backend()
+            if len(self.members) != self.size:
+                raise ValueError(f"mesh {self.shape} has {self.size} ranks "
+                                 f"but {len(self.members)} members")
+            self.backend = dist.get_backend()
             if self.size > 1:
                 self._make_groups()
+            me = dist.get_rank()
+            self.member = me in self.members
+            if not self.member:
+                self.rank = self.coords = None
+                return
+            self.rank = self.members.index(me)
         else:
             self.rank, self.backend = 0, "none"
         if not 0 <= self.rank < self.size:
@@ -116,7 +147,8 @@ class Mesh:
                         members.append(self.rank_of(c))
                     key = tuple(sorted(members))
                     if len(key) > 1 and key not in self._groups:
-                        self._groups[key] = dist.new_group(list(key))
+                        self._groups[key] = dist.new_group(
+                            [self.members[r] for r in key])
 
     def axis_size(self, axes) -> int:
         """Total shard count of a (possibly product) axis."""
@@ -136,6 +168,28 @@ class Mesh:
     def group(self, axes):
         """The process group of `axes` (None where it is one rank)."""
         return self._groups.get(tuple(sorted(self.ranks(axes))))
+
+    def global_rank(self, rank: int) -> int:
+        """The process-group rank of mesh rank `rank` (the peer a
+        point-to-point message names)."""
+        return self.members[rank]
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh."""
+        group = self.group(self.axis_names)
+        if group is not None:
+            dist.barrier(group=group)
+
+    def broadcast_object(self, obj):
+        """Mesh rank 0's picklable `obj` on every rank of the mesh (rank 0
+        enters the collective only when it has it, so what the other
+        ranks do next comes after it)."""
+        group = self.group(self.axis_names)
+        if group is None:
+            return obj
+        box = [obj if self.rank == 0 else None]
+        dist.broadcast_object_list(box, src=self.members[0], group=group)
+        return box[0]
 
     # ---------------------------------------------------------- transport
 
@@ -172,13 +226,14 @@ class Mesh:
         """Each of the floats `values` as its max over every rank of the
         mesh (the same list, in the same order, on every rank): what a
         timing takes when a step lasts as long as its slowest rank."""
-        if self.backend == "none":
+        group = self.group(self.axis_names)
+        if self.backend == "none" or group is None:
             return [float(v) for v in values]
         dev = torch.device("cuda") if self.backend == "nccl" else \
             torch.device("cpu")
         t = torch.tensor([float(v) for v in values], dtype=torch.float64,
                          device=dev)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
         return t.tolist()
 
     def _land(self, buf: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -251,12 +306,15 @@ class Mesh:
         return out.flatten(cat_dim, cat_dim + 1).contiguous()
 
 
-def make_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
-    """The mesh of the running process group: ("pod", "data", "model")
-    with pod > 1, else ("data", "model"), as the reference names them."""
+def make_mesh(data: int = 1, model: int = 1, pod: int = 1,
+              members: list[int] | None = None) -> Mesh:
+    """The mesh of the running process group, or of its global ranks
+    `members`: ("pod", "data", "model") with pod > 1, else ("data",
+    "model"), as the reference names them."""
     if pod > 1:
-        return Mesh({"pod": pod, "data": data, "model": model})
-    return Mesh({"data": data, "model": model})
+        return Mesh({"pod": pod, "data": data, "model": model},
+                    members=members)
+    return Mesh({"data": data, "model": model}, members=members)
 
 
 def init_distributed(device: torch.device) -> tuple[int, int, int]:

@@ -60,8 +60,34 @@ exits.
 
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
-prints and writes metrics.  `--remat`, checkpoints, `--elastic` and
-`--chaos` come with their slices and are refused until then.
+prints and writes metrics.
+
+The steps run through the resilient loop (`runtime.fault_tolerance.
+ResilientLoop` with a `StragglerMonitor`), as in the reference:
+
+  --ckpt-dir DIR  checkpoint to DIR in the reference's `repro/ckpt@1`
+      format (`checkpoint.CheckpointManager`, async, atomic; every
+      manifest records the plan's `repro/plan@1` record) every
+      `--ckpt-every` steps and at the end, and resume from its latest
+      step, restored in place into the live params and optimizer state
+      (a checkpoint of the JAX package's trainer resumes here, and one of
+      this trainer there).  Unlike the reference (default
+      /tmp/repro_ckpt, always resumed) there is no default: without
+      --ckpt-dir nothing is saved or resumed, and a step fault is fatal;
+  --chaos SPEC    fault injection (`runtime.chaos`: raise@k, kill@k[xN],
+      corrupt@k, comma-composed); a step fault rolls back to the latest
+      checkpoint;
+  --elastic       on a lost rank (`kill@k`), rebuild the mesh on the
+      survivors (`launch.mesh.elastic_factorization`), re-run `build` on
+      it (`--strategy auto` re-solves under the same --mem-limit) and
+      restore the latest checkpoint into it; a rank that is not a
+      survivor returns from `run` with `left_at`;
+  --debug-nans    fail at the first non-finite loss or gradient norm,
+      naming the first parameter that holds a NaN.
+
+On a mesh, mesh rank 0 alone writes checkpoints (the others read them),
+and before a resume or a rollback it broadcasts the step every rank
+restores.
 """
 from __future__ import annotations
 
@@ -70,21 +96,28 @@ import functools
 import time
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.core import plan as plan_lib
 from repro_torch.core.perfmodel import H100, LASSEN
 from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.core.strategy import parse_search
 from repro_torch.data import pipeline
-from repro_torch.launch.mesh import batch_axes, init_distributed, make_mesh
+from repro_torch.launch.mesh import (batch_axes, elastic_factorization,
+                                    init_distributed, make_mesh)
 from repro_torch.models.cnn import meshnet, resnet
 from repro_torch.models.lm import transformer
-from repro_torch.optim.optimizer import adamw, sgd, warmup_cosine
-from repro_torch.train.metrics import MetricsLogger
+from repro_torch.optim.optimizer import (adamw, load_state_tree, sgd,
+                                         state_tree, warmup_cosine)
+from repro_torch.runtime import chaos
+from repro_torch.runtime.fault_tolerance import (ResilientLoop,
+                                                 StragglerMonitor)
+from repro_torch.train.metrics import MetricsLogger, debug_nan_check
 from repro_torch.train.train_loop import TrainStepConfig, make_train_step
-from repro_torch.utils import (BF16, FP32, human_bytes, human_count,
-                               resolve_device, tree_leaves)
+from repro_torch.utils import (BF16, FP32, fingerprint, human_bytes,
+                               human_count, resolve_device, tree_leaves)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -139,6 +172,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "StepTrace to PATH (default "
                          "BENCH_step_trace.json) and a Chrome trace "
                          "beside it, then exit (mesh1k / mesh2k)")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="checkpoint here (repro/ckpt@1) and resume from "
+                         "its latest step; no default: without it nothing "
+                         "is saved or resumed")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--elastic", action="store_true",
+                    help="survive a lost rank: rebuild the mesh on the "
+                         "survivors (launch.mesh.elastic_factorization), "
+                         "re-solve the plan on it under the same "
+                         "--mem-limit, restore the last checkpoint onto it "
+                         "and resume the deterministic batch stream "
+                         "(needs --ckpt-dir)")
+    ap.add_argument("--chaos", default=None, metavar="SPEC",
+                    help="fault injection (runtime.chaos): e.g. 'raise@7' "
+                         "(step fault), 'kill@5' / 'kill@5x2' (drop ranks "
+                         "-> DeviceLoss; pair with --elastic), 'corrupt@3' "
+                         "(plant checkpoint-tmp debris); comma-compose "
+                         "(needs --ckpt-dir)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="check loss/grad_norm for NaN/inf every step and "
+                         "fail fast naming the first offending layer "
+                         "(train.metrics.debug_nan_check)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics", nargs="?", const="METRICS.jsonl",
                     default=None, metavar="PATH",
@@ -168,6 +223,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.profile and arch not in ("mesh1k", "mesh2k"):
         ap.error("--profile covers the meshnet archs (mesh1k / mesh2k): "
                  "the segmented profiler walks meshnet.layer_fns")
+    if (args.chaos or args.elastic) and not args.ckpt_dir:
+        ap.error("--chaos and --elastic recover from a checkpoint: give "
+                 "--ckpt-dir (it has no default in this port)")
+    if args.ckpt_every < 1:
+        ap.error("--ckpt-every must be >= 1")
+    if args.chaos:
+        try:
+            chaos.parse(args.chaos, ckpt_dir=args.ckpt_dir, plant=False)
+        except ValueError as e:
+            ap.error(str(e))
     return args
 
 
@@ -196,6 +261,15 @@ def parse_mem_limit(value, device: torch.device, ranks: int = 1
     return detect_mem_capacity(device, ranks)
 
 
+def plan_shape(args: argparse.Namespace) -> dict[str, int]:
+    """The mesh shape the plan is solved for ({"data": 1, "model": 1} on
+    one device), as the reference's mesh names it."""
+    shape = {"pod": args.pod, "data": args.data, "model": args.model}
+    if args.pod == 1:
+        del shape["pod"]
+    return shape
+
+
 def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
                    mesh=None, echo: bool = True, graph=None,
                    flow=None) -> plan_lib.NetworkPlan:
@@ -206,9 +280,7 @@ def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
     between layers, for the reshard report (None: a line)."""
     every = list(specs) if graph is None else \
         plan_lib.compile_order(graph, specs)
-    shape = {"pod": args.pod, "data": args.data, "model": args.model}
-    if args.pod == 1:
-        del shape["pod"]
+    shape = plan_shape(args)
     machine = H100 if device.type == "cuda" else LASSEN
     where = "the H100 preset" if device.type == "cuda" else \
         "LASSEN (the paper's machine; the CPU has no preset)"
@@ -343,10 +415,41 @@ def setup(args: argparse.Namespace):
     return device, mesh, rank
 
 
+def plan_record(args: argparse.Namespace, cfg, plan, device: torch.device,
+                mesh=None) -> dict | None:
+    """The ``repro/plan@1`` record every checkpoint manifest carries: the
+    solved per-layer dists and the solve's inputs (mesh shape, mem_limit,
+    config hash, calibration fingerprint), what an elastic restart lowers
+    or re-solves on a new mesh (core.plan.plan_from_spec).  None for an
+    arch without a plan (the LMs)."""
+    if plan is None:
+        return None
+    calib = (plan.predicted or {}).get("calibration")
+    return plan.to_spec(
+        plan_shape(args), mem_limit=parse_mem_limit(
+            args.mem_limit, device, 1 if mesh is None else mesh.size),
+        config_hash=fingerprint(cfg),
+        calibration_fingerprint=calib["fingerprint"] if calib else None)
+
+
+def checkpoint_layout(cfg):
+    """(to_ref, from_ref) between the port's param tree and the
+    reference's, for `optim.optimizer.state_tree`: the LMs stack their
+    layers into the reference's segments; the CNNs' trees are the
+    reference's (None, None)."""
+    if isinstance(cfg, (meshnet.MeshNetConfig, resnet.ResNetConfig)):
+        return None, None
+    return (functools.partial(transformer.tree_to_jax, cfg=cfg),
+            functools.partial(transformer.tree_from_jax, cfg=cfg))
+
+
 def run(args: argparse.Namespace) -> dict:
-    """Train `args.steps` steps; returns the config it trained, the plan,
-    the losses, the seconds of each step (batch included) and of its
-    batch's wait and copy, and the trained params."""
+    """Train to step `args.steps` (from the latest checkpoint of
+    --ckpt-dir where it has one); returns the config it trained, the
+    plan, and for every step run (a rolled-back step runs again) its
+    index (`steps`), loss, seconds (batch included) and seconds of its
+    batch's wait and copy, the trained params, and `left_at` (the step at
+    which this rank left the mesh under --elastic, else None)."""
     device, mesh, rank = setup(args)
     lead = rank == 0
     set_fp32_numerics(device, echo=lead)
@@ -367,35 +470,149 @@ def run(args: argparse.Namespace) -> dict:
     if args.profile:
         return profile(args, cfg, params, mk, device, mesh, plan, lead)
 
-    losses, step_s, data_s = [], [], []
-    pf = pipeline.Prefetcher(mk)
+    # what an elastic remesh swaps: the loop's closures read it
+    ctx = {"mesh": mesh, "tstep": tstep, "mk": mk, "pf": None, "plan": plan,
+           "plan_spec": plan_record(args, cfg, plan, device, mesh),
+           "layer_names": meshnet.layer_names(cfg)
+           if isinstance(cfg, meshnet.MeshNetConfig) else None}
+    to_ref, from_ref = checkpoint_layout(cfg)
+
+    def leaves(state):
+        return state_tree(state[0], state[1], to_ref)
+
+    def load(state_like, tree):
+        p, o = state_like
+        return p, load_state_tree(tree, p, o, from_ref)
+
+    def agree(step):
+        """Mesh rank 0's latest step, on every rank (rank 0 broadcasts
+        it after its writer's wait)."""
+        m = ctx["mesh"]
+        return step if m is None else m.broadcast_object(step)
+
+    ck, start = None, 0
+    if args.ckpt_dir:
+        ck = CheckpointManager(args.ckpt_dir, keep=3, async_save=True,
+                               writer=lead)
+        latest = agree(ck.latest_step())
+        if latest is not None:
+            restored, manifest = ck.restore(leaves((params, opt_state)),
+                                            latest)
+            params, opt_state = load((params, opt_state), restored)
+            start = manifest["extra"]["step"]
+            rec = manifest.get("plan")
+            if lead:
+                print(f"resumed from step {start}")
+                if rec and rec.get("mesh") and rec["mesh"] != plan_shape(
+                        args):
+                    print(f"reshard-on-restore: checkpoint recorded mesh "
+                          f"{rec['mesh']}, restoring onto "
+                          f"{plan_shape(args)} (global arrays re-placed "
+                          f"under the current plan)")
+
+    losses, step_s, data_s, steps = [], [], [], []
     mlog = MetricsLogger(args.metrics if lead else None, echo=lead)
+
+    def make_step():
+        def run_step(state, step):
+            p, o = state
+            t0 = time.perf_counter()
+            if ctx["pf"] is None:       # a remesh's new batch factory
+                ctx["pf"] = pipeline.Prefetcher(ctx["mk"], start_step=step)
+            batch = pipeline.to_device(ctx["pf"].get(step), device)
+            data_s.append(time.perf_counter() - t0)    # host wait + copy
+            p, o, m = ctx["tstep"](p, o, batch)
+            losses.append(float(m["loss"]))      # waits for the step
+            step_s.append(time.perf_counter() - t0)
+            steps.append(step)
+            grad_norm = float(m["grad_norm"])
+            if args.debug_nans:
+                debug_nan_check(step, {"loss": losses[-1],
+                                       "grad_norm": grad_norm}, p,
+                                ctx["layer_names"])
+            mlog.log_step(step, losses[-1], step_time_s=step_s[-1],
+                          samples_per_s=args.batch / step_s[-1],
+                          grad_norm=grad_norm,
+                          echo=lead and step % args.log_every == 0)
+            return (p, o), m
+        return run_step
+
+    def remesh(survivors):
+        """Elastic restart: rebuild mesh, plan and step on the survivors
+        (None on a rank that is not one).  Every rank of the process
+        group builds the new mesh (its groups); the survivors re-run
+        `build` on it, so --strategy auto re-solves under the same
+        --mem-limit, and the batch factory cuts the new mesh's blocks."""
+        old = ctx["mesh"]
+        if old is None or len(old.members) != dist.get_world_size():
+            raise RuntimeError("an elastic remesh needs every rank of the "
+                               "process group (a second shrink would need "
+                               "the ranks that left)")
+        data, model = elastic_factorization(len(survivors),
+                                            batch=args.batch)
+        if lead:
+            print(f"elastic restart: {len(survivors)} survivors -> mesh "
+                  f"data={data} model={model}; re-solving plan")
+        new_mesh = make_mesh(data=data, model=model, members=survivors) \
+            if len(survivors) > 1 else None
+        if rank not in survivors:
+            return None
+        args2 = argparse.Namespace(**{**vars(args), "data": data,
+                                      "model": model, "pod": 1})
+        cfg2, params2, opt2, loss2, mk2, prec2, plan2 = build(
+            args2, device, new_mesh, echo=lead)
+        if ctx["pf"] is not None:
+            ctx["pf"].close()
+        ctx.update(mesh=new_mesh, mk=mk2, pf=None, plan=plan2,
+                   tstep=make_train_step(loss2, opt2, TrainStepConfig(
+                       grad_accum=args.grad_accum, precision=prec2),
+                       mesh=new_mesh),
+                   plan_spec=plan_record(args2, cfg2, plan2, device,
+                                         new_mesh))
+        return make_step, (params2, opt2.init(params2))
+
+    loop = ResilientLoop(ckpt=ck, make_step=make_step,
+                         ckpt_every=args.ckpt_every,
+                         remesh=remesh if args.elastic else None,
+                         metrics=mlog, plan_spec=lambda: ctx["plan_spec"],
+                         leaves=leaves, load=load, agree=agree)
+    inject = None
+    if args.chaos:
+        inject = chaos.parse(args.chaos, ckpt_dir=args.ckpt_dir,
+                             devices=mesh.members if mesh else [rank],
+                             plant=lead)
+    mon = StragglerMonitor()
     try:
+        ctx["pf"] = pipeline.Prefetcher(mk, start_step=start)
         mlog.log_run(arch=cfg.name, n_params=n_params, device=str(device),
                      batch=args.batch, steps=args.steps,
                      strategy=args.strategy,
                      mesh=dict(mesh.shape) if mesh else None,
+                     start_step=start,
                      **({"calibration": calib} if calib else {}))
-        for step in range(args.steps):
-            t0 = time.perf_counter()
-            batch = pipeline.to_device(pf.get(step), device)
-            data_s.append(time.perf_counter() - t0)    # host wait + copy
-            params, opt_state, m = tstep(params, opt_state, batch)
-            losses.append(float(m["loss"]))      # waits for the step
-            step_s.append(time.perf_counter() - t0)
-            mlog.log_step(step, losses[-1], step_time_s=step_s[-1],
-                          samples_per_s=args.batch / step_s[-1],
-                          grad_norm=float(m["grad_norm"]),
-                          echo=lead and step % args.log_every == 0)
-        mlog.log_done(args.steps, loss=losses[-1] if losses else None)
+        (params, opt_state), step, _ = loop.run(
+            (params, opt_state), start, args.steps, monitor=mon,
+            inject_failure=inject)
+        if loop.left_at is None and ck is not None:
+            ck.save(step, leaves((params, opt_state)), extra={"step": step},
+                    plan=ctx["plan_spec"])
+            ck.wait()
+        mlog.log_done(step, loss=losses[-1] if losses else None,
+                      straggler=mon.stats)
     finally:
-        pf.close()
+        if ctx["pf"] is not None:
+            ctx["pf"].close()
         mlog.close()
-    if losses and lead:
-        print(f"done at step {args.steps}; final loss {losses[-1]:.4f}")
+    if loop.left_at is not None:
+        print(f"rank {rank} left the mesh at step {loop.left_at}")
+    elif losses and lead:
+        print(f"done at step {step}; final loss {losses[-1]:.4f}")
     return {"cfg": cfg, "losses": losses, "step_s": step_s,
-            "data_s": data_s, "n_params": n_params, "params": params,
-            "mesh": mesh, "plan": plan}
+            "data_s": data_s, "steps": steps, "n_params": n_params,
+            "params": params, "mesh": ctx["mesh"], "plan": ctx["plan"],
+            "left_at": loop.left_at, "straggler": mon.stats,
+            "checkpoint": None if ck is None else
+            {**ck.last_save, "write_s": ck.last_write_s}}
 
 
 def profile(args: argparse.Namespace, cfg, params, mk, device, mesh, plan,

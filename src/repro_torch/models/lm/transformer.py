@@ -140,6 +140,46 @@ def params_from_jax(tree: dict, cfg: LMConfig) -> dict:
     return tree_map(lambda t: t.requires_grad_(), out)
 
 
+def _stack(blocks: list):
+    if isinstance(blocks[0], dict):
+        return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    return torch.stack(blocks)
+
+
+def _slice(block, c: int):
+    if isinstance(block, dict):
+        return {k: _slice(v, c) for k, v in block.items()}
+    return block[c]
+
+
+def tree_to_jax(tree: dict, cfg: LMConfig) -> dict:
+    """The port's per-layer tree (the params, or any tree of their
+    structure: gradients, Adam moments) in the reference's layout, the
+    tensors on their device: `layers` regrouped into `segments`, one tuple
+    per `plan(cfg)` segment of block dicts whose leaves stack the
+    segment's layers on a leading `count` axis (new tensors).  How a
+    checkpoint of the port lays out an LM's leaves."""
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    segs, first = [], 0
+    for unit, count in plan(cfg):
+        segs.append(tuple(
+            _stack([tree["layers"][first + c * len(unit) + b]
+                    for c in range(count)]) for b in range(len(unit))))
+        first += count * len(unit)
+    out["segments"] = segs
+    return out
+
+
+def tree_from_jax(tree: dict, cfg: LMConfig) -> dict:
+    """`tree_to_jax`'s inverse on tensors, without a copy: layer c of a
+    segment is slice c of every leaf of its unit's block (a view)."""
+    out = {k: v for k, v in tree.items() if k != "segments"}
+    out["layers"] = [_slice(block, c)
+                     for (unit, count), seg in zip(plan(cfg), tree["segments"])
+                     for c in range(count) for block in seg]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------

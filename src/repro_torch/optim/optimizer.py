@@ -12,9 +12,10 @@ import dataclasses
 import math
 from typing import Any, Callable, NamedTuple
 
+import numpy as np
 import torch
 
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import tree_leaves, tree_unflatten
 
 
 class OptState(NamedTuple):
@@ -113,3 +114,45 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
         return params, OptState(step, state.mu, state.nu)
 
     return Optimizer(init, update)
+
+
+def state_tree(params, state: OptState,
+               to_ref: Callable[[Any], Any] | None = None) -> tuple:
+    """`(params, state, None)` as the reference's train state, the tree a
+    checkpoint holds: flattened (dict keys sorted, None no leaf) its
+    leaves run in `jax.tree.flatten` order of the reference's
+    `(params, OptState, None)`: the params, `OptState.step` as a 0-d
+    int32, the `mu` leaves, then the `nu` leaves (none for SGD).  `mu` and
+    `nu`, flat lists in params order here, take the params' structure.
+    `to_ref` maps a tree of the params' structure to the reference's
+    layout where the two differ (an LM's `transformer.tree_to_jax`); the
+    CNNs' trees are the reference's.  The tensors are the live ones (or
+    stacked copies): `CheckpointManager.save` copies them to the host."""
+    to_ref = to_ref or (lambda t: t)
+
+    def like(flat):
+        return to_ref(tree_unflatten(params, iter(flat)))
+    return (to_ref(params),
+            (np.asarray(state.step, np.int32), like(state.mu),
+             None if state.nu is None else like(state.nu)),
+            None)
+
+
+@torch.no_grad()
+def load_state_tree(tree: tuple, params, state: OptState,
+                    from_ref: Callable[[Any], Any] | None = None
+                    ) -> OptState:
+    """Write a restored `state_tree` into the live tensors in place
+    (`copy_`): the params, the moments; returns the state with the
+    restored step.  In place, so a module, the plan's closures and the
+    optimizer's moments keep their references.  `from_ref` inverts
+    `state_tree`'s `to_ref` (an LM's `transformer.tree_from_jax`)."""
+    from_ref = from_ref or (lambda t: t)
+    p_tree, (step, mu, nu), _ = tree
+    pairs = list(zip(tree_leaves(params), tree_leaves(from_ref(p_tree))))
+    pairs += zip(state.mu, tree_leaves(from_ref(mu)))
+    if state.nu is not None:
+        pairs += zip(state.nu, tree_leaves(from_ref(nu)))
+    for dst, src in pairs:
+        dst.copy_(src)
+    return OptState(int(step), state.mu, state.nu)

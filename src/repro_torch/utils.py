@@ -66,6 +66,45 @@ def tree_map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
+def tree_unflatten(tree: Any, leaves) -> Any:
+    """`tree`'s structure with the next of `leaves` (an iterator, in
+    `tree_leaves` order) in place of each of its leaves."""
+    if isinstance(tree, dict):
+        out = {k: tree_unflatten(tree[k], leaves) for k in sorted(tree)}
+        return {k: out[k] for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_unflatten(t, leaves) for t in tree)
+    return next(leaves)
+
+
+def leaves_with_path(tree: Any, path: str = "") -> list[tuple[str, Any]]:
+    """(keypath, leaf) of every leaf in `tree_leaves` order, the keypath
+    in `jax.tree_util.keystr`'s form: `['key']` for a dict entry, `[i]`
+    for a list or tuple item, `.name` for a NamedTuple field."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in leaves_with_path(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for f, t in zip(tree._fields, tree)
+                for kv in leaves_with_path(t, f"{path}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, t in enumerate(tree)
+                for kv in leaves_with_path(t, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def assert_no_nans(tree: Any, where: str = "") -> None:
+    """AssertionError naming the first leaf that holds a NaN, by its
+    keypath (`leaves_with_path`), as `repro.utils.assert_no_nans` does."""
+    for path, leaf in leaves_with_path(tree):
+        if leaf is None:
+            continue
+        t = leaf.detach() if isinstance(leaf, torch.Tensor) else \
+            torch.as_tensor(leaf)
+        if t.is_floating_point() and bool(torch.isnan(t).any()):
+            raise AssertionError(f"NaN in {where}{path}")
+
+
 def trimmed_mean(xs: Sequence[float], trim: float = 0.2) -> float:
     """Mean of `xs` after dropping the `trim` fraction from each tail."""
     xs = sorted(xs)

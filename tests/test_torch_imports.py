@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.core.collectives",
                 "repro_torch.core.channel_conv", "repro_torch.core.plan",
                 "repro_torch.core.dag", "repro_torch.models.cnn.resnet",
-                "repro_torch.configs.resnet50"}
+                "repro_torch.configs.resnet50",
+                "repro_torch.checkpoint.checkpoint",
+                "repro_torch.runtime.fault_tolerance",
+                "repro_torch.runtime.chaos"}
     assert expected <= set(out["modules"])
 
 

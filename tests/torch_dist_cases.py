@@ -748,12 +748,185 @@ def case_trace(mesh, d):
     return out
 
 
+# tests/dist_checks.py check_elastic's run: the tiny net, batch 4, 10
+# steps, a checkpoint every 3, the fault at step 7
+ELASTIC = {"input_hw": 24, "in_channels": 6, "convs_per_block": 1,
+           "widths": (12, 24), "bn_scope": "global"}
+ELASTIC_NUM, ELASTIC_EVERY, ELASTIC_FAULT, ELASTIC_BATCH = 10, 3, 7, 4
+
+
+def case_elastic(mesh, d):
+    """check_elastic on this 4-rank mesh in the mode of DIR/elastic.json
+    (step-fault, kill-device, corrupt-tmp), from the params of
+    DIR/inputs.npz: the port's ResilientLoop, CheckpointManager (rank 0
+    writes into DIR/ckpt), chaos hooks and, for kill-device, the remesh
+    onto the 3 survivors (plan_from_spec of the checkpoint's record,
+    PlanError -> a fresh solve under the same limit).  Each rank returns
+    the loss of every step it ran (the last run of a step), its last step
+    and `left_at` (-1: none); rank 0 the directory's listing too."""
+    import functools
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.perfmodel import LASSEN
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import elastic_factorization, make_mesh
+    from repro_torch.models.cnn import meshnet
+    from repro_torch.optim.optimizer import (load_state_tree, sgd,
+                                             state_tree)
+    from repro_torch.runtime import chaos
+    from repro_torch.runtime.fault_tolerance import (ResilientLoop,
+                                                     StragglerMonitor)
+    from repro_torch.train.metrics import MetricsLogger
+    from repro_torch.train.train_loop import TrainStepConfig, make_train_step
+    from repro_torch.utils import FP32
+    with open(os.path.join(d, "elastic.json")) as f:
+        mode = json.load(f)["mode"]
+    cfg = meshnet.MeshNetConfig("t", **ELASTIC)
+    specs = meshnet.layer_specs(cfg, ELASTIC_BATCH)
+    opt = sgd(0.05, momentum=0.9)
+    shape4, shape3 = dict(mesh.shape), {"data": 1, "model": 3}
+    peak = max(plan_lib.plan_line(LASSEN, specs, sh).predicted["memory"]
+               ["peak_bytes"] for sh in (shape4, shape3))
+    limit = 1.25 * peak
+    plan4 = plan_lib.plan_line(LASSEN, specs, shape4, mem_limit=limit)
+    flat = np.load(os.path.join(d, "inputs.npz"))
+
+    def init_state():
+        model = meshnet.MeshNet(cfg, generator=torch.Generator(),
+                                device="cpu")
+        model.params_from_jax([{k: {pk: flat[f"{i}.{k}.{pk}"] for pk in sub}
+                                for k, sub in layer.items()}
+                               for i, layer in enumerate(model.params())])
+        params = model.params()
+        return params, opt.init(params)
+
+    def make_rig(m, plan):
+        tstep = make_train_step(
+            functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan, mesh=m),
+            opt, TrainStepConfig(precision=FP32), mesh=m)
+        first, last = plan.sharding(specs[0].name), plan.sharding("pred")
+
+        def put(step):
+            b = pipeline.synthetic_mesh_batch(step, ELASTIC_BATCH,
+                                              cfg.input_hw, cfg.in_channels,
+                                              out_hw=cfg.out_hw)
+            return pipeline.to_device(pipeline.shard_batch(b, m, first, last),
+                                      torch.device("cpu"))
+        return tstep, put
+
+    lead = mesh.rank == 0
+    ckdir = os.path.join(d, "ckpt")
+    ck = CheckpointManager(ckdir, keep=3, async_save=True, writer=lead)
+    mlog = MetricsLogger(os.path.join(d, "metrics.jsonl") if lead else None,
+                         echo=False)
+    ctx = {"mesh": mesh, "rig": make_rig(mesh, plan4), "how": "",
+           "spec": plan4.to_spec(shape4, mem_limit=limit, config_hash="t")}
+    got = {}
+
+    def make_step():
+        def run(state, step):
+            p, o = state
+            tstep, put = ctx["rig"]
+            p, o, m = tstep(p, o, put(step))
+            got[step] = float(m["loss"])
+            return (p, o), m
+        return run
+
+    def remesh(survivors):
+        assert len(survivors) == 3, survivors
+        data, model = elastic_factorization(len(survivors),
+                                            batch=ELASTIC_BATCH)
+        mesh3 = make_mesh(data=data, model=model, members=survivors)
+        if not mesh3.member:
+            return None
+        rec = mesh3.broadcast_object(
+            ck.read_manifest()["plan"] if mesh3.rank == 0 else None)
+        assert rec["schema"] == plan_lib.PLAN_SCHEMA, rec
+        assert rec["mesh"] == {"data": 2, "model": 2}, rec
+        try:
+            plan3 = plan_lib.plan_from_spec(rec, specs, shape3,
+                                            machine=LASSEN,
+                                            mem_limit=rec["mem_limit"])
+            ctx["how"] = "plan_from_spec"
+        except plan_lib.PlanError:
+            plan3 = plan_lib.plan_line(LASSEN, specs, shape3,
+                                       mem_limit=rec["mem_limit"])
+            ctx["how"] = "re-solved"
+        assert plan3.predicted["memory"]["peak_bytes"] <= rec["mem_limit"]
+        ctx.update(mesh=mesh3, rig=make_rig(mesh3, plan3),
+                   spec=plan3.to_spec(shape3, mem_limit=rec["mem_limit"],
+                                      config_hash="t"))
+        return make_step, init_state()
+
+    if mode == "step-fault":
+        inject = chaos.raise_at_step(ELASTIC_FAULT)
+    elif mode == "kill-device":
+        inject = chaos.drop_device_at_step(ELASTIC_FAULT,
+                                           devices=mesh.members)
+    else:
+        inject = chaos.parse(f"corrupt@{ELASTIC_FAULT - 3},"
+                             f"raise@{ELASTIC_FAULT}", ckpt_dir=ckdir,
+                             plant=lead)
+    loop = ResilientLoop(
+        ckpt=ck, make_step=make_step, ckpt_every=ELASTIC_EVERY,
+        max_failures=2, remesh=remesh if mode == "kill-device" else None,
+        metrics=mlog, plan_spec=lambda: ctx["spec"],
+        leaves=lambda st: state_tree(st[0], st[1]),
+        load=lambda like, t: (like[0], load_state_tree(t, like[0], like[1])),
+        agree=lambda step: ctx["mesh"].broadcast_object(step))
+    _, step, _ = loop.run(init_state(), 0, ELASTIC_NUM,
+                          monitor=StragglerMonitor(), inject_failure=inject)
+    mlog.close()
+    out = {"steps": np.array(sorted(got)),
+           "losses": np.array([got[s] for s in sorted(got)]),
+           "final_step": np.array(step), "how": np.array(ctx["how"]),
+           "left_at": np.array(-1 if loop.left_at is None
+                               else loop.left_at)}
+    if lead:
+        out["listing"] = np.array(json.dumps(sorted(os.listdir(ckdir))))
+        out["latest"] = np.array(ck.latest_step())
+    return out
+
+
+def case_subset(mesh, d):
+    """A halo exchange (and its backward), a ring shift, an all-reduce, a
+    broadcast and an all-max on `Mesh(members=[1, 3])` of a 4-rank world,
+    or on the whole of a 2-rank world: each member's results, by mesh
+    rank, must be the same."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import halo
+    from repro_torch.launch.mesh import Mesh
+    members = [1, 3] if dist.get_world_size() == 4 else None
+    sub = Mesh({"data": 1, "model": 2}, members=members)
+    out = {"member": np.array(sub.member)}
+    if not sub.member:
+        return out
+    r = sub.rank
+    x = _t(block(halo_input(), r, (1, 2), h_axis="model"), grad=True)
+    ext = halo.halo_exchange(x, 1, 1, 1, "model", sub, 0.0)
+    (ext * _t(halo_cotangent("h_1_1", r, tuple(ext.shape)))).sum() \
+        .backward()
+    out.update(mesh_rank=np.array(r), ext=ext.detach().numpy(),
+               dx=x.grad.numpy(),
+               ring=halo.ring_shift(torch.full((2, 3), float(r)), "model",
+                                    sub).detach().numpy(),
+               sum=sub.all_reduce(torch.arange(3.0) * (r + 1),
+                                  "model").numpy(),
+               bcast=np.array(sub.broadcast_object(10 + r)),
+               max=np.array(sub.all_max([r, -r])))
+    sub.barrier()
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
          "cf": case_cf, "reshard": case_reshard, "plan": case_plan,
          "resnet": case_resnet, "resnet_trajectory": case_resnet_trajectory,
-         "calibrate": case_calibrate, "trace": case_trace}
+         "calibrate": case_calibrate, "trace": case_trace,
+         "elastic": case_elastic, "subset": case_subset}
 
 
 # ------------------------------------------------------------ launcher --
