@@ -104,6 +104,19 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    plan derives before and after the remesh, and steps 4-5 within 1e-5
    of a 2-rank `--data 1 --model 2` run resumed from a copy of the same
    step-4 checkpoint.  Not a scaling result;
+4g. the static-analysis lane: 2 ranks spawned on the card over gloo
+   audit full-width mesh1k at batch 2 on data 1 x model 2 under the
+   uniform H plan (every layer split over model: halos, the §IV-A split
+   pinned both ways) and the H100 auto plan (CF layers, reshards): each
+   plan linted and one real step of it (forward, backward, the gradient
+   bucket) recorded and joined against the priced inventory
+   (`repro_torch.analysis`), with the findings table, the recorded ops by
+   kind and direction, the gradient bucket's bytes against the priced
+   weight gradients', the audited step's host seconds and its conv
+   launches (the plan's forward calls); one layer's backward timed with
+   and without the split; then `python -m repro_torch.launch.dryrun
+   --audit` on 4 ranks over the six bench workloads (its tables in
+   build/audit/dryrun.log).  Any error finding fails the phase;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
    2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
    32 x 3 launches of each LM kernel;
@@ -2124,6 +2137,179 @@ def elastic_phase(card: str) -> dict:
             "rel_resume": rel, "s_per_step": split}
 
 
+# ------------------------------------------------ static analysis (4g) --
+
+AUDIT_DIR = os.path.join(HERE, "build", "audit")
+# the layer whose backward is timed with and without the §IV-A split
+HALO_BWD_LAYER = "conv2_2"
+HALO_BWD_ROUNDS = 4
+
+
+def audit_plans() -> tuple[dict, list]:
+    """The two plans phase 4g audits on AUTO_MESH, full-width mesh1k at
+    batch BATCH: the uniform H plan (every layer split over model, halos
+    and the interior/boundary split; the workload registry's `uniform_h`
+    recipe) and the H100 auto plan (CF layers and reshards)."""
+    specs = meshnet.layer_specs(meshnet.MESH1K, BATCH)
+    dist = plan_lib._sharding_to_dist(
+        ConvSharding(batch_axes=("data",), h_axis="model"))
+    uniform = plan_lib.compile_plan({s.name: dist for s in specs}, specs,
+                                    AUTO_MESH, machine=H100)
+    return {"uniform_h": uniform, "auto": auto_plan()}, specs
+
+
+def halo_backward_ms(mesh, spec) -> dict:
+    """Host ms of one spatially split layer's backward (dL/dx and dL/dw of
+    its convs and the halo gradients' exchange) under the §IV-A split,
+    whose backward posts the halo gradients before the interior's dL/dx,
+    and serialized, in alternating rounds; the median of each."""
+    gen = torch.Generator().manual_seed(mesh.rank)
+    hl = spec.h // mesh.axis_size("model")
+    x0 = torch.randn((spec.n, hl, spec.w, spec.c), generator=gen).cuda()
+    w = (torch.randn((spec.k, spec.k, spec.c, spec.f), generator=gen)
+         * 0.05).cuda().requires_grad_()
+    sh = ConvSharding(h_axis="model")
+    out = {"overlapped": [], "serialized": []}
+
+    def once(overlap: bool) -> float:
+        x = x0.detach().requires_grad_()
+        y = spatial_conv2d(x, w, strides=(spec.s, spec.s), sharding=sh,
+                           mesh=mesh, overlap=overlap)
+        gy = torch.ones_like(y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y.backward(gy)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for overlap in (True, False):                  # warm both
+        once(overlap)
+    for _ in range(HALO_BWD_ROUNDS):
+        for overlap in (True, False):
+            out["overlapped" if overlap else "serialized"].append(
+                once(overlap))
+    return {k: sorted(v)[len(v) // 2] for k, v in out.items()}
+
+
+def audit_rank(rank: int, world: int) -> dict:
+    """One of 2 ranks on the card: each of `audit_plans` linted and its
+    collectives audited on one real step (forward, backward, the gradient
+    bucket; seeded params, the synthetic batch), with the conv launches
+    of the audited step; then HALO_BWD_LAYER's backward timed."""
+    from repro_torch import analysis
+    mesh = make_mesh(**AUTO_MESH)
+    plans, specs = audit_plans()
+    out = {}
+    for key, plan in plans.items():
+        ops.reset_launch_counts()
+        a = analysis.meshnet_audit(plan, specs, meshnet.MESH1K, mesh,
+                                   machine=H100, device="cuda")
+        launches = ops.launch_counts()["conv2d"]
+        findings = analysis.lint_plan(plan, specs, AUTO_MESH) + a.findings
+        moved, once, priced = a.bucket()
+        out[key] = {
+            "describe": plan.describe(), "n_reshards": plan.n_reshards,
+            "kinds": plan_kinds(plan),
+            "table": analysis.format_findings(findings),
+            "findings": [f.to_json() for f in findings],
+            "errors": int(mesh.all_max([analysis.error_count(findings)])[0]),
+            "counts": a.counts(), "bucket_bytes": moved,
+            "priced_once": once, "priced_total": priced,
+            "seconds": a.seconds, "launches": launches,
+            "calls": plan_conv_calls(plan, specs)}
+    spec = next(s for s in specs if s.name == HALO_BWD_LAYER)
+    out["halo_bwd"] = halo_backward_ms(mesh, spec)
+    return out
+
+
+def audit_dryrun_rank(rank: int, world: int, out_path: str,
+                      log_path: str) -> dict:
+    """One of 4 ranks on the card: `python -m repro_torch.launch.dryrun
+    --audit` on this gloo group (data 2 x model 2, the H100 preset), its
+    findings tables into `log_path` (rank 0)."""
+    import contextlib
+    import io
+    from repro_torch.launch import dryrun
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dryrun.main(["--audit", "--device", "cuda", "--audit-out",
+                          out_path])
+    if rank == 0:
+        with open(log_path, "w") as f:
+            f.write(buf.getvalue())
+    return {"rc": rc, "seconds": time.perf_counter() - t0}
+
+
+def audit_phase(card: str) -> dict:
+    """Phase 4g, the static-analysis lane on the card: `audit_rank` on 2
+    spawned ranks (gloo), then the `dryrun --audit` lane on 4.  Fails on
+    any error finding, on a conv launch count other than the plan's, and
+    where the uniform plan's audited step shows no pin in either
+    direction or the auto plan has no CF layer or no reshard."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(audit_rank, 2)
+    for key in ("uniform_h", "auto"):
+        r0 = ranks[0][key]
+        print(f"audit {key}, full-width mesh1k, batch {BATCH}, mesh "
+              f"{AUTO_MESH}, layer kinds {' '.join(r0['kinds'])}:")
+        print(r0["describe"])
+        print(r0["table"])
+        for rank, r in enumerate(ranks):
+            a = r[key]
+            print(f"audit {key} rank {rank}: {a['errors']} error(s); ops "
+                  f"{a['counts']}; grad bucket {a['bucket_bytes']:.0f} B "
+                  f"against the priced weight gradients {a['priced_once']:.0f}"
+                  f" B once ({a['priced_total']:.0f} B over the inventory's "
+                  f"psums); audit step {a['seconds']:.4f} s host; conv "
+                  f"launches {a['launches']} (the plan derives "
+                  f"{a['calls']}) ({card})")
+            if a["errors"]:
+                raise AssertionError(f"audit {key}: {a['errors']} error "
+                                     f"finding(s) on rank {rank}")
+            if a["launches"] != a["calls"]:
+                raise AssertionError(f"audit {key} rank {rank}: "
+                                     f"{a['launches']} conv launches, the "
+                                     f"plan derives {a['calls']}")
+    for rank, r in enumerate(ranks):
+        c = r["uniform_h"]["counts"]
+        if not (c.get("pin/fwd") and c.get("pin/bwd")):
+            raise AssertionError(f"audit uniform_h rank {rank}: no pin in "
+                                 f"both directions: {c}")
+        if "CF" not in r["auto"]["kinds"] or not r["auto"]["n_reshards"]:
+            raise AssertionError("audit auto: the H100 plan has no CF layer "
+                                 "or no reshard")
+        hb = r["halo_bwd"]
+        print(f"halo backward, {HALO_BWD_LAYER} (H over model 2), rank "
+              f"{rank}: overlapped {hb['overlapped']:.3f} ms, serialized "
+              f"{hb['serialized']:.3f} ms (median of {HALO_BWD_ROUNDS}, "
+              f"gloo through the host; {card})")
+    t_dry = time.perf_counter()
+    os.makedirs(AUDIT_DIR, exist_ok=True)
+    out_path = os.path.join(AUDIT_DIR, "PLAN_audit.json")
+    log_path = os.path.join(AUDIT_DIR, "dryrun.log")
+    dry = spawn_ranks(audit_dryrun_rank, 4, out_path, log_path)
+    with open(out_path) as f:
+        report = json.load(f)
+    for name, w in report["workloads"].items():
+        print(f"dryrun --audit {name} on {report['mesh']} (the H100 "
+              f"preset, {report['collective_backend']}): "
+              + ("skipped" if w["skipped"] else
+                 f"{w['n_findings']} finding(s), {w['n_errors']} error(s), "
+                 f"{w['n_reshards']} reshard point(s)"))
+    if any(r["rc"] for r in dry) or report["n_errors"] or \
+            len(report["workloads"]) != 6 or \
+            any(w["skipped"] for w in report["workloads"].values()):
+        raise AssertionError(f"dryrun --audit failed: rc "
+                             f"{[r['rc'] for r in dry]}, {report['n_errors']}"
+                             f" error(s); see {log_path}")
+    phase_s = time.perf_counter() - t0
+    print(f"dryrun --audit, 4 card ranks: {time.perf_counter() - t_dry:.1f}"
+          f" s; audit phase took {phase_s:.1f} s of this run ({card})")
+    return {"ranks": ranks, "dryrun": {"ranks": dry, "report": report},
+            "phase_s": phase_s}
+
+
 # ---------------------------------------------------------------- LM path --
 
 def admitted_pairs(s: int, window: int | None) -> int:
@@ -2613,6 +2799,7 @@ def main() -> int:
     print(f"resilient-training phases (ResNet-50 resume and rollback, "
           f"checkpoint overhead, 4 -> 2 elastic ranks) took "
           f"{resilient_s:.1f} s of this run ({card})")
+    audit = audit_phase(card)
     lm_train = lm_train_phase()
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
@@ -2634,6 +2821,7 @@ def main() -> int:
                    "calibrate": calib,
                    "ckpt_resume": resume, "ckpt_overhead": overhead,
                    "elastic": elastic, "resilient_phase_s": resilient_s,
+                   "audit": audit,
                    "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
@@ -2686,6 +2874,9 @@ def main() -> int:
              elastic_launches_per_rank=[[r["launches_before"],
                                          r["launches_after"]]
                                         for r in elastic["ranks"]],
+             audit_launches_per_rank=[[r["uniform_h"]["launches"],
+                                       r["auto"]["launches"]]
+                                      for r in audit["ranks"]],
              resnet50=dict(entry(
                  "conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
                  "src/repro/kernels/conv2d.py:43", resnet_train["launches"],

@@ -55,25 +55,26 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _gather(t, mesh: Mesh, axes, dim: int, name: str,
-            layer: str | None = None) -> torch.Tensor:
+            layer: str | None = None, bwd: bool = False) -> torch.Tensor:
     p = mesh.axis_size(axes)
-    with trace.annotate(name, t, layer):
+    with trace.annotate(name, t, layer, bwd):
         _count(name, _nbytes(t) * (p - 1))
         return mesh.all_gather(t, axes, dim)
 
 
 def _scatter(t, mesh: Mesh, axes, dim: int, name: str,
-             layer: str | None = None) -> torch.Tensor:
+             layer: str | None = None, bwd: bool = False) -> torch.Tensor:
     p = mesh.axis_size(axes)
-    with trace.annotate(name, t, layer):
+    with trace.annotate(name, t, layer, bwd):
         _count(name, _nbytes(t) * (p - 1) // p)
         return mesh.reduce_scatter(t, axes, dim)
 
 
 def _exchange(t, mesh: Mesh, axes, split_dim: int, cat_dim: int,
-              name: str, layer: str | None = None) -> torch.Tensor:
+              name: str, layer: str | None = None, bwd: bool = False
+              ) -> torch.Tensor:
     p = mesh.axis_size(axes)
-    with trace.annotate(name, t, layer):
+    with trace.annotate(name, t, layer, bwd):
         _count(name, _nbytes(t) * (p - 1) // p)
         return mesh.all_to_all(t, axes, split_dim, cat_dim)
 
@@ -86,7 +87,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _scatter(g, *ctx.args), None, None, None, None
+        return _scatter(g, *ctx.args, bwd=True), None, None, None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -97,7 +98,7 @@ class _ReduceScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, *ctx.args), None, None, None, None
+        return _gather(g, *ctx.args, bwd=True), None, None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -110,7 +111,8 @@ class _AllToAll(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh, axes, split_dim, cat_dim, name, layer = ctx.args
-        return (_exchange(g, mesh, axes, cat_dim, split_dim, name, layer),
+        return (_exchange(g, mesh, axes, cat_dim, split_dim, name, layer,
+                          bwd=True),
                 None, None, None, None, None)
 
 

@@ -20,12 +20,23 @@ zeros and differentiates itself.  Here both are written out:
 
 `HaloSchedule` issues the transfers when it is built and waits for them
 in `pin(interior)`, so an interior conv launched in between runs while
-they are in flight (§IV-A).  The backward exchange is synchronous: the
-mirrored schedule (boundary-gradient sends under the interior dL/dx) is
-not ported.
+they are in flight (§IV-A).  The backward mirrors it: `pin` is also an
+autograd identity (`_Pin`) over the interior and the halos, whose
+backward runs as soon as the boundary convs' backward has produced the
+halo gradients and posts their sends and receives; autograd then runs
+the interior conv's dL/dx (its node was created after `_Halo`'s, so it
+runs first), and `_Halo.backward` only waits for the transfers and lands
+them.  An exchange that is not pinned (`halos`) posts and waits in
+`_Halo.backward`.
 
 Each transfer, its wait and the backward's exchange is the named region
 `halo_exchange` (`core.trace.annotate`) of the layer that built it.
+
+Under an audit (`analysis.collectives.record`) each transfer direction
+is one `ppermute` op of the recorder, forward and backward, with the
+bytes of the slice that enters it on this rank (also at a global edge,
+where nothing is sent, as JAX's `ppermute` counts it), and each `pin`
+one `pin` op, forward where it waits and backward where it posts.
 
 Transport follows the backend (`Mesh.to_wire`): NCCL sends device
 tensors; gloo sends host tensors, so a CUDA halo goes through host memory
@@ -102,6 +113,7 @@ class _Exchange:
         self._works: list = []
         self._sending: list = []
         self._landing: list = []
+        self._bwd: tuple | None = None     # the posted backward transfers
 
     def _halo(self, x: torch.Tensor, width: int) -> torch.Tensor:
         shape = list(x.shape)
@@ -136,6 +148,8 @@ class _Exchange:
         if hi and self.prev is not None:
             sends.append((_wire(self.mesh, x.narrow(dim, 0, hi)),
                           self.prev))
+        if trace.RECORDER is not None:
+            self._note(x, "fwd")
         self._works = _p2p(sends, recvs)
         self._sending = sends       # alive until the sends complete
         return h_lo, h_hi
@@ -152,40 +166,62 @@ class _Exchange:
             _land(buf, out)
         self._landing = []
 
+    def _note(self, t: torch.Tensor, direction: str) -> None:
+        """One recorder op a transfer direction: `lo` rows of `t` (its
+        tail, or the lo halo's gradient) and `hi` rows."""
+        row = t.numel() // max(t.shape[self.dim], 1) * t.element_size()
+        for width in (self.lo, self.hi):
+            if width:
+                trace.note("ppermute", nbytes=width * row,
+                           axes=axes_tuple(self.axis), layer=self.layer,
+                           region="halo_exchange", direction=direction)
+
+    def post_backward(self, x_shape, g_lo: torch.Tensor,
+                      g_hi: torch.Tensor) -> None:
+        """Post the backward transfers: g_lo to prev, g_hi to next, and the
+        receives of next's g_lo (for this block's tail) and prev's g_hi
+        (for its head)."""
+        with trace.annotate("halo_exchange", g_lo, self.layer, bwd=True):
+            dim, lo, hi = self.dim, self.lo, self.hi
+            sends, recvs, landing = [], [], []
+            if lo and self.prev is not None:
+                sends.append((_wire(self.mesh, g_lo), self.prev))
+            if hi and self.next is not None:
+                sends.append((_wire(self.mesh, g_hi), self.next))
+            for width, src, start in ((lo, self.next, x_shape[dim] - lo),
+                                      (hi, self.prev, 0)):
+                if width == 0 or src is None:
+                    continue
+                shape = list(x_shape)
+                shape[dim] = width
+                buf = self.mesh.wire_buffer(shape, g_lo.dtype, g_lo.device)
+                recvs.append((buf, src))
+                landing.append((buf, start, width))
+            if trace.RECORDER is not None:
+                self._note(g_lo if lo else g_hi, "bwd")
+            # the sends stay alive until their works complete
+            self._bwd = (_p2p(sends, recvs), sends, landing)
+
     def backward(self, x_shape, g_lo: torch.Tensor, g_hi: torch.Tensor
                  ) -> torch.Tensor:
-        """dx of the halo outputs: g_lo to prev, g_hi to next; next's g_lo
-        adds into this block's tail, prev's g_hi into its head."""
-        with trace.annotate("halo_exchange", g_lo, self.layer):
-            return self._backward(x_shape, g_lo, g_hi)
-
-    def _backward(self, x_shape, g_lo: torch.Tensor, g_hi: torch.Tensor
-                  ) -> torch.Tensor:
-        dim, lo, hi = self.dim, self.lo, self.hi
-        dx = g_lo.new_zeros(x_shape)
-        sends, recvs, landing = [], [], []
-        if lo and self.prev is not None:
-            sends.append((_wire(self.mesh, g_lo), self.prev))
-        if hi and self.next is not None:
-            sends.append((_wire(self.mesh, g_hi), self.next))
-        for width, src, start in ((lo, self.next, x_shape[dim] - lo),
-                                  (hi, self.prev, 0)):
-            if width == 0 or src is None:
-                continue
-            shape = list(x_shape)
-            shape[dim] = width
-            buf = self.mesh.wire_buffer(shape, g_lo.dtype, g_lo.device)
-            recvs.append((buf, src))
-            landing.append((buf, start, width))
-        for w in _p2p(sends, recvs):
-            w.wait()
-        global staged
-        for buf, start, width in landing:
-            if buf.device != dx.device:
-                staged += 1
-                buf = buf.to(dx.device)
-            dx.narrow(dim, start, width).add_(buf)
-        return dx
+        """dx of the halo outputs: g_lo to prev, g_hi to next (posted here
+        unless `post_backward` has); next's g_lo adds into this block's
+        tail, prev's g_hi into its head."""
+        if self._bwd is None:
+            self.post_backward(x_shape, g_lo, g_hi)
+        with trace.annotate("halo_exchange", g_lo, self.layer, bwd=True):
+            works, _, landing = self._bwd
+            self._bwd = None
+            dx = g_lo.new_zeros(x_shape)
+            for w in works:
+                w.wait()
+            global staged
+            for buf, start, width in landing:
+                if buf.device != dx.device:
+                    staged += 1
+                    buf = buf.to(dx.device)
+                dx.narrow(self.dim, start, width).add_(buf)
+            return dx
 
 
 class _Halo(torch.autograd.Function):
@@ -203,6 +239,32 @@ class _Halo(torch.autograd.Function):
         return ctx.ex.backward(ctx.x_shape, g_lo, g_hi), None
 
 
+class _Pin(torch.autograd.Function):
+    """(interior, halo_lo, halo_hi) -> the same three, the §IV-A pin.
+    Its backward posts the halo gradients' transfers the moment the
+    boundary convs' backward has made them, before autograd runs the
+    interior conv's dL/dx; `_Halo.backward` lands them after it.  Where
+    the halos need no gradient (a first layer's input) it passes
+    through."""
+
+    @staticmethod
+    def forward(ctx, interior, h_lo, h_hi, ex: _Exchange, x_shape):
+        ctx.ex, ctx.x_shape = ex, x_shape
+        ctx.halo_grad = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        if not ctx.halo_grad:
+            ctx.mark_non_differentiable(h_lo, h_hi)
+        return interior, h_lo, h_hi
+
+    @staticmethod
+    def backward(ctx, g_int, g_lo, g_hi):
+        if ctx.halo_grad:
+            if trace.RECORDER is not None:
+                trace.note("pin", layer=ctx.ex.layer, region="halo_exchange",
+                           direction="bwd")
+            ctx.ex.post_backward(ctx.x_shape, g_lo, g_hi)
+        return g_int, g_lo, g_hi, None, None
+
+
 class HaloSchedule:
     """Latency-hiding issue order for the halo transfers (§IV-A).
 
@@ -214,9 +276,10 @@ class HaloSchedule:
     def __init__(self, x: torch.Tensor, dim: int, lo: int, hi: int, axis,
                  mesh: Mesh | None, edge_value: float = 0.0):
         self._ex = _Exchange(dim, lo, hi, axis, mesh, edge_value)
-        h_lo, h_hi = _Halo.apply(x, self._ex)
-        self.lo = h_lo if lo else None
-        self.hi = h_hi if hi else None
+        self._x_shape = tuple(x.shape)
+        self._lo, self._hi = _Halo.apply(x, self._ex)
+        self.lo = self._lo if lo else None
+        self.hi = self._hi if hi else None
 
     def halos(self):
         """(halo_lo, halo_hi), once they have landed."""
@@ -224,7 +287,16 @@ class HaloSchedule:
         return self.lo, self.hi
 
     def pin(self, interior):
-        return (interior,) + self.halos()
+        """(interior, halo_lo, halo_hi) once the halos have landed, through
+        `_Pin`, so the backward posts the halo gradients' transfers before
+        the interior's dL/dx."""
+        self._ex.wait()
+        if trace.RECORDER is not None:
+            trace.note("pin", layer=self._ex.layer, region="halo_exchange")
+        interior, h_lo, h_hi = _Pin.apply(interior, self._lo, self._hi,
+                                          self._ex, self._x_shape)
+        return (interior, h_lo if self.lo is not None else None,
+                h_hi if self.hi is not None else None)
 
 
 def halo_slices(x: torch.Tensor, dim: int, lo: int, hi: int, axis,

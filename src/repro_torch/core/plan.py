@@ -490,6 +490,31 @@ class NetworkPlan:
                           (spec.n, spec.h_out, spec.w_out, spec.f))
         return out
 
+    # -- static analysis ----------------------------------------------------
+    def audit(self, specs: Sequence[ConvLayer] | None = None, mesh=None, *,
+              cfg=None, machine: Machine | None = None,
+              overlap: bool = True, hlo: bool = False, params=None,
+              batch=None, device="cuda") -> list:
+        """Verification of this plan (repro_torch.analysis): the pure plan
+        linter always runs; with `specs`, a live `mesh` AND `cfg` (the
+        MeshNetConfig the plan executes) the collective auditor also runs
+        one real step (forward, backward and the gradient bucket, no
+        update: on `params` and this rank's block `batch`, else on seeded
+        params and the synthetic batch; on `device`, CUDA unless the caller
+        asks for the CPU) and joins every
+        collective it executed against the priced inventory.  Returns the
+        list of `Finding` records (render with
+        repro_torch.analysis.format_findings; error-severity findings mean
+        the costed and executed plans disagree)."""
+        from repro_torch import analysis
+        findings = list(analysis.lint_plan(
+            self, specs=specs, mesh_shape=_mesh_shape(mesh) or None))
+        if cfg is not None and mesh is not None and specs is not None:
+            findings += analysis.meshnet_audit(
+                self, specs, cfg, mesh, machine=machine, overlap=overlap,
+                hlo=hlo, params=params, batch=batch, device=device).findings
+        return findings
+
     # -- attribution --------------------------------------------------------
     def attribution_report(self, trace, *, tol: float = 5.0) -> dict:
         """Join a measured `core.trace.StepTrace` with this plan's

@@ -21,7 +21,9 @@ Every piece runs through the conv kernel (`kernels.conv2d.Conv2d`).
 
 The pieces are named regions (`core.trace.annotate`): `conv_interior`,
 `conv_boundary`, and `conv_serialized` for the conv that waits for its
-halo first.
+halo first.  Under an audit (`analysis.collectives.record`) each conv
+launch is one `conv` op of the recorder in its region, the anchor of the
+schedule checks; its backward (`kernels.conv2d.Conv2d`) is another.
 
 The interior block is an H-slice of the local block, which for N > 1 is
 not contiguous.  Its W padding (`F.pad`) copies it into a contiguous
@@ -120,6 +122,8 @@ def _conv_nhwc(x: torch.Tensor, w: torch.Tensor, strides, pads,
     (h_lo, h_hi), (w_lo, w_hi) = pads
     xp = F.pad(x, (0, 0, w_lo, w_hi, h_lo, h_hi)) \
         if h_lo or h_hi or w_lo or w_hi else x.contiguous()
+    if trace.RECORDER is not None:
+        trace.note("conv", xp)
     return Conv2d.apply(xp, w.contiguous(), int(strides[0]), interior_first)
 
 

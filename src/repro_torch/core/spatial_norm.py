@@ -43,7 +43,7 @@ class _AllReduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        with trace.annotate("bn_collective", g, ctx.layer):
+        with trace.annotate("bn_collective", g, ctx.layer, bwd=True):
             return ctx.mesh.all_reduce(g, ctx.axes), None, None
 
 

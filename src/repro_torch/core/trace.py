@@ -57,7 +57,14 @@ REGIONS = (
 )
 
 _LAYER_STACK: list[str] = []
-_REGION_STACK: list[str] = []
+# (region, layer, direction) of each open region, innermost last
+_REGION_STACK: list[tuple[str, str | None, str]] = []
+
+#: The recorder of an audited step (`analysis.collectives.record`), or None.
+#: Every hook on the execution path (the mesh's collectives, the halo
+#: transfers, the conv launches) tests it first, so outside an audit a
+#: hook costs that one test.
+RECORDER = None
 
 
 def current_layer() -> str | None:
@@ -86,20 +93,25 @@ def qualified(region: str, layer: str | None = None) -> str:
 
 @contextlib.contextmanager
 def annotate(region: str, like: torch.Tensor | None = None,
-             layer: str | None = None):
+             layer: str | None = None, bwd: bool = False):
     """Mark a region of the execution path; identity on values.
 
     Opens `record_function(qualified(region, layer))`, and an NVTX range
     of the same name where `like` lies on the card.  `layer` names the
     layer where the caller knows it better than the stack does (an
-    autograd backward runs after its layer's context has closed).  Inside
-    a region of the same name it opens nothing."""
-    if _REGION_STACK and _REGION_STACK[-1] == region:
+    autograd backward runs after its layer's context has closed), and
+    `bwd` marks a region an autograd backward opens: the ops a recorder
+    takes inside carry both (`scope`).  Inside a region of the same name
+    it opens nothing."""
+    if _REGION_STACK and _REGION_STACK[-1][0] == region:
         yield
         return
+    layer = layer or current_layer()
     name = qualified(region, layer)
     nvtx = like is not None and like.is_cuda
-    _REGION_STACK.append(region)
+    _REGION_STACK.append((region, layer, "bwd" if bwd else "fwd"))
+    if RECORDER is not None:
+        RECORDER.enter(layer, region)
     try:
         with torch.profiler.record_function(name):
             if nvtx:
@@ -111,6 +123,30 @@ def annotate(region: str, like: torch.Tensor | None = None,
                     torch.cuda.nvtx.range_pop()
     finally:
         _REGION_STACK.pop()
+
+
+def scope() -> tuple[str | None, str | None, str]:
+    """(layer, region, direction) of the innermost open region; outside
+    one, the current layer, no region, forward."""
+    if _REGION_STACK:
+        region, layer, direction = _REGION_STACK[-1]
+        return layer, region, direction
+    return current_layer(), None, "fwd"
+
+
+def note(kind: str, t: torch.Tensor | None = None, axes=(), *,
+         nbytes: float | None = None, layer: str | None = None,
+         region: str | None = None, direction: str | None = None) -> None:
+    """Give the recorder one op of `kind` (call it only where `RECORDER`
+    is not None): its payload, the bytes of `t` (or `nbytes`), the mesh
+    axes it runs over, and its layer, region and direction, from `scope`
+    where the caller does not name them."""
+    s_layer, s_region, s_dir = scope()
+    if nbytes is None:
+        nbytes = 0 if t is None else t.numel() * t.element_size()
+    RECORDER.add(kind, layer if layer is not None else s_layer,
+                 direction or s_dir, region if region is not None
+                 else s_region, float(nbytes), axes)
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import trace
 from repro_torch.utils import same_pads
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -222,17 +223,22 @@ conv2d.launches = 0
 class Conv2d(torch.autograd.Function):
     """Differentiable VALID conv: forward through `ops.conv2d` (the kernel
     on CUDA, the plain version on the CPU), backward through PyTorch's conv
-    gradients."""
+    gradients.  Under an audit the backward is one `conv` op of the
+    recorder, with the layer and region its forward ran in."""
 
     @staticmethod
     def forward(ctx, x, w, stride: int, interior_first: bool = False):
         from repro_torch.kernels import ops
         ctx.save_for_backward(x, w)
         ctx.stride = stride
+        ctx.tag = trace.scope()[:2] if trace.RECORDER is not None else None
         return ops.conv2d(x, w, stride=stride, interior_first=interior_first)
 
     @staticmethod
     def backward(ctx, gy):
+        if ctx.tag is not None and trace.RECORDER is not None:
+            trace.note("conv", gy, layer=ctx.tag[0], region=ctx.tag[1],
+                       direction="bwd")
         x, w = ctx.saved_tensors
         s = ctx.stride
         g = gy.permute(0, 3, 1, 2)                  # NHWC -> NCHW view

@@ -31,6 +31,12 @@ host tensors: a CUDA tensor is copied to the host and back explicitly
 (`to_wire`, `wire_buffer`), and each collective staged so (all-reduce,
 all-gather, reduce-scatter, all-to-all) adds one to `Mesh.staged` (the
 halo exchange counts its own in `core.halo.staged`).
+
+Under an audit (`analysis.collectives.record`) each of those four
+collectives gives the recorder one op: its kind (`psum`, `all_gather`,
+`reduce_scatter`, `all_to_all`), the bytes that enter it on this rank,
+its axes, and the layer, region and direction of the region it runs in
+(`core.trace.scope`).
 """
 from __future__ import annotations
 
@@ -39,6 +45,8 @@ import os
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import trace
 
 DATA_AXES = ("pod", "data")     # axes that shard the sample (N) dimension
 MODEL_AXIS = "model"            # the paper's fine-grained axis
@@ -217,6 +225,8 @@ class Mesh:
         group = self.group(axes)
         if group is None:
             return t
+        if trace.RECORDER is not None:
+            trace.note("psum", t, axes_tuple(axes))
         buf = self.to_wire(t)
         buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
         dist.all_reduce(buf, group=group)
@@ -259,6 +269,8 @@ class Mesh:
         group = self.group(axes)
         if group is None:
             return t
+        if trace.RECORDER is not None:
+            trace.note("all_gather", t, axes_tuple(axes))
         src = self.to_wire(t.movedim(dim, 0))
         order = self._group_order(axes)
         out = torch.empty((len(order) * src.shape[0],) + tuple(src.shape[1:]),
@@ -276,6 +288,8 @@ class Mesh:
         group = self.group(axes)
         if group is None:
             return t
+        if trace.RECORDER is not None:
+            trace.note("reduce_scatter", t, axes_tuple(axes))
         p = len(self.ranks(axes))
         src = t.movedim(dim, 0)
         src = src.reshape((p, src.shape[0] // p) + tuple(src.shape[1:]))
@@ -293,6 +307,8 @@ class Mesh:
         group = self.group(axes)
         if group is None:
             return t
+        if trace.RECORDER is not None:
+            trace.note("all_to_all", t, axes_tuple(axes))
         order = self._group_order(axes)
         p = len(order)
         src = t.movedim(split_dim, 0)

@@ -51,6 +51,14 @@ per-layer plan (`core.plan.NetworkPlan`, printed at startup):
       written): its fitted `Machine` and `EmpiricalTable` for the line
       and the DAG alike, its fingerprint in the run header.
 
+`--audit` (mesh1k / mesh2k) proves costed == executed before step 0
+(`audit_gate`): it lints the built plan and runs one real step of it
+(forward, backward and the gradient bucket, no update) on the run's own
+params and first batch under the collective recorder
+(`NetworkPlan.audit`, `repro_torch.analysis`), prints `plan audit: N
+finding(s), E error(s) (T s)` and the findings, and exits non-zero on any
+error (the maximum over the ranks); the steps then run as without it.
+
 `--profile[=PATH]` (mesh1k / mesh2k) trains nothing: it times every
 plan layer's forward and backward alone (`core.trace.trace_plan`), prints
 the predicted-vs-measured attribution under `--strategy auto`
@@ -172,6 +180,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "StepTrace to PATH (default "
                          "BENCH_step_trace.json) and a Chrome trace "
                          "beside it, then exit (mesh1k / mesh2k)")
+    ap.add_argument("--audit", action="store_true",
+                    help="before step 0, lint the built plan and audit "
+                         "the collectives of one real step against the "
+                         "priced inventory (repro_torch.analysis); exit "
+                         "non-zero on any error-severity finding (mesh1k / "
+                         "mesh2k)")
     ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
                     help="checkpoint here (repro/ckpt@1) and resume from "
                          "its latest step; no default: without it nothing "
@@ -223,6 +237,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.profile and arch not in ("mesh1k", "mesh2k"):
         ap.error("--profile covers the meshnet archs (mesh1k / mesh2k): "
                  "the segmented profiler walks meshnet.layer_fns")
+    if args.audit and arch not in ("mesh1k", "mesh2k"):
+        ap.error("--audit covers the meshnet archs (mesh1k / mesh2k): the "
+                 "collective auditor runs meshnet.loss_fn")
+    if args.audit and args.profile:
+        ap.error("--audit gates training; --profile trains nothing")
     if (args.chaos or args.elastic) and not args.ckpt_dir:
         ap.error("--chaos and --elastic recover from a checkpoint: give "
                  "--ckpt-dir (it has no default in this port)")
@@ -510,6 +529,10 @@ def run(args: argparse.Namespace) -> dict:
                           f"{plan_shape(args)} (global arrays re-placed "
                           f"under the current plan)")
 
+    if args.audit:
+        audit_gate(args, cfg, mesh, plan, params,
+                   pipeline.to_device(mk(start), device), device, lead)
+
     losses, step_s, data_s, steps = [], [], [], []
     mlog = MetricsLogger(args.metrics if lead else None, echo=lead)
 
@@ -613,6 +636,37 @@ def run(args: argparse.Namespace) -> dict:
             "left_at": loop.left_at, "straggler": mon.stats,
             "checkpoint": None if ck is None else
             {**ck.last_save, "write_s": ck.last_write_s}}
+
+
+def audit_gate(args: argparse.Namespace, cfg, mesh, plan, params, batch,
+               device: torch.device, lead: bool) -> list:
+    """--audit: prove costed == executed before spending a single step.
+
+    Lints the built plan and joins its priced collective inventory against
+    what one real step of it executes on `params` and this rank's `batch`
+    on the run's `device` (`NetworkPlan.audit`); the params are not
+    updated.  Every rank joins
+    its own record and the error count is the maximum over the ranks, so
+    every rank exits alike.  Any error-severity finding aborts the run;
+    warnings and infos print and training proceeds."""
+    from repro_torch import analysis
+    t0 = time.time()
+    findings = plan.audit(meshnet.layer_specs(cfg, args.batch), mesh,
+                          cfg=cfg, overlap=True, hlo=False, params=params,
+                          batch=batch, device=device)
+    errs = analysis.error_count(findings)
+    if mesh is not None:
+        errs = int(mesh.all_max([errs])[0])
+    if lead:
+        print(f"plan audit: {len(findings)} finding(s), {errs} error(s) "
+              f"({time.time() - t0:.1f} s)")
+        print(analysis.format_findings(findings))
+    if errs:
+        raise SystemExit(
+            f"--audit: {errs} error-severity finding(s) — the plan's "
+            f"costed collectives do not match the executed step; refusing "
+            f"to train on it")
+    return findings
 
 
 def profile(args: argparse.Namespace, cfg, params, mk, device, mesh, plan,

@@ -11,6 +11,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import trace
 from repro_torch.launch.mesh import Mesh
 from repro_torch.optim.optimizer import Optimizer, global_norm
 from repro_torch.utils import BF16, Precision, tree_leaves
@@ -30,16 +31,32 @@ def reduce_replicated_grads(grads: list[torch.Tensor],
     the ops.  Under the uniform plan every param (conv w, gamma, beta) is
     replicated over every mesh axis.  The grads, in params-tree order, go
     as one flat buffer through one all-reduce, so every rank gets the same
-    sums and its params stay identical to every other rank's."""
+    sums and its params stay identical to every other rank's: the named
+    region `grad_bucket`, outside every layer (`core.trace.annotate`)."""
     if mesh is None or mesh.size == 1:
         return grads
     flat = torch.cat([g.reshape(-1).float() for g in grads])
-    flat = mesh.all_reduce(flat, mesh.axis_names)
+    with trace.annotate("grad_bucket", flat, bwd=True):
+        flat = mesh.all_reduce(flat, mesh.axis_names)
     out, i = [], 0
     for g in grads:
         out.append(flat[i:i + g.numel()].view(g.shape).to(g.dtype))
         i += g.numel()
     return out
+
+
+def make_grad_fn(loss_fn: Callable,
+                 cfg: TrainStepConfig = TrainStepConfig()):
+    """fwd_bwd(params, batch) -> (loss, grads): one forward and backward of
+    `loss_fn` in `cfg.precision`, the grads in params-tree order, each in
+    its master leaf's dtype, before any sum over a mesh."""
+    def fwd_bwd(params, batch):
+        leaves = tree_leaves(params)
+        loss = loss_fn(cfg.precision.cast_compute(params), batch)
+        # grads come back in each master leaf's own dtype
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.detach(), list(grads)
+    return fwd_bwd
 
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
@@ -55,12 +72,7 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     report: autograd does not go through it).  The params tree is updated
     in place (see optim.optimizer).
     """
-    def fwd_bwd(params, batch):
-        leaves = tree_leaves(params)
-        loss = loss_fn(cfg.precision.cast_compute(params), batch)
-        # grads come back in each master leaf's own dtype
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), list(grads)
+    fwd_bwd = make_grad_fn(loss_fn, cfg)
 
     def step(params, opt_state, batch):
         if cfg.grad_accum > 1:

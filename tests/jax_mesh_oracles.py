@@ -18,7 +18,8 @@ DIR/planK.npz: the meshnet loss and gradients under each case's plan, as
 `torch_dist_cases.case_plan`, and on one device where the case asks), or
 `resnet [K/P]` (the same for the ResNet cases of DIR/resnet.json, into
 DIR/resnetK.npz, and the one-device SGD trajectory of a case with
-`steps`).  Inputs are
+`steps`), or `audit` (the reference's `collect_ops` of the audit probes'
+steps, into DIR/audit_ref.json).  Inputs are
 `torch_dist_cases`' (numpy seeds).  The local convs run on XLA, the
 reference's default backend.
 """
@@ -295,6 +296,47 @@ def _resnet(d, part="0/1"):
     np.savez(os.path.join(d, f"resnet{k}.npz"), **out)
 
 
+def _audit(d):
+    """The reference's `collect_ops` of each `AUDIT_CASES` probe step on 2 x
+    2 host devices (value_and_grad in w and x, as its check_audit),
+    grouped as `torch_dist_cases.group_ops` groups the port's, into
+    DIR/audit_ref.json."""
+    import json
+    import jax
+    import jax.numpy as jnp
+    import torch_dist_cases as cases
+    from repro.analysis import collect_ops
+    from repro.core import perfmodel as pm
+    from repro.core import plan as plan_lib
+    from repro.core import trace
+    from repro.core.distribution import Dist
+    from repro.models.cnn import layers as L
+    mesh = _mesh((2, 2))
+    out = {}
+    for key, i, dims in cases.AUDIT_CASES:
+        spec = cases.audit_spec(pm, i)
+        plan = plan_lib.compile_plan(
+            {spec.name: Dist(key, {k: tuple(v) for k, v in dims.items()})},
+            [spec], mesh)
+        sh = plan.sharding(spec.name)
+        params = {"w": jax.ShapeDtypeStruct(
+            (spec.k, spec.k, spec.c, spec.f), jnp.float32)}
+        x = jax.ShapeDtypeStruct((spec.n, spec.h, spec.w, spec.c),
+                                 jnp.float32)
+
+        def loss(p, xx, sh=sh, spec=spec):
+            with trace.layer_context(spec.name):
+                y = L.conv_apply(p, xx, stride=spec.s, sharding=sh,
+                                 mesh=mesh, overlap=True)
+            return jnp.sum(y * y)
+        with mesh:
+            closed = jax.make_jaxpr(jax.value_and_grad(
+                loss, argnums=(0, 1)))(params, x)
+        out[key] = cases.group_ops(collect_ops(closed, [spec.name]))
+    with open(os.path.join(d, "audit_ref.json"), "w") as f:
+        json.dump(out, f)
+
+
 def popen(what: str, d: str, *args: str) -> subprocess.Popen:
     """Start `what` (with `args`) in a subprocess with 8 host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -341,4 +383,5 @@ def reference_eta_unmeasured():
 
 if __name__ == "__main__":
     {"bn_local": _bn_local, "meshnet": _meshnet, "cf": _cf,
-     "plan": _plan, "resnet": _resnet}[sys.argv[1]](*sys.argv[2:])
+     "plan": _plan, "resnet": _resnet,
+     "audit": _audit}[sys.argv[1]](*sys.argv[2:])

@@ -55,7 +55,11 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.configs.resnet50",
                 "repro_torch.checkpoint.checkpoint",
                 "repro_torch.runtime.fault_tolerance",
-                "repro_torch.runtime.chaos"}
+                "repro_torch.runtime.chaos",
+                "repro_torch.analysis", "repro_torch.analysis.lint",
+                "repro_torch.analysis.collectives",
+                "repro_torch.analysis.workloads",
+                "repro_torch.launch.dryrun"}
     assert expected <= set(out["modules"])
 
 

@@ -920,13 +920,155 @@ def case_subset(mesh, d):
     return out
 
 
+# the reference's audit probes (tests/dist_checks.py check_audit): (n, c,
+# h, w, f, k, s), on the meshes the port's audit covers with 4 ranks
+AUDIT_PROBES = [(4, 8, 16, 16, 8, 3, 1), (1, 16, 16, 16, 16, 3, 2),
+                (2, 12, 8, 8, 6, 1, 1), (2, 4, 32, 8, 8, 3, 1),
+                (8, 8, 8, 8, 32, 3, 1), (1, 32, 4, 4, 32, 3, 1)]
+AUDIT_MESHES = [(2, 2), (1, 4), (4, 1)]
+# (key, probe, dist dims) whose recorded ops are held against the
+# reference's collect_ops on 2 x 2
+AUDIT_CASES = [
+    ("h", 0, {"N": ["data"], "H": ["model"]}),
+    ("hw", 0, {"H": ["model"], "W": ["data"]}),
+    ("cf_channel", 0, {"N": ["data"], "C": ["model"], "F": ["model"]}),
+    ("cf_filter", 4, {"N": ["data"], "C": ["model"], "F": ["model"]}),
+    ("cf_h", 0, {"H": ["data"], "C": ["model"], "F": ["model"]}),
+]
+COLLECTIVES = ("ppermute", "psum", "all_gather", "reduce_scatter",
+               "all_to_all")
+
+
+def audit_spec(pm, i):
+    n, c, h, w, f, k, s = AUDIT_PROBES[i]
+    return pm.ConvLayer("probe", n=n, c=c, h=h, w=w, f=f, k=k, s=s)
+
+
+def group_ops(ops) -> dict:
+    """Collectives by "layer|direction|kind": [count, total bytes], the
+    weight-gradient psums (the reference's, the port's bucket) left out."""
+    out: dict = {}
+    for o in ops:
+        if o.kind in COLLECTIVES and o.kind != "psum":
+            key = f"{o.layer}|{o.direction}|{o.kind}"
+            c, b = out.get(key, (0, 0.0))
+            out[key] = (c + 1, b + o.bytes)
+    return {k: list(v) for k, v in sorted(out.items())}
+
+
+def audit_probe(mesh, spec, dist, overlap=True, declared=True, extra=False):
+    """Audit one conv layer's step on this rank's blocks: the loss sum(y^2)
+    (+ 1e-9 x an all-reduce of x over data inside the layer, a collective
+    no inventory entry prices, with `extra`),
+    its gradients in w and x (as the reference's probe takes them), the
+    gradient bucket; run with `overlap`, audited as `declared`."""
+    import torch
+    from repro_torch import analysis
+    from repro_torch.core import collectives, plan as plan_lib, trace
+    from repro_torch.models.cnn import layers as L
+    from repro_torch.train.train_loop import reduce_replicated_grads
+    plan = plan_lib.compile_plan({spec.name: dist}, [spec], mesh)
+    sh = plan.sharding(spec.name)
+    g = np.random.default_rng(11)
+    w = _t(g.standard_normal((spec.k, spec.k, spec.c, spec.f))
+           .astype(np.float32), grad=True)
+    x = torch.from_numpy(g.standard_normal((spec.n, spec.h, spec.w, spec.c))
+                         .astype(np.float32))
+    for dim, axes in enumerate(collectives.layout(sh)):
+        if axes:
+            x = collectives.take_block(x, mesh, axes, dim)
+    x = x.contiguous().requires_grad_()
+
+    def step(w, x):
+        with trace.layer_context(spec.name):
+            y = L.conv_apply({"w": w}, x, stride=spec.s, sharding=sh,
+                             mesh=mesh, overlap=overlap)
+            loss = (y * y).sum()
+            if extra:
+                loss = loss + mesh.all_reduce(x.detach(), ("data",)).sum() \
+                    * 1e-9
+        gw, gx = torch.autograd.grad(loss, [w, x])
+        return reduce_replicated_grads([gw], mesh), gx
+
+    return analysis.audit_step(step, (w, x), plan, [spec], mesh,
+                               overlap=declared, hlo=False,
+                               grad_wrt_inputs=True, device="cpu")
+
+
+def case_audit(mesh, d):
+    """On a 4-rank world: every executable candidate of every probe on the
+    2 x 2, 1 x 4 and 4 x 1 meshes audited (each finding), the AUDIT_CASES'
+    recorded collectives, and the reference's two negative cases (an
+    injected all-reduce, a serialized step declared overlapped)."""
+    from repro_torch.core import perfmodel as pm, plan as plan_lib
+    from repro_torch.core.distribution import Dist
+    from repro_torch.launch.mesh import make_mesh
+    report = {"probes": [], "cases": {}, "negative": {}}
+    meshes = {dims: mesh if dims == tuple(mesh.shape.values())
+              else make_mesh(*dims) for dims in AUDIT_MESHES}
+    for dims, m in meshes.items():
+        for i in range(len(AUDIT_PROBES)):
+            spec = audit_spec(pm, i)
+            for dist in plan_lib.executable_candidates(spec, dict(m.shape)):
+                a = audit_probe(m, spec, dist)
+                report["probes"].append({
+                    "mesh": list(dims), "probe": i, "dist": dist.name,
+                    "dims": {k: list(v) for k, v in dist.dims.items()},
+                    "findings": [f.to_json() for f in a.findings]})
+    m = meshes[(2, 2)]
+    for key, i, dims in AUDIT_CASES:
+        a = audit_probe(m, audit_spec(pm, i), Dist(key, {
+            k: tuple(v) for k, v in dims.items()}))
+        report["cases"][key] = {"ops": group_ops(a.ops),
+                                "findings": [f.to_json() for f in a.findings]}
+    spec = audit_spec(pm, 0)
+    dist = Dist("h+n", {"N": ("data",), "H": ("model",)})
+    for key, kw in (("injected", {"extra": True}),
+                    ("serialized", {"overlap": False})):
+        report["negative"][key] = [
+            f.to_json() for f in audit_probe(m, spec, dist, **kw).findings]
+    return {"report": np.array(json.dumps(report))}
+
+
+def case_halo_order(mesh, d):
+    """One spatial conv layer with the §IV-A split on 2 ranks, recorded:
+    the ops' order, and the gradients against the serialized conv's."""
+    import torch
+    from repro_torch import analysis
+    from repro_torch.core import trace
+    from repro_torch.core.spatial_conv import ConvSharding, spatial_conv2d
+    x_g, w_g = conv_inputs(CONV_GEOMS[0])
+    r, dims = mesh.rank, tuple(mesh.shape.values())
+    sh = ConvSharding(h_axis="model")
+    out = {}
+    for overlap in (True, False):
+        x = _t(block(x_g, r, dims, h_axis="model"), grad=True)
+        w = _t(w_g, grad=True)
+
+        def step():
+            with trace.layer_context("probe"):
+                y = spatial_conv2d(x, w, strides=(1, 1), sharding=sh,
+                                   mesh=mesh, overlap=overlap)
+            (y * y).sum().backward()
+
+        with analysis.record() as rec:
+            step()
+        key = "overlap" if overlap else "serialized"
+        out[f"{key}/ops"] = np.array(json.dumps(
+            [[o.kind, o.direction, o.region] for o in rec.ops]))
+        out[f"{key}/dx"] = x.grad.numpy()
+        out[f"{key}/dw"] = w.grad.numpy()
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
          "cf": case_cf, "reshard": case_reshard, "plan": case_plan,
          "resnet": case_resnet, "resnet_trajectory": case_resnet_trajectory,
          "calibrate": case_calibrate, "trace": case_trace,
-         "elastic": case_elastic, "subset": case_subset}
+         "elastic": case_elastic, "subset": case_subset,
+         "audit": case_audit, "halo_order": case_halo_order}
 
 
 # ------------------------------------------------------------ launcher --

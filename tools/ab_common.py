@@ -2,7 +2,8 @@
 an earlier source of a kernel beside this tree's, timing the two in turns
 (earlier, this, this, earlier), the bound and the row of one shape, the
 per-forward totals, the training step of two checkouts in four fresh
-processes, and the command line that writes chiprun_out/<name>.json.
+processes (a step's ranks spawned on the card, the mesh1k step timed on
+each), and the command line that writes chiprun_out/<name>.json.
 
 A tool supplies its kernel rows (`kernel_ab(parent_src)`), its step body
 (`step_only(src)`, run as `<tool> --step-only --src DIR/src`) and a line
@@ -16,6 +17,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,6 +80,71 @@ def print_totals(rows: list[dict], what: str) -> None:
         print(f"{what}, {dt}: " + ", ".join(
             f"{key} {'-' if v is None else f'{v:.4f}'}"
             for key, v in tot.items()), flush=True)
+
+
+def spawn_ranks(rank_fn, ranks: int, src: str) -> list[dict]:
+    """rank_fn(rank, ranks, port, src, out_dir) in `ranks` spawned
+    processes (one gloo group on a free local port); what each wrote to
+    out_dir/rank<r>.json."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    mp.spawn(rank_fn, args=(ranks, port, src, out_dir), nprocs=ranks,
+             join=True)
+    out = []
+    for r in range(ranks):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh1k_step_s(plan, mesh, batch: int, warmup: int, reps: int,
+                  overlap: bool = True) -> dict:
+    """On a rank of `mesh` on the card: the full-width mesh1k training
+    step under `plan` (seeded params, lr 0, the synthetic batch of step
+    0), `warmup` steps, then each of `reps` steps on the host clock from
+    a barrier to a synchronise; the step seconds and the last loss."""
+    import functools
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import pipeline
+    from repro_torch.models.cnn import meshnet
+    from repro_torch.optim.optimizer import sgd
+    from repro_torch.train.train_loop import TrainStepConfig, make_train_step
+    from repro_torch.utils import FP32
+    dev = torch.device("cuda")
+    cfg = meshnet.MESH1K
+    specs = meshnet.layer_specs(cfg, batch)
+    params = meshnet.MeshNet(cfg, generator=torch.Generator().manual_seed(0),
+                             device=dev).params()
+    opt = sgd(0.0, momentum=0.9)
+    step = make_train_step(functools.partial(
+        meshnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh, overlap=overlap),
+        opt, TrainStepConfig(precision=FP32), mesh=mesh)
+    state = opt.init(params)
+    data = pipeline.to_device(pipeline.shard_batch(
+        pipeline.synthetic_mesh_batch(0, batch, cfg.input_hw,
+                                      cfg.in_channels, out_hw=cfg.out_hw),
+        mesh, plan.sharding(specs[0].name), plan.sharding("pred")), dev)
+    for _ in range(warmup):
+        loss = float(step(params, state, data)[2]["loss"])
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        t0 = time.perf_counter()
+        loss = float(step(params, state, data)[2]["loss"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del params, state, data
+    torch.cuda.empty_cache()
+    return {"step_s": times, "loss": loss}
 
 
 def step_ab(script: str, parent_tree: str, report) -> list[dict]:

@@ -24,10 +24,8 @@ from __future__ import annotations
 import json
 import os
 import sys
-import tempfile
-import time
 
-from ab_common import HERE, card_line, step_ab
+from ab_common import HERE, card_line, mesh1k_step_s, spawn_ranks, step_ab
 
 STEP_REPS, STEP_WARMUP, BATCH, RANKS = 10, 2, 2, 2
 PLANS = ("auto", "uniform")
@@ -36,24 +34,17 @@ PLANS = ("auto", "uniform")
 def _rank(rank: int, world: int, port: int, src: str, out_dir: str) -> None:
     """One rank: each plan's step times, to out_dir/rank<r>.json."""
     sys.path.insert(0, src)
-    import functools
-
     import torch
     import torch.distributed as dist
     from repro_torch.core import plan as plan_lib
     from repro_torch.core.perfmodel import H100
     from repro_torch.core.spatial_conv import ConvSharding
-    from repro_torch.data import pipeline
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import set_fp32_numerics
     from repro_torch.models.cnn import meshnet
-    from repro_torch.optim.optimizer import sgd
-    from repro_torch.train.train_loop import TrainStepConfig, make_train_step
-    from repro_torch.utils import FP32
 
     torch.cuda.set_device(0)
-    dev = torch.device("cuda")
-    set_fp32_numerics(dev, echo=False)
+    set_fp32_numerics(torch.device("cuda"), echo=False)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
@@ -66,32 +57,8 @@ def _rank(rank: int, world: int, port: int, src: str, out_dir: str) -> None:
                 if name == "auto" else meshnet.network_plan(
                     cfg, ConvSharding(batch_axes=("data",),
                                       h_axis="model"), mesh)
-            model = meshnet.MeshNet(
-                cfg, generator=torch.Generator().manual_seed(0), device=dev)
-            params = model.params()
-            opt = sgd(0.0, momentum=0.9)
-            step = make_train_step(functools.partial(
-                meshnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh), opt,
-                TrainStepConfig(precision=FP32), mesh=mesh)
-            state = opt.init(params)
-            batch = pipeline.to_device(pipeline.shard_batch(
-                pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
-                                              cfg.in_channels,
-                                              out_hw=cfg.out_hw),
-                mesh, plan.sharding(specs[0].name), plan.sharding("pred")),
-                dev)
-            for _ in range(STEP_WARMUP):
-                loss = float(step(params, state, batch)[2]["loss"])
-            times = []
-            for _ in range(STEP_REPS):
-                dist.barrier()
-                t0 = time.perf_counter()
-                loss = float(step(params, state, batch)[2]["loss"])
-                torch.cuda.synchronize()
-                times.append(time.perf_counter() - t0)
-            out[name] = {"step_s": times, "loss": loss}
-            del model, params, state, batch
-            torch.cuda.empty_cache()
+            out[name] = mesh1k_step_s(plan, mesh, BATCH, STEP_WARMUP,
+                                      STEP_REPS)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.barrier()
@@ -102,20 +69,7 @@ def _rank(rank: int, world: int, port: int, src: str, out_dir: str) -> None:
 def step_only(src: str) -> dict:
     """The 2-rank step times of the package under `src`: per plan, each
     step's max over the ranks."""
-    import socket
-
-    import torch.multiprocessing as mp
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
-    out_dir = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
-    mp.spawn(_rank, args=(RANKS, port, src, out_dir), nprocs=RANKS,
-             join=True)
-    ranks = []
-    for r in range(RANKS):
-        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
+    ranks = spawn_ranks(_rank, RANKS, src)
     out = {"src": src}
     for name in PLANS:
         steps = [max(t) for t in zip(*(r[name]["step_s"] for r in ranks))]
