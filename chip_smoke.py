@@ -117,9 +117,24 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    and without the split; then `python -m repro_torch.launch.dryrun
    --audit` on 4 ranks over the six bench workloads (its tables in
    build/audit/dryrun.log).  Any error finding fails the phase;
+4h. the sharded training state: full-width mesh1k on 4 ranks spawned on
+   the card over gloo, pod 2 x data 2 x model 1 at global batch 4, 3
+   steps through the trainer's entry once per `--pod-compression`
+   (none, bf16, int8_ef): every leaf of >= 2^14 elements sharded over
+   data (ZeRO), each rank's momentum exactly its blocks, equal losses
+   and params on every rank, the conv launches the plan derives (49 a
+   step: the uniform plan splits every layer's rows, on the model axis
+   of 1 too), `none` within
+   1e-5 of one device on the same global batch (in 4 micro-batches, so
+   that BN's statistics are the ranks'), bf16 and int8_ef within a
+   rounding bound of `none`; the state bytes, the bytes put on the pod
+   axis, the peak memory and step seconds a rank.  Not a scaling result.
+   Then full-width hymba-1.5b, FP32, with and without `--remat`: losses
+   within 1e-6, 2 x 32 x 3 LM kernel launches against 32 x 3, both
+   peaks;
 5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
-   2048, 3 steps, FP32 and then `--bf16`: each with finite losses and
-   32 x 3 launches of each LM kernel;
+   2048, 3 steps, FP32 (phase 4h's run) and then `--bf16`: each with
+   finite losses and 32 x 3 launches of each LM kernel;
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone, with its launches per layer;
@@ -511,10 +526,10 @@ def profile_phase() -> dict:
     state = opt.init(params)
     batch = pipeline.to_device(pipeline.synthetic_mesh_batch(
         0, BATCH, cfg.input_hw, cfg.in_channels, out_hw=cfg.out_hw), dev)
-    params, state, m = step(params, state, batch)     # warm
+    params, state, _, m = step(params, state, None, batch)     # warm
 
     def run_step():
-        float(step(params, state, batch)[2]["loss"])
+        float(step(params, state, None, batch)[3]["loss"])
 
     wall_ms, groups, n_kernels = _device_breakdown(run_step, cnn_kind)
     busy = sum(groups.values())
@@ -742,10 +757,10 @@ def spatial_step_breakdown(params, mesh, sh: ConvSharding) -> dict:
         pipeline.synthetic_mesh_batch(0, BATCH, cfg.input_hw,
                                       cfg.in_channels, out_hw=cfg.out_hw),
         mesh, sh), dev)
-    float(step(params, state, batch)[2]["loss"])        # warm
+    float(step(params, state, None, batch)[3]["loss"])        # warm
 
     def run_step():
-        float(step(params, state, batch)[2]["loss"])
+        float(step(params, state, None, batch)[3]["loss"])
     wall_ms, groups, n_kernels = _device_breakdown(run_step, cnn_kind)
     grads = [torch.ones_like(p) for p in tree_leaves(params)]
     reduce_replicated_grads(grads, mesh)
@@ -931,17 +946,20 @@ def plan_conv_calls(plan, specs, shape=AUTO_MESH) -> int:
     """Conv kernel launches of one forward under `plan` on one rank of a
     mesh of `shape`: one a sample, replicated or channel/filter layer
     (`chunks` in chunked channel mode), `conv_calls` of its local extent
-    a spatially split one (CF x spatial too)."""
+    a spatially split one (CF x spatial too; an axis of one rank splits
+    nothing: `ConvSharding.without_unit_axes`)."""
     layout = Mesh(shape, rank=0)
     n = 0
     for spec in specs:
         sh = plan.sharding(spec.name)
         cf = getattr(sh, "cf_axis", None) is not None
-        if sh.is_spatial:
-            axis = sh.w_axis if sh.w_axis is not None else sh.h_axis
-            ext = spec.w if sh.w_axis is not None else spec.h
+        cut = ConvSharding(h_axis=sh.h_axis, w_axis=sh.w_axis
+                           ).without_unit_axes(shape)
+        if cut.is_spatial:
+            axis = cut.w_axis if cut.w_axis is not None else cut.h_axis
+            ext = spec.w if cut.w_axis is not None else spec.h
             n += conv_calls(ext // layout.axis_size(axis), spec.k, spec.s)
-        elif cf and sh.mode == "channel":
+        elif cf and sh.mode == "channel" and not sh.is_spatial:
             n += min(channel_conv.default_channel_chunks(),
                      spec.c // layout.axis_size(sh.cf_axis))
         else:
@@ -1138,12 +1156,12 @@ def plan_step_breakdown(loss, params, mesh, batch, classify) -> dict:
                            mesh=mesh)
     state = opt.init(params)
     batch = pipeline.to_device(batch, torch.device("cuda"))
-    float(step(params, state, batch)[2]["loss"])        # warm
+    float(step(params, state, None, batch)[3]["loss"])        # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(step(params, state, batch)[2]["loss"])
+        float(step(params, state, None, batch)[3]["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups: dict[str, float] = {}
     ranges = {k: 0.0 for k in AUTO_RANGES}
@@ -1364,10 +1382,10 @@ def resnet_profile_phase(card: str) -> dict:
     state = opt.init(params)
     batch = pipeline.to_device(pipeline.synthetic_imagenet_batch(
         0, RESNET_BATCH, RESNET.input_hw, RESNET.n_classes), dev)
-    params, state, _ = step(params, state, batch)     # warm
+    params, state, _, _ = step(params, state, None, batch)     # warm
 
     def run_step():
-        float(step(params, state, batch)[2]["loss"])
+        float(step(params, state, None, batch)[3]["loss"])
 
     wall_ms, groups, n_kernels = _device_breakdown(run_step, resnet_kind)
     busy = sum(groups.values())
@@ -2000,11 +2018,11 @@ def ckpt_overhead_phase(card: str, cfg=meshnet.MESH1K,
     counter, copies = itertools.count(), []
 
     def with_save():
-        out = step(params, state, batch)
+        out = step(params, state, None, batch)
         ck.save(next(counter), state_tree(params, state), extra={"step": 0})
         copies.append(ck.last_save["copy_s"])
         return out
-    bare = functools.partial(step, params, state, batch)
+    bare = functools.partial(step, params, state, None, batch)
     bare()
     with_save()
     ck.wait()
@@ -2310,6 +2328,252 @@ def audit_phase(card: str) -> dict:
             "phase_s": phase_s}
 
 
+# ------------------------------------------ sharded training state (4h) --
+
+# full-width mesh1k, global batch 4 on pod 2 x data 2 x model 1: each rank
+# one sample, every leaf of >= 2^14 elements sharded over data (ZeRO)
+ZERO_BATCH = 4
+ZERO_ARGS = ["--arch", "mesh1k", "--batch", str(ZERO_BATCH), "--steps",
+             str(STEPS), "--device", "cuda", "--log-every", "1"]
+ZERO_MESH = {"pod": 2, "data": 2, "model": 1}
+ZERO_METHODS = ("none", "bf16", "int8_ef")
+# `none` against one device on the same global batch: fp32 sums in
+# another order (the one-device run takes the batch in 4 micro-batches,
+# so that its BN statistics, at mesh1k's local scope, are the ranks')
+ZERO_RTOL = 1e-5
+# the compressed runs against `none`, per element of the final params, to
+# first order: a step's mean gradient is off by at most u G per element
+# (G the largest |x| a pod exchange took; u: bf16 keeps 8 significant
+# bits, so its rounding moves x by at most 2^-8 |x|; int8's emitted value
+# is off by its half step now and the carried residual's, 2 / 254),
+# moved into the params by SGD with momentum 0.9 at the trainer's lr;
+# ZERO_RTOL of each element beside for the fp32 sums' order
+ZERO_UNIT = {"bf16": 2.0 ** -8, "int8_ef": 2 / 254}
+ZERO_LAYERS = 19              # mesh1k's convs: one launch each a forward
+# --remat against the plain FP32 run: the same operations on the same
+# inputs, recomputed
+REMAT_RTOL = 1e-6
+
+
+def zero_rank(rank: int, world: int) -> dict:
+    """One of the 4 spawned ranks of phase 4h, on cuDNN's deterministic
+    algorithms (see RESUME_RTOL): the trainer's own entry once per pod
+    compression.  Each run's losses, step seconds, the digest of its
+    final params, this rank's momentum and state bytes, the bytes it put
+    on the pod axis a step, the largest |x| a pod exchange took, its peak
+    memory and conv launches; for bf16 and int8_ef the largest gap of a
+    final param to `none`'s (raw, and less ZERO_RTOL of `none`'s value),
+    and for int8_ef the largest |residual| it carries on."""
+    import hashlib
+    from repro_torch.launch import shardings
+    from repro_torch.optim import grad_compress
+    from repro_torch.train import train_loop
+    torch.backends.cudnn.deterministic = True
+    seen, exchange = [], train_loop.cross_pod_mean
+
+    def spy(grads, **kw):
+        ef = kw.get("error_feedback") or [0.0] * len(grads)
+        seen.append(max(float((g.float() + e).abs().max())
+                        for g, e in zip(grads, ef)))
+        return exchange(grads, **kw)
+    train_loop.cross_pod_mean = spy
+    out, none = {}, None
+    mesh_args = [f"--{k}={v}" for k, v in ZERO_MESH.items()]
+    try:
+        for method in ZERO_METHODS:
+            seen.clear()
+            grad_compress.reset_sent()
+            ops.reset_launch_counts()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            res = train_cli.main(ZERO_ARGS + mesh_args +
+                                 ["--pod-compression", method])
+            params = [p.detach() for p in tree_leaves(res["params"])]
+            digest = hashlib.sha256(b"".join(
+                p.cpu().numpy().tobytes() for p in params))
+            big, small = shardings.state_bytes(res["params"], res["mesh"])
+            mu = sum(m.numel() * m.element_size()
+                     for m in res["opt_state"].mu)
+            row = {
+                "losses": res["losses"], "step_s": res["step_s"],
+                "grad_norms": res["grad_norms"],
+                "digest": digest.hexdigest(),
+                "momentum_bytes": mu, "sharded_bytes": big,
+                "replicated_bytes": small, "n_leaves": len(params),
+                "pod_bytes_per_step": sum(grad_compress.sent.values())
+                / STEPS,
+                "max_abs": max(seen) if seen else 0.0,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": ops.launch_counts()["conv2d"],
+                "calls_per_step": plan_conv_calls(
+                    res["plan"], meshnet.layer_specs(meshnet.MESH1K,
+                                                     ZERO_BATCH), ZERO_MESH),
+                "n_params": res["n_params"]}
+            if none is None:
+                none = [p.clone() for p in params]
+            else:
+                gaps = [(p - q).abs() for p, q in zip(params, none)]
+                row["param_gap"] = max(float(g.max()) for g in gaps)
+                row["param_gap_over_rtol"] = max(
+                    float((g - ZERO_RTOL * q.abs()).max())
+                    for g, q in zip(gaps, none))
+            if res["ef"] is not None:
+                row["ef_max"] = max(float(e.abs().max()) for e in res["ef"])
+            out[method] = row
+            del res, params
+    finally:
+        train_loop.cross_pod_mean = exchange
+    return out
+
+
+def _zero_bound(method: str, big: float) -> float:
+    """ZERO_UNIT's bound on |param - none's param| per element after
+    STEPS steps at the trainer's lr schedule (warmup_cosine(3e-3, 10,
+    STEPS), evaluated at step + 1) and momentum 0.9: step t's gradient
+    error of at most u G reaches the params through every later step's
+    lr times its momentum weight."""
+    from repro_torch.optim.optimizer import warmup_cosine
+    lr = warmup_cosine(3e-3, 10, STEPS)
+    weights = sum(lr(t + 1) * sum(0.9 ** j for j in range(t + 1))
+                  for t in range(STEPS))
+    return ZERO_UNIT[method] * big * weights
+
+
+def zero_phase(card: str) -> dict:
+    """Phase 4h, the sharded training state: full-width mesh1k on 4 ranks
+    spawned on the card over gloo (not a scaling result), pod 2 x data 2 x
+    model 1, 3 steps through the trainer's entry once per pod compression,
+    and a one-device run of the same global batch; then full-width
+    hymba-1.5b with and without --remat.  Held: equal losses and params
+    on every rank; `none`'s losses within ZERO_RTOL of one device; bf16's
+    and int8_ef's final params, element by element, within the rounding
+    bound of `none`'s and not equal to them; the bytes on the pod axis a
+    step, bf16's half of `none`'s and int8_ef's a quarter plus its fp32
+    scales; int8_ef's carried residual nonzero and at most half a step;
+    each rank's momentum exactly its blocks; ZERO_LAYERS conv launches a
+    step (the uniform plan's H split is over a model axis of one rank,
+    which cuts nothing: one dense conv a layer), as the plan derives;
+    --remat's losses within REMAT_RTOL of the plain run's, with twice its
+    LM kernel launches."""
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(zero_rank, 4)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        one = train_cli.main(ZERO_ARGS + ["--grad-accum", str(ZERO_BATCH)])
+        one_peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        torch.backends.cudnn.deterministic = False
+    for method in ZERO_METHODS:
+        rs = [r[method] for r in ranks]
+        if any(r["losses"] != rs[0]["losses"] or
+               r["digest"] != rs[0]["digest"] for r in rs):
+            raise AssertionError(f"{method}: the ranks disagree: "
+                                 f"{[(r['losses'], r['digest']) for r in rs]}")
+        if any(r["launches"] != ZERO_LAYERS * STEPS or
+               r["calls_per_step"] != ZERO_LAYERS for r in rs):
+            raise AssertionError(f"{method}: conv launches "
+                                 f"{[r['launches'] for r in rs]} (the plan "
+                                 f"derives {rs[0]['calls_per_step']} a "
+                                 f"step), want {ZERO_LAYERS} x {STEPS} a "
+                                 f"rank")
+        if any(r["momentum_bytes"] != r["sharded_bytes"] +
+               r["replicated_bytes"] for r in rs):
+            raise AssertionError(f"{method}: momentum bytes "
+                                 f"{[r['momentum_bytes'] for r in rs]} are "
+                                 f"not the rank's blocks")
+    out = {"ranks": ranks, "one_device_losses": one["losses"],
+           "one_device_peak_gib": one_peak,
+           "one_device_step_s": one["step_s"]}
+    for x in ranks:
+        sent = {m: x[m]["pod_bytes_per_step"] for m in ZERO_METHODS}
+        want = {"none": sent["none"], "bf16": sent["none"] / 2,
+                "int8_ef": sent["none"] / 4 + 4 * x["none"]["n_leaves"]}
+        if sent != want or not sent["none"]:
+            raise AssertionError(f"bytes on the pod axis a step {sent}, "
+                                 f"want {want}")
+    print(f"zero, full-width mesh1k, global batch {ZERO_BATCH} on pod 2 x "
+          f"data 2 x model 1 (4 gloo ranks on one card: not a scaling "
+          f"result); one device, batch {ZERO_BATCH} in {ZERO_BATCH} "
+          f"micro-batches: losses {one['losses']}, step host s "
+          f"{one['step_s']}, peak {one_peak:.2f} GiB ({card})")
+    for method in ZERO_METHODS:
+        rs = [x[method] for x in ranks]
+        if method == "none":
+            want = one["losses"]
+            diff = [abs(a - b) for a, b in zip(rs[0]["losses"], want)]
+            tol = [ZERO_RTOL * abs(x) for x in want]
+            if any(d > t for d, t in zip(diff, tol)):
+                raise AssertionError(f"none: |loss - one device's| {diff} "
+                                     f"over the bound {tol}")
+            check = (f"|loss - one device's| "
+                     f"{['%.3e' % d for d in diff]} within "
+                     f"{['%.3e' % t for t in tol]}")
+            out[method] = {"loss_diff": diff, "loss_tol": tol}
+        else:
+            big = max(r["max_abs"] for r in rs)
+            bound = _zero_bound(method, big)
+            gap = max(r["param_gap_over_rtol"] for r in rs)
+            raw = max(r["param_gap"] for r in rs)
+            if not big > 0 or not raw > 0 or gap > bound:
+                raise AssertionError(
+                    f"{method}: final params {raw:.3e} from none's "
+                    f"({gap:.3e} beyond {ZERO_RTOL} of each), bound "
+                    f"{bound:.3e} (max |x| exchanged {big:.4g}): a "
+                    f"compressed exchange must move the params, within "
+                    f"its rounding")
+            diff = [abs(a - b) for a, b in zip(rs[0]["losses"],
+                                               ranks[0]["none"]["losses"])]
+            check = (f"final params {raw:.3e} from none's ({gap:.3e} "
+                     f"beyond {ZERO_RTOL} of each) within {bound:.3e}; "
+                     f"|loss - none's| {['%.3e' % d for d in diff]}")
+            out[method] = {"param_gap": raw, "param_gap_over_rtol": gap,
+                           "bound": bound, "loss_diff": diff}
+            if method == "int8_ef":
+                ef = max(r["ef_max"] for r in rs)
+                half = big / 254 * (1 + 2.0 ** -20)
+                if not 0 < ef <= half:
+                    raise AssertionError(f"int8_ef: carried residual max "
+                                         f"{ef:.3e}, want in (0, "
+                                         f"{half:.3e}]: half a step")
+                check += f"; residual carried max {ef:.3e} <= {half:.3e}"
+                out[method]["ef_max"] = ef
+        for i, x in enumerate(rs):
+            steady = x["step_s"][1:]
+            print(f"rank {i}: zero {method}: losses {x['losses']}; "
+                  f"{check}; step host s {x['step_s']} (steps "
+                  f"2..{STEPS}: {sum(steady) / len(steady):.4f}); state a "
+                  f"rank: {x['sharded_bytes']} B of blocks + "
+                  f"{x['replicated_bytes']} B replicated, momentum "
+                  f"{x['momentum_bytes']} B; over pod "
+                  f"{x['pod_bytes_per_step']:.0f} B a step; max |x| "
+                  f"exchanged {x['max_abs']:.4g}; peak "
+                  f"{x['peak_gib']:.2f} GiB; conv launches "
+                  f"{x['launches']} ({x['calls_per_step']} a step, as the "
+                  f"plan derives)")
+    plain = lm_train_phase()
+    remat = lm_train_phase(remat=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(remat["losses"],
+                                                  plain["losses"]))
+    if rel > REMAT_RTOL:
+        raise AssertionError(f"--remat: losses {remat['losses']} against "
+                             f"{plain['losses']} (rel {rel:.2e})")
+    print(f"remat, full-width hymba-1.5b FP32 at batch {LM_BATCH} x seq "
+          f"{LM_SEQ}: losses within {rel:.2e} of the plain run's; peak "
+          f"{remat['peak_gib']:.2f} GiB against {plain['peak_gib']:.2f}; "
+          f"{remat['steady_step_s']:.4f} s/step against "
+          f"{plain['steady_step_s']:.4f}; launches {remat['launches']} "
+          f"against {plain['launches']} ({card})")
+    out.update(plain=plain, remat=remat, remat_rel=rel,
+               phase_s=time.perf_counter() - t0)
+    print(f"sharded-training-state phase (4 card ranks x 3 compressions, "
+          f"one device, hymba with and without --remat) took "
+          f"{out['phase_s']:.1f} s of this run ({card})")
+    return out
+
+
 # ---------------------------------------------------------------- LM path --
 
 def admitted_pairs(s: int, window: int | None) -> int:
@@ -2546,33 +2810,37 @@ def lm_kernel_phase(card: str) -> list[dict]:
     return rows
 
 
-def lm_train_phase(bf16: bool = False) -> dict:
+def lm_train_phase(bf16: bool = False, remat: bool = False) -> dict:
     """3 full-width hymba-1.5b steps through the trainer's own entry, FP32
-    or (`--bf16`) bf16 compute with fp32 master weights."""
+    or (`--bf16`) bf16 compute with fp32 master weights; with `--remat`
+    each layer's forward runs again in the backward."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     res = train_cli.main(["--arch", "hymba-1.5b", "--batch", str(LM_BATCH),
                           "--seq", str(LM_SEQ), "--steps", str(STEPS),
                           "--device", "cuda", "--log-every", "1"]
-                         + (["--bf16"] if bf16 else []))
+                         + (["--bf16"] if bf16 else [])
+                         + (["--remat"] if remat else []))
     counts = ops.launch_counts()
-    want = {"conv2d": 0, "flash_attention": HYMBA.n_layers * STEPS,
-            "ssd_chunk": HYMBA.n_layers * STEPS}
+    per_step = HYMBA.n_layers * (2 if remat else 1)
+    want = {"conv2d": 0, "flash_attention": per_step * STEPS,
+            "ssd_chunk": per_step * STEPS}
     if not all(math.isfinite(l) for l in res["losses"]):
         raise AssertionError(f"non-finite loss: {res['losses']}")
     if counts != want:
         raise AssertionError(f"launches {counts} in {STEPS} steps, want "
-                             f"{want} (one forward launch per layer; the "
-                             f"backward recomputes through the plain "
-                             f"versions)")
+                             f"{want} (one forward launch per layer, two "
+                             f"under --remat; the backward recomputes "
+                             f"through the plain versions)")
     steady = res["step_s"][1:]
     step_s = sum(steady) / len(steady)
     tokens = LM_BATCH * LM_SEQ
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train: {STEPS} steps of full-width hymba-1.5b "
           f"({res['n_params'] / 1e9:.3f} B params, "
-          f"{'BF16' if bf16 else 'FP32'}) at batch {LM_BATCH} x "
+          f"{'BF16' if bf16 else 'FP32'}{', --remat' if remat else ''}) "
+          f"at batch {LM_BATCH} x "
           f"seq {LM_SEQ}; losses {res['losses']}; step seconds "
           f"{res['step_s']}; steps 2..{STEPS}: {step_s:.4f} s/step, "
           f"{tokens / step_s:.1f} tokens/s; peak memory {peak:.2f} GiB; "
@@ -2581,7 +2849,7 @@ def lm_train_phase(bf16: bool = False) -> dict:
             "step_s": res["step_s"], "data_s": res["data_s"],
             "steady_step_s": step_s, "tokens_per_s": tokens / step_s,
             "peak_gib": peak, "n_params": res["n_params"],
-            "precision": "bf16" if bf16 else "fp32"}
+            "precision": "bf16" if bf16 else "fp32", "remat": remat}
 
 
 def lm_forward_check() -> dict:
@@ -2635,10 +2903,10 @@ def lm_profile_phase() -> dict:
     step = make_train_step(loss, opt, TrainStepConfig(precision=prec))
     state = opt.init(params)
     batch = pipeline.to_device(mk(0), dev)
-    float(step(params, state, batch)[2]["loss"])        # warm
+    float(step(params, state, None, batch)[3]["loss"])        # warm
 
     def run_step():
-        float(step(params, state, batch)[2]["loss"])
+        float(step(params, state, None, batch)[3]["loss"])
 
     def classify(name):
         if "flash_fwd" in name:
@@ -2800,7 +3068,8 @@ def main() -> int:
           f"checkpoint overhead, 4 -> 2 elastic ranks) took "
           f"{resilient_s:.1f} s of this run ({card})")
     audit = audit_phase(card)
-    lm_train = lm_train_phase()
+    zero = zero_phase(card)
+    lm_train = zero["plain"]           # the FP32 hymba run, without --remat
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
     lm_breakdown = lm_profile_phase()
@@ -2821,7 +3090,7 @@ def main() -> int:
                    "calibrate": calib,
                    "ckpt_resume": resume, "ckpt_overhead": overhead,
                    "elastic": elastic, "resilient_phase_s": resilient_s,
-                   "audit": audit,
+                   "audit": audit, "zero": zero,
                    "lm_train": lm_train,
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
@@ -2877,6 +3146,9 @@ def main() -> int:
              audit_launches_per_rank=[[r["uniform_h"]["launches"],
                                        r["auto"]["launches"]]
                                       for r in audit["ranks"]],
+             zero_launches_per_rank=[[r[m]["launches"]
+                                      for m in ZERO_METHODS]
+                                     for r in zero["ranks"]],
              resnet50=dict(entry(
                  "conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
                  "src/repro/kernels/conv2d.py:43", resnet_train["launches"],
@@ -2885,18 +3157,21 @@ def main() -> int:
                  f"{len(resnet_rows) // 2} shapes"),
                  auto_launches_per_rank=[r["launches"] for r in
                                          resnet_auto["ranks"]])),
-        entry("flash_attention",
-              "src/repro_torch/kernels/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:77",
-              lm_train["launches"]["flash_attention"],
-              [r for r in lm_rows if r["kernel"] == "flash_attention"],
-              lm_scope + f"{n_glob} causal + {HYMBA.n_layers - n_glob} "
-              f"window-{HYMBA.window} calls"),
-        entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
-              "src/repro/kernels/ssd.py:55",
-              lm_train["launches"]["ssd_chunk"],
-              [r for r in lm_rows if r["kernel"] == "ssd_chunk"],
-              lm_scope + f"{HYMBA.n_layers} calls"),
+        dict(entry("flash_attention",
+                   "src/repro_torch/kernels/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:77",
+                   lm_train["launches"]["flash_attention"],
+                   [r for r in lm_rows if r["kernel"] == "flash_attention"],
+                   lm_scope + f"{n_glob} causal + "
+                   f"{HYMBA.n_layers - n_glob} window-{HYMBA.window} "
+                   f"calls"),
+             remat_launches=zero["remat"]["launches"]["flash_attention"]),
+        dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
+                   "src/repro/kernels/ssd.py:55",
+                   lm_train["launches"]["ssd_chunk"],
+                   [r for r in lm_rows if r["kernel"] == "ssd_chunk"],
+                   lm_scope + f"{HYMBA.n_layers} calls"),
+             remat_launches=zero["remat"]["launches"]["ssd_chunk"]),
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))

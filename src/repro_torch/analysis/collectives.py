@@ -44,15 +44,20 @@ the reference:
 
 The port's own differences, by construction:
 
-  * the weight gradients are one bucket: `train.train_loop.
-    reduce_replicated_grads` sums every replicated gradient in one flat
-    all-reduce over all mesh axes, outside any layer (region
-    `grad_bucket`).  The join holds it against every layer's weight-
-    gradient entries as a whole (regions `conv`, `cf_w_vjp`, `gspmd`)
-    and its payload against the params' gradient bytes; where the
-    inventory prices a weight's psum once per conv application (an
-    interior-split layer), the bucket sends it once (`grad-bucket`,
-    info);
+  * the weight gradients are one bucket: `train.train_loop.reduce_grads`
+    sums every gradient in one flat all-reduce over all mesh axes,
+    outside any layer (region `grad_bucket`); with more than one data
+    rank, the leaves sharded over data (ZeRO, `launch.shardings`) go
+    through one reduce-scatter over data instead and the rest through
+    the psum.  The join holds the ops the whole gradient enters (the
+    psum and the reduce-scatter) against every layer's weight-gradient
+    entries as a whole (regions `conv`, `cf_w_vjp`, `gspmd`) and their
+    payload against the params' gradient bytes; where the inventory
+    prices a weight's psum once per conv application (an interior-split
+    layer), the bucket sends it once (`grad-bucket`, info).  The held
+    blocks' psum over the other axes, the pod exchange
+    (`optim.grad_compress`) and the post-update all-gather over data
+    (region `param_gather`) are reported as `grad-bucket` infos;
   * the §III-C reshards are explicit collectives (core.collectives), so
     `plan_inventory` prices each reshard point's collectives too (term
     `shuffle`, region `reshard`), where the reference leaves them to
@@ -90,6 +95,7 @@ PAYLOAD_ERROR = 0.25
 # the inventory's weight-gradient psums: one gradient bucket in the port
 WEIGHT_GRAD_REGIONS = ("conv", "cf_w_vjp", "gspmd")
 BUCKET = "grad_bucket"
+PARAM_GATHER = "param_gather"      # ZeRO's post-update all-gather
 
 _CHUNKS_RE = re.compile(r"cf chunks=(\d+)")
 
@@ -170,9 +176,26 @@ def weight_grad_bytes(inventory: Mapping[str, Sequence[pm.CollectiveSpec]]
     return out
 
 
+def _bucket_stages(bucket: Sequence[ExecutedOp]) -> tuple[list, list, list]:
+    """The gradient bucket's ops by stage: (the ops the whole gradient
+    enters: the reduce-scatter over "data" of the sharded leaves and the
+    psum over every reduced axis of the rest; the held blocks' psum over
+    the other axes; the pod exchange)."""
+    first, blocks, pod = [], [], []
+    for o in bucket:
+        if o.axes == frozenset({"pod"}):
+            pod.append(o)
+        elif o.kind == "reduce_scatter" or "data" in o.axes:
+            first.append(o)
+        else:
+            blocks.append(o)
+    return first, blocks, pod
+
+
 def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
                      bucket: Sequence[ExecutedOp],
-                     specs: Sequence[pm.ConvLayer]) -> list[Finding]:
+                     specs: Sequence[pm.ConvLayer],
+                     gathers: Sequence[ExecutedOp] = ()) -> list[Finding]:
     out: list[Finding] = []
     once = weight_grad_bytes(weights)
     for layer, entries in weights.items():
@@ -200,7 +223,8 @@ def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
                             f"gap)",
                     fix="price it in layer_cost and mark the inventory "
                         "entry charged"))
-    if not bucket:
+    first, blocks, pod = _bucket_stages(bucket)
+    if not first:
         for layer, entries in weights.items():
             for e in entries:
                 if e.charged:
@@ -211,17 +235,20 @@ def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
                                 f"{e.term}) absent from the executed step "
                                 f"— no gradient bucket was all-reduced",
                         fix="the step must end in train_loop."
-                            "reduce_replicated_grads"))
+                            "reduce_grads"))
         return out
-    if len(bucket) > 1:
+    kinds = collections.Counter(o.kind for o in first)
+    if any(n > 1 for n in kinds.values()):
         out.append(Finding(
             "warning", "collective-count",
-            message=f"bwd psum [{BUCKET}]: one gradient bucket expected, "
-                    f"the step issues {len(bucket)}",
-            fix="reduce_replicated_grads all-reduces one flat buffer"))
-    moved = sum(o.bytes for o in bucket)
+            message=f"bwd [{BUCKET}]: one gradient bucket expected (a "
+                    f"psum, and a reduce-scatter of the leaves sharded "
+                    f"over data), the step issues {dict(kinds)}",
+            fix="train_loop.reduce_grads reduces one flat buffer a kind"))
+    moved = sum(o.bytes for o in first)
     priced = sum(b for b, _ in once.values())
-    what = f"bwd psum [{BUCKET}] over {sorted(bucket[0].axes)}"
+    what = " + ".join(f"bwd {o.kind} [{BUCKET}] over {sorted(o.axes)}"
+                      for o in first)
     rest = moved - priced
     cmax_sum = sum(max(s.c, s.f) for s in specs)
     if rest > 16 * max(cmax_sum, 1):
@@ -247,6 +274,42 @@ def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
                     f"the bucket moves {moved:.0f} B "
                     f"({rel * 100:.0f}% off)",
             fix="re-derive the weight shapes in layer_collectives"))
+    scattered = [o for o in first if o.kind == "reduce_scatter"]
+    if scattered:
+        held = sum(o.bytes for o in blocks)
+        out.append(Finding(
+            "info", "grad-bucket",
+            message=f"ZeRO over data: {scattered[0].bytes:.0f} B of "
+                    f"sharded weight gradients reduce-scattered over data "
+                    f"(held against the priced weight gradients with the "
+                    f"rest's psum)"
+                    + (f"; this rank's blocks and the rest, {held:.0f} B, "
+                       f"all-reduced over {sorted(blocks[0].axes)}"
+                       if blocks else ""),
+            fix=""))
+    if pod:
+        out.append(Finding(
+            "info", "grad-bucket",
+            message=f"pod exchange: {len(pod)} op(s) over pod "
+                    f"({', '.join(sorted({o.kind for o in pod}))}), "
+                    f"{sum(o.bytes for o in pod):.0f} B entering on this "
+                    f"rank",
+            fix=""))
+    if gathers:
+        out.append(Finding(
+            "info", "grad-bucket",
+            message=f"param all-gather over data after the update: "
+                    f"{sum(o.bytes for o in gathers):.0f} B entering on "
+                    f"this rank",
+            fix=""))
+    elif scattered:
+        out.append(Finding(
+            "info", "grad-bucket",
+            message="the updated blocks are all-gathered over data once a "
+                    "step, after the update (region param_gather); the "
+                    "audited step skips the update, so the gather is not "
+                    "in this record",
+            fix=""))
     return out
 
 
@@ -265,9 +328,10 @@ def join_findings(inventory: Mapping[str, Sequence[pm.CollectiveSpec]],
 
     coll = [o for o in ops if o.kind in COLLECTIVE_KINDS]
     bucket = [o for o in coll if o.region == BUCKET]
+    gathers = [o for o in coll if o.region == PARAM_GATHER]
     by_key: dict[tuple, list[ExecutedOp]] = {}
     for o in coll:
-        if o.region != BUCKET:
+        if o.region not in (BUCKET, PARAM_GATHER):
             by_key.setdefault((o.layer, o.direction, o.kind), []).append(o)
 
     ent_by_key: dict[tuple, list[pm.CollectiveSpec]] = {}
@@ -374,7 +438,7 @@ def join_findings(inventory: Mapping[str, Sequence[pm.CollectiveSpec]],
                     f"({sum(o.bytes for o in ms):.0f} B total: BN stats "
                     f"/ per-channel vectors) — below pricing granularity",
             fix=""))
-    out += _bucket_findings(weights, bucket, specs)
+    out += _bucket_findings(weights, bucket, specs, gathers)
     return out
 
 
@@ -641,10 +705,12 @@ class StepAudit:
             f"{o.kind}/{o.direction}" for o in self.ops).items()))
 
     def bucket(self) -> tuple[float, float, float]:
-        """(bytes the gradient bucket moved, the priced weight gradients'
-        bytes once, and over every psum the inventory prices)."""
-        moved = sum(o.bytes for o in self.ops if o.region == BUCKET and
-                    o.kind in COLLECTIVE_KINDS)
+        """(bytes the whole gradient takes into the gradient bucket, the
+        priced weight gradients' bytes once, and over every psum the
+        inventory prices)."""
+        moved = sum(o.bytes for o in _bucket_stages(
+            [o for o in self.ops if o.region == BUCKET and
+             o.kind in COLLECTIVE_KINDS])[0])
         w = weight_grad_bytes(self.inventory).values()
         return moved, sum(a for a, _ in w), sum(b for _, b in w)
 
@@ -664,8 +730,8 @@ def audit_step(step: Callable, args: Sequence, plan,
     torch.profiler too, for the cross-check) and join what it executed
     against `plan`'s priced inventory.
 
-    step:  the real step: forward, backward and
-           `reduce_replicated_grads` (no optimizer update).
+    step:  the real step: forward, backward and the gradient reduction
+           (`train_loop.reduce_grads`; no optimizer update).
     specs: the ConvLayers of the plan, in execution order.
     `grad_wrt_inputs=False` declares that the first layer's input needs
     no gradient, so its backward halos are never sent.  `wordsize`: the
@@ -702,19 +768,22 @@ def audit_step(step: Callable, args: Sequence, plan,
 def meshnet_audit(plan, specs: Sequence[pm.ConvLayer], cfg, mesh, *,
                   machine: pm.Machine | None = None, overlap: bool = True,
                   hlo: bool = False, params=None, batch=None,
-                  device="cuda", seed: int = 0) -> StepAudit:
+                  device="cuda", seed: int = 0,
+                  pod_compression: str = "none") -> StepAudit:
     """Audit a meshnet plan's real training step: forward and backward of
-    `models.cnn.meshnet.loss_fn` in FP32 and the gradient bucket, no
-    update, on `params` and this rank's block `batch` (on `device`), or
-    on params from a generator seeded with `seed` and the synthetic batch
-    of step 0.  `device` is CUDA unless the caller asks for the CPU.  The
-    params are unchanged afterwards."""
+    `models.cnn.meshnet.loss_fn` in FP32 and the gradient reduction (ZeRO
+    over data where the mesh has more than one data rank, the pod
+    exchange under `pod_compression`), no update, on `params` and this
+    rank's block `batch` (on `device`), or on params from a generator
+    seeded with `seed` and the synthetic batch of step 0.  `device` is
+    CUDA unless the caller asks for the CPU.  The params are unchanged
+    afterwards."""
     import functools
 
     from repro_torch.data import pipeline
     from repro_torch.models.cnn import meshnet
     from repro_torch.train.train_loop import (TrainStepConfig, make_grad_fn,
-                                              reduce_replicated_grads)
+                                              reduce_grads)
     from repro_torch.utils import FP32, tree_leaves
 
     device = resolve_device(device)
@@ -736,7 +805,7 @@ def meshnet_audit(plan, specs: Sequence[pm.ConvLayer], cfg, mesh, *,
 
     def step(p, b):
         _, grads = fwd_bwd(p, b)
-        return reduce_replicated_grads(grads, mesh)
+        return reduce_grads(grads, mesh, method=pod_compression)[0]
 
     leaves = tree_leaves(params)
     return audit_step(

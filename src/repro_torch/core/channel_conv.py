@@ -29,7 +29,7 @@ Every local conv is `spatial_conv._conv_nhwc` or `_local_conv`, and so
 the conv kernel (`kernels/conv2d.Conv2d`) on the card.  Weights stay
 globally addressed and are sliced per rank; a rank's gradient of w is
 then zero outside its block, and the sum over the mesh of every
-replicated param's gradient (`train.train_loop.reduce_replicated_grads`)
+replicated param's gradient (`train.train_loop.reduce_grads`)
 puts the blocks together into dL/dw.  The collectives are
 `core.collectives`', in the named regions `cf_all_gather` /
 `cf_reduce_scatter` (`core.trace.annotate`).

@@ -14,7 +14,7 @@ The convention that makes those adjoints the right ones: where a tensor
 is replicated over an axis, each replica's gradient is its share of the
 gradient, and the shares sum to it.  A reduce-scatter, or the sum over
 the mesh of a replicated param's gradient
-(`train.train_loop.reduce_replicated_grads`), adds them up.
+(`train.train_loop.reduce_grads`), adds them up.
 
 A layout names, for each dim of an NHWC block, the tuple of mesh axes
 that shard it, major-to-minor, () where it is not sharded (`layout`).

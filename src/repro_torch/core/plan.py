@@ -494,14 +494,15 @@ class NetworkPlan:
     def audit(self, specs: Sequence[ConvLayer] | None = None, mesh=None, *,
               cfg=None, machine: Machine | None = None,
               overlap: bool = True, hlo: bool = False, params=None,
-              batch=None, device="cuda") -> list:
+              batch=None, device="cuda",
+              pod_compression: str = "none") -> list:
         """Verification of this plan (repro_torch.analysis): the pure plan
         linter always runs; with `specs`, a live `mesh` AND `cfg` (the
         MeshNetConfig the plan executes) the collective auditor also runs
-        one real step (forward, backward and the gradient bucket, no
-        update: on `params` and this rank's block `batch`, else on seeded
-        params and the synthetic batch; on `device`, CUDA unless the caller
-        asks for the CPU) and joins every
+        one real step (forward, backward and the gradient bucket under
+        `pod_compression`, no update: on `params` and this rank's block
+        `batch`, else on seeded params and the synthetic batch; on
+        `device`, CUDA unless the caller asks for the CPU) and joins every
         collective it executed against the priced inventory.  Returns the
         list of `Finding` records (render with
         repro_torch.analysis.format_findings; error-severity findings mean
@@ -512,7 +513,8 @@ class NetworkPlan:
         if cfg is not None and mesh is not None and specs is not None:
             findings += analysis.meshnet_audit(
                 self, specs, cfg, mesh, machine=machine, overlap=overlap,
-                hlo=hlo, params=params, batch=batch, device=device).findings
+                hlo=hlo, params=params, batch=batch, device=device,
+                pod_compression=pod_compression).findings
         return findings
 
     # -- attribution --------------------------------------------------------

@@ -9,7 +9,7 @@ neighbours' boundary rows (paper Eq. 1), exchanged by `core.halo`, whose
 autograd Function also carries the backward's halo exchange on dL/dy
 (Eq. 3) and the boundary-gradient accumulation.  dL/dw here is the local
 contraction (Eq. 2) only: the all-reduce over the ranks that replicate the
-weight is `train.train_loop.reduce_replicated_grads`, done once a step
+weight is `train.train_loop.reduce_grads`, done once a step
 (the psum that the reference's `shard_map` inserts).
 
 Overlap (§IV-A): with `overlap=True` the local conv is split into an
@@ -97,6 +97,16 @@ class ConvSharding:
         """NHWC placement, the reference's PartitionSpec as a tuple: N on
         the batch axes, H and W on the spatial axes, C replicated."""
         return (self.batch_axes or None, self.h_axis, self.w_axis, None)
+
+    def without_unit_axes(self, mesh_shape: Mapping[str, int]
+                          ) -> "ConvSharding":
+        """The spatial axes that cut the block: a spatial axis (or product
+        axis) of one rank has no neighbour, so its conv needs no halo and
+        no §IV-A split (the sharding itself, and so BN's scope, stay)."""
+        return dataclasses.replace(self, **{
+            name: None for name in ("h_axis", "w_axis")
+            if getattr(self, name) is not None
+            and product_size(getattr(self, name), mesh_shape) == 1})
 
     def fit(self, h: int, w: int, k: int, s: int,
             mesh_shape: Mapping[str, int] | None) -> "ConvSharding":
@@ -217,11 +227,15 @@ def _split_dim_conv(x, w, *, dim, s, k, lo, hi, axis, mesh, other_pads,
 
 def _local_conv(x, w, *, strides, sharding: ConvSharding, mesh: Mesh,
                 overlap: bool):
-    """Shard-local forward conv of a spatially split block."""
+    """Shard-local forward conv of a spatially split block: one dense
+    conv where every spatial axis has one rank."""
     k_h, k_w = w.shape[0], w.shape[1]
     s_h, s_w = strides
     ph = same_pads(k_h, s_h)
     pw = same_pads(k_w, s_w)
+    sharding = sharding.without_unit_axes(mesh.shape)
+    if not sharding.is_spatial:
+        return _conv_nhwc(x, w, strides, (ph, pw))
 
     if sharding.h_axis is not None and sharding.w_axis is not None:
         # H first (its halo spans the local W), then W

@@ -19,7 +19,7 @@ The statistics' all-reduce is the named region `bn_collective`
 (`core.trace.annotate`), an autograd Function whose backward all-reduces
 the cotangent over the same ranks (the transpose of a psum is a psum).
 gamma and beta are replicated; their gradients are summed over the mesh
-once a step by `train.train_loop.reduce_replicated_grads`. Training mode
+once a step by `train.train_loop.reduce_grads`. Training mode
 only, without running statistics, like the reference.
 """
 from __future__ import annotations

@@ -256,7 +256,8 @@ def trace_plan(plan, params, batch, *, cfg, mesh=None, overlap: bool = True,
     leaves it on this rank.  Each layer's callable (meshnet.layer_fns) is
     then timed alone, forward and forward + backward (the gradient of the
     sum of its output over its params and its input, the params'
-    gradients summed over the mesh as a step sums them), against the
+    gradients reduced over the mesh as a step reduces them,
+    `train_loop.reduce_grads`), against the
     whole step, in interleaved rounds.  The segments run in one order on
     every rank, since a segment that holds a collective must be entered by
     all ranks together; each time is the max over the ranks.  bwd_s is
@@ -265,7 +266,7 @@ def trace_plan(plan, params, batch, *, cfg, mesh=None, overlap: bool = True,
     from repro_torch.core.calibrate import card_fields, step_peak_bytes
     from repro_torch.core.channel_conv import measured_eta
     from repro_torch.models.cnn import meshnet
-    from repro_torch.train.train_loop import reduce_replicated_grads
+    from repro_torch.train.train_loop import reduce_grads
     from repro_torch.utils import interleaved_min, tree_leaves
 
     plan = meshnet.network_plan(cfg, plan, mesh)
@@ -280,7 +281,7 @@ def trace_plan(plan, params, batch, *, cfg, mesh=None, overlap: bool = True,
     def full_step():
         loss = meshnet.loss_fn(params, batch, cfg, plan, mesh, overlap)
         grads = torch.autograd.grad(loss, tree_leaves(params))
-        return reduce_replicated_grads(list(grads), mesh)[0]
+        return reduce_grads(list(grads), mesh)[0][0]
 
     fwd_step()
     peak = step_peak_bytes(full_step)
@@ -305,7 +306,7 @@ def trace_plan(plan, params, batch, *, cfg, mesh=None, overlap: bool = True,
             xg = x.detach().requires_grad_()
             y = fn(lp, xg)
             *gw, gx = torch.autograd.grad(y.sum(), leaves + [xg])
-            reduce_replicated_grads(gw, mesh)
+            reduce_grads(gw, mesh)
             return gx
         return run
 

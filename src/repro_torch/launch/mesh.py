@@ -33,8 +33,8 @@ all-gather, reduce-scatter, all-to-all) adds one to `Mesh.staged` (the
 halo exchange counts its own in `core.halo.staged`).
 
 Under an audit (`analysis.collectives.record`) each of those four
-collectives gives the recorder one op: its kind (`psum`, `all_gather`,
-`reduce_scatter`, `all_to_all`), the bytes that enter it on this rank,
+collectives gives the recorder one op: its kind (`psum`, `pmax`,
+`all_gather`, `reduce_scatter`, `all_to_all`), the bytes that enter it on this rank,
 its axes, and the layer, region and direction of the region it runs in
 (`core.trace.scope`).
 """
@@ -218,18 +218,22 @@ class Mesh:
         """Whether a tensor on `device` goes through the host."""
         return self.backend == "gloo" and device.type == "cuda"
 
-    def all_reduce(self, t: torch.Tensor, axes) -> torch.Tensor:
-        """Sum of `t` over the ranks of `axes`, as a new tensor on t's
-        device (`t` itself where the group is one rank).  Not
-        differentiable: `core.spatial_norm` wraps it for autograd."""
+    def all_reduce(self, t: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """Sum (`op` "max": the maximum) of `t` over the ranks of `axes`,
+        as a new tensor on t's device (`t` itself where the group is one
+        rank).  Not differentiable: `core.spatial_norm` wraps it for
+        autograd."""
         group = self.group(axes)
         if group is None:
             return t
         if trace.RECORDER is not None:
-            trace.note("psum", t, axes_tuple(axes))
+            trace.note("psum" if op == "sum" else "pmax", t,
+                       axes_tuple(axes))
         buf = self.to_wire(t)
         buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
-        dist.all_reduce(buf, group=group)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else
+                        dist.ReduceOp.MAX, group=group)
         return self._land(buf, t.device)
 
     def all_max(self, values) -> list[float]:

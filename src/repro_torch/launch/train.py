@@ -8,10 +8,12 @@ processes, and the ported LM archs on one device.
       --steps 3 --batch 32 [--device cuda|cpu] [--smoke]
   PYTHONPATH=src torchrun --nproc-per-node M -m repro_torch.launch.train \
       --arch mesh1k|resnet50 --model M [--data D] [--pod P] --batch B \
+      [--pod-compression none|bf16|int8_ef] \
       [--strategy auto [--search greedy|beam[:N]|hillclimb] [--no-cf] \
       [--mem-limit BYTES|auto] [--calibrate[=PATH]]] [--profile[=PATH]]
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
-      --steps 3 --batch 1 --seq 2048 [--bf16] [--device cuda|cpu] [--smoke]
+      --steps 3 --batch 1 --seq 2048 [--bf16] [--remat] [--device cuda|cpu] \
+      [--smoke]
 
 Runs on CUDA unless `--device cpu` is given; asking for CUDA where there
 is none is an error.  On the card every forward conv runs through the
@@ -24,7 +26,9 @@ with SGD + momentum on a warmup(10) + cosine schedule (ResNet-50 on
 the LMs train with
 AdamW on a warmup(20) + cosine schedule, under FP32 unless `--bf16`
 (bf16 compute, fp32 master weights), on `synthetic_lm_batch` token
-batches of `--seq` tokens.
+batches of `--seq` tokens.  `--remat` (LM archs) recomputes each unit of
+the layer stack in the backward (`transformer.loss_fn(remat=True)`); the
+CNN archs refuse it (the reference ignores it there).
 
 With more than one process (torchrun's environment, or a process group
 that already exists), the CNNs train on a (pod, data, model) mesh under a
@@ -65,6 +69,17 @@ the predicted-vs-measured attribution under `--strategy auto`
 (`NetworkPlan.attribution_report`), writes the StepTrace to PATH (default
 BENCH_step_trace.json) and a Chrome trace to `<PATH>.chrome.json`, and
 exits.
+
+The training state is sharded over "data" for every arch, as the
+reference's (`launch.shardings.fsdp_tree_specs`, ZeRO): every param leaf
+of at least 2^14 elements has one block a data rank, which alone takes
+the update and has optimizer moments; the gradient reduction
+reduce-scatters those leaves over "data" and the updated blocks are
+all-gathered once a step (`train.train_loop`).  `--pod-compression
+bf16|int8_ef` sends each pod's gradient over the pod axis compressed
+(`optim.grad_compress.cross_pod_mean`; int8_ef carries its error-feedback
+residual in the train state and the checkpoint); `none` (the default)
+reduces over the pod axis with the others.
 
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
@@ -113,12 +128,13 @@ from repro_torch.core.perfmodel import H100, LASSEN
 from repro_torch.core.spatial_conv import ConvSharding
 from repro_torch.core.strategy import parse_search
 from repro_torch.data import pipeline
+from repro_torch.launch import shardings
 from repro_torch.launch.mesh import (batch_axes, elastic_factorization,
                                     init_distributed, make_mesh)
 from repro_torch.models.cnn import meshnet, resnet
 from repro_torch.models.lm import transformer
-from repro_torch.optim.optimizer import (adamw, load_state_tree, sgd,
-                                         state_tree, warmup_cosine)
+from repro_torch.optim.grad_compress import init_error_feedback
+from repro_torch.optim.optimizer import adamw, sgd, warmup_cosine
 from repro_torch.runtime import chaos
 from repro_torch.runtime.fault_tolerance import (ResilientLoop,
                                                  StragglerMonitor)
@@ -146,6 +162,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--bf16", action="store_true",
                     help="BF16 precision: bf16 compute, fp32 master weights "
                          "(LM archs; the CNNs train in FP32)")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute each unit of the layer stack in the "
+                         "backward instead of keeping its activations (LM "
+                         "archs)")
+    ap.add_argument("--pod-compression", default="none",
+                    choices=["none", "bf16", "int8_ef"],
+                    help="the gradient's reduction over the pod axis: fp32 "
+                         "with the other axes (none), or each pod's "
+                         "gradient sent as bf16 or as int8 with error "
+                         "feedback (optim.grad_compress)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--data", type=int, default=1,
                     help="mesh data axis (sample parallelism)")
@@ -232,6 +258,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.bf16 and arch in registry.CNN_ARCHS:
         ap.error("--bf16 covers the LM archs; the CNN archs train in FP32, "
                  "as in the reference")
+    if args.remat and arch in registry.CNN_ARCHS:
+        ap.error("--remat covers the LM archs (the reference passes it to "
+                 "the LM loss only)")
     if args.calibrate and arch not in registry.CNN_ARCHS:
         ap.error(f"--calibrate covers the CNN archs {registry.CNN_ARCHS}")
     if args.profile and arch not in ("mesh1k", "mesh2k"):
@@ -365,7 +394,9 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
     """(cfg, params, optimizer, loss_fn, batch factory, precision, plan) of
     the arch.  Params are drawn from a CPU generator seeded with `--seed`,
     so every rank, the card and the CPU start from the same weights.  On a
-    mesh the batch factory returns this rank's block of the global batch."""
+    mesh the batch factory returns this rank's block of the global batch.
+    The params are whole; `train_state` cuts the optimizer state to this
+    rank's blocks under `fsdp_tree_specs`."""
     cfg = registry.get(args.arch, smoke=args.smoke)
     gen = torch.Generator().manual_seed(args.seed)
     arch = registry.canon(args.arch)
@@ -411,10 +442,28 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
                          f"yet); run it without a mesh")
     params = transformer.init(gen, cfg, device=device)
     opt = adamw(warmup_cosine(args.lr, 20, args.steps))
-    loss = functools.partial(transformer.loss_fn, cfg=cfg)
+    loss = functools.partial(transformer.loss_fn, cfg=cfg, remat=args.remat)
     mk = functools.partial(pipeline.synthetic_lm_batch, batch=args.batch,
                            seq=args.seq, vocab=cfg.vocab)
     return cfg, params, opt, loss, mk, BF16 if args.bf16 else FP32, None
+
+
+def train_state(args: argparse.Namespace, params, opt, mesh=None,
+                echo: bool = False) -> tuple:
+    """(optimizer state, error-feedback state) of a fresh run: moments for
+    this rank's block of every param leaf (`launch.shardings.local_shards`
+    under `fsdp_tree_specs`), and under `--pod-compression int8_ef` on a
+    mesh with a pod axis a zero residual of each (else None)."""
+    held = shardings.local_shards(params, mesh)
+    if echo and mesh is not None and mesh.shape.get("data", 1) > 1:
+        big, small = shardings.state_bytes(params, mesh)
+        n = sum(1 for s in shardings.zero_specs(tree_leaves(params), mesh)
+                if s)
+        print(f"zero over data: {n} of {len(held)} param leaves sharded, "
+              f"{human_bytes(big)} of blocks and {human_bytes(small)} "
+              f"replicated a moment on this rank")
+    return opt.init(held), init_error_feedback(held, mesh,
+                                               args.pod_compression)
 
 
 def setup(args: argparse.Namespace):
@@ -432,6 +481,13 @@ def setup(args: argparse.Namespace):
         torch.cuda.set_device(device)
     mesh = make_mesh(args.data, args.model, args.pod) if world > 1 else None
     return device, mesh, rank
+
+
+def step_config(args: argparse.Namespace, prec) -> TrainStepConfig:
+    """The step's config; --remat goes to the LM loss (`build`), as the
+    reference's trainer passes it, not to the step."""
+    return TrainStepConfig(grad_accum=args.grad_accum, precision=prec,
+                           pod_compression=args.pod_compression)
 
 
 def plan_record(args: argparse.Namespace, cfg, plan, device: torch.device,
@@ -466,8 +522,9 @@ def run(args: argparse.Namespace) -> dict:
     """Train to step `args.steps` (from the latest checkpoint of
     --ckpt-dir where it has one); returns the config it trained, the
     plan, and for every step run (a rolled-back step runs again) its
-    index (`steps`), loss, seconds (batch included) and seconds of its
-    batch's wait and copy, the trained params, and `left_at` (the step at
+    index (`steps`), loss, gradient norm, seconds (batch included) and
+    seconds of its batch's wait and copy, the trained params with this
+    rank's optimizer and error-feedback state, and `left_at` (the step at
     which this rank left the mesh under --elastic, else None)."""
     device, mesh, rank = setup(args)
     lead = rank == 0
@@ -475,9 +532,8 @@ def run(args: argparse.Namespace) -> dict:
     cfg, params, opt, loss, mk, prec, plan = build(args, device, mesh,
                                                    echo=lead)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    tstep = make_train_step(loss, opt, TrainStepConfig(
-        grad_accum=args.grad_accum, precision=prec), mesh=mesh)
-    opt_state = opt.init(params)
+    tstep = make_train_step(loss, opt, step_config(args, prec), mesh=mesh)
+    opt_state, ef = train_state(args, params, opt, mesh, echo=lead)
     where = f"mesh={dict(mesh.shape)} strategy={args.strategy}" \
         if mesh else f"strategy={args.strategy}"
     calib = (plan.predicted or {}).get("calibration") if plan else None
@@ -497,11 +553,13 @@ def run(args: argparse.Namespace) -> dict:
     to_ref, from_ref = checkpoint_layout(cfg)
 
     def leaves(state):
-        return state_tree(state[0], state[1], to_ref)
+        p, o, e = state
+        return shardings.sharded_state_tree(p, o, e, ctx["mesh"], to_ref)
 
     def load(state_like, tree):
-        p, o = state_like
-        return p, load_state_tree(tree, p, o, from_ref)
+        p, o, e = state_like
+        return p, shardings.load_sharded_state_tree(
+            tree, p, o, e, ctx["mesh"], from_ref), e
 
     def agree(step):
         """Mesh rank 0's latest step, on every rank (rank 0 broadcasts
@@ -515,9 +573,9 @@ def run(args: argparse.Namespace) -> dict:
                                writer=lead)
         latest = agree(ck.latest_step())
         if latest is not None:
-            restored, manifest = ck.restore(leaves((params, opt_state)),
+            restored, manifest = ck.restore(leaves((params, opt_state, ef)),
                                             latest)
-            params, opt_state = load((params, opt_state), restored)
+            params, opt_state, ef = load((params, opt_state, ef), restored)
             start = manifest["extra"]["step"]
             rec = manifest.get("plan")
             if lead:
@@ -533,22 +591,23 @@ def run(args: argparse.Namespace) -> dict:
         audit_gate(args, cfg, mesh, plan, params,
                    pipeline.to_device(mk(start), device), device, lead)
 
-    losses, step_s, data_s, steps = [], [], [], []
+    losses, step_s, data_s, steps, norms = [], [], [], [], []
     mlog = MetricsLogger(args.metrics if lead else None, echo=lead)
 
     def make_step():
         def run_step(state, step):
-            p, o = state
+            p, o, e = state
             t0 = time.perf_counter()
             if ctx["pf"] is None:       # a remesh's new batch factory
                 ctx["pf"] = pipeline.Prefetcher(ctx["mk"], start_step=step)
             batch = pipeline.to_device(ctx["pf"].get(step), device)
             data_s.append(time.perf_counter() - t0)    # host wait + copy
-            p, o, m = ctx["tstep"](p, o, batch)
+            p, o, e, m = ctx["tstep"](p, o, e, batch)
             losses.append(float(m["loss"]))      # waits for the step
             step_s.append(time.perf_counter() - t0)
             steps.append(step)
             grad_norm = float(m["grad_norm"])
+            norms.append(grad_norm)
             if args.debug_nans:
                 debug_nan_check(step, {"loss": losses[-1],
                                        "grad_norm": grad_norm}, p,
@@ -557,7 +616,7 @@ def run(args: argparse.Namespace) -> dict:
                           samples_per_s=args.batch / step_s[-1],
                           grad_norm=grad_norm,
                           echo=lead and step % args.log_every == 0)
-            return (p, o), m
+            return (p, o, e), m
         return run_step
 
     def remesh(survivors):
@@ -587,12 +646,14 @@ def run(args: argparse.Namespace) -> dict:
         if ctx["pf"] is not None:
             ctx["pf"].close()
         ctx.update(mesh=new_mesh, mk=mk2, pf=None, plan=plan2,
-                   tstep=make_train_step(loss2, opt2, TrainStepConfig(
-                       grad_accum=args.grad_accum, precision=prec2),
-                       mesh=new_mesh),
+                   tstep=make_train_step(loss2, opt2,
+                                         step_config(args, prec2),
+                                         mesh=new_mesh),
                    plan_spec=plan_record(args2, cfg2, plan2, device,
                                          new_mesh))
-        return make_step, (params2, opt2.init(params2))
+        # the survivors' blocks are cut from the checkpoint's global arrays
+        return make_step, (params2,
+                           *train_state(args2, params2, opt2, new_mesh))
 
     loop = ResilientLoop(ckpt=ck, make_step=make_step,
                          ckpt_every=args.ckpt_every,
@@ -613,12 +674,12 @@ def run(args: argparse.Namespace) -> dict:
                      mesh=dict(mesh.shape) if mesh else None,
                      start_step=start,
                      **({"calibration": calib} if calib else {}))
-        (params, opt_state), step, _ = loop.run(
-            (params, opt_state), start, args.steps, monitor=mon,
+        (params, opt_state, ef), step, _ = loop.run(
+            (params, opt_state, ef), start, args.steps, monitor=mon,
             inject_failure=inject)
         if loop.left_at is None and ck is not None:
-            ck.save(step, leaves((params, opt_state)), extra={"step": step},
-                    plan=ctx["plan_spec"])
+            ck.save(step, leaves((params, opt_state, ef)),
+                    extra={"step": step}, plan=ctx["plan_spec"])
             ck.wait()
         mlog.log_done(step, loss=losses[-1] if losses else None,
                       straggler=mon.stats)
@@ -630,9 +691,11 @@ def run(args: argparse.Namespace) -> dict:
         print(f"rank {rank} left the mesh at step {loop.left_at}")
     elif losses and lead:
         print(f"done at step {step}; final loss {losses[-1]:.4f}")
-    return {"cfg": cfg, "losses": losses, "step_s": step_s,
-            "data_s": data_s, "steps": steps, "n_params": n_params,
-            "params": params, "mesh": ctx["mesh"], "plan": ctx["plan"],
+    return {"cfg": cfg, "losses": losses, "grad_norms": norms,
+            "step_s": step_s, "data_s": data_s, "steps": steps,
+            "n_params": n_params,
+            "params": params, "opt_state": opt_state, "ef": ef,
+            "mesh": ctx["mesh"], "plan": ctx["plan"],
             "left_at": loop.left_at, "straggler": mon.stats,
             "checkpoint": None if ck is None else
             {**ck.last_save, "write_s": ck.last_write_s}}
@@ -653,7 +716,8 @@ def audit_gate(args: argparse.Namespace, cfg, mesh, plan, params, batch,
     t0 = time.time()
     findings = plan.audit(meshnet.layer_specs(cfg, args.batch), mesh,
                           cfg=cfg, overlap=True, hlo=False, params=params,
-                          batch=batch, device=device)
+                          batch=batch, device=device,
+                          pod_compression=args.pod_compression)
     errs = analysis.error_count(findings)
     if mesh is not None:
         errs = int(mesh.all_max([errs])[0])

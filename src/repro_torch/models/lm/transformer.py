@@ -21,6 +21,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models.lm import modules as M
 from repro_torch.models.lm.config import LMConfig
@@ -234,9 +235,22 @@ def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor
-            ) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V)."""
+def _unit_apply(lps: list, x: torch.Tensor, unit: tuple, cfg: LMConfig,
+                positions: torch.Tensor) -> torch.Tensor:
+    """One unit of a `plan` segment (the reference's scan body): its
+    blocks in order."""
+    for bt, lp in zip(unit, lps):
+        x = _block_apply(lp, x, bt, cfg, positions)
+    return x
+
+
+def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V).  The layers run unit by unit
+    of `plan(cfg)`; with `remat` each unit is a
+    `torch.utils.checkpoint` region (the reference's `jax.checkpoint` of
+    its scan body): only its input is kept, and the backward runs its
+    forward again."""
     _check_ported(cfg)
     types = cfg.layer_types()
     if len(params["layers"]) != len(types):
@@ -244,16 +258,26 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor
                          f"{len(types)} wanted")
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
-    for bt, lp in zip(types, params["layers"]):
-        x = _block_apply(lp, x, bt, cfg, positions)
+    first = 0
+    for unit, count in plan(cfg):
+        for _ in range(count):
+            lps = params["layers"][first:first + len(unit)]
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _unit_apply, lps, x, unit, cfg, positions,
+                    use_reentrant=False)
+            else:
+                x = _unit_apply(lps, x, unit, cfg, positions)
+            first += len(unit)
     x = M.norm_apply(cfg, params["final_norm"], x)
     return _logits(params, cfg, x)
 
 
-def loss_fn(params: dict, batch: dict, cfg: LMConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy in fp32.  batch: tokens (B, S), labels
-    (B, S)."""
-    logits = forward(params, cfg, batch["tokens"])
+    (B, S).  `remat`: see `forward`."""
+    logits = forward(params, cfg, batch["tokens"], remat)
     labels = batch["labels"].long()
     logits = logits[:, -labels.shape[1]:].float()
     logz = torch.logsumexp(logits, dim=-1)

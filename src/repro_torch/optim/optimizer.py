@@ -4,7 +4,11 @@ warmup + cosine schedule and global-norm clipping.
 
 Unlike the reference's pure transforms, `update` writes the new values
 into the parameter tensors in place (under `no_grad`), which saves a copy
-of every weight; it returns the same tree.
+of every weight; it returns the same tree.  The state follows what it is
+given: on a mesh with more than one data rank the train step hands `init`
+and `update` this rank's blocks of the params and the global gradient
+norm, so the moments are sharded as the reference's inherit FSDP's
+sharding (ZeRO).  This module knows no mesh.
 """
 from __future__ import annotations
 
@@ -49,9 +53,12 @@ def global_norm(grads) -> torch.Tensor:
                           for g in tree_leaves(grads)))
 
 
-def clip_by_global_norm(grads: list, max_norm: float):
-    """(grads scaled so their global norm is at most `max_norm`, norm)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: list, max_norm: float,
+                        norm: torch.Tensor | None = None):
+    """(grads scaled so their global norm is at most `max_norm`, norm).
+    `norm`: the global norm where `grads` are blocks of the gradient (the
+    ZeRO step's `train_loop.held_norm`), else it is theirs."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return [(g * scale).to(g.dtype) for g in grads], norm
 
@@ -68,10 +75,10 @@ def sgd(lr: float | Callable[[int], float], momentum: float = 0.9,
                         None)
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         ps, gs = tree_leaves(params), tree_leaves(grads)
         if clip_norm:
-            gs, _ = clip_by_global_norm(gs, clip_norm)
+            gs, _ = clip_by_global_norm(gs, clip_norm, norm)
         mu = [momentum * m + g for m, g in zip(state.mu, gs)]
         step = state.step + 1
         lrv = lr_fn(step)
@@ -97,10 +104,10 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
         return OptState(0, zeros, [torch.zeros_like(z) for z in zeros])
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, norm=None):
         ps, gs = tree_leaves(params), tree_leaves(grads)
         if clip_norm:
-            gs, _ = clip_by_global_norm(gs, clip_norm)
+            gs, _ = clip_by_global_norm(gs, clip_norm, norm)
         step = state.step + 1
         bc1 = 1 - b1 ** step
         bc2 = 1 - b2 ** step
@@ -117,17 +124,22 @@ def adamw(lr: float | Callable[[int], float], b1: float = 0.9,
 
 
 def state_tree(params, state: OptState,
-               to_ref: Callable[[Any], Any] | None = None) -> tuple:
-    """`(params, state, None)` as the reference's train state, the tree a
+               to_ref: Callable[[Any], Any] | None = None, *,
+               ef: list | None = None) -> tuple:
+    """`(params, state, ef)` as the reference's train state, the tree a
     checkpoint holds: flattened (dict keys sorted, None no leaf) its
     leaves run in `jax.tree.flatten` order of the reference's
-    `(params, OptState, None)`: the params, `OptState.step` as a 0-d
-    int32, the `mu` leaves, then the `nu` leaves (none for SGD).  `mu` and
-    `nu`, flat lists in params order here, take the params' structure.
+    `(params, OptState, ef)`: the params, `OptState.step` as a 0-d
+    int32, the `mu` leaves, the `nu` leaves (none for SGD), then the
+    error-feedback leaves (none without `ef`: one `(npods,) + leaf.shape`
+    fp32 array per leaf, the reference's layout).  `mu`, `nu` and `ef`,
+    flat lists in params order here, take the params' structure.
     `to_ref` maps a tree of the params' structure to the reference's
     layout where the two differ (an LM's `transformer.tree_to_jax`); the
-    CNNs' trees are the reference's.  The tensors are the live ones (or
-    stacked copies): `CheckpointManager.save` copies them to the host."""
+    CNNs' trees are the reference's.  Every array is global (a sharded
+    state is gathered first: `launch.shardings.sharded_state_tree`).  The
+    tensors are the live ones (or stacked copies): `CheckpointManager.save`
+    copies them to the host."""
     to_ref = to_ref or (lambda t: t)
 
     def like(flat):
@@ -135,24 +147,29 @@ def state_tree(params, state: OptState,
     return (to_ref(params),
             (np.asarray(state.step, np.int32), like(state.mu),
              None if state.nu is None else like(state.nu)),
-            None)
+            None if ef is None else like(ef))
 
 
 @torch.no_grad()
 def load_state_tree(tree: tuple, params, state: OptState,
-                    from_ref: Callable[[Any], Any] | None = None
-                    ) -> OptState:
+                    from_ref: Callable[[Any], Any] | None = None, *,
+                    ef: list | None = None) -> OptState:
     """Write a restored `state_tree` into the live tensors in place
-    (`copy_`): the params, the moments; returns the state with the
-    restored step.  In place, so a module, the plan's closures and the
-    optimizer's moments keep their references.  `from_ref` inverts
-    `state_tree`'s `to_ref` (an LM's `transformer.tree_from_jax`)."""
+    (`copy_`): the params, the moments, the error-feedback residuals
+    (`ef`, where the run keeps them); returns the state with the restored
+    step.  In place, so a module, the plan's closures and the optimizer's
+    moments keep their references.  Every tensor is global (a sharded
+    state is cut afterwards: `launch.shardings.load_sharded_state_tree`).
+    `from_ref` inverts `state_tree`'s `to_ref` (an LM's
+    `transformer.tree_from_jax`)."""
     from_ref = from_ref or (lambda t: t)
-    p_tree, (step, mu, nu), _ = tree
+    p_tree, (step, mu, nu), ef_tree = tree
     pairs = list(zip(tree_leaves(params), tree_leaves(from_ref(p_tree))))
     pairs += zip(state.mu, tree_leaves(from_ref(mu)))
     if state.nu is not None:
         pairs += zip(state.nu, tree_leaves(from_ref(nu)))
+    if ef is not None:
+        pairs += zip(ef, tree_leaves(from_ref(ef_tree)))
     for dst, src in pairs:
         dst.copy_(src)
     return OptState(int(step), state.mu, state.nu)

@@ -19,7 +19,10 @@ DIR/planK.npz: the meshnet loss and gradients under each case's plan, as
 `resnet [K/P]` (the same for the ResNet cases of DIR/resnet.json, into
 DIR/resnetK.npz, and the one-device SGD trajectory of a case with
 `steps`), or `audit` (the reference's `collect_ops` of the audit probes'
-steps, into DIR/audit_ref.json).  Inputs are
+steps, into DIR/audit_ref.json), `compress` (`cross_pod_mean` on a pod-2
+mesh, into DIR/compress.npz) or `zero` (the reference trainer's step on
+pod 2 x data 2 with its ZeRO placement and each pod compression, into
+DIR/zero.npz and the checkpoint DIR/ckpt_ref).  Inputs are
 `torch_dist_cases`' (numpy seeds).  The local convs run on XLA, the
 reference's default backend.
 """
@@ -337,6 +340,102 @@ def _audit(d):
         json.dump(out, f)
 
 
+def _compress(d):
+    """`cross_pod_mean` on a pod-2 mesh of host devices, the same tree
+    `torch_dist_cases.compress_inputs()` on both pods (the reference takes
+    a replicated tree): each method, int8_ef over COMPRESS_STEPS steps,
+    each step's mean and residual (npods, ...)."""
+    import jax
+    import numpy as np
+    import torch_dist_cases as cases
+    from repro.launch.mesh import make_mesh
+    from repro.optim.grad_compress import cross_pod_mean
+    mesh = make_mesh(data=1, model=1, pod=2, devices=jax.devices()[:2])
+    g = cases.compress_inputs()
+    out = {}
+    with mesh:
+        for method in cases.COMPRESS_METHODS:
+            f = jax.jit(lambda g, ef, method=method: cross_pod_mean(
+                g, mesh=mesh, method=method, error_feedback=ef))
+            ef = None
+            steps = cases.COMPRESS_STEPS if method == "int8_ef" else 1
+            for t in range(steps):
+                red, ef = f(g, ef)
+                for k, v in red.items():
+                    out[f"same/{method}/{t}/{k}"] = np.asarray(v)
+                for k, e in (ef or {}).items():
+                    out[f"same/{method}/{t}/ef/{k}"] = np.asarray(e)
+    np.savez(os.path.join(d, "compress.npz"), **out)
+
+
+def _zero(d):
+    """The reference trainer's step on pod 2 x data 2 x model 1 (4 host
+    devices) for each `torch_dist_cases.ZERO_RUNS` run, the params from
+    DIR/inputs.npz placed under `fsdp_tree_specs` as its `launch.train`
+    places them: losses, grad norms, final params; the int8_ef run's
+    (params, opt state, error feedback) checkpointed to DIR/ckpt_ref."""
+    import functools
+    import jax
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import torch_dist_cases as cases
+    from repro.checkpoint.checkpoint import CheckpointManager
+    from repro.core.spatial_conv import ConvSharding
+    from repro.data.pipeline import synthetic_mesh_batch
+    from repro.launch.mesh import make_mesh
+    from repro.launch.shardings import fsdp_tree_specs
+    from repro.models.cnn import meshnet
+    from repro.optim import optimizer as jopt
+    from repro.train import train_loop as jtl
+    from repro.utils import FP32
+    cfg = meshnet.MeshNetConfig("z", **cases.ZERO_NET)
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    params0 = [{k: {pk: flat[f"{i}.{k}.{pk}"] for pk in sub}
+                for k, sub in layer.items()}
+               for i, layer in enumerate(meshnet.init(
+                   jax.random.PRNGKey(0), cfg))]
+    mesh = make_mesh(data=2, model=1, pod=2, devices=jax.devices()[:4])
+    ba = ("pod", "data")
+    loss = functools.partial(meshnet.loss_fn, cfg=cfg, plan=ConvSharding(
+        batch_axes=ba, h_axis="model"), mesh=mesh)
+
+    def put(b):
+        return {"image": jax.device_put(b["image"], NamedSharding(
+                    mesh, P(ba, "model"))),
+                "label": jax.device_put(b["label"], NamedSharding(
+                    mesh, P(ba)))}
+    out = {}
+    for key, method, accum, n in cases.ZERO_RUNS:
+        specs = fsdp_tree_specs(params0, mesh)
+        params = jax.tree.map(
+            lambda a, s: jax.device_put(a, NamedSharding(mesh, s)),
+            params0, specs)
+        opt = jopt.sgd(cases.ZERO_LR, momentum=0.9)
+        step = jtl.make_train_step(
+            loss, opt, mesh, jtl.TrainStepConfig(
+                grad_accum=accum, precision=FP32, pod_compression=method))
+        state, ef = opt.init(params), None
+        losses, norms = [], []
+        with mesh:
+            for s in range(cases.ZERO_STEPS):
+                b = put(synthetic_mesh_batch(s, n, cfg.input_hw,
+                                             cfg.in_channels,
+                                             out_hw=cfg.out_hw))
+                params, state, ef, m = step(params, state, ef, b)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        out[f"{key}/losses"] = np.array(losses)
+        out[f"{key}/grad_norms"] = np.array(norms)
+        for i, leaf in enumerate(jax.tree.leaves(params)):
+            out[f"{key}/param{i}"] = np.asarray(leaf)
+        if key == "int8_ef":
+            CheckpointManager(os.path.join(d, "ckpt_ref"),
+                              async_save=False).save(
+                cases.ZERO_STEPS, (params, state, ef),
+                extra={"step": cases.ZERO_STEPS})
+    np.savez(os.path.join(d, "zero.npz"), **out)
+
+
 def popen(what: str, d: str, *args: str) -> subprocess.Popen:
     """Start `what` (with `args`) in a subprocess with 8 host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -384,4 +483,5 @@ def reference_eta_unmeasured():
 if __name__ == "__main__":
     {"bn_local": _bn_local, "meshnet": _meshnet, "cf": _cf,
      "plan": _plan, "resnet": _resnet,
-     "audit": _audit}[sys.argv[1]](*sys.argv[2:])
+     "audit": _audit, "compress": _compress,
+     "zero": _zero}[sys.argv[1]](*sys.argv[2:])

@@ -11,6 +11,8 @@ its collectives on this jax.
   (`jax_mesh_oracles.py audit`), weight-gradient psums excepted (the port
   sums them in one gradient bucket; jax 0.9.0 drops some from the
   reference's trace, ROADMAP Queue 3).
+- The ZeRO bucket (a net whose convs data 2 shards): 0 errors on data 2 x
+  model 2, and on pod 2 x data 2 under int8_ef with the pod exchange.
 - The reference's negative cases fire their rules: an all-reduce injected
   into the layer `unpriced-collective`, a serialized step declared
   overlapped `schedule-pin-missing`.
@@ -82,6 +84,28 @@ def test_recorded_ops_match_the_reference(audit_runs, key):
     for rep in reports:
         assert rep["cases"][key]["ops"] == ref[key]
         assert not _errors(rep["cases"][key]["findings"])
+
+
+@pytest.mark.parametrize("key", ["data2", "pod2_int8_ef"])
+def test_zero_bucket_audits_clean(audit_runs, key):
+    """The step with its training state sharded over data 2: the
+    reduce-scatter of the sharded convs and the rest's psum together
+    carry the priced weight gradients once (0 errors, the bucket's bytes
+    the priced ones plus the BN vectors); under int8_ef on pod 2 x data 2
+    the pod exchange's all-gathers are in the bucket too."""
+    for rep in audit_runs[0]:
+        got = rep["zero"][key]
+        assert not _errors(got["findings"]), got["findings"]
+        kinds = {(k, tuple(a)) for k, a, _ in got["bucket"]}
+        assert ("reduce_scatter", ("data",)) in kinds, kinds
+        moved, priced = got["moved"]
+        assert priced < moved <= priced * 1.01
+        infos = [f["message"] for f in got["findings"]
+                 if f["rule"] == "grad-bucket" and f["layer"] is None]
+        assert any(m.startswith("ZeRO over data") for m in infos), infos
+        assert any("skips the update" in m for m in infos), infos
+        assert any(m.startswith("pod exchange") for m in infos) == \
+            (key == "pod2_int8_ef"), infos
 
 
 def test_injected_collective_fires_unpriced(audit_runs):

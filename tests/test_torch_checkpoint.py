@@ -244,7 +244,7 @@ def _port_steps(params, tloss, to, batch, state, steps):
         precision=tutils.FP32))
     losses = []
     for s in steps:
-        params, state, m = tstep(params, state, tpipe.to_device(
+        params, state, _, m = tstep(params, state, None, tpipe.to_device(
             batch(s), torch.device("cpu")))
         losses.append(float(m["loss"]))
     return params, state, losses

@@ -59,7 +59,9 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.analysis", "repro_torch.analysis.lint",
                 "repro_torch.analysis.collectives",
                 "repro_torch.analysis.workloads",
-                "repro_torch.launch.dryrun"}
+                "repro_torch.launch.dryrun",
+                "repro_torch.launch.shardings",
+                "repro_torch.optim.grad_compress"}
     assert expected <= set(out["modules"])
 
 

@@ -16,7 +16,9 @@ Tolerances and their reasons:
 * BF16 loss rtol 3e-2: bf16 rounds at other places in the two packages;
 * the 3-step AdamW trajectory: losses and grad norms rtol 1e-4, params
   rtol 1e-4 / atol 1e-6 (the gradients' tolerance through three steps;
-  Adam's update divides by sqrt(nu), which is as exact as the gradient).
+  Adam's update divides by sqrt(nu), which is as exact as the gradient);
+* `--remat` against the plain loss: bit for bit (the recompute runs the
+  same operations on the same inputs).
 """
 import dataclasses
 import functools
@@ -411,6 +413,86 @@ def test_hymba_smoke_loss_and_grads_match_jax():
                                    rtol=1e-4, atol=1e-6)
 
 
+def test_hymba_smoke_remat_equals_the_plain_loss_and_grads(monkeypatch):
+    """`loss_fn(remat=True)` (each unit of `plan(cfg)` a
+    torch.utils.checkpoint region, the reference's jax.checkpoint of its
+    scan body): the same loss and gradients, bit for bit on the CPU, and
+    every block's forward run twice (the recompute)."""
+    params = tT.params_from_jax(_hymba_smoke(), thymba.SMOKE)
+    tb = tpipe.to_device(tpipe.synthetic_lm_batch(0, 2, SEQ,
+                                                  jhymba.SMOKE.vocab),
+                         torch.device("cpu"))
+    calls, block = [], tT._block_apply
+
+    def counted(*a, **k):
+        calls.append(1)
+        return block(*a, **k)
+    monkeypatch.setattr(tT, "_block_apply", counted)
+    leaves = tutils.tree_leaves(params)
+    out = {}
+    for remat in (False, True):
+        calls.clear()
+        loss = tT.loss_fn(params, tb, thymba.SMOKE, remat=remat)
+        out[remat] = (loss.detach(), torch.autograd.grad(loss, leaves),
+                      len(calls))
+    n = thymba.SMOKE.n_layers
+    assert out[False][2] == n and out[True][2] == 2 * n
+    assert torch.equal(out[True][0], out[False][0])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+def test_train_step_remat_recomputes_the_loss(monkeypatch):
+    """`TrainStepConfig(remat=True)` (the reference's jax.checkpoint of the
+    whole loss fn in make_train_step): one step's loss, gradient norm and
+    updated params equal the plain step's bit for bit on the CPU, and
+    every block's forward runs twice."""
+    tb = tpipe.to_device(tpipe.synthetic_lm_batch(0, 2, SEQ,
+                                                  jhymba.SMOKE.vocab),
+                         torch.device("cpu"))
+    calls, block = [], tT._block_apply
+
+    def counted(*a, **k):
+        calls.append(1)
+        return block(*a, **k)
+    monkeypatch.setattr(tT, "_block_apply", counted)
+    out = {}
+    for remat in (False, True):
+        params = tT.params_from_jax(_hymba_smoke(), thymba.SMOKE)
+        opt = topt.adamw(1e-3)
+        step = ttl.make_train_step(
+            functools.partial(tT.loss_fn, cfg=thymba.SMOKE), opt,
+            ttl.TrainStepConfig(precision=tutils.FP32, remat=remat))
+        calls.clear()
+        params, _, _, m = step(params, opt.init(params), None, tb)
+        out[remat] = (m, tutils.tree_leaves(params), len(calls))
+    n = thymba.SMOKE.n_layers
+    assert out[False][2] == n and out[True][2] == 2 * n
+    for key in ("loss", "grad_norm"):
+        assert torch.equal(out[True][0][key], out[False][0][key])
+    for a, b in zip(out[True][1], out[False][1]):
+        assert torch.equal(a, b)
+
+
+def test_remat_and_pod_compression_flags():
+    args = train_cli.parse_args(["--arch", "hymba-1.5b", "--smoke",
+                                 "--remat", "--pod-compression", "int8_ef",
+                                 "--device", "cpu"])
+    assert args.remat and args.pod_compression == "int8_ef"
+    cfg = train_cli.step_config(args, tutils.FP32)
+    # --remat goes to the LM loss, as the reference's trainer passes it
+    assert not cfg.remat and cfg.pod_compression == "int8_ef"
+    loss = train_cli.build(args, torch.device("cpu"), echo=False)[3]
+    assert loss.keywords["remat"] is True
+    assert train_cli.parse_args(["--arch", "mesh1k"]).pod_compression == \
+        "none"
+    for bad in (["--arch", "mesh1k", "--remat"],
+                ["--arch", "resnet50", "--remat"],
+                ["--arch", "mesh1k", "--pod-compression", "fp8"]):
+        with pytest.raises(SystemExit):
+            train_cli.parse_args(bad)
+
+
 def test_hymba_smoke_bf16_loss_matches_jax():
     jp = _hymba_smoke()
     nb = tpipe.synthetic_lm_batch(1, 2, SEQ, jhymba.SMOKE.vocab)
@@ -446,7 +528,7 @@ def test_three_step_adamw_trajectory_matches_jax():
         nb = tpipe.synthetic_lm_batch(s, 2, SEQ, cfg.vocab)
         jparams, jstate, _, jm = jstep(
             jparams, jstate, None, {k: jnp.asarray(v) for k, v in nb.items()})
-        params, state, m = tstep(params, state,
+        params, state, _, m = tstep(params, state, None,
                                  tpipe.to_device(nb, torch.device("cpu")))
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                    rtol=1e-4)
@@ -478,5 +560,6 @@ def test_train_cli_hymba_smoke_on_cpu():
     assert all(np.isfinite(res["losses"]))
     with pytest.raises(SystemExit):
         train_cli.parse_args(["--arch", "mesh1k", "--bf16"])
-    with pytest.raises(SystemExit):
-        train_cli.parse_args(["--arch", "hymba-1.5b", "--remat"])
+    assert train_cli.parse_args(["--arch", "hymba-1.5b", "--remat"]).remat
+    with pytest.raises(SystemExit):                 # the LM archs' flag
+        train_cli.parse_args(["--arch", "mesh1k", "--remat"])

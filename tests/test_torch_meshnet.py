@@ -112,7 +112,7 @@ def test_three_step_sgd_trajectory_matches_jax(name):
                                         tcfg.in_channels, out_hw=tcfg.out_hw)
         jparams, jstate, _, jm = jstep(
             jparams, jstate, None, {k: jnp.asarray(v) for k, v in nb.items()})
-        params, state, m = tstep(params, state,
+        params, state, _, m = tstep(params, state, None,
                                  tpipe.to_device(nb, torch.device("cpu")))
         np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                    rtol=1e-4)
@@ -142,8 +142,8 @@ def test_grad_accum_matches_jax():
         functools.partial(tmesh.loss_fn, cfg=tcfg), opt,
         ttl.TrainStepConfig(grad_accum=2, precision=tutils.FP32))
     params = model.params()
-    _, _, m = tstep(params, opt.init(params),
-                    tpipe.to_device(nb, torch.device("cpu")))
+    _, _, _, m = tstep(params, opt.init(params), None,
+                       tpipe.to_device(nb, torch.device("cpu")))
     np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
                                rtol=1e-5)
     np.testing.assert_allclose(float(m["grad_norm"]),

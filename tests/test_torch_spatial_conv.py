@@ -164,3 +164,48 @@ def test_spatial_conv_needs_the_mesh_and_one_stride():
         tsc.spatial_conv2d(x, w, sharding=tsc.ConvSharding(h_axis="model"))
     with pytest.raises(ValueError, match="one stride"):
         tsc.spatial_conv2d(x, w, strides=(1, 2), sharding=tsc.ConvSharding())
+
+
+@pytest.mark.parametrize("sh", [
+    {"batch_axes": ("data",), "h_axis": "model"},
+    {"batch_axes": (), "h_axis": ("pod", "model"), "w_axis": "model"}],
+    ids=["h", "hw_product"])
+@pytest.mark.parametrize("geom", [(3, 1), (3, 2), (1, 1)],
+                         ids=["3x3s1", "3x3s2", "1x1"])
+def test_a_spatial_axis_of_one_rank_runs_one_dense_conv(monkeypatch, sh,
+                                                        geom):
+    """An H (or W) split over an axis of one rank has no neighbour: the
+    conv is one dense SAME conv, with no halo and no §IV-A split, equal
+    bit for bit to the unsharded conv, forward and gradients.  The
+    sharding stays (so BN keeps its scope); only the conv drops the
+    axis (`ConvSharding.without_unit_axes`)."""
+    import torch
+    from repro_torch.core import halo
+    from repro_torch.launch.mesh import Mesh
+    k, s = geom
+    mesh = Mesh({"pod": 1, "data": 2, "model": 1}, rank=0)
+    calls, conv = [], tsc._conv_nhwc
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return conv(*a, **kw)
+    monkeypatch.setattr(tsc, "_conv_nhwc", counted)
+    monkeypatch.setattr(halo, "HaloSchedule", None)      # never reached
+    gen = torch.Generator().manual_seed(3)
+    x0 = torch.randn((2, 8, 8, 4), generator=gen)
+    w0 = torch.randn((k, k, 4, 5), generator=gen)
+    out = {}
+    for name, sharding in (("cut", tsc.ConvSharding(**sh)),
+                           ("dense", tsc.ConvSharding())):
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        calls.clear()
+        y = tsc.spatial_conv2d(x, w, strides=(s, s), sharding=sharding,
+                               mesh=mesh)
+        n = len(calls)
+        dx, dw = torch.autograd.grad(y.square().sum(), (x, w))
+        out[name] = (y.detach(), dx, dw, n)
+    assert out["cut"][3] == out["dense"][3] == 1
+    for a, b in zip(out["cut"][:3], out["dense"][:3]):
+        assert torch.equal(a, b)
+    assert tsc.ConvSharding(**sh).without_unit_axes(mesh.shape) == \
+        tsc.ConvSharding(batch_axes=sh["batch_axes"])

@@ -1,8 +1,10 @@
 """Rank-side cases of the port's multi-rank tests, on gloo CPU ranks.
 
     PYTHONPATH=src python tests/torch_dist_cases.py <case> <data>,<model> DIR
+    PYTHONPATH=src python tests/torch_dist_cases.py <case> <pod>,<data>,<model> DIR
 
-spawns one process per rank of a ("data", "model") mesh with
+spawns one process per rank of a ("data", "model") (or ("pod", "data",
+"model")) mesh with
 torch.multiprocessing (spawn).  Each joins a gloo group through a
 FileStore in DIR, builds the port's `Mesh`, runs `CASES[case]` on its
 block of the case's global inputs (made from numpy seeds here, or read
@@ -393,7 +395,7 @@ def case_trajectory(mesh, d):
     state = opt.init(params)
     losses, norms = [], []
     for s in range(steps):
-        params, state, m = step(params, state, batch(s, n))
+        params, state, _, m = step(params, state, None, batch(s, n))
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
     out = {"losses": np.array(losses), "grad_norms": np.array(norms)}
@@ -654,7 +656,7 @@ def case_resnet_trajectory(mesh, d):
         state = opt.init(params)
         losses = []
         for s in range(steps):
-            params, state, m = step(params, state, batch(s))
+            params, state, _, m = step(params, state, None, batch(s))
             losses.append(float(m["loss"]))
         key = c["name"]
         out[f"{key}/losses"] = np.array(losses)
@@ -828,7 +830,7 @@ def case_elastic(mesh, d):
         def run(state, step):
             p, o = state
             tstep, put = ctx["rig"]
-            p, o, m = tstep(p, o, put(step))
+            p, o, _, m = tstep(p, o, None, put(step))
             got[step] = float(m["loss"])
             return (p, o), m
         return run
@@ -1027,7 +1029,36 @@ def case_audit(mesh, d):
                     ("serialized", {"overlap": False})):
         report["negative"][key] = [
             f.to_json() for f in audit_probe(m, spec, dist, **kw).findings]
+    report["zero"] = audit_zero(m, make_mesh(data=2, model=1, pod=2))
     return {"report": np.array(json.dumps(report))}
+
+
+def audit_zero(mesh, pods):
+    """The ZeRO bucket audited: ZERO_NET's step under the trainer's uniform
+    plan (N over the batch axes, H over model) on data 2 x model 2 (its
+    three sharded convs reduce-scattered over data), and on pod 2 x data
+    2 x model 1 under int8_ef (the pod exchange too; the H split over a
+    model axis of one rank runs one dense conv a layer, no halo): each
+    audit's findings and recorded bucket ops."""
+    from repro_torch import analysis
+    from repro_torch.core.plan import NetworkPlan
+    from repro_torch.core.spatial_conv import ConvSharding
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models.cnn import meshnet
+    cfg = meshnet.MeshNetConfig("z", **ZERO_NET)
+    out = {}
+    for key, m, method in (("data2", mesh, "none"),
+                           ("pod2_int8_ef", pods, "int8_ef")):
+        specs = meshnet.layer_specs(cfg, 4)
+        plan = NetworkPlan.uniform(ConvSharding(
+            batch_axes=batch_axes(m), h_axis="model"), specs=specs, mesh=m)
+        a = analysis.meshnet_audit(plan, specs, cfg, m, device="cpu",
+                                   pod_compression=method)
+        out[key] = {"findings": [f.to_json() for f in a.findings],
+                    "bucket": [[o.kind, sorted(o.axes), o.bytes]
+                               for o in a.ops if o.region == "grad_bucket"],
+                    "moved": a.bucket()[:2]}
+    return out
 
 
 def case_halo_order(mesh, d):
@@ -1061,6 +1092,146 @@ def case_halo_order(mesh, d):
     return out
 
 
+# ------------------------------------------ sharded training state --
+
+# cross_pod_mean's inputs: the leaves of tests/dist_checks.py check_compress
+COMPRESS_SHAPES = {"a": (64, 32), "b": (128,)}
+COMPRESS_METHODS = ("none", "bf16", "int8_ef")
+COMPRESS_STEPS = 3
+
+
+def compress_inputs(pod=None) -> dict:
+    """check_compress's gradient tree (numpy seeds): the same on every pod,
+    or (`pod`) one of its own for each pod."""
+    g = np.random.default_rng(21 if pod is None else 30 + pod)
+    return {k: g.standard_normal(sh).astype(np.float32)
+            for k, sh in COMPRESS_SHAPES.items()}
+
+
+def case_compress(mesh, d):
+    """`cross_pod_mean` on a pod-2 mesh, each method on the same tree on
+    both pods (`same`) and on each pod's own (`diff`); int8_ef over
+    COMPRESS_STEPS steps of the same gradient, the residual carried: each
+    step's mean and residual."""
+    import torch
+    from repro_torch.optim.grad_compress import cross_pod_mean
+    out = {}
+    for tag, g in (("same", compress_inputs()),
+                   ("diff", compress_inputs(mesh.coords["pod"]))):
+        g = {k: torch.from_numpy(v) for k, v in g.items()}
+        for method in COMPRESS_METHODS:
+            ef = None
+            steps = COMPRESS_STEPS if method == "int8_ef" else 1
+            for t in range(steps):
+                red, ef = cross_pod_mean(g, mesh=mesh, method=method,
+                                         error_feedback=ef)
+                for k, v in red.items():
+                    out[f"{tag}/{method}/{t}/{k}"] = v.numpy()
+                for k, e in zip(sorted(g), ef or []):
+                    out[f"{tag}/{method}/{t}/ef/{k}"] = e.numpy()
+    return out
+
+
+# a meshnet with three leaves of >= 2^14 elements (the 3x3x64x64 convs),
+# so data 2 shards them; BN at the local scope, mesh1k's
+ZERO_NET = {"input_hw": 32, "in_channels": 4, "convs_per_block": 2,
+            "widths": (16, 64, 64)}
+ZERO_LR, ZERO_STEPS = 0.05, 3
+# (key, pod compression, grad_accum, global batch)
+ZERO_RUNS = [("none", "none", 1, 4), ("bf16", "bf16", 1, 4),
+             ("int8_ef", "int8_ef", 1, 4), ("accum", "int8_ef", 2, 8)]
+
+
+def zero_params(cfg, d):
+    """The meshnet's params from DIR/inputs.npz (the reference's init)."""
+    import torch
+    from repro_torch.models.cnn import meshnet
+    model = meshnet.MeshNet(cfg, generator=torch.Generator(), device="cpu")
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    model.params_from_jax([{k: {pk: flat[f"{i}.{k}.{pk}"] for pk in sub}
+                            for k, sub in layer.items()}
+                           for i, layer in enumerate(model.params())])
+    return model.params()
+
+
+def case_zero(mesh, d):
+    """ZERO_RUNS through the port's train step on this (pod, data, model)
+    mesh, the training state sharded over data: each run's losses, grad
+    norms, final params (global), this rank's momentum shapes and the
+    largest |x| a pod exchange took (for the compressed runs' bounds); the
+    int8_ef run's state as `sharded_state_tree` gathers it (global moments
+    and residuals; this rank's residuals beside), written to DIR/ckpt_port
+    by mesh rank 0."""
+    import functools
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core.plan import NetworkPlan
+    from repro_torch.core.spatial_conv import ConvSharding
+    from repro_torch.data import pipeline
+    from repro_torch.launch import shardings
+    from repro_torch.models.cnn import meshnet
+    from repro_torch.optim import grad_compress
+    from repro_torch.optim.optimizer import sgd
+    from repro_torch.train import train_loop
+    from repro_torch.utils import FP32, tree_leaves
+    cfg = meshnet.MeshNetConfig("z", **ZERO_NET)
+    seen = []
+
+    def spy(grads, **kw):            # the largest |x + residual| exchanged
+        ef = kw.get("error_feedback") or [0.0] * len(grads)
+        seen.append(max(float((g.float() + e).abs().max())
+                        for g, e in zip(grads, ef)))
+        return grad_compress.cross_pod_mean(grads, **kw)
+    train_loop.cross_pod_mean = spy
+    out = {}
+    for key, method, accum, n in ZERO_RUNS:
+        specs = meshnet.layer_specs(cfg, n)
+        plan = NetworkPlan.uniform(ConvSharding(batch_axes=("pod", "data"),
+                                                h_axis="model"),
+                                   specs=specs, mesh=mesh)
+        params = zero_params(cfg, d)
+        opt = sgd(ZERO_LR, momentum=0.9)
+        held = shardings.local_shards(params, mesh)
+        state = opt.init(held)
+        ef = grad_compress.init_error_feedback(held, mesh, method)
+        step = train_loop.make_train_step(
+            functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
+                              mesh=mesh), opt,
+            train_loop.TrainStepConfig(grad_accum=accum, precision=FP32,
+                                       pod_compression=method), mesh)
+        first, last = plan.sharding(specs[0].name), plan.sharding("pred")
+        losses, norms = [], []
+        seen.clear()
+        for s in range(ZERO_STEPS):
+            b = pipeline.synthetic_mesh_batch(s, n, cfg.input_hw,
+                                              cfg.in_channels,
+                                              out_hw=cfg.out_hw)
+            b = pipeline.to_device(pipeline.shard_batch(b, mesh, first, last),
+                                   torch.device("cpu"))
+            params, state, ef, m = step(params, state, ef, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[f"{key}/losses"] = np.array(losses)
+        out[f"{key}/grad_norms"] = np.array(norms)
+        out[f"{key}/max_abs"] = np.array(max(seen) if seen else 0.0)
+        out[f"{key}/mu_shapes"] = np.array(json.dumps(
+            [list(m.shape) for m in state.mu]))
+        for i, p in enumerate(tree_leaves(params)):
+            out[f"{key}/param{i}"] = p.detach().numpy()
+        if key == "int8_ef":
+            tree = shardings.sharded_state_tree(params, state, ef, mesh)
+            _, (_, mu, _), ef_g = tree
+            for i, (m_, e_, mine) in enumerate(zip(
+                    tree_leaves(mu), tree_leaves(ef_g), ef)):
+                out[f"{key}/mu{i}"] = m_.numpy()
+                out[f"{key}/ef{i}"] = e_.numpy()
+                out[f"{key}/ef_local{i}"] = mine.numpy()
+            ck = CheckpointManager(os.path.join(d, "ckpt_port"),
+                                   async_save=False, writer=mesh.rank == 0)
+            ck.save(ZERO_STEPS, tree, extra={"step": ZERO_STEPS})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -1068,21 +1239,30 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "resnet": case_resnet, "resnet_trajectory": case_resnet_trajectory,
          "calibrate": case_calibrate, "trace": case_trace,
          "elastic": case_elastic, "subset": case_subset,
-         "audit": case_audit, "halo_order": case_halo_order}
+         "audit": case_audit, "halo_order": case_halo_order,
+         "compress": case_compress, "zero": case_zero}
 
 
 # ------------------------------------------------------------ launcher --
+
+def world(dims: tuple) -> int:
+    """Ranks of a (data, model) or (pod, data, model) mesh."""
+    n = 1
+    for v in dims:
+        n *= v
+    return n
+
 
 def _rank_main(rank: int, case: str, dims: tuple, d: str) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
-    world = dims[0] * dims[1]
     dist.init_process_group("gloo", init_method=f"file://{d}/store",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world(dims))
     try:
-        mesh = make_mesh(data=dims[0], model=dims[1])
+        mesh = make_mesh(data=dims[-2], model=dims[-1],
+                         pod=dims[0] if len(dims) == 3 else 1)
         out = CASES[case](mesh, d)
         np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
         dist.barrier()
@@ -1111,7 +1291,7 @@ def collect(p: subprocess.Popen, dims: tuple, d: str,
                              f"{p.returncode}):\n{out[-2000:]}\n"
                              f"{err[-6000:]}")
     return [dict(np.load(os.path.join(d, f"rank{i}.npz")))
-            for i in range(dims[0] * dims[1])]
+            for i in range(world(dims))]
 
 
 def run(case: str, dims: tuple, d: str, timeout: int = 300) -> list[dict]:
@@ -1124,7 +1304,7 @@ def main(argv) -> int:
     import torch.multiprocessing as mp
     case, dims, d = argv[0], tuple(int(v) for v in argv[1].split(",")), \
         argv[2]
-    mp.spawn(_rank_main, args=(case, dims, d), nprocs=dims[0] * dims[1],
+    mp.spawn(_rank_main, args=(case, dims, d), nprocs=world(dims),
              join=True)
     print(json.dumps({"case": case, "dims": dims, "ok": True}))
     return 0

@@ -134,12 +134,12 @@ def mesh1k_step_s(plan, mesh, batch: int, warmup: int, reps: int,
                                       cfg.in_channels, out_hw=cfg.out_hw),
         mesh, plan.sharding(specs[0].name), plan.sharding("pred")), dev)
     for _ in range(warmup):
-        loss = float(step(params, state, data)[2]["loss"])
+        loss = float(step(params, state, None, data)[3]["loss"])
     times = []
     for _ in range(reps):
         dist.barrier()
         t0 = time.perf_counter()
-        loss = float(step(params, state, data)[2]["loss"])
+        loss = float(step(params, state, None, data)[3]["loss"])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     del params, state, data

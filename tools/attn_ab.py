@@ -63,13 +63,13 @@ def step_only(src: str) -> dict:
         step = make_train_step(loss, opt, TrainStepConfig(precision=prec))
         state = opt.init(params)
         for _ in range(STEP_WARMUP):
-            float(step(params, state, batch)[2]["loss"])
+            float(step(params, state, None, batch)[3]["loss"])
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         times = []
         for _ in range(STEP_REPS):
             t0 = time.perf_counter()
-            lv = float(step(params, state, batch)[2]["loss"])
+            lv = float(step(params, state, None, batch)[3]["loss"])
             times.append(time.perf_counter() - t0)
         out[name] = {"step_s": times, "mean_s": sum(times) / len(times),
                      "loss": lv, "launches": ops.launch_counts(),

@@ -58,12 +58,12 @@ def step_only(src: str) -> dict:
     batch = pipeline.to_device(pipeline.synthetic_mesh_batch(
         0, BATCH, cfg.input_hw, cfg.in_channels, out_hw=cfg.out_hw), dev)
     for _ in range(STEP_WARMUP):
-        loss = float(step(params, state, batch)[2]["loss"])
+        loss = float(step(params, state, None, batch)[3]["loss"])
     ops.reset_launch_counts()
     times = []
     for _ in range(STEP_REPS):
         t0 = time.perf_counter()
-        loss = float(step(params, state, batch)[2]["loss"])
+        loss = float(step(params, state, None, batch)[3]["loss"])
         times.append(time.perf_counter() - t0)
     return {"src": src, "step_s": times,
             "mean_s": sum(times) / len(times), "loss": loss,
