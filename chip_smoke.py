@@ -138,9 +138,31 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone, with its launches per layer;
+5b. serving (`launch.serve`, FP32): the attention and SSD-chunk kernels
+   held as in phase 5 (`check_attention`, `check_ssd`) at the prefill
+   shapes (batch 4 x each prompt); the host-bound decode step (qwen1.5
+   at full width, 63 steps) timed in this process and in a fresh one,
+   twice each, with the thread and process counts of each; full-width
+   hymba-1.5b (prompt 1088, 64 past its window) and qwen1.5-0.5b (prompt
+   256), batch 4, 32 generated tokens, each in a fresh process (so its
+   times owe nothing to the earlier phases), through the serve entry point
+   (the prompt replayed a token a step, then greedy decode: no kernel
+   launch, asserted), then `transformer.prefill` of the same prompt on
+   the kernels (32 / 32 and 24 / 0 launches): its last logits against
+   the replay's at the last prompt position and its K/V against the
+   decode caches, within 1e-3 of the largest magnitude; prefill ms and
+   tokens/s, decode ms a step (median of the generation steps) and
+   tokens/s beside the step's bytes bound (the weights read once), peak
+   memory, the state's bytes, and 8 decode steps under torch.profiler
+   (device kernels a step, idle share); hymba cut to 4 layers, 16 decode
+   steps on the card against the CPU; and the sequence-sharded decode on
+   2 gloo ranks sharing the card (model 2, the 4-layer hymba, prompt 64,
+   gen 16) against one rank: every step's logits and the caches within
+   1e-4, the ids equal.  Not a scaling result;
 6. print every kernel's registers, static shared memory and spills (the
-   ptxas report), the HGMMA counts, the `kernels` JSON line and, last, the
-   `ok` JSON line.
+   ptxas report), the HGMMA counts, the `kernels` JSON line (with each LM
+   kernel's launches in prefill, `serve_launches`) and, last, the `ok`
+   JSON line.
 
 Each launch count is read from a run that starts with every count at 0.
 Any failed phase raises and the script exits non-zero.  Per-shape rows go
@@ -150,6 +172,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -158,6 +181,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -168,7 +192,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa
-from repro_torch.configs import hymba_1_5b  # noqa: E402
+from repro_torch.configs import hymba_1_5b, qwen1_5_0_5b  # noqa: E402
 from repro_torch.core import calibrate, channel_conv  # noqa: E402
 from repro_torch.core import collectives, halo, perfmodel  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
@@ -183,12 +207,14 @@ from repro_torch.kernels import flash_attention as kfa  # noqa: E402
 from repro_torch.kernels import ssd as kssd  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     conv2d_ref, flash_attention_ref, ssd_chunked_ref)
+from repro_torch.launch import serve, shardings  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import Mesh, make_mesh  # noqa: E402
 from repro_torch.models.cnn import layers as cnn_layers  # noqa: E402
 from repro_torch.models.cnn import meshnet, resnet  # noqa: E402
 from repro_torch.models.lm import modules as lm_modules  # noqa: E402
 from repro_torch.models.lm import transformer  # noqa: E402
+from repro_torch.models.lm.modules import ShardCtx  # noqa: E402
 from repro_torch.optim.optimizer import (  # noqa: E402
     adamw, sgd, state_tree)
 from repro_torch.train.train_loop import (  # noqa: E402
@@ -2586,11 +2612,14 @@ def admitted_pairs(s: int, window: int | None) -> int:
 
 def attention_cases(cfg) -> list[dict]:
     """The attention calls of one forward: full causal on the global
-    layers, causal + window on the others."""
-    n_glob = sum(t == "hybrid_g" for t in cfg.layer_types())
-    return [{"mask": "causal", "window": None, "count": n_glob},
-            {"mask": f"window {cfg.window}", "window": cfg.window,
-             "count": cfg.n_layers - n_glob}]
+    layers, causal + window on the sliding-window ones (where there are
+    any)."""
+    types = cfg.layer_types()
+    n_win = sum(t in ("swa", "hybrid_s") for t in types)
+    n_glob = sum(t != "ssm" for t in types) - n_win
+    return [{"mask": "causal", "window": None, "count": n_glob}] + (
+        [{"mask": f"window {cfg.window}", "window": cfg.window,
+          "count": n_win}] if n_win else [])
 
 
 def attention_limit(q, k, v, **opts) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2603,11 +2632,13 @@ def attention_limit(q, k, v, **opts) -> tuple[torch.Tensor, torch.Tensor]:
     return want, ATTN_ELEM_ULP * (spread + want.abs())
 
 
-def check_attention(case: dict, dtype: torch.dtype,
-                    gen: torch.Generator) -> dict:
-    dev, cfg = torch.device("cuda"), HYMBA
-    b, s, hq, hkv, d = LM_BATCH, LM_SEQ, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.head_dim
+def check_attention(case: dict, dtype: torch.dtype, gen: torch.Generator,
+                    cfg=HYMBA, b: int = LM_BATCH, s: int = LM_SEQ) -> dict:
+    """The kernel at `cfg`'s heads, batch b x s, against its plain
+    version, its CPU emulation and (bf16) the element limit; its autograd
+    Function; its times beside the bound and one SDPA call's."""
+    dev = torch.device("cuda")
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     window, what = case["window"], f"flash_attention {case['mask']} {dtype}"
     q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
     k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
@@ -2663,6 +2694,7 @@ def check_attention(case: dict, dtype: torch.dtype,
                     .abs().max())
     p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, window)
     row = {"kernel": "flash_attention", "mask": case["mask"],
+           "model": cfg.name,
            "dtype": str(dtype).split(".")[-1], "count": case["count"],
            "q": [b, s, hq, d], "kv": [b, s, hkv, d], "max_abs_err": err,
            "max_err_over_elem_limit": elem,
@@ -2689,12 +2721,13 @@ SSD_SHAPES = [
 ]
 
 
-def ssd_inputs(shape: dict, dtype: torch.dtype, gen: torch.Generator):
-    """xdt, la, B, C at batch LM_BATCH x LM_SEQ: the model's inputs at
-    init, la = softplus(dt) * -A with A_log = log(linspace(1, 16)); la
-    stays fp32 under bf16, as in the model."""
+def ssd_inputs(shape: dict, dtype: torch.dtype, gen: torch.Generator,
+               b: int = LM_BATCH, l: int = LM_SEQ):
+    """xdt, la, B, C at batch b x l: the model's inputs at init, la =
+    softplus(dt) * -A with A_log = log(linspace(1, 16)); la stays fp32
+    under bf16, as in the model."""
     dev = torch.device("cuda")
-    b, l, h, p, n = LM_BATCH, LM_SEQ, shape["h"], shape["p"], shape["n"]
+    h, p, n = shape["h"], shape["p"], shape["n"]
     xdt = (torch.randn((b, l, h, p), generator=gen, device=dev) * 0.5) \
         .to(dtype)
     dt = F.softplus(torch.randn((b, l, h), generator=gen, device=dev))
@@ -2724,11 +2757,15 @@ def ssd_plan_str(pl, ctas: int | None = None) -> str:
         "" if ctas is None else f" {ctas}/SM")
 
 
-def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator) -> dict:
+def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator,
+              b: int = LM_BATCH, l: int = LM_SEQ) -> dict:
+    """The kernel at `shape`'s heads, batch b x l, against its plain
+    version and (bf16) the element limit; its autograd Function; its
+    times beside the bound."""
     dev = torch.device("cuda")
     chunk = shape["chunk"]
     what = f"ssd_chunk {shape['model']} {dtype}"
-    xdt, la, B, C = ssd_inputs(shape, dtype, gen)
+    xdt, la, B, C = ssd_inputs(shape, dtype, gen, b, l)
     pl = kssd.plan(chunk, shape["n"], dtype)
     if pl.path != ("mma" if dtype == torch.bfloat16 else "fma"):
         raise AssertionError(f"{what} planned {pl}")
@@ -2984,6 +3021,420 @@ def lm_profile_phase() -> dict:
             "inter_chunk_fwd_bwd_kernels": ic_kernels}
 
 
+# ---------------------------------------------------------------- serving --
+
+SERVE_BATCH, SERVE_GEN = 4, 32
+# prompt lengths: hymba's is 64 past its 1024 window (a multiple of the
+# SSD chunk), so the window masks act in prefill and in decode alike
+SERVE_PROMPT = {"hymba-1.5b": 1088, "qwen1.5-0.5b": 256}
+SERVE_CFG = {"hymba-1.5b": HYMBA, "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG}
+# prefill (the kernels: chunked SSD, blocked flash attention) against the
+# replay through the decode step (the recurrence, the plain one-token
+# attention): the last prompt position's logits and every layer's K/V
+# over the prompt, max |difference| over the largest magnitude.  fp32
+# through 32 (24) blocks whose scans and softmaxes sum up to 1088 terms
+# in other orders; each kernel alone is within 1e-4 of its plain version
+SERVE_TOL = 1e-3
+# the decode step on the card against the CPU (no kernel: the same plain
+# operations, cuBLAS against the CPU's sums), and 2 sequence shards
+# against one (the partial softmaxes merged in another order): logits of
+# every step and the final caches, max |difference| over the largest
+# magnitude, fp32 through 4 blocks and 16 (79) steps
+SERVE_CHECK_TOL = 1e-4
+SERVE_CHECK_LAYERS, SERVE_CPU_STEPS = 4, 16
+SERVE_DIST_PROMPT, SERVE_DIST_GEN = 64, 16
+SERVE_PROFILE_STEPS = 8
+# the decode probe: qwen1.5-0.5b at full width, batch 4, 16 prompt tokens
+# replayed and 48 generated (63 steps, cache 64)
+SERVE_PROBE_PROMPT, SERVE_PROBE_GEN = 16, 48
+SERVE_DIR = os.path.join(HERE, "build", "serve")
+
+
+def serve_kernel_rows(card: str) -> list[dict]:
+    """The flash-attention and SSD-chunk kernels held as `lm_kernel_phase`
+    holds them (`check_attention`, `check_ssd`), at the prefill shapes
+    (batch 4 x each prompt), float32: the serving path's kernel calls,
+    timed, with their bound and (attention) one SDPA call's time."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for arch, cfg in SERVE_CFG.items():
+        b, s = SERVE_BATCH, SERVE_PROMPT[arch]
+        for case in attention_cases(cfg):
+            rows.append(check_attention(case, torch.float32, gen, cfg, b, s))
+        if cfg.ssm_state:
+            shape = {"model": arch, "h": cfg.ssm_heads,
+                     "p": cfg.ssm_head_dim, "n": cfg.ssm_state,
+                     "chunk": cfg.ssm_chunk, "count": cfg.n_layers}
+            rows.append(check_ssd(shape, torch.float32, gen, b, s))
+        torch.cuda.empty_cache()
+    for r in rows:
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f}"
+        case = r.get("mask", f"chunk {r.get('chunk')}")
+        print(f"prefill kernel {r['kernel']:16s} {r['model']:13s} "
+              f"{case:12s} x{r['count']:2d}: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f}, library {lib}, bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), max err "
+              f"{r['max_abs_err']:.2e} ({card})", flush=True)
+    return rows
+
+
+def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want| (on the host, in float64)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def decode_kind(name: str) -> str:
+    """The kind of a decode step's device kernel, by its lower-case name."""
+    if any(t in name for t in ("gemm", "gemv", "cutlass", "xmma", "sm90",
+                               "cublas")):
+        return "cuBLAS matmuls"
+    if "reduce" in name or "softmax" in name:
+        return "reductions"
+    if any(t in name for t in ("elementwise", "vectorized", "unrolled",
+                               "copy", "cat", "index")):
+        return "elementwise / copies"
+    return "other"
+
+
+def state_bytes(caches: list) -> dict:
+    """Bytes of the decode state by entry: K/V, SSM state, conv buffers."""
+    out = {"kv": 0, "ssm": 0, "conv": 0}
+    for entry in caches:
+        for name, t in entry.items():
+            key = "kv" if name in ("k", "v") else name
+            out[key] += t.numel() * t.element_size()
+    return out
+
+
+def serve_arch_phase(arch: str, card: str) -> dict:
+    """Full-width `arch` through the serve entry point on the card (batch
+    4, its prompt, 32 generated tokens), then `transformer.prefill` of
+    the same prompt with the kernels: prefill's last logits against the
+    replay's at the last prompt position, its K/V against the decode
+    caches' first positions; then 8 decode steps under torch.profiler."""
+    cfg, prompt = SERVE_CFG[arch], SERVE_PROMPT[arch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = serve.run(serve.parse_args(
+        ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
+         str(prompt), "--gen", str(SERVE_GEN), "--device", "cuda"]),
+        keep={prompt - 1})
+    decode_launches = ops.launch_counts()
+    decode_peak = torch.cuda.max_memory_allocated() / 2**30
+    if any(decode_launches.values()):
+        raise AssertionError(f"the decode loop launched {decode_launches}: "
+                             f"its attention and recurrence are plain")
+    params, caches = res["params"], res["caches"]
+    tokens = torch.as_tensor(res["prompts"], device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    last, kv = transformer.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+    types = cfg.layer_types()
+    want = {"conv2d": 0,
+            "flash_attention": sum(t != "ssm" for t in types),
+            "ssd_chunk": sum(t == "ssm" or t.startswith("hybrid")
+                             for t in types)}
+    if launches != want:
+        raise AssertionError(f"prefill launched {launches}, want {want}")
+    logit_err = _rel_err(last[:, 0], res["logits"][prompt - 1])
+    first_id_agrees = bool(torch.equal(
+        last[:, 0].argmax(-1).cpu(), torch.as_tensor(res["ids"][:, 0])))
+    kv_err = max(_rel_err(entry[name][:, :prompt], t)
+                 for entry, layer_kv in zip(caches, kv)
+                 if layer_kv is not None
+                 for name, t in zip(("k", "v"), layer_kv))
+    del kv, last
+    if not (logit_err <= SERVE_TOL and kv_err <= SERVE_TOL):
+        raise AssertionError(f"{arch}: prefill against the replay: logits "
+                             f"{logit_err:.3e}, K/V {kv_err:.3e} over the "
+                             f"largest magnitude (tol {SERVE_TOL})")
+    prefill_s = time_fn(lambda: transformer.prefill(params, cfg, tokens)[0],
+                        reps=3, warmup=1)
+
+    gen_ms = res["step_ms"][prompt - 1:]
+    decode_ms = float(np.median(gen_ms))
+    replay_ms = float(np.median(res["step_ms"][:prompt - 1]))
+    cache = state_bytes(caches)
+    bound_ms = weight_bytes / PEAK_BYTES_S * 1e3
+
+    # 8 decode steps under the profiler, at the last prompt positions
+    # again (their K/V are written anew; the work is a step's)
+    ctx, tok = res["ctx"], tokens[:, -1:]
+
+    def run_steps():
+        for i in range(prompt - SERVE_PROFILE_STEPS, prompt):
+            transformer.decode_step(params, cfg, tok, caches, i, ctx)
+        torch.cuda.synchronize()
+    run_steps()
+    wall_ms, groups, n_kernels = _device_breakdown(run_steps, decode_kind)
+    busy = sum(groups.values()) if n_kernels else None
+    idle = None if busy is None else 1 - busy / wall_ms
+    tokens_per_s = SERVE_BATCH / decode_ms * 1e3
+    print(f"serve {arch}: full width ({n_params / 1e9:.3f} B params, "
+          f"{cfg.n_layers} layers), batch {SERVE_BATCH}, prompt {prompt}, "
+          f"gen {SERVE_GEN}, max_len {res['max_len']}, FP32; ids of row 0 "
+          f"{res['ids'][0].tolist()} ({card})")
+    print(f"serve {arch}: prefill {prefill_s * 1e3:.2f} ms "
+          f"({SERVE_BATCH * prompt / prefill_s:.1f} tokens/s), launches "
+          f"{launches}, peak {prefill_peak:.2f} GiB; decode {decode_ms:.3f} "
+          f"ms/step median of {len(gen_ms)} generation steps (replay "
+          f"{replay_ms:.3f}), {tokens_per_s:.1f} tokens/s at batch "
+          f"{SERVE_BATCH}; bytes bound {bound_ms:.3f} ms/step (weights "
+          f"{weight_bytes / 1e9:.3f} GB read once a step at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s), the step {decode_ms / bound_ms:.2f}x "
+          f"it; decode peak {decode_peak:.2f} GiB; state K/V "
+          f"{cache['kv'] / 1e6:.1f} MB, SSM {cache['ssm'] / 1e6:.1f} MB, "
+          f"conv {cache['conv'] / 1e6:.1f} MB ({card})")
+    print(f"serve {arch}: prefill against the replay at position "
+          f"{prompt - 1}: logits {logit_err:.3e}, K/V {kv_err:.3e} of the "
+          f"largest magnitude (tol {SERVE_TOL}); first generated id agrees: "
+          f"{first_id_agrees}; profiler, {SERVE_PROFILE_STEPS} decode steps: "
+          + (f"{n_kernels / SERVE_PROFILE_STEPS:.1f} device kernels a step, "
+             f"{busy / SERVE_PROFILE_STEPS:.3f} ms busy of "
+             f"{wall_ms / SERVE_PROFILE_STEPS:.3f} a step, idle share "
+             f"{idle:.3f}; " + "; ".join(f"{k} {v:.2f} ms" for k, v in
+                                        sorted(groups.items()))
+             if n_kernels else "no device kernels seen (not measured)")
+          + f" ({card})", flush=True)
+    out = {"arch": arch, "n_params": n_params, "weight_bytes": weight_bytes,
+           "prompt": prompt, "max_len": res["max_len"],
+           "ids": res["ids"].tolist(), "prefill_launches": launches,
+           "prefill_ms": prefill_s * 1e3,
+           "prefill_tokens_per_s": SERVE_BATCH * prompt / prefill_s,
+           "prefill_peak_gib": prefill_peak, "decode_peak_gib": decode_peak,
+           "decode_ms": decode_ms, "replay_ms": replay_ms,
+           "decode_tokens_per_s": tokens_per_s, "bound_ms": bound_ms,
+           "state_bytes": cache, "logit_err": logit_err, "kv_err": kv_err,
+           "first_id_agrees": first_id_agrees, "step_ms": res["step_ms"],
+           "profile_wall_ms": wall_ms, "profile_device_ms": busy,
+           "profile_groups": groups, "profile_kernels": n_kernels,
+           "kernels_per_step": n_kernels / SERVE_PROFILE_STEPS,
+           "idle_share": idle}
+    del res, params, caches
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_arch_rank(rank: int, world: int, arch: str, card: str) -> dict:
+    """`serve_arch_phase` in a fresh process (one spawned rank)."""
+    return serve_arch_phase(arch, card)
+
+
+def host_state() -> dict:
+    """What in this process an eager, host-bound step could feel: its OS
+    threads, Python threads, torch's intra- and inter-op threads, live
+    child processes, the objects the garbage collector tracks, and the
+    profiler's and cuDNN's switches."""
+    me, kids = os.getpid(), 0
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                kids += int(f.read().rsplit(")", 1)[1].split()[1]) == me
+        except OSError:
+            pass
+    return {"os_threads": len(os.listdir("/proc/self/task")),
+            "py_threads": sorted(t.name for t in threading.enumerate()),
+            "torch_threads": torch.get_num_threads(),
+            "interop_threads": torch.get_num_interop_threads(),
+            "children": kids, "gc_objects": len(gc.get_objects()),
+            "profiler_on": torch.autograd._profiler_enabled(),
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "cudnn_benchmark": torch.backends.cudnn.benchmark}
+
+
+def decode_probe(params=None) -> dict:
+    """The host-bound decode step alone: qwen1.5-0.5b at full width
+    (`params`, else drawn from seed 0), batch 4, SERVE_PROBE_PROMPT
+    tokens replayed and SERVE_PROBE_GEN generated; the median step ms
+    and this process's `host_state`."""
+    cfg = SERVE_CFG["qwen1.5-0.5b"]
+    if params is None:
+        params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                  device="cuda")
+    prompts = serve.prompts_for(cfg, SERVE_BATCH, SERVE_PROBE_PROMPT, 0)
+    caches = transformer.init_decode_state(
+        cfg, SERVE_BATCH, SERVE_PROBE_PROMPT + SERVE_PROBE_GEN, device="cuda")
+    res = serve.generate(params, cfg, torch.as_tensor(prompts, device="cuda"),
+                         SERVE_PROBE_GEN, caches, ShardCtx())
+    return {"ms": float(np.median(res["step_ms"])), "state": host_state()}
+
+
+def decode_probe_rank(rank: int, world: int) -> dict:
+    """`decode_probe` in a fresh process (one spawned rank)."""
+    return decode_probe()
+
+
+def probe_phase(card: str) -> list[dict]:
+    """The decode probe in this process and in a fresh one, twice each,
+    alternated: whether what the earlier phases left in this process
+    slows the eager step, or the host as a whole varies."""
+    cfg = SERVE_CFG["qwen1.5-0.5b"]
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device="cuda")
+    out = []
+    for _ in range(2):
+        out.append(dict(decode_probe(params), process="this"))
+        out.append(dict(spawn_ranks(decode_probe_rank, 1)[0],
+                        process="fresh"))
+    del params
+    torch.cuda.empty_cache()
+    for r in out:
+        st = r["state"]
+        print(f"decode probe (qwen1.5-0.5b full width, batch {SERVE_BATCH}, "
+              f"{SERVE_PROBE_PROMPT + SERVE_PROBE_GEN - 1} steps, cache "
+              f"{SERVE_PROBE_PROMPT + SERVE_PROBE_GEN}), {r['process']} "
+              f"process: {r['ms']:.3f} ms a step (median); "
+              f"{st['os_threads']} OS threads, Python threads "
+              f"{st['py_threads']}, torch threads {st['torch_threads']} / "
+              f"{st['interop_threads']}, {st['children']} children, "
+              f"{st['gc_objects']} gc objects, profiler "
+              f"{st['profiler_on']}, cudnn deterministic "
+              f"{st['cudnn_deterministic']} benchmark "
+              f"{st['cudnn_benchmark']} ({card})", flush=True)
+    return out
+
+
+def _cut_hymba():
+    """Full-width hymba cut to SERVE_CHECK_LAYERS layers and its params
+    (seed 0, on the CPU)."""
+    cfg = dataclasses.replace(HYMBA, n_layers=SERVE_CHECK_LAYERS)
+    return cfg, transformer.init(torch.Generator().manual_seed(0), cfg,
+                                 device="cpu")
+
+
+def _decode_run(cfg, params, prompts, gen: int, device, mesh=None) -> dict:
+    """`serve.generate` of `prompts` on `device` (the KV cache split along
+    S over `mesh`'s model axis where there is one): every step's logits
+    and the final caches (gathered whole), on the host."""
+    ctx = ShardCtx() if mesh is None else ShardCtx(mesh=mesh,
+                                                   seq_axis="model")
+    p = tree_map(lambda t: t.detach().to(device), params)
+    # this rank's block of the state: the whole batch, its sequence shard
+    caches = transformer.init_decode_state(
+        cfg, prompts.shape[0], serve.cache_len(prompts.shape[1], gen,
+                                               ctx.seq_size) // ctx.seq_size,
+        device=device)
+    specs = None if mesh is None else \
+        shardings.kv_cache_specs(caches, mesh, False, "model")
+    steps = prompts.shape[1] + gen - 1
+    res = serve.generate(p, cfg, torch.as_tensor(prompts, device=device),
+                         gen, caches, ctx, keep=range(steps))
+    caches = shardings.gather_caches(res["caches"], specs, mesh)
+    return {"logits": torch.stack([res["logits"][i].cpu()
+                                   for i in range(steps)]),
+            "ids": res["ids"].cpu(), "step_ms": res["step_ms"],
+            "caches": [{k: t.cpu() for k, t in c.items()} for c in caches]}
+
+
+def serve_cpu_check(card: str) -> dict:
+    """Full-width hymba cut to 4 layers: 16 teacher-forced decode steps on
+    the card and on the CPU, the same params and tokens; every step's
+    logits and the final caches."""
+    cfg, params = _cut_hymba()
+    prompts = serve.prompts_for(cfg, SERVE_BATCH, SERVE_CPU_STEPS, 0)
+    runs = {dev: _decode_run(cfg, params, prompts, 1, torch.device(dev))
+            for dev in ("cuda", "cpu")}
+    logit_err = _rel_err(runs["cuda"]["logits"], runs["cpu"]["logits"])
+    cache_err = max(_rel_err(g[k], w[k]) for g, w in zip(
+        runs["cuda"]["caches"], runs["cpu"]["caches"]) for k in g)
+    print(f"serve card vs cpu: hymba-1.5b full width, {SERVE_CHECK_LAYERS} "
+          f"layers, batch {SERVE_BATCH}, {SERVE_CPU_STEPS} decode steps: "
+          f"logits {logit_err:.3e}, caches {cache_err:.3e} of the largest "
+          f"magnitude (tol {SERVE_CHECK_TOL}) ({card})", flush=True)
+    if not (logit_err <= SERVE_CHECK_TOL and cache_err <= SERVE_CHECK_TOL):
+        raise AssertionError(f"decode card vs cpu: logits {logit_err}, "
+                             f"caches {cache_err}")
+    return {"layers": SERVE_CHECK_LAYERS, "steps": SERVE_CPU_STEPS,
+            "logit_err": logit_err, "cache_err": cache_err}
+
+
+def serve_rank(rank: int, world: int) -> dict:
+    """One of 2 gloo ranks on the card: the cut hymba's serve loop with
+    the KV cache split along S over model 2; every step's logits and the
+    gathered caches saved under SERVE_DIR."""
+    cfg, params = _cut_hymba()
+    mesh = make_mesh(1, world)
+    prompts = serve.prompts_for(cfg, SERVE_BATCH, SERVE_DIST_PROMPT, 0)
+    run = _decode_run(cfg, params, prompts, SERVE_DIST_GEN,
+                      torch.device("cuda"), mesh)
+    path = os.path.join(SERVE_DIR, f"rank{rank}.pt")
+    torch.save({"logits": run["logits"], "caches": run["caches"]}, path)
+    return {"ids": run["ids"].tolist(), "path": path,
+            "step_ms": run["step_ms"], "staged": mesh.staged}
+
+
+def serve_dist_phase(card: str) -> dict:
+    """The sequence-sharded decode: 2 gloo ranks sharing the card against
+    one rank, the cut hymba, prompt 64, gen 16: every step's logits, the
+    ids and the caches."""
+    os.makedirs(SERVE_DIR, exist_ok=True)
+    cfg, params = _cut_hymba()
+    prompts = serve.prompts_for(cfg, SERVE_BATCH, SERVE_DIST_PROMPT, 0)
+    one = _decode_run(cfg, params, prompts, SERVE_DIST_GEN,
+                      torch.device("cuda"))
+    del params
+    ranks = spawn_ranks(serve_rank, 2)
+    errs, cache_errs = [], []
+    for r in ranks:
+        got = torch.load(r["path"])
+        if r["ids"] != one["ids"].tolist():
+            raise AssertionError(f"2 ranks generated {r['ids']}, one rank "
+                                 f"{one['ids'].tolist()}")
+        errs.append(_rel_err(got["logits"], one["logits"]))
+        cache_errs.append(max(_rel_err(g[k], w[k]) for g, w in zip(
+            got["caches"], one["caches"]) for k in g))
+    steps = SERVE_DIST_PROMPT + SERVE_DIST_GEN - 1
+    ms2 = [float(np.median(r["step_ms"])) for r in ranks]
+    ms1 = float(np.median(one["step_ms"]))
+    # a step's merge, per attention layer: a max of (B, Hq) and one sum of
+    # (B, Hq, D + 1), fp32
+    merge_bytes = cfg.n_layers * SERVE_BATCH * cfg.n_heads * \
+        (cfg.head_dim + 2) * 4
+    print(f"serve 2 ranks (gloo, one card; not a scaling result): hymba-1.5b "
+          f"full width, {SERVE_CHECK_LAYERS} layers, model 2, batch "
+          f"{SERVE_BATCH}, prompt {SERVE_DIST_PROMPT}, gen {SERVE_DIST_GEN}: "
+          f"ids equal; logits {max(errs):.3e}, caches "
+          f"{max(cache_errs):.3e} of the largest magnitude over {steps} "
+          f"steps (tol {SERVE_CHECK_TOL}); {ms2} ms/step (median) a rank "
+          f"against {ms1:.3f} on one; merge all-reduces {merge_bytes} B a "
+          f"step a rank, staged collectives {[r['staged'] for r in ranks]} "
+          f"({card})", flush=True)
+    if not (max(errs) <= SERVE_CHECK_TOL
+            and max(cache_errs) <= SERVE_CHECK_TOL):
+        raise AssertionError(f"2 ranks against one: logits {errs}, caches "
+                             f"{cache_errs}")
+    return {"logit_err": errs, "cache_err": cache_errs, "ms_per_step": ms2,
+            "one_rank_ms": ms1, "merge_bytes": merge_bytes,
+            "staged": [r["staged"] for r in ranks], "steps": steps}
+
+
+def serve_phase(card: str) -> dict:
+    t0 = time.perf_counter()
+    train_cli.set_fp32_numerics(torch.device("cuda"), echo=False)
+    out = {"kernel_rows": serve_kernel_rows(card),
+           "probe": probe_phase(card)}
+    for arch in SERVE_CFG:
+        out[arch] = spawn_ranks(serve_arch_rank, 1, arch, card)[0]
+    out["cpu_check"] = serve_cpu_check(card)
+    out["dist"] = serve_dist_phase(card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"serving phase (prefill kernel rows, decode probe, hymba and "
+          f"qwen at full width, card vs cpu, 2 ranks) took {out['phase_s']:.1f} s of "
+          f"this run ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3073,6 +3524,7 @@ def main() -> int:
     lm_train_bf16 = lm_train_phase(bf16=True)
     lm_fwd = lm_forward_check()
     lm_breakdown = lm_profile_phase()
+    served = serve_phase(card)
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -3095,6 +3547,7 @@ def main() -> int:
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
+                   "serve": served,
                    "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
@@ -3125,6 +3578,27 @@ def main() -> int:
                      "bound_ms": total(bf16, "bound_ms"),
                      "library_ms": total(bf16, "library_ms")},
         }
+
+    def serve_launches(name):
+        """The kernel's launches in each arch's prefill (the decode loop's
+        are 0: asserted in the phase)."""
+        return {f"{arch} prefill": served[arch]["prefill_launches"][name]
+                for arch in SERVE_CFG}
+
+    def serve_prefill(name):
+        """The kernel's times over one prefill's calls (batch 4 x the
+        prompt, float32), per arch that runs it."""
+        out = {}
+        for arch in SERVE_CFG:
+            sel = [r for r in served["kernel_rows"]
+                   if r["kernel"] == name and r["model"] == arch]
+            if sel:
+                out[arch] = {k: None if any(r[k] is None for r in sel) else
+                             sum(r[k] * r["count"] for r in sel)
+                             for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms")}
+                out[arch]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
+        return out
 
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
     lm_scope = f"one hymba-1.5b forward, batch {LM_BATCH} x seq {LM_SEQ}, " \
@@ -3165,13 +3639,17 @@ def main() -> int:
                    lm_scope + f"{n_glob} causal + "
                    f"{HYMBA.n_layers - n_glob} window-{HYMBA.window} "
                    f"calls"),
-             remat_launches=zero["remat"]["launches"]["flash_attention"]),
+             remat_launches=zero["remat"]["launches"]["flash_attention"],
+             serve_launches=serve_launches("flash_attention"),
+             serve_prefill=serve_prefill("flash_attention")),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],
                    [r for r in lm_rows if r["kernel"] == "ssd_chunk"],
                    lm_scope + f"{HYMBA.n_layers} calls"),
-             remat_launches=zero["remat"]["launches"]["ssd_chunk"]),
+             remat_launches=zero["remat"]["launches"]["ssd_chunk"],
+             serve_launches=serve_launches("ssd_chunk"),
+             serve_prefill=serve_prefill("ssd_chunk")),
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))

@@ -19,6 +19,12 @@ exist for that block only, and the updated blocks are gathered over
 `sharded_state_tree` / `load_sharded_state_tree` do so for the whole
 training state around `optim.optimizer`'s mesh-free `state_tree` /
 `load_state_tree`.
+
+Serving: `kv_cache_specs` gives the decode state's specs (the KV cache
+split along S over the sequence axes, B over the batch axes where the
+batch is split, the SSM state and conv buffers whole in S), and
+`cache_blocks` / `gather_caches` cut each rank's block of a global cache
+and gather it back.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core import trace
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, batch_axes
 from repro_torch.optim import optimizer
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -223,3 +229,66 @@ def load_sharded_state_tree(tree: tuple, params: Any, state,
         for dst, src, s in zip(ef, glob_ef, specs):
             dst.copy_(shard(src[pod], s, mesh))
     return state._replace(step=step)
+
+
+# ------------------------------------------------------------- serving --
+
+# the rank of each decode-state entry of one layer (more: stacked layers)
+_CACHE_RANK = {"k": 4, "v": 4, "ssm": 4, "conv": 3}
+
+
+def _map_entries(fn, tree: Any, *more: Any) -> Any:
+    """`fn(name, leaf, *leaves of more)` for every decode-state entry of
+    `tree` (dict entries named in _CACHE_RANK), the structure kept."""
+    if isinstance(tree, dict):
+        return {k: fn(k, v, *(m[k] for m in more)) if k in _CACHE_RANK
+                else _map_entries(fn, v, *(m[k] for m in more))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_entries(fn, t, *(m[i] for m in more))
+                          for i, t in enumerate(tree))
+    raise TypeError(f"not a decode-state tree: {type(tree).__name__}")
+
+
+def kv_cache_specs(caches: Any, mesh, batch_sharded: bool, seq_axes
+                   ) -> Any:
+    """The reference's cache specs: k / v (B, S, Hkv, hd) split B over the
+    mesh's batch axes (where `batch_sharded`) and S over `seq_axes`; the
+    SSM state (B, H, P, N) and conv buffer (B, k-1, C) split B only (they
+    are small).  `caches` is `transformer.init_decode_state`'s per-layer
+    list or the reference's per-segment stacks: each leading stacked dim
+    gets None."""
+    ba = batch_axes(mesh) if batch_sharded else None
+
+    def spec(name, x):
+        lead = (None,) * (len(x.shape) - _CACHE_RANK[name])
+        if name in ("k", "v"):
+            return lead + (ba, seq_axes, None, None)
+        return lead + (ba,) + (None,) * (_CACHE_RANK[name] - 1)
+    return _map_entries(spec, caches)
+
+
+def _dims(spec: Spec):
+    return [(d, a) for d, a in enumerate(spec) if a is not None]
+
+
+def cache_blocks(caches: Any, specs: Any, mesh: Mesh | None) -> Any:
+    """This rank's block of every entry of the global `caches` under
+    `specs` (`kv_cache_specs`'s), each a new contiguous tensor: what the
+    rank decodes against."""
+    def block(name, x, spec):
+        for d, axes in _dims(spec):
+            n = x.shape[d] // mesh.axis_size(axes)
+            x = x.narrow(d, mesh.index(axes) * n, n)
+        return x.clone(memory_format=torch.contiguous_format)
+    return caches if mesh is None else _map_entries(block, caches, specs)
+
+
+def gather_caches(blocks: Any, specs: Any, mesh: Mesh | None) -> Any:
+    """The global caches from every rank's `blocks` (every rank of the
+    mesh takes part and gets them whole): `cache_blocks`' inverse."""
+    def whole(name, x, spec):
+        for d, axes in reversed(_dims(spec)):
+            x = mesh.all_gather(x.contiguous(), axes, d)
+        return x
+    return blocks if mesh is None else _map_entries(whole, blocks, specs)

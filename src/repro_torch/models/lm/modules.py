@@ -1,17 +1,21 @@
-"""Transformer/SSM building blocks on one device, port of
-`repro.models.lm.modules`.
+"""Transformer/SSM building blocks, port of `repro.models.lm.modules`.
 
 Parameters are plain dicts of tensors with the reference's names; every
 function takes them as its first argument, as the reference does.
 Attention goes through `core.ring_attention` (the flash-attention kernel
 on the card) and the SSD's intra-chunk pass through `kernels.ops.
-ssd_chunk` (the SSD-chunk kernel on the card).  MoE, the SSM decode step,
-encoder and cross-attention, and the sequence-sharded paths wait for
+ssd_chunk` (the SSD-chunk kernel on the card).  `ssm_decode_step` is the
+one-token recurrence that decoding runs in place of the chunked scan, and
+`ShardCtx` says how a decode step's KV cache is split over the mesh
+(`core.decode_attention`).  MoE, encoder and cross-attention, and the
+sequence-sharded training paths (the ring, the SSD's state halo) wait for
 their slices.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +24,28 @@ from repro_torch.core.ring_attention import ring_attention
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.config import LMConfig
+
+
+# ---------------------------------------------------------------------------
+# context: where the model is sharded
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The mesh (`launch.mesh.Mesh`, None for one device), the axis (a
+    name or a tuple of names, ranked major-to-minor) that splits the
+    sequence, and the axes that split the batch.  The reference's
+    `tp_axis` and `unroll` serve its dry-run and MoE, which are not
+    ported."""
+    mesh: Any = None
+    seq_axis: str | tuple[str, ...] | None = None
+    batch_axes: tuple[str, ...] = ()
+
+    @property
+    def seq_size(self) -> int:
+        if self.mesh is None or self.seq_axis is None:
+            return 1
+        return self.mesh.axis_size(self.seq_axis)
 
 
 def normal_init(gen: torch.Generator, shape, scale: float, device):
@@ -117,15 +143,19 @@ def attn_qkv(p: dict, cfg: LMConfig, x: torch.Tensor,
 
 def attn_apply(p: dict, x: torch.Tensor, *, cfg: LMConfig,
                positions: torch.Tensor, window: int | None,
-               causal: bool = True) -> torch.Tensor:
-    """Self-attention of x (B, S, d) on one device."""
+               causal: bool = True, return_kv: bool = False):
+    """Self-attention of x (B, S, d) on one device; with `return_kv` also
+    its (k, v), rotated, (B, S, Hkv, hd) each: what a KV cache holds."""
     q, k, v = attn_qkv(p, cfg, x, positions)
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
     o = ring_attention(q, k, v, seq_axis=None, scale=scale,
                        causal=causal, window=window,
                        softcap=cfg.attn_softcap)
     b, s = x.shape[:2]
-    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    out = o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+    if return_kv:
+        return out, (k, v)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -285,3 +315,34 @@ def ssm_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """The SSD block on one device (the reference's `ssm_apply` with no
     sequence axis)."""
     return _ssd_local(x, p, cfg)
+
+
+def ssm_decode_step(p: dict, x: torch.Tensor, cfg: LMConfig,
+                    state: torch.Tensor, conv_buf: torch.Tensor):
+    """One-token SSD update, the recurrence the chunked scan sums in
+    closed form.  x: (b, 1, d); state: (b, h, p, n) fp32; conv_buf:
+    (b, k-1, conv_dim), the previous k-1 inputs of the causal conv.
+    Returns (the block's output (b, 1, d), the new state, the new
+    buffer), new tensors."""
+    b = x.shape[0]
+    di, ds, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    zxbcdt = x[:, 0] @ p["in_proj"]
+    z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * ds, h], dim=-1)
+    win = torch.cat([conv_buf, xbc[:, None]], dim=1)     # (b, k, conv)
+    new_buf = win[:, 1:]
+    xbc = F.silu(torch.einsum("bkc,kc->bc", win, p["conv_w"])
+                 + p["conv_b"])
+    xin, B, C = torch.split(xbc, [di, ds, ds], dim=-1)
+    xin = xin.reshape(b, h, cfg.ssm_head_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"])                # (b, h)
+    a = torch.exp(dt * -torch.exp(p["A_log"]))                # (b, h)
+    xdt = xin * dt[..., None].to(xin.dtype)
+    state = state * a[..., None, None] \
+        + torch.einsum("bhp,bn->bhpn", xdt, B).float()
+    y = torch.einsum("bhpn,bn->bhp", state.to(xin.dtype), C)
+    y = y + p["D"][None, :, None].to(y.dtype) * xin
+    y = y.reshape(b, di) * F.silu(z)
+    yf = y.float()
+    y = (yf * torch.rsqrt(yf.square().mean(-1, keepdim=True) + 1e-6)
+         * p["gate_norm"]).to(x.dtype)
+    return (y @ p["out_proj"])[:, None], state, new_buf.contiguous()

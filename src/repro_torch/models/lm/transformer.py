@@ -1,4 +1,4 @@
-"""Generic LM on one device, port of `repro.models.lm.transformer`.
+"""Generic LM, port of `repro.models.lm.transformer`.
 
 The reference runs its layer stack as `lax.scan` over parameters stacked
 per segment of equal block types (`plan`).  PyTorch runs eagerly, so the
@@ -10,9 +10,15 @@ reference's names:
                  "fuse_attn", "fuse_ssm", "ln2", "mlp": {...}}, ...]}
 
 `params_from_jax` unstacks the reference's `segments` into that list.
-This slice ports the dense-attention (`attn`, `swa`), `ssm` and hybrid
-(`hybrid_g`, `hybrid_s`) blocks; MoE, encoder-decoder, the modality
-frontends, vocab-parallel loss, prefill and decode wait for their slices.
+The dense-attention (`attn`, `swa`), `ssm` and hybrid (`hybrid_g`,
+`hybrid_s`) blocks are ported, and so is serving: `prefill` (the prompt
+through the kernels, returning each layer's K/V), `init_decode_state`
+and `decode_step` (one token against the sequence-sharded KV cache of
+`core.decode_attention` and the SSD's recurrence).  Decode state and
+prefill K/V are per-layer lists too; `tree_to_jax` / `tree_from_jax`
+convert them to and from the reference's per-segment stacks.  MoE,
+encoder-decoder (and so cross-attention decode), the modality frontends
+and the vocab-parallel loss wait for their slices.
 """
 from __future__ import annotations
 
@@ -23,8 +29,10 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.core.decode_attention import cache_append, decode_attention
 from repro_torch.models.lm import modules as M
 from repro_torch.models.lm.config import LMConfig
+from repro_torch.models.lm.modules import ShardCtx
 from repro_torch.utils import tree_leaves, tree_map
 
 Segment = tuple[tuple[str, ...], int]
@@ -142,20 +150,31 @@ def params_from_jax(tree: dict, cfg: LMConfig) -> dict:
 
 
 def _stack(blocks: list):
+    if blocks[0] is None:
+        return None
     if isinstance(blocks[0], dict):
         return {k: _stack([b[k] for b in blocks]) for k in blocks[0]}
+    if isinstance(blocks[0], tuple):
+        return tuple(_stack([b[i] for b in blocks])
+                     for i in range(len(blocks[0])))
     return torch.stack(blocks)
 
 
 def _slice(block, c: int):
+    if block is None:
+        return None
     if isinstance(block, dict):
         return {k: _slice(v, c) for k, v in block.items()}
+    if isinstance(block, tuple):
+        return tuple(_slice(v, c) for v in block)
     return block[c]
 
 
 def tree_to_jax(tree: dict, cfg: LMConfig) -> dict:
     """The port's per-layer tree (the params, or any tree of their
-    structure: gradients, Adam moments) in the reference's layout, the
+    structure: gradients, Adam moments; `{"layers": caches}` for decode
+    state or prefill K/V, whose entries are dicts, (k, v) tuples or None)
+    in the reference's layout, the
     tensors on their device: `layers` regrouped into `segments`, one tuple
     per `plan(cfg)` segment of block dicts whose leaves stack the
     segment's layers on a leading `count` axis (new tensors).  How a
@@ -186,22 +205,35 @@ def tree_from_jax(tree: dict, cfg: LMConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _block_apply(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, kvs: list | None = None
+                 ) -> torch.Tensor:
+    """One block; where `kvs` is a list, the block's (k, v) (None for an
+    SSM block) is appended to it (the reference's `collect_kv`)."""
     h = M.norm_apply(cfg, p["ln1"], x)
     window = cfg.window if btype in ("swa", "hybrid_s") else None
+    kv = None
     if btype == "ssm":
         out = M.ssm_apply(p["ssm"], h, cfg)
     elif btype.startswith("hybrid"):
-        a_out = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
-                             window=window, causal=True)
+        a_out, kv = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
+                                 window=window, causal=True, return_kv=True)
         s_out = M.ssm_apply(p["ssm"], h, cfg)
         out = 0.5 * (M.norm_apply(cfg, p["fuse_attn"], a_out)
                      + M.norm_apply(cfg, p["fuse_ssm"], s_out))
     elif btype in ("attn", "swa"):
-        out = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
-                           window=window, causal=True)
+        out, kv = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
+                               window=window, causal=True, return_kv=True)
     else:
         raise NotImplementedError(f"block type {btype!r} is not ported yet")
+    if kvs is not None:
+        kvs.append(kv)
+    return _block_tail(p, x, out, btype, cfg)
+
+
+def _block_tail(p: dict, x: torch.Tensor, out: torch.Tensor, btype: str,
+                cfg: LMConfig) -> torch.Tensor:
+    """The residual add of the mixer's `out`, then the MLP's (shared by
+    the forward and the decode step)."""
     if cfg.sandwich_norm:
         out = M.norm_apply(cfg, p["ln1_post"], out)
     x = x + out
@@ -236,28 +268,34 @@ def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _unit_apply(lps: list, x: torch.Tensor, unit: tuple, cfg: LMConfig,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, kvs: list | None = None
+                ) -> torch.Tensor:
     """One unit of a `plan` segment (the reference's scan body): its
     blocks in order."""
     for bt, lp in zip(unit, lps):
-        x = _block_apply(lp, x, bt, cfg, positions)
+        x = _block_apply(lp, x, bt, cfg, positions, kvs)
     return x
 
 
 def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, collect_kv: bool = False):
     """tokens: (B, S) -> logits (B, S, V).  The layers run unit by unit
     of `plan(cfg)`; with `remat` each unit is a
     `torch.utils.checkpoint` region (the reference's `jax.checkpoint` of
     its scan body): only its input is kept, and the backward runs its
-    forward again."""
+    forward again.  With `collect_kv`, returns (logits, kv): each layer's
+    (k, v) in order, None for an SSM layer."""
     _check_ported(cfg)
+    if remat and collect_kv:
+        raise ValueError("collect_kv under remat: the K/V of a recomputed "
+                         "unit would be collected twice")
     types = cfg.layer_types()
     if len(params["layers"]) != len(types):
         raise ValueError(f"{len(params['layers'])} layers given, "
                          f"{len(types)} wanted")
     x = _embed(params, cfg, tokens)
     positions = torch.arange(x.shape[1], device=x.device)
+    kvs = [] if collect_kv else None
     first = 0
     for unit, count in plan(cfg):
         for _ in range(count):
@@ -267,10 +305,11 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
                     _unit_apply, lps, x, unit, cfg, positions,
                     use_reentrant=False)
             else:
-                x = _unit_apply(lps, x, unit, cfg, positions)
+                x = _unit_apply(lps, x, unit, cfg, positions, kvs)
             first += len(unit)
     x = M.norm_apply(cfg, params["final_norm"], x)
-    return _logits(params, cfg, x)
+    logits = _logits(params, cfg, x)
+    return (logits, kvs) if collect_kv else logits
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig,
@@ -283,3 +322,102 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill / decode
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+    """Run the whole prompt (B, S) through the forward (the attention and
+    SSD-chunk kernels on the card) and return (the last position's logits
+    (B, 1, V), each layer's (k, v) (B, S, Hkv, hd), None for an SSM
+    layer).  `tree_to_jax({"layers": kv}, cfg)["segments"]` is the
+    reference's per-segment stacked layout (count, B, S, Hkv, hd)."""
+    logits, kv = forward(params, cfg, tokens, collect_kv=True)
+    return logits[:, -1:], kv
+
+
+def init_decode_state(cfg: LMConfig, batch: int, max_len: int, *,
+                      device: torch.device | str) -> list[dict]:
+    """Empty decode state in fp32, one dict a layer: `k` / `v` (batch,
+    max_len, Hkv, hd) for attention and hybrid blocks; `ssm` (batch, H,
+    P, N) and `conv` (batch, ssm_conv - 1, d_inner + 2 N) for SSM and
+    hybrid blocks.  Under a sequence split, `batch` and `max_len` are
+    this rank's block of them.  (The reference stacks them per segment;
+    its server asks for fp32.)"""
+    _check_ported(cfg)
+    state = []
+    for bt in cfg.layer_types():
+        entry = {}
+        if bt in ("attn", "swa") or bt.startswith("hybrid"):
+            entry["k"] = torch.zeros(
+                (batch, max_len, cfg.n_kv_heads, cfg.head_dim),
+                dtype=torch.float32, device=device)
+            entry["v"] = torch.zeros_like(entry["k"])
+        if bt == "ssm" or bt.startswith("hybrid"):
+            entry["ssm"] = torch.zeros(
+                (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                dtype=torch.float32, device=device)
+            entry["conv"] = torch.zeros(
+                (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
+                dtype=torch.float32, device=device)
+        state.append(entry)
+    return state
+
+
+@torch.no_grad()
+def decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+                caches: list[dict], length: int,
+                ctx: ShardCtx = ShardCtx()):
+    """One decode step.  tokens: (B, 1), this rank's block of the batch;
+    caches: `init_decode_state`'s (this rank's blocks under `ctx`);
+    length: the filled length, so the token's position.  The K/V caches
+    are written in place; the SSM entries are replaced.  Returns (logits
+    (B, 1, V), caches)."""
+    _check_ported(cfg)
+    x = _embed(params, cfg, tokens)
+    positions = torch.full((tokens.shape[0], 1), length, dtype=torch.long,
+                           device=x.device)
+    scale = cfg.attn_scale or 1.0 / math.sqrt(max(cfg.head_dim, 1))
+    for lp, bt, cache in zip(params["layers"], cfg.layer_types(), caches):
+        x = _decode_block(lp, x, bt, cfg, ctx, positions, length, cache,
+                          scale)
+    x = M.norm_apply(cfg, params["final_norm"], x)
+    return _logits(params, cfg, x), caches
+
+
+def _decode_block(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,
+                  ctx: ShardCtx, positions: torch.Tensor, length: int,
+                  cache: dict, scale: float) -> torch.Tensor:
+    h = M.norm_apply(cfg, p["ln1"], x)
+    window = cfg.window if btype in ("swa", "hybrid_s") else None
+
+    def attend(h):
+        q, k, v = M.attn_qkv(p["attn"], cfg, h, positions)
+        kc, vc = cache_append(cache["k"], cache["v"], k, v, length,
+                              mesh=ctx.mesh, seq_axis=ctx.seq_axis)
+        o = decode_attention(q, kc, vc, length + 1, mesh=ctx.mesh,
+                             seq_axis=ctx.seq_axis, scale=scale,
+                             window=window, softcap=cfg.attn_softcap)
+        return o.reshape(h.shape[0], 1, cfg.n_heads * cfg.head_dim) \
+            @ p["attn"]["wo"]
+
+    def recur(h):
+        out, cache["ssm"], cache["conv"] = M.ssm_decode_step(
+            p["ssm"], h, cfg, cache["ssm"], cache["conv"])
+        return out
+
+    if btype == "ssm":
+        out = recur(h)
+    elif btype.startswith("hybrid"):
+        out = 0.5 * (M.norm_apply(cfg, p["fuse_attn"], attend(h))
+                     + M.norm_apply(cfg, p["fuse_ssm"], recur(h)))
+    elif btype in ("attn", "swa"):
+        out = attend(h)
+    else:
+        raise NotImplementedError(f"block type {btype!r} is not ported yet "
+                                  f"(cross-attention decode comes with the "
+                                  f"encoder-decoder slice)")
+    return _block_tail(p, x, out, btype, cfg)

@@ -283,7 +283,7 @@ def test_registry_refuses_unported_archs():
     with pytest.raises(ValueError, match="not ported yet"):
         treg.get("olmo-1b")
     with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("qwen1.5-0.5b")
+        treg.get("qwen2.5-14b")
 
 
 def test_prefetcher_is_step_addressable():

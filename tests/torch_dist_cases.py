@@ -1232,6 +1232,124 @@ def case_zero(mesh, d):
     return out
 
 
+# sharded decode attention: check_attention's shapes (B, S, Hq, Hkv, D),
+# filled lengths, (window, softcap) pairs and append positions
+DECODE_SHAPE = (2, 32, 8, 4, 16)
+DECODE_LENGTHS = (1, 9, 23, 32)
+DECODE_OPTS = [(None, None), (6, None), (None, 30.0), (6, 30.0)]
+DECODE_APPEND = (0, 15, 23, 31)
+
+
+def decode_layouts(dims: tuple) -> list[tuple]:
+    """(seq axis, batch axes) of the sharded decodes on a (data, model)
+    mesh: S over model with B over data, and on a 2-D mesh S over the
+    product axis (data, model) with B whole (the reference's long_500k
+    layout)."""
+    out = [("model", ("data",))]
+    if dims[0] > 1:
+        out.append((("data", "model"), ()))
+    return out
+
+
+def decode_inputs() -> dict:
+    """q (B, 1, Hq, D), the caches k / v (B, S, Hkv, D) and a new token's
+    k / v (B, 1, Hkv, D), from numpy seed 0."""
+    b, s, hq, hkv, d = DECODE_SHAPE
+    rng = np.random.default_rng(0)
+    shapes = {"q": (b, 1, hq, d), "k": (b, s, hkv, d), "v": (b, s, hkv, d),
+              "kn": (b, 1, hkv, d), "vn": (b, 1, hkv, d)}
+    return {n: rng.standard_normal(sh).astype(np.float32)
+            for n, sh in shapes.items()}
+
+
+def decode_block(a: np.ndarray, rank: int, dims: tuple, batch_axes,
+                 seq_axis=None) -> np.ndarray:
+    """rank's block of a (B, S, ...) array: B over `batch_axes`, S over
+    `seq_axis`."""
+    for dim, axis in enumerate((batch_axes, seq_axis)):
+        i, n = shard(rank, dims, axis)
+        m = a.shape[dim] // n
+        a = a[(slice(None),) * dim + (slice(i * m, (i + 1) * m),)]
+    return np.ascontiguousarray(a)
+
+
+def case_decode(mesh, d):
+    """`decode_attention` and `cache_append` on this rank's blocks for
+    every layout of `decode_layouts`: the output block (B over the batch
+    axes) for each length and (window, softcap), and the cache blocks
+    after each append."""
+    import torch
+    from repro_torch.core.decode_attention import (cache_append,
+                                                   decode_attention)
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    x = decode_inputs()
+    out = {}
+    for li, (seq, ba) in enumerate(decode_layouts(dims)):
+        t = {n: torch.from_numpy(decode_block(
+            a, rank, dims, ba, seq if n in ("k", "v") else None))
+            for n, a in x.items()}
+        for window, cap in DECODE_OPTS:
+            for length in DECODE_LENGTHS:
+                out[f"attn.{li}.{window}.{cap}.{length}"] = decode_attention(
+                    t["q"], t["k"], t["v"], length, mesh=mesh, seq_axis=seq,
+                    window=window, softcap=cap).numpy()
+        for pos in DECODE_APPEND:
+            kc, vc = cache_append(t["k"].clone(), t["v"].clone(), t["kn"],
+                                  t["vn"], pos, mesh=mesh, seq_axis=seq)
+            out[f"append.{li}.{pos}.k"] = kc.numpy()
+            out[f"append.{li}.{pos}.v"] = vc.numpy()
+    return out
+
+
+# the serve entry point on this mesh: each arch's SMOKE, a prompt past
+# hymba's window of 16, every step's logits kept
+SERVE_ARCHS = ("hymba-1.5b", "qwen1.5-0.5b")
+SERVE_ARGS = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len",
+              "20", "--gen", "6"]
+SERVE_STEPS = 20 + 6 - 1
+
+
+def serve_argv(arch: str, dims: tuple) -> list[str]:
+    return ["--arch", arch] + SERVE_ARGS + ["--data", str(dims[0]),
+                                            "--model", str(dims[1])]
+
+
+def serve_caches(caches) -> dict:
+    """A decode state (one dict a layer) as flat numpy arrays."""
+    return {f"cache.{i}.{k}": t.numpy() for i, entry in enumerate(caches)
+            for k, t in entry.items()}
+
+
+def case_serve(mesh, d):
+    """`launch.serve`'s parse_args and run on this mesh (the process
+    group the launcher made): the global ids, this rank's logits of every
+    step (its block of the batch) and the final caches gathered whole
+    (`shardings.gather_caches`).  Each rank allocates its block of the
+    state alone: batch / data rows, max_len / model positions."""
+    from unittest import mock
+
+    from repro_torch.launch import serve, shardings
+    from repro_torch.models.lm import transformer
+    dims = (mesh.shape["data"], mesh.shape["model"])
+    out = {}
+    for arch in SERVE_ARCHS:
+        args = serve.parse_args(serve_argv(arch, dims))
+        with mock.patch.object(transformer, "init_decode_state",
+                               wraps=transformer.init_decode_state) as init:
+            res = serve.run(args, keep=range(SERVE_STEPS))
+        block = (args.batch // args.data, res["max_len"] // args.model)
+        assert [c.args[1:] for c in init.call_args_list] == [block], \
+            init.call_args_list
+        out[f"{arch}.ids"] = res["ids"]
+        out[f"{arch}.logits"] = np.stack(
+            [res["logits"][i].numpy() for i in range(SERVE_STEPS)])
+        caches = shardings.gather_caches(res["caches"], res["specs"],
+                                         res["mesh"])
+        out.update({f"{arch}.{k}": v
+                    for k, v in serve_caches(caches).items()})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -1240,7 +1358,8 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "calibrate": case_calibrate, "trace": case_trace,
          "elastic": case_elastic, "subset": case_subset,
          "audit": case_audit, "halo_order": case_halo_order,
-         "compress": case_compress, "zero": case_zero}
+         "compress": case_compress, "zero": case_zero,
+         "decode": case_decode, "serve": case_serve}
 
 
 # ------------------------------------------------------------ launcher --
