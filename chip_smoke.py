@@ -159,10 +159,28 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    2 gloo ranks sharing the card (model 2, the 4-layer hymba, prompt 64,
    gen 16) against one rank: every step's logits and the caches within
    1e-4, the ids equal.  Not a scaling result;
-6. print every kernel's registers, static shared memory and spills (the
+6. the LM on a mesh: the attention kernel's block call (ring attention's
+   tile, query rows `delta` after the keys, o in fp32 and the rows' lse)
+   at hymba's ring shapes (1 x 1024 rows a block, 25 / 5 heads, D 64):
+   the causal diagonal, the full off-diagonal and the window-1024
+   off-diagonal (whose last row sees no key), f32 and bf16, against the
+   plain version and the emulation (o and lse on the rows that see a
+   key, lse <= -1e29 on the others), with its time, bound and SDPA's with
+   the block's bool mask; then 2 gloo ranks sharing the card (data 1 x
+   model 2, not a scaling result): full-width hymba-1.5b's prefill of
+   serving's prompts split over the ranks (544 tokens a rank) against the
+   one-device prefill, logits and K/V within 1e-4 of the largest
+   magnitude and the first ids serving's; 2 steps of the trainer's entry
+   with `--model 2 --remat` (seq 2048, 1024 a rank), losses within 1e-5
+   of phase 4h's one-device FP32 run; the launches a rank as the ring
+   derives them (attention 32 / 64 a forward on rank 0 / 1, the causal
+   skip; SSD 32); peak memory, step seconds and one profiled step's
+   device time by kind and idle share;
+7. print every kernel's registers, static shared memory and spills (the
    ptxas report), the HGMMA counts, the `kernels` JSON line (with each LM
-   kernel's launches in prefill, `serve_launches`) and, last, the `ok`
-   JSON line.
+   kernel's launches in prefill, `serve_launches`, and on the mesh,
+   `mesh_launches_per_rank`; the block call's times, `ring_block`) and,
+   last, the `ok` JSON line.
 
 Each launch count is read from a run that starts with every count at 0.
 Any failed phase raises and the script exits non-zero.  Per-shape rows go
@@ -2602,12 +2620,15 @@ def zero_phase(card: str) -> dict:
 
 # ---------------------------------------------------------------- LM path --
 
-def admitted_pairs(s: int, window: int | None) -> int:
-    """(query, key) pairs that causality and the window admit at length s:
-    the work the masks leave, which is what the bound counts."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
+def admitted_pairs(s: int, window: int | None, delta: int = 0) -> int:
+    """(query, key) pairs that causality and the window admit between s
+    queries and s keys, query row i at position i + delta (a ring block's
+    offset): the work the masks leave, which is what the bound counts."""
+    pos = np.arange(s) + delta
+    hi = np.minimum(s - 1, pos)
+    lo = np.zeros(s, np.int64) if window is None else \
+        np.maximum(0, pos - window + 1)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def attention_cases(cfg) -> list[dict]:
@@ -2927,6 +2948,26 @@ def lm_forward_check() -> dict:
             "types": types, "seq": CHECK_SEQ}
 
 
+def lm_kind(name: str) -> str:
+    """The kind of an LM step's device kernel, by its lower-case name."""
+    if "flash_fwd" in name:
+        return "flash_attention kernel"
+    if "ssd_chunk_kernel" in name:
+        return "ssd_chunk kernel"
+    if any(t in name for t in ("gemm", "cutlass", "xmma", "sm90",
+                               "cublas")):
+        return "cuBLAS matmuls"
+    if "softmax" in name:
+        return "softmax (plain attention recompute)"
+    if "memcpy" in name:
+        return "memcpy (device <-> host)"
+    if "reduce" in name:
+        return "reductions"
+    if any(t in name for t in ("elementwise", "vectorized", "unrolled")):
+        return "elementwise"
+    return "other"
+
+
 def lm_profile_phase() -> dict:
     """Device time of one full-width hymba-1.5b step (batch 1 x seq 2048,
     batch on the card) by kind of kernel, and the SSD's inter-chunk
@@ -2945,23 +2986,7 @@ def lm_profile_phase() -> dict:
     def run_step():
         float(step(params, state, None, batch)[3]["loss"])
 
-    def classify(name):
-        if "flash_fwd" in name:
-            return "flash_attention kernel"
-        if "ssd_chunk_kernel" in name:
-            return "ssd_chunk kernel"
-        if any(t in name for t in ("gemm", "cutlass", "xmma", "sm90",
-                                   "cublas")):
-            return "cuBLAS matmuls"
-        if "softmax" in name:
-            return "softmax (plain attention recompute)"
-        if "reduce" in name:
-            return "reductions"
-        if any(t in name for t in ("elementwise", "vectorized", "unrolled")):
-            return "elementwise"
-        return "other"
-
-    wall_ms, groups, n_kernels = _device_breakdown(run_step, classify)
+    wall_ms, groups, n_kernels = _device_breakdown(run_step, lm_kind)
     del params, state, step, opt
     torch.cuda.empty_cache()
 
@@ -3435,6 +3460,326 @@ def serve_phase(card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------- LM on a mesh --
+
+# the ring's block calls at hymba's training shape on the 2-rank mesh
+# (seq 2048 over model 2: 1024 a rank): the causal diagonal (every layer,
+# both ranks; at 1024 rows window 1024 admits what causality does), the
+# full off-diagonal (the 3 global layers on rank 1) and the window-1024
+# off-diagonal (the 29 window layers on rank 1), whose last row sees no
+# key; count: the calls of one forward over both ranks
+MESH_MODEL = 2
+MESH_S = LM_SEQ // MESH_MODEL
+MESH_BLOCKS = [
+    {"mask": "causal diagonal", "delta": 0, "window": None,
+     "count": MESH_MODEL * HYMBA.n_layers},
+    {"mask": "off-diagonal", "delta": MESH_S, "window": None,
+     "count": sum(t == "hybrid_g" for t in HYMBA.layer_types())},
+    {"mask": f"window-{HYMBA.window} off-diagonal", "delta": MESH_S,
+     "window": HYMBA.window,
+     "count": sum(t == "hybrid_s" for t in HYMBA.layer_types())},
+]
+MESH_STEPS = 2
+MESH_ARGS = ["--arch", "hymba-1.5b", "--batch", str(LM_BATCH), "--seq",
+             str(LM_SEQ), "--steps", str(MESH_STEPS), "--model",
+             str(MESH_MODEL), "--remat", "--device", "cuda", "--log-every",
+             "1"]
+# the sharded prefill against the one-device prefill of the same params
+# and prompts: the last logits and every K/V block, max |difference| over
+# the largest magnitude (fp32 through 32 blocks whose softmaxes merge
+# across the shards and whose SSD states cross them, in other orders)
+MESH_PREFILL_TOL = 1e-4
+# the 2-rank losses against the one-device FP32 run's (--remat leaves
+# the losses bit for bit, as phase 4h holds; the ring merges in another
+# order)
+MESH_LOSS_RTOL = 1e-5
+
+
+def ring_blocks(rank: int, world: int, s_local: int) -> int:
+    """The ring's block calls (kernel launches) of one hymba forward on
+    `rank` of `world` sequence shards: causality skips the later shards'
+    blocks, a window stops the ring after `ring_steps`."""
+    from repro_torch.core.ring_attention import ring_steps
+    return sum(min(rank + 1, ring_steps(world, s_local, HYMBA.window
+                                        if t == "hybrid_s" else None))
+               for t in HYMBA.layer_types())
+
+
+def check_attention_block(case: dict, dtype: torch.dtype,
+                          gen: torch.Generator, cfg=HYMBA, b: int = LM_BATCH,
+                          s: int = MESH_S) -> dict:
+    """The kernel's block call (the ring's tile: query rows `delta` after
+    the keys, o in fp32 and lse) at `cfg`'s heads, b x s against b x s,
+    against its plain version and its CPU emulation on the rows that see a
+    key (o; lse fp32 for both dtypes), every other row's lse <= -1e29 and
+    o finite; bf16 element by element within one bf16 ulp; its autograd
+    Function's gradients in both outputs; its times beside the bound and
+    one SDPA call's with the block's bool mask."""
+    dev = torch.device("cuda")
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    delta, window = case["delta"], case["window"]
+    what = f"flash_attention block {case['mask']} {dtype}"
+    opts = dict(delta=delta, window=window)
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    o, lse = kfa.flash_attention_block(q, k, v, **opts)
+    torch.cuda.synchronize()
+    want_o, want_lse = flash_attention_ref(q, k, v, return_lse=True, **opts)
+    seen = want_lse[0, 0] > -1e29
+    n_unseen = int((~seen).sum())
+    if o.dtype != torch.float32 or not torch.isfinite(o).all():
+        raise AssertionError(f"{what}: o {o.dtype}, finite "
+                             f"{bool(torch.isfinite(o).all())}")
+    if not bool((lse[..., ~seen] <= -1e29).all()):
+        raise AssertionError(f"{what}: a row with no key has lse "
+                             f"{float(lse[..., ~seen].max())} > -1e29")
+    err = _check_close(what, o[:, seen], want_o[:, seen], LM_FWD_TOL[dtype])
+    lse_err = _check_close(f"{what} lse", lse[..., seen], want_lse[..., seen],
+                           LM_FWD_TOL[torch.float32])
+    emu_o, emu_lse = kfa.flash_attention_emulated(q, k, v, return_lse=True,
+                                                  **opts)
+    emu_err = max(
+        _check_close(f"{what} emulation vs kernel", emu_o[:, seen],
+                     o[:, seen], LM_FWD_TOL[dtype]),
+        _check_close(f"{what} emulation lse vs kernel", emu_lse[..., seen],
+                     lse[..., seen], LM_FWD_TOL[torch.float32]))
+    del emu_o, emu_lse
+    elem = None
+    if dtype == torch.bfloat16:
+        spread = flash_attention_ref(q, k, v.abs(), return_lse=True,
+                                     **opts)[0]
+        limit = ATTN_ELEM_ULP * (spread + want_o.abs())
+        elem = float(((o - want_o).abs() / limit)[:, seen].max())
+        if not elem <= 1.0:
+            raise AssertionError(f"{what}: an element is {elem} x its "
+                                 f"limit (one bf16 ulp of A + |o32|)")
+        del spread, limit
+    # the autograd Function (kernel forward, both outputs' gradients
+    # recomputed through the plain version) vs autograd through the plain
+    # version; the rows with no key get no lse cotangent (a merge gives
+    # them weight 0)
+    go = torch.randn(o.shape, generator=gen, device=dev)
+    gl = torch.randn(lse.shape, generator=gen, device=dev) * seen
+    grads = []
+    for fwd in (lambda *a: kfa.FlashAttentionBlock.apply(
+                    *a, delta, True, window, None, None),
+                lambda *a: flash_attention_ref(*a, return_lse=True, **opts)):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        ob, lb = fwd(*ts)
+        ((ob * go).sum() + (torch.where(seen, lb, 0) * gl).sum()).backward()
+        grads.append([t.grad for t in ts])
+    for nm, got, want in zip(("dq", "dk", "dv"), *grads):
+        _check_close(f"{what} {nm}", got, want, LM_BWD_TOL[dtype])
+    del grads, want_o, want_lse
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(s, device=dev)
+    keep = pos[:, None] + delta >= pos[None, :]
+    if window is not None:
+        keep &= pos[:, None] + delta - pos[None, :] < window
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep,
+                                              enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float() - o)[:, seen]
+                    .abs().max())
+    p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, window)
+    row = {"kernel": "flash_attention_block", "mask": case["mask"],
+           "delta": delta, "window": window, "model": cfg.name,
+           "dtype": str(dtype).split(".")[-1], "count": case["count"],
+           "q": [b, s, hq, d], "kv": [b, s, hkv, d], "max_abs_err": err,
+           "lse_err": lse_err, "rows_without_key": n_unseen,
+           "max_err_over_elem_limit": elem,
+           "emulation_vs_kernel_err": emu_err,
+           "library_vs_kernel_err": lib_err, "plan": dataclasses.asdict(p),
+           "plan_str": f"{p.path} {p.tile_q}x{p.tile_k}",
+           "pairs": admitted_pairs(s, window, delta)}
+    row.update(_timings(
+        lambda: kfa.flash_attention_block(q, k, v, **opts),
+        lambda: flash_attention_ref(q, k, v, return_lse=True, **opts),
+        library, 4.0 * d * row["pairs"] * b * hq,
+        (q.numel() + k.numel() + v.numel()) * q.element_size()
+        + 4 * (o.numel() + lse.numel()), dtype))
+    return row
+
+
+def lm_mesh_rank(rank: int, world: int, first_ids: list) -> dict:
+    """One rank of the 2-rank hymba-1.5b phase on the card (gloo, data 1
+    x model 2): the sharded prefill of serving's prompts (544 tokens a
+    rank) against the one-device prefill of the same params, in this
+    process; then MESH_STEPS steps of `launch.train` with --model 2
+    --remat; then one more step under torch.profiler (lr 0) for the
+    step's device time by kind and idle share."""
+    dev = torch.device("cuda")
+    cfg, prompt = HYMBA, SERVE_PROMPT["hymba-1.5b"]
+    mesh = make_mesh(data=1, model=world)
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                              device=dev)
+    tokens = torch.as_tensor(serve.prompts_for(cfg, SERVE_BATCH, prompt, 0),
+                             device=dev)
+    mine = pipeline.shard_dim(tokens, 1, mesh, "model").contiguous()
+    sl = mine.shape[1]
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    halo.reset_staged()
+    last, kv = transformer.prefill(params, cfg, mine, ctx)
+    torch.cuda.synchronize()
+    prefill_launches = ops.launch_counts()
+    prefill_staged = halo.staged
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+    prefill_s = time_fn(lambda: transformer.prefill(params, cfg, mine,
+                                                    ctx)[0],
+                        reps=3, warmup=1, host=True)
+    one_last, one_kv = transformer.prefill(params, cfg, tokens)
+    logit_err = _rel_err(last, one_last)
+    kv_err = max(_rel_err(t, w[:, rank * sl:(rank + 1) * sl])
+                 for layer, one in zip(kv, one_kv) if layer is not None
+                 for t, w in zip(layer, one))
+    ids = last[:, 0].argmax(-1).cpu()
+    first_agrees = bool(torch.equal(ids, one_last[:, 0].argmax(-1).cpu())
+                        and ids.tolist() == list(first_ids))
+    del params, last, kv, one_last, one_kv, tokens, mine
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    halo.reset_staged()
+    res = train_cli.main(MESH_ARGS)
+    train_launches = ops.launch_counts()
+    train_staged = halo.staged
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    mesh2 = res["mesh"]
+    loss = functools.partial(transformer.loss_fn, cfg=cfg, remat=True,
+                             ctx=ShardCtx(mesh=mesh2, seq_axis="model",
+                                          batch_axes=("data",)))
+    step = make_train_step(loss, adamw(0.0), TrainStepConfig(precision=FP32),
+                           mesh=mesh2)
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        pipeline.synthetic_lm_batch(0, LM_BATCH, LM_SEQ, cfg.vocab), mesh2,
+        "model", ("data",)), dev)
+    params, state = res["params"], res["opt_state"]
+    wall_ms, groups, n_kernels = _device_breakdown(
+        lambda: float(step(params, state, None, batch)[3]["loss"]), lm_kind)
+    busy = sum(groups.values()) if n_kernels else None
+    copies = groups.get(lm_kind("memcpy"), 0.0)
+    return {"rank": rank, "s_local": sl,
+            "prefill_launches": prefill_launches,
+            "prefill_staged": prefill_staged, "prefill_peak_gib": prefill_peak,
+            "prefill_ms": prefill_s * 1e3, "logit_err": logit_err,
+            "kv_err": kv_err, "first_ids": ids.tolist(),
+            "first_id_agrees": first_agrees, "losses": res["losses"],
+            "step_s": res["step_s"], "train_launches": train_launches,
+            "train_staged": train_staged, "train_peak_gib": train_peak,
+            "n_params": res["n_params"], "profile_wall_ms": wall_ms,
+            "profile_device_ms": busy, "profile_groups": groups,
+            "profile_kernels": n_kernels,
+            "idle_share": None if busy is None else 1 - busy / wall_ms,
+            "idle_share_without_copies": None if busy is None else
+            1 - (busy - copies) / wall_ms}
+
+
+def lm_mesh_phase(card: str, plain: dict, served: dict) -> dict:
+    """Phase 6, the LM on a mesh: the ring's block calls at hymba's ring
+    shapes (f32 and bf16) against the plain version; then 2 ranks spawned
+    on the card over gloo (data 1 x model 2, not a scaling result), each
+    running `lm_mesh_rank`.  Held: the sharded prefill's logits and K/V
+    within MESH_PREFILL_TOL of the one-device prefill's and its first
+    generated ids equal to serving's (phase 5b); the 2-rank losses equal
+    on both ranks and within MESH_LOSS_RTOL of the one-device FP32 run's
+    first MESH_STEPS (`plain`, phase 4h); the launches a rank as the ring
+    derives them (prefill and each forward: the attention kernel once a
+    block the causal skip leaves, the SSD kernel once a layer; --remat
+    runs every forward twice)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = [check_attention_block(case, dtype, gen)
+            for dtype in (torch.float32, torch.bfloat16)
+            for case in MESH_BLOCKS]
+    for r in rows:
+        print(f"ring block {r['mask']} (delta {r['delta']}, window "
+              f"{r['window']}), {r['dtype']}, q {r['q']} kv {r['kv']}: "
+              f"{r['plan_str']}; max |err| {r['max_abs_err']:.3e}, lse "
+              f"{r['lse_err']:.3e}, rows with no key "
+              f"{r['rows_without_key']}"
+              + (f", err/elem limit {r['max_err_over_elem_limit']:.3f}"
+                 if r["max_err_over_elem_limit"] is not None else "")
+              + f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA (bool mask) {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['pairs']} pairs), {r['tflops_s']:.1f} TFLOP/s ({card})")
+    ids = [row[0] for row in served["hymba-1.5b"]["ids"]]
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks(lm_mesh_rank, MESH_MODEL, ids)
+    want_losses = plain["losses"][:MESH_STEPS]
+    for r in ranks:
+        i = r["rank"]
+        fwd = ring_blocks(i, MESH_MODEL, r["s_local"])
+        want_prefill = {"conv2d": 0, "flash_attention": fwd,
+                        "ssd_chunk": HYMBA.n_layers}
+        train_fwd = ring_blocks(i, MESH_MODEL, MESH_S)
+        want_train = {"conv2d": 0,
+                      "flash_attention": 2 * MESH_STEPS * train_fwd,
+                      "ssd_chunk": 2 * MESH_STEPS * HYMBA.n_layers}
+        if r["prefill_launches"] != want_prefill or \
+                r["train_launches"] != want_train:
+            raise AssertionError(f"rank {i}: launches prefill "
+                                 f"{r['prefill_launches']} (want "
+                                 f"{want_prefill}), train "
+                                 f"{r['train_launches']} (want "
+                                 f"{want_train})")
+        if not (r["logit_err"] <= MESH_PREFILL_TOL and
+                r["kv_err"] <= MESH_PREFILL_TOL and r["first_id_agrees"]):
+            raise AssertionError(f"rank {i}: sharded prefill against one "
+                                 f"device: logits {r['logit_err']:.3e}, K/V "
+                                 f"{r['kv_err']:.3e} (tol "
+                                 f"{MESH_PREFILL_TOL}), first ids "
+                                 f"{r['first_ids']} against {ids}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                   want_losses)]
+        if r["losses"] != ranks[0]["losses"] or len(rel) != MESH_STEPS or \
+                not max(rel) <= MESH_LOSS_RTOL:
+            raise AssertionError(f"rank {i}: losses {r['losses']} against "
+                                 f"rank 0's {ranks[0]['losses']} and one "
+                                 f"device's {want_losses} (rel {rel})")
+        r["loss_rel"] = rel
+    for r in ranks:
+        steady = r["step_s"][1:]
+        g = r["profile_groups"]
+        print(f"rank {r['rank']}: sharded prefill, hymba-1.5b full width, "
+              f"batch {SERVE_BATCH} x {r['s_local'] * MESH_MODEL} "
+              f"({r['s_local']} a rank): logits {r['logit_err']:.3e}, K/V "
+              f"{r['kv_err']:.3e} of the largest one-device magnitude (tol "
+              f"{MESH_PREFILL_TOL}); first ids {r['first_ids']} = serving's "
+              f"{r['first_id_agrees']}; {r['prefill_ms']:.1f} ms, launches "
+              f"{r['prefill_launches']}, halo/ring messages staged "
+              f"{r['prefill_staged']}, peak {r['prefill_peak_gib']:.2f} GiB "
+              f"({card})")
+        print(f"rank {r['rank']}: mesh train, hymba-1.5b FP32 --remat, "
+              f"batch {LM_BATCH} x seq {LM_SEQ} over model {MESH_MODEL}: "
+              f"losses {r['losses']} (rel {['%.2e' % x for x in r['loss_rel']]}"
+              f" of one device's {want_losses}); step s {r['step_s']}"
+              f" (steady {sum(steady) / len(steady):.3f}); launches "
+              f"{r['train_launches']}; messages staged {r['train_staged']}; "
+              f"peak {r['train_peak_gib']:.2f} GiB ({card})")
+        print(f"rank {r['rank']}: mesh step breakdown (one step, host clock "
+              f"{r['profile_wall_ms']:.1f} ms): " + (
+                  f"device kernels {r['profile_device_ms']:.1f} ms in "
+                  f"{r['profile_kernels']} kernels, idle share "
+                  f"{r['idle_share']:.3f} ({r['idle_share_without_copies']:.3f}"
+                  f" with the copies counted idle); " + "; ".join(
+                      f"{k} {v:.1f} ms" for k, v in sorted(g.items()))
+                  if r["profile_kernels"] else "no device kernels seen (not "
+                  "measured)") + f" ({card})")
+    out = {"block_rows": rows, "ranks": ranks,
+           "phase_s": time.perf_counter() - t0}
+    print(f"LM-on-a-mesh phase (6 ring block rows, 2 card ranks: sharded "
+          f"prefill, {MESH_STEPS} --remat steps, a profiled step) took "
+          f"{out['phase_s']:.1f} s of this run ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3525,6 +3870,7 @@ def main() -> int:
     lm_fwd = lm_forward_check()
     lm_breakdown = lm_profile_phase()
     served = serve_phase(card)
+    meshed = lm_mesh_phase(card, lm_train, served)
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -3547,7 +3893,7 @@ def main() -> int:
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
-                   "serve": served,
+                   "serve": served, "lm_mesh": meshed,
                    "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
@@ -3600,6 +3946,26 @@ def main() -> int:
                 out[arch]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
         return out
 
+    def mesh_launches(name):
+        """The kernel's launches a rank on the 2-rank mesh: the sharded
+        prefill's and the --remat training run's."""
+        return [{"prefill": r["prefill_launches"][name],
+                 "train": r["train_launches"][name]}
+                for r in meshed["ranks"]]
+
+    def ring_block():
+        """The block call's numbers over one forward's ring tiles on the
+        2-rank mesh (both ranks), float32 (bf16 beside)."""
+        out = {"scope": f"one hymba-1.5b forward on {MESH_MODEL} ranks, "
+                        f"{MESH_S} rows a block: " + ", ".join(
+                            f"{c['count']} {c['mask']}" for c in MESH_BLOCKS)}
+        for dt in ("float32", "bfloat16"):
+            sel = [r for r in meshed["block_rows"] if r["dtype"] == dt]
+            out[dt] = {k: sum(r[k] * r["count"] for r in sel)
+                       for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+            out[dt]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
+        return out
+
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
     lm_scope = f"one hymba-1.5b forward, batch {LM_BATCH} x seq {LM_SEQ}, " \
         f"float32: "
@@ -3641,7 +4007,9 @@ def main() -> int:
                    f"calls"),
              remat_launches=zero["remat"]["launches"]["flash_attention"],
              serve_launches=serve_launches("flash_attention"),
-             serve_prefill=serve_prefill("flash_attention")),
+             serve_prefill=serve_prefill("flash_attention"),
+             mesh_launches_per_rank=mesh_launches("flash_attention"),
+             ring_block=ring_block()),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],
@@ -3649,7 +4017,8 @@ def main() -> int:
                    lm_scope + f"{HYMBA.n_layers} calls"),
              remat_launches=zero["remat"]["launches"]["ssd_chunk"],
              serve_launches=serve_launches("ssd_chunk"),
-             serve_prefill=serve_prefill("ssd_chunk")),
+             serve_prefill=serve_prefill("ssd_chunk"),
+             mesh_launches_per_rank=mesh_launches("ssd_chunk")),
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))

@@ -38,6 +38,11 @@ bytes of the slice that enters it on this rank (also at a global edge,
 where nothing is sent, as JAX's `ppermute` counts it), and each `pin`
 one `pin` op, forward where it waits and backward where it posts.
 
+Two whole-block moves sit beside the stencil halo: `ring_shift`, the
+wrapping rotation of ring attention's K/V blocks, and `shift`, the
+non-wrapping shift by d shards of `core.seq_ssm`'s prefix rounds; both
+are autograd Functions whose backward moves the cotangents back.
+
 Transport follows the backend (`Mesh.to_wire`): NCCL sends device
 tensors; gloo sends host tensors, so a CUDA halo goes through host memory
 explicitly, and every message sent or received that way adds one to
@@ -351,3 +356,42 @@ def ring_shift(x: torch.Tensor, axis, mesh: Mesh | None,
     if mesh is None or mesh.axis_size(axis) == 1:
         return x
     return _RingShift.apply(x, axis, mesh, -1 if reverse else 1)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh: Mesh, d: int):
+        ctx.axis, ctx.mesh, ctx.d = axis, mesh, d
+        return _shift(x, axis, mesh, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g.contiguous(), ctx.axis, ctx.mesh, -ctx.d), None, \
+            None, None
+
+
+def _shift(x: torch.Tensor, axis, mesh: Mesh, d: int) -> torch.Tensor:
+    n = mesh.axis_size(axis)
+    i = mesh.index(axis)
+    ranks = [mesh.global_rank(r) for r in mesh.ranks(axis)]
+    sends = [(_wire(mesh, x), ranks[i + d])] if 0 <= i + d < n else []
+    recvs, out = [], x.new_zeros(x.shape)
+    if 0 <= i - d < n:
+        buf = mesh.wire_buffer(x.shape, x.dtype, x.device)
+        recvs.append((buf, ranks[i - d]))
+    for w in _p2p(sends, recvs):
+        w.wait()
+    for buf, _ in recvs:
+        if buf.device == out.device:
+            return buf
+        _land(buf, out)
+    return out
+
+
+def shift(x: torch.Tensor, axis, mesh: Mesh, d: int) -> torch.Tensor:
+    """Non-wrapping shift by `d` shards: shard i receives shard i-d's block
+    (zeros where i < d, or i >= n + d for d < 0), and a block shifted past
+    the end is dropped.  Every shard of the axis must call it.
+    Differentiable: the backward shifts the cotangents by -d (the mirror),
+    so a shard's gradient comes back from the shard it was sent to."""
+    return _Shift.apply(x.contiguous(), axis, mesh, d)

@@ -81,6 +81,26 @@ def shard_batch(batch: dict, mesh, sharding, label_sharding=None) -> dict:
     return out
 
 
+def shard_lm_batch(batch: dict, mesh, seq_axis="model",
+                   batch_axes=("pod", "data")) -> dict:
+    """This rank's block of a global token batch (`synthetic_lm_batch`'s):
+    B over the batch axes of the mesh, S over `seq_axis`, contiguous
+    copies (the reference's `P(batch_axes, "model")` placement).  Every
+    rank draws the same global batch, so a step sees the same tokens on
+    any mesh."""
+    if mesh is None:
+        return batch
+    ba = tuple(a for a in batch_axes if a in mesh.axis_names)
+    out = {}
+    for k, v in batch.items():
+        if ba:
+            v = shard_dim(v, 0, mesh, ba)
+        if seq_axis is not None:
+            v = shard_dim(v, 1, mesh, seq_axis)
+        out[k] = np.ascontiguousarray(v)
+    return out
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on `device`; to the card through pinned host
     memory with a non-blocking copy on the current stream."""

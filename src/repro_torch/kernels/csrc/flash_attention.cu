@@ -10,6 +10,16 @@
 // kept in fp32, l clamped at 1e-30, the output written once in q's dtype.
 // Like the Pallas kernel, the bf16 path rounds P to bf16 before P.V.
 //
+// A block call (ring attention's tile of one query block against one key
+// block, `lse` not null) shifts the query positions by `delta` (query row
+// i sits at i + delta, key j at j: the blocks' global offsets), writes the
+// output in fp32 whatever the inputs' dtype, and writes each row's
+// log-sum-exp lse = (m + log2 l) ln 2 (B, Hq, Sq), fp32, from the m and l
+// the epilogue holds.  Such a call may have rows that no key of the block
+// is admitted to: their tiles are all masked, or their CTA walks no tile
+// (m stays -1e30 in log2 units, l 0, the output 0), and their lse is
+// about -1e30, so a merge by log-sum-exp gives them weight 0.
+//
 // Both paths read q, k and v in place from their (B, S, H, D) layout (row
 // stride H*D, head offset h*D) and run one CTA per (query tile, q head,
 // batch).  The grid puts the query tile in its slow dimension and, under
@@ -82,13 +92,16 @@ constexpr int THREADS = 256;     // both paths
 constexpr float NEG_BIG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NEG_BIG2 = NEG_BIG * LOG2E;   // a masked logit, log2 units
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;                    // null: a one-device call (o in q's dtype)
   int64_t Sq, Sk, window;        // window <= 0: none
+  int64_t delta;                 // query row i sits at position i + delta
   int Hq, Hkv, D, causal, tiles_q;
   float scale, softcap;          // softcap <= 0: none
 };
@@ -122,7 +135,9 @@ __device__ __forceinline__ void put(bf16* p, float v) {
 
 // The CTA's query tile (longest first under causality) and its key tiles
 // t_lo .. t_hi of `bk` keys: from the first one the window admits for the
-// tile's first row to the last one causality admits for its last row.
+// tile's first row to the last one causality admits for its last row, the
+// rows at their positions (shifted by delta); none where nothing is
+// admitted (t_hi = t_lo - 1).
 struct Tiles {
   int64_t q0, q_last, t_lo, t_hi;
 
@@ -132,8 +147,9 @@ struct Tiles {
     q0 = (int64_t)qt * bq;
     q_last = q0 + bq - 1 < a.Sq - 1 ? q0 + bq - 1 : a.Sq - 1;
     int64_t k_lo = 0, k_hi = a.Sk - 1;
-    if (a.causal && q_last < k_hi) k_hi = q_last;
-    if (a.window > 0 && q0 - a.window + 1 > 0) k_lo = q0 - a.window + 1;
+    if (a.causal && q_last + a.delta < k_hi) k_hi = q_last + a.delta;
+    if (a.window > 0 && q0 + a.delta - a.window + 1 > 0)
+      k_lo = q0 + a.delta - a.window + 1;
     t_lo = k_lo / bk;
     t_hi = k_hi < k_lo ? t_lo - 1 : k_hi / bk;
   }
@@ -142,8 +158,8 @@ struct Tiles {
   // stored row (rows past Sq are computed but never stored)
   __device__ __forceinline__ bool edge(const Args& a, int64_t k0,
                                        int bk) const {
-    return k0 + bk > a.Sk || (a.causal && k0 + bk - 1 > q0) ||
-           (a.window > 0 && q_last - k0 >= a.window);
+    return k0 + bk > a.Sk || (a.causal && k0 + bk - 1 > q0 + a.delta) ||
+           (a.window > 0 && q_last + a.delta - k0 >= a.window);
   }
 };
 
@@ -154,12 +170,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// the logit of (qp, kp) in log2 units, masked: s is the raw q.k product
+// the logit of (query row qr, key kp) in log2 units, masked: s is the raw
+// q.k product; the row sits at position qr + delta
 __device__ __forceinline__ float masked_logit(const Args& a, float s,
-                                              int64_t qp, int64_t kp) {
+                                              int64_t qr, int64_t kp) {
   float x = s * a.scale;
   if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
   if (kp >= a.Sk) return -INFINITY;
+  const int64_t qp = qr + a.delta;
   if ((a.causal && qp < kp) || (a.window > 0 && qp - kp >= a.window))
     return NEG_BIG2;
   return x * LOG2E;
@@ -452,17 +470,29 @@ flash_fwd_wgmma_kernel(const Args a) {
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-    l[h] = 1.f / fmaxf(l[h], 1e-30f);
+    const float lc = fmaxf(l[h], 1e-30f);
+    // a block call: the row's lse, once a quad (its 4 lanes agree)
+    if (a.lse != nullptr && (lane & 3) == 0 && row0 + 8 * h < a.Sq)
+      a.lse[(b * a.Hq + hq) * a.Sq + row0 + 8 * h] =
+          (m[h] + log2f(lc)) * LN2;
+    l[h] = 1.f / lc;
   }
-  // D is a multiple of 8 here: a column pair is both in or both out
+  // D is a multiple of 8 here: a column pair is both in or both out.  A
+  // block call writes fp32 pairs.
+  float* of = static_cast<float*>(a.o) + b * a.Sq * qs + (int64_t)hq * a.D;
 #pragma unroll
   for (int i = 0; i < NO; i += 2) {
     const int h = (i >> 1) & 1;
     const int64_t row = row0 + 8 * h;
     const int col = (i >> 2) * 8 + col0;
-    if (row < a.Sq && col < a.D)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row * qs + col) =
-          __floats2bfloat162_rn(o[i] * l[h], o[i + 1] * l[h]);
+    if (row < a.Sq && col < a.D) {
+      if (a.lse != nullptr)
+        *reinterpret_cast<float2*>(of + row * qs + col) =
+            make_float2(o[i] * l[h], o[i + 1] * l[h]);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(ob + row * qs + col) =
+            __floats2bfloat162_rn(o[i] * l[h], o[i + 1] * l[h]);
+    }
   }
 }
 
@@ -674,12 +704,22 @@ flash_fwd_fma_kernel(const Args a) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off, 16);
     const int64_t row = tl.q0 + ty + 16 * i;
     if (row >= a.Sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    const float lc = fmaxf(l[i], 1e-30f), inv = 1.f / lc;
+    // a block call: the row's lse, once a half-warp (its lanes agree)
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(b * a.Hq + hq) * a.Sq + row] = (m[i] + log2f(lc)) * LN2;
     T* orow = ob + row * qs;
+    // a block call on bf16 inputs writes fp32 (on fp32 inputs T is float)
+    float* orow32 = static_cast<float*>(a.o) +
+                    (b * a.Sq + row) * qs + (int64_t)hq * a.D;
 #pragma unroll
     for (int h = 0; h < DP / 64; ++h) {
       const int col = 64 * h + 4 * tx;
-      if constexpr (VEC) {   // fp32, D a multiple of 4: whole float4s
+      if (sizeof(T) != 4 && a.lse != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col + c < a.D) orow32[col + c] = acc[i][4 * h + c] * inv;
+      } else if constexpr (VEC) {   // fp32, D a multiple of 4: float4s
         if (col < a.D)
           *reinterpret_cast<float4*>(orow + col) =
               make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv,
@@ -736,13 +776,17 @@ bool misaligned(const void* p) {
 // flash_attention.py::plan picks it; each path's tiles and stages follow
 // from d here.  Where a path copies 16 bytes at a time (wgmma; fma on fp32
 // with d a multiple of 4) the buffers must be 16-byte aligned.  Returns
-// the cudaError_t of the launch (0 on success).
+// the cudaError_t of the launch (0 on success).  delta: query row i sits
+// at position i + delta (0 for a one-device call).  lse: null for a
+// one-device call; else a block call, o is fp32 whatever `dtype` and lse
+// (b, hq, sq) fp32 receives each row's log-sum-exp.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int dtype,
                                      int64_t b, int64_t sq, int64_t sk,
                                      int64_t hq, int64_t hkv, int64_t d,
                                      float scale, float softcap, int causal,
-                                     int64_t window, int path, void* stream) {
+                                     int64_t window, int path, int64_t delta,
+                                     float* lse, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 ||
       d < 1 || d > 128 || (dtype != 0 && dtype != 1) ||
       (path != 0 && path != 1) || (path == 1 && (dtype != 1 || d % 8 != 0)))
@@ -757,8 +801,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   if (tiles_q > 65535 || b > 65535 || hq > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   Args a;
-  a.q = q; a.k = k; a.v = v; a.o = o;
-  a.Sq = sq; a.Sk = sk; a.window = window;
+  a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
+  a.Sq = sq; a.Sk = sk; a.window = window; a.delta = delta;
   a.Hq = (int)hq; a.Hkv = (int)hkv; a.D = (int)d; a.causal = causal != 0;
   a.tiles_q = (int)tiles_q;
   a.scale = scale; a.softcap = softcap;

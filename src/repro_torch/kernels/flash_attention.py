@@ -10,6 +10,14 @@ them.  It never falls back: anything the kernel does not take raises.
 The plain version is `ref.flash_attention_ref`; `ops.flash_attention`
 picks between the two by the tensor's device.
 
+`flash_attention_block` is the same kernel called on one (query block,
+key block) tile of ring attention (`core.ring_attention`): the query rows
+sit `delta` positions after the key rows (the blocks' global offsets),
+the output comes back in fp32 whatever the inputs' dtype, beside the
+fp32 log-sum-exp of each row, and a row that the masks admit no key of
+the block to is allowed (lse <= -1e29, a finite output: its weight in
+the ring's merge is 0).
+
 `FlashAttention` is the differentiable op on the card.  Its forward is the
 kernel, which on the `wgmma` path rounds P to bf16 before P.V, as the
 Pallas kernel does (`p.astype(v.dtype)`); the plain version keeps P in
@@ -17,7 +25,8 @@ fp32, as the reference's jnp oracle does.  Its backward recomputes the
 attention through the plain version and differentiates that with
 autograd: the TPU kernel is forward-only and the reference differentiates
 its jnp attention (`ring_attention._block_attend`), so the gradient is the
-same function's.  A backward kernel is later work.
+same function's.  A backward kernel is later work.  `FlashAttentionBlock`
+is the block call's, differentiated in both its outputs.
 """
 from __future__ import annotations
 
@@ -85,7 +94,8 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, _I64, _I64, _I64, _I64,
                        _I64, _I64, ctypes.c_float, ctypes.c_float,
-                       ctypes.c_int, _I64, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, _I64, ctypes.c_int, _I64,
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -93,10 +103,12 @@ def _lib():
 
 def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int | None, softcap: float | None,
-               scale: float | None) -> None:
+               scale: float | None, block: bool = False) -> None:
     """Raise on anything the kernel does not take: ranks and shapes, GQA
     grouping, dtype, devices, contiguity, head dim > 128, a window below 1,
-    a softcap that is not positive, and rows that no key is admitted to."""
+    a softcap that is not positive, and, unless this is a `block` call
+    (which returns each row's lse for a merge), rows that no key is
+    admitted to."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention wants q (B,Sq,Hq,D) and k/v "
                          f"(B,Sk,Hkv,D); got ranks {q.dim()}, {k.dim()}, "
@@ -125,21 +137,17 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     if scale is not None and not math.isfinite(scale):
         raise ValueError(f"scale must be finite, got {scale}")
-    if window is not None and sq >= sk + window:
+    if not block and window is not None and sq >= sk + window:
         raise ValueError(f"query rows {sk + window - 1}.. of {sq} see no "
                          f"key (Sk {sk}, window {window})")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int | None = None,
-                    softcap: float | None = None,
-                    scale: float | None = None) -> torch.Tensor:
-    """Attention on the card: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) ->
-    (B,Sq,Hq,D) in q's dtype, as `plan` says.
-
-    Launches on the current stream and does not synchronise; raises if the
-    launch is refused."""
-    check_args(q, k, v, window, softcap, scale)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: int | None, softcap: float | None,
+            scale: float | None, delta: int, block: bool):
+    """One launch of the kernel: o in q's dtype, or with `block` (o in
+    fp32, lse (B, Hq, Sq) in fp32)."""
+    check_args(q, k, v, window, softcap, scale, block)
     if not q.is_cuda:
         raise ValueError(f"the flash_attention kernel runs on CUDA tensors; "
                          f"got {q.device} (ops.flash_attention takes the "
@@ -151,11 +159,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # an odd offset is copied (the data, not the function, changes nothing)
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=torch.float32 if block else q.dtype,
+                    device=q.device)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) \
+        if block else None
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             _DTYPES[q.dtype], b, sq, sk, hq, hkv, d, scale, softcap or 0.0,
             int(causal), window if window is not None else 0,
-            _PATHS[p.path])
+            _PATHS[p.path], int(delta), lse.data_ptr() if block else None)
     if q.device.index == torch.cuda.current_device():
         err = _lib()(*args, torch.cuda.current_stream().cuda_stream)
     else:
@@ -164,12 +175,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError_t {err} (q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}, {p})")
+                           f"k {tuple(k.shape)}, delta {delta}, {p})")
     flash_attention.launches += 1
-    return o
+    return (o, lse) if block else o
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """Attention on the card: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) ->
+    (B,Sq,Hq,D) in q's dtype, as `plan` says.
+
+    Launches on the current stream and does not synchronise; raises if the
+    launch is refused."""
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, delta=0, block=False)
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, delta: int, causal: bool = True,
+                          window: int | None = None,
+                          softcap: float | None = None,
+                          scale: float | None = None):
+    """One tile of ring attention on the card: query row i at position
+    i + delta against key j at j -> (o (B,Sq,Hq,D) fp32, lse (B,Hq,Sq)
+    fp32), the block's partial softmax normalised by its own sum and the
+    log of that sum plus the row max.  Rows that no key of the block is
+    admitted to come back with lse <= -1e29 and a finite o.  One launch,
+    counted in `flash_attention.launches`."""
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, delta=delta, block=True)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -195,7 +234,36 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+class FlashAttentionBlock(torch.autograd.Function):
+    """Differentiable block call on the card: forward through the kernel
+    (`flash_attention_block`), backward by autograd through the plain
+    version (`ref.flash_attention_ref(return_lse=True)`), recomputed from
+    q, k and v alone, with the gradients of both o and lse: the block's P
+    is never kept."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, delta: int, causal: bool, window, softcap,
+                scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(delta=delta, causal=causal, window=window,
+                        softcap=softcap, scale=scale)
+        return flash_attention_block(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, go, glse):
+        from repro_torch.kernels.ref import flash_attention_ref
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            o, lse = flash_attention_ref(q, k, v, return_lse=True,
+                                         **ctx.opts)
+            outs, grads = zip(*[(t, g) for t, g in ((o, go), (lse, glse))
+                                if g is not None])
+            dq, dk, dv = torch.autograd.grad(outs, (q, k, v), grads)
+        return dq, dk, dv, None, None, None, None, None
+
+
 _LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
 _NEG_BIG = -1e30
 
 
@@ -203,24 +271,29 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              window: int | None = None,
                              softcap: float | None = None,
-                             scale: float | None = None) -> torch.Tensor:
+                             scale: float | None = None, delta: int = 0,
+                             return_lse: bool = False):
     """`csrc/flash_attention.cu`'s tiling in plain PyTorch (any device;
     meant for the CPU): q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) -> (B,Sq,Hq,D) in
-    q's dtype, as `flash_attention`.
+    q's dtype, as `flash_attention`; with `delta` (query row i at position
+    i + delta) and `return_lse`, (o in fp32, lse (B,Hq,Sq) in fp32), as
+    `flash_attention_block`.
 
     It follows `plan`: query tiles of tile_q rows, longest first under
     causality (each written once; a tile left unwritten stays NaN), each
     walking its key tiles of tile_k keys from the first one the window
-    admits to the last one causality admits.  Per key tile: S = Q.K^T in
+    admits to the last one causality admits, both shifted by `delta` (a
+    tile that no key is admitted to walks none: m stays -1e30, l 0, o 0).
+    Per key tile: S = Q.K^T in
     fp32; logits in log2 units, the softcap applied first, and on the
     tiles that a diagonal, a window edge or the end of Sk crosses the
     masked ones at -1e30 (keys past Sk, which add exactly 0 in the
     kernel, are left out); the fp32 running max m
     and sum l rescaled by 2^(m_old - m_new), as is the accumulator; on the
     `wgmma` path P rounded to bf16 before P.V (l sums it in fp32).  At the
-    end l is clamped at 1e-30 and the output rounded once to q's
-    dtype."""
-    check_args(q, k, v, window, softcap, scale)
+    end l is clamped at 1e-30, the output rounded once to q's dtype (kept
+    in fp32 with `return_lse`) and lse = (m + log2 l) ln 2."""
+    check_args(q, k, v, window, softcap, scale, block=return_lse)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -231,8 +304,10 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
     kf = k.float().permute(0, 2, 1, 3)
     vf = v.float().permute(0, 2, 1, 3)
-    o = torch.full((b, hkv, g, sq, d), float("nan"), dtype=q.dtype,
+    o = torch.full((b, hkv, g, sq, d), float("nan"),
+                   dtype=torch.float32 if return_lse else q.dtype,
                    device=q.device)
+    lse = torch.full((b, hkv, g, sq), float("nan"), device=q.device)
     tiles_q = -(-sq // bq)
     order = range(tiles_q - 1, -1, -1) if causal else range(tiles_q)
     for qt in order:
@@ -240,11 +315,11 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
         q_last = min(q0 + bq - 1, sq - 1)
         k_lo, k_hi = 0, sk - 1
         if causal:
-            k_hi = min(k_hi, q_last)
+            k_hi = min(k_hi, q_last + delta)
         if window is not None:
-            k_lo = max(k_lo, q0 - window + 1)
-        qpos = torch.arange(q0, q_last + 1, device=q.device)[:, None]
-        m = torch.full((b, hkv, g, q_last + 1 - q0), float("-inf"),
+            k_lo = max(k_lo, q0 + delta - window + 1)
+        qpos = torch.arange(q0, q_last + 1, device=q.device)[:, None] + delta
+        m = torch.full((b, hkv, g, q_last + 1 - q0), _NEG_BIG * _LOG2E,
                        device=q.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(m.shape + (d,), device=q.device)
@@ -253,8 +328,8 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
             k1 = min(k0 + bk, sk)
             s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, q0:q_last + 1],
                              kf[:, :, k0:k1])
-            edge = k0 + bk > sk or (causal and k0 + bk - 1 > q0) or \
-                (window is not None and q_last - k0 >= window)
+            edge = k0 + bk > sk or (causal and k0 + bk - 1 > q0 + delta) \
+                or (window is not None and q_last + delta - k0 >= window)
             if softcap or edge:
                 x = s * scale
                 if softcap:
@@ -279,6 +354,10 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
             acc = acc * corr[..., None] + torch.einsum(
                 "bhgqk,bhkd->bhgqd", pt, vt)
             m = m_new
-        o[:, :, :, q0:q_last + 1] = (acc / l.clamp_min(1e-30)[..., None]) \
-            .to(q.dtype)
-    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+        lc = l.clamp_min(1e-30)
+        o[:, :, :, q0:q_last + 1] = (acc / lc[..., None]).to(o.dtype)
+        lse[:, :, :, q0:q_last + 1] = (m + torch.log2(lc)) * _LN2
+    o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    if return_lse:
+        return o, lse.reshape(b, hq, sq)
+    return o

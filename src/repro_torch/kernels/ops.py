@@ -3,7 +3,8 @@ kernel, CPU tensors to its plain version.  There is no other switch and no
 fallback between the two.
 
 `conv2d` is the bare forward (`conv2d.Conv2d` wraps it for autograd).
-`flash_attention` and `ssd_chunk` are differentiable: on CUDA through
+`flash_attention`, `flash_attention_block` and `ssd_chunk` are
+differentiable: on CUDA through
 their autograd Functions (the kernel forward, a backward recomputed
 through the plain version), on the CPU through the plain version itself.
 """
@@ -46,6 +47,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                         window=window, softcap=softcap,
                                         scale=scale)
     raise ValueError(f"no flash_attention for device {q.device}")
+
+
+def flash_attention_block(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, delta: int,
+                          causal: bool = True, window: int | None = None,
+                          softcap: float | None = None,
+                          scale: float | None = None):
+    """One (query block, key block) tile of ring attention: query row i at
+    position i + delta, key j at j -> (o (B,Sq,Hq,D) fp32, lse (B,Hq,Sq)
+    fp32), differentiable in both.  A row that no key of the block is
+    admitted to comes back with lse <= -1e29 and a finite o."""
+    if q.is_cuda:
+        return _fa.FlashAttentionBlock.apply(q, k, v, delta, causal, window,
+                                             softcap, scale)
+    if q.device.type == "cpu":
+        _fa.check_args(q, k, v, window, softcap, scale, block=True)
+        return _ref.flash_attention_ref(q, k, v, causal=causal,
+                                        window=window, softcap=softcap,
+                                        scale=scale, delta=delta,
+                                        return_lse=True)
+    raise ValueError(f"no flash_attention_block for device {q.device}")
 
 
 def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,

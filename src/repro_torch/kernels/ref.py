@@ -41,14 +41,22 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor,
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None, delta: int = 0,
+                        return_lse: bool = False):
     """Attention, q: (B, Sq, Hq, D); k/v: (B, Sk, Hkv, D) with Hq % Hkv == 0
     -> (B, Sq, Hq, D) in q's dtype.
 
-    GQA maps q head hi to kv head hi // (Hq // Hkv).  Positions count from
-    0 for both q and k; causal keeps qpos >= kpos, the window keeps
+    GQA maps q head hi to kv head hi // (Hq // Hkv).  Query row i sits at
+    position i + delta and key j at j (`delta` = the query block's global
+    offset less the key block's, as the reference's `_block_attend` takes
+    q_off and k_off); causal keeps qpos >= kpos, the window keeps
     qpos - kpos < window.  Masked logits are set to -1e30 (not -inf), the
     softmax and both products run in fp32.  Differentiable by autograd.
+
+    With `return_lse`, returns (o in fp32, lse (B, Hq, Sq) in fp32): the
+    block's partial softmax for a merge by log-sum-exp, lse = m + log l.
+    A row that no key of the block is admitted to has lse <= -1e29 (its
+    weight in a merge is exactly 0) and a finite o.
     """
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -58,7 +66,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(sq, device=q.device)[:, None]
+    qpos = torch.arange(sq, device=q.device)[:, None] + delta
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -67,8 +75,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= (qpos - kpos) < window
     s = torch.where(mask, s, s.new_tensor(NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, sq, hq, d).to(q.dtype)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()).reshape(b, sq, hq, d)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, hq, sq)
+    return o.to(q.dtype)
 
 
 def ssd_chunk_ref(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,

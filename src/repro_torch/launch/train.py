@@ -1,6 +1,6 @@
 """The trainer, port of `repro.launch.train`: the CNNs (ResNet-50 and the
-mesh-tangling nets) on one device or on a (pod, data, model) mesh of
-processes, and the ported LM archs on one device.
+mesh-tangling nets) and the ported LM archs, on one device or on a (pod,
+data, model) mesh of processes.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch mesh1k \
       --steps 3 --batch 2 [--device cuda|cpu] [--smoke]
@@ -14,6 +14,9 @@ processes, and the ported LM archs on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --steps 3 --batch 1 --seq 2048 [--bf16] [--remat] [--device cuda|cpu] \
       [--smoke]
+  PYTHONPATH=src torchrun --nproc-per-node M -m repro_torch.launch.train \
+      --arch hymba-1.5b|qwen1.5-0.5b --model M [--data D] [--pod P] \
+      --batch B --seq S [--bf16] [--remat] [--device cuda|cpu] [--smoke]
 
 Runs on CUDA unless `--device cpu` is given; asking for CUDA where there
 is none is an error.  On the card every forward conv runs through the
@@ -81,6 +84,16 @@ bf16|int8_ef` sends each pod's gradient over the pod axis compressed
 residual in the train state and the checkpoint); `none` (the default)
 reduces over the pod axis with the others.
 
+An LM arch on a mesh trains with its sequence split over "model" and its
+batch over the data axes (the reference's `ShardCtx(mesh, seq_axis=
+"model", batch_axes=...)`, tokens and labels `P(batch_axes, "model")`):
+each rank holds `--seq / model` tokens of `--batch / (pod x data)`
+samples at their global positions, attention runs as the ring over the
+sequence shards (`core.ring_attention`) and the SSD with its conv halo
+and state prefix (`core.seq_ssm`).  `--audit`, `--profile` and
+`--elastic` refuse an LM arch on a mesh (they run the CNN plan's
+machinery).
+
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
 prints and writes metrics.
@@ -133,6 +146,7 @@ from repro_torch.launch.mesh import (batch_axes, elastic_factorization,
                                     init_distributed, make_mesh)
 from repro_torch.models.cnn import meshnet, resnet
 from repro_torch.models.lm import transformer
+from repro_torch.models.lm.modules import ShardCtx
 from repro_torch.optim.grad_compress import init_error_feedback
 from repro_torch.optim.optimizer import adamw, sgd, warmup_cosine
 from repro_torch.runtime import chaos
@@ -271,6 +285,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "collective auditor runs meshnet.loss_fn")
     if args.audit and args.profile:
         ap.error("--audit gates training; --profile trains nothing")
+    if args.elastic and arch not in registry.CNN_ARCHS:
+        ap.error("--elastic covers the CNN archs: its remesh re-solves and "
+                 "restores a CNN plan, and an LM's sequence split over the "
+                 "survivors is not built yet")
+    if arch not in registry.CNN_ARCHS and args.seq % args.model:
+        ap.error(f"--seq {args.seq} must divide over the model axis "
+                 f"({args.model} shards): an LM's sequence is split "
+                 f"over it")
     if (args.chaos or args.elastic) and not args.ckpt_dir:
         ap.error("--chaos and --elastic recover from a checkpoint: give "
                  "--ckpt-dir (it has no default in this port)")
@@ -436,15 +458,18 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
             f"{registry.CNN_ARCHS}; {cfg.name!r} is an LM arch the §V-C "
             f"optimizer has no candidate space for (drop --strategy auto "
             f"to train it with the uniform sharding)")
-    if mesh is not None:
-        raise SystemExit(f"{cfg.name} trains on one device in this port "
-                         f"(the ring over torch.distributed is not ported "
-                         f"yet); run it without a mesh")
     params = transformer.init(gen, cfg, device=device)
     opt = adamw(warmup_cosine(args.lr, 20, args.steps))
-    loss = functools.partial(transformer.loss_fn, cfg=cfg, remat=args.remat)
-    mk = functools.partial(pipeline.synthetic_lm_batch, batch=args.batch,
-                           seq=args.seq, vocab=cfg.vocab)
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=batch_axes(mesh))
+    loss = functools.partial(transformer.loss_fn, cfg=cfg, remat=args.remat,
+                             ctx=ctx)
+    mk_global = functools.partial(pipeline.synthetic_lm_batch,
+                                  batch=args.batch, seq=args.seq,
+                                  vocab=cfg.vocab)
+
+    def mk(step):
+        return pipeline.shard_lm_batch(mk_global(step), mesh, ctx.seq_axis,
+                                       ctx.batch_axes)
     return cfg, params, opt, loss, mk, BF16 if args.bf16 else FP32, None
 
 

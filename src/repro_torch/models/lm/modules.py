@@ -6,10 +6,13 @@ Attention goes through `core.ring_attention` (the flash-attention kernel
 on the card) and the SSD's intra-chunk pass through `kernels.ops.
 ssd_chunk` (the SSD-chunk kernel on the card).  `ssm_decode_step` is the
 one-token recurrence that decoding runs in place of the chunked scan, and
-`ShardCtx` says how a decode step's KV cache is split over the mesh
-(`core.decode_attention`).  MoE, encoder and cross-attention, and the
-sequence-sharded training paths (the ring, the SSD's state halo) wait for
-their slices.
+`ShardCtx` says how the sequence is split over the mesh: for training
+and prefill, attention runs as the ring over the sequence shards
+(`core.ring_attention`) and the SSD block as its sharded form (the
+conv's (k-1)-row halo, a local pass from zero state, the state entering
+the shard by `core.seq_ssm.seq_prefix_state`); for a decode step, the KV
+cache is split (`core.decode_attention`).  MoE, encoder and
+cross-attention wait for their slices.
 """
 from __future__ import annotations
 
@@ -20,7 +23,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.halo import halo_exchange
 from repro_torch.core.ring_attention import ring_attention
+from repro_torch.core.seq_ssm import seq_prefix_state
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.lm.config import LMConfig
@@ -46,6 +51,16 @@ class ShardCtx:
         if self.mesh is None or self.seq_axis is None:
             return 1
         return self.mesh.axis_size(self.seq_axis)
+
+    @property
+    def seq_index(self) -> int:
+        """This rank's shard index along the sequence axis."""
+        return 0 if self.seq_size == 1 else self.mesh.index(self.seq_axis)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether the sequence is split over more than one shard."""
+        return self.seq_size > 1
 
 
 def normal_init(gen: torch.Generator, shape, scale: float, device):
@@ -143,13 +158,16 @@ def attn_qkv(p: dict, cfg: LMConfig, x: torch.Tensor,
 
 def attn_apply(p: dict, x: torch.Tensor, *, cfg: LMConfig,
                positions: torch.Tensor, window: int | None,
-               causal: bool = True, return_kv: bool = False):
-    """Self-attention of x (B, S, d) on one device; with `return_kv` also
-    its (k, v), rotated, (B, S, Hkv, hd) each: what a KV cache holds."""
+               causal: bool = True, return_kv: bool = False,
+               ctx: ShardCtx = ShardCtx()):
+    """Self-attention of x (B, S, d): on one device, or with the sequence
+    split under `ctx` (x, `positions` and the result this rank's block;
+    the ring).  With `return_kv` also its (k, v), rotated, (B, S, Hkv, hd)
+    each: what a KV cache holds (this rank's block)."""
     q, k, v = attn_qkv(p, cfg, x, positions)
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
-    o = ring_attention(q, k, v, seq_axis=None, scale=scale,
-                       causal=causal, window=window,
+    o = ring_attention(q, k, v, mesh=ctx.mesh, seq_axis=ctx.seq_axis,
+                       scale=scale, causal=causal, window=window,
                        softcap=cfg.attn_softcap)
     b, s = x.shape[:2]
     out = o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
@@ -269,28 +287,36 @@ def inter_chunk_states(log_a: torch.Tensor, S: torch.Tensor,
     return states[:, :nc], states[:, nc]
 
 
-def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor,
+def _causal_depthwise_conv(xp: torch.Tensor, w: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
-    """x: (b, l, c), w: (k, c): y_t = sum_i w_i * x_{t-k+1+i} + bias, with
-    zeros before the sequence (the reference's left-padded windows)."""
-    k, l = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))
+    """xp: (b, k-1+l, c), the sequence after its k-1 preceding rows (zeros
+    before the sequence, the reference's left-padded windows, or the
+    predecessor shard's tail); w: (k, c): y_t = sum_i w_i * xp_{t+i} +
+    bias, (b, l, c)."""
+    k = w.shape[0]
+    l = xp.shape[1] - (k - 1)
     y = xp[:, 0:l] * w[0]
     for i in range(1, k):
         y = y + xp[:, i:i + l] * w[i]
     return y + bias
 
 
-def _ssd_local(x: torch.Tensor, p: dict, cfg: LMConfig) -> torch.Tensor:
-    """The SSD block body on one device."""
+def _ssd_local(x: torch.Tensor, p: dict, cfg: LMConfig,
+               ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """The SSD block body on this rank's block x (b, l, d): the whole
+    sequence, or its shard under `ctx`."""
     b, l, d = x.shape
     di, ds, h = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     zxbcdt = x @ p["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * ds, h], dim=-1)
 
     # depthwise causal conv over the sequence (plain PyTorch: no TPU
-    # kernel of the reference computes it)
-    xbc = F.silu(_causal_depthwise_conv(xbc, p["conv_w"], p["conv_b"]))
+    # kernel of the reference computes it); under sequence sharding the
+    # (ssm_conv - 1)-row tail of the predecessor shard is a literal halo
+    k = cfg.ssm_conv
+    xbc_pad = halo_exchange(xbc, 1, k - 1, 0, ctx.seq_axis, ctx.mesh) \
+        if ctx.sharded else F.pad(xbc, (0, 0, k - 1, 0))
+    xbc = F.silu(_causal_depthwise_conv(xbc_pad, p["conv_w"], p["conv_b"]))
 
     xin, B, C = torch.split(xbc, [di, ds, ds], dim=-1)
     xin = xin.reshape(b, l, h, cfg.ssm_head_dim)
@@ -299,8 +325,19 @@ def _ssd_local(x: torch.Tensor, p: dict, cfg: LMConfig) -> torch.Tensor:
     la = dt * A                                               # log decay
     xdt = xin * dt[..., None].to(xin.dtype)
 
-    y, _ = _ssd_chunked(xdt, la, B.contiguous(), C.contiguous(),
-                        cfg.ssm_chunk)
+    B, C = B.contiguous(), C.contiguous()
+    if not ctx.sharded:
+        y, _ = _ssd_chunked(xdt, la, B, C, cfg.ssm_chunk)
+    else:
+        # local pass from zero state -> the shard's (decay, state) summary
+        # -> the state entering it (the boundary halo) and its term
+        y, s_loc = _ssd_chunked(xdt, la, B, C, cfg.ssm_chunk)
+        cum = torch.cumsum(la, dim=1)                         # (b, l, h)
+        a_tot = torch.exp(cum[:, -1])[:, :, None, None]       # (b, h, 1, 1)
+        h_in = seq_prefix_state(a_tot, s_loc, ctx.seq_axis, ctx.mesh)
+        y_in = torch.einsum("bln,bhpn->blhp", C, h_in.to(xdt.dtype)) \
+            * torch.exp(cum).to(xdt.dtype)[..., None]
+        y = y + y_in
 
     y = y + p["D"][None, None, :, None].to(y.dtype) * xin
     y = y.reshape(b, l, di)
@@ -311,10 +348,11 @@ def _ssd_local(x: torch.Tensor, p: dict, cfg: LMConfig) -> torch.Tensor:
     return y @ p["out_proj"]
 
 
-def ssm_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """The SSD block on one device (the reference's `ssm_apply` with no
-    sequence axis)."""
-    return _ssd_local(x, p, cfg)
+def ssm_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
+              ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """The SSD block: on one device, or on this rank's block of the
+    sequence under `ctx` (the reference's `ssm_apply`)."""
+    return _ssd_local(x, p, cfg, ctx)
 
 
 def ssm_decode_step(p: dict, x: torch.Tensor, cfg: LMConfig,

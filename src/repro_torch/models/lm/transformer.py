@@ -16,9 +16,14 @@ through the kernels, returning each layer's K/V), `init_decode_state`
 and `decode_step` (one token against the sequence-sharded KV cache of
 `core.decode_attention` and the SSD's recurrence).  Decode state and
 prefill K/V are per-layer lists too; `tree_to_jax` / `tree_from_jax`
-convert them to and from the reference's per-segment stacks.  MoE,
-encoder-decoder (and so cross-attention decode), the modality frontends
-and the vocab-parallel loss wait for their slices.
+convert them to and from the reference's per-segment stacks.
+
+`forward`, `loss_fn` and `prefill` take a `ShardCtx`: with the sequence
+split over its axis (training and prefill on a mesh, the batch over the
+batch axes), each rank runs its own block of tokens at its global
+positions, attention as the ring and the SSD with its state halo
+(`modules`).  MoE, encoder-decoder (and so cross-attention decode), the
+modality frontends and the vocab-parallel loss wait for their slices.
 """
 from __future__ import annotations
 
@@ -205,24 +210,26 @@ def tree_from_jax(tree: dict, cfg: LMConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _block_apply(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,
-                 positions: torch.Tensor, kvs: list | None = None
-                 ) -> torch.Tensor:
+                 positions: torch.Tensor, kvs: list | None = None,
+                 ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """One block; where `kvs` is a list, the block's (k, v) (None for an
     SSM block) is appended to it (the reference's `collect_kv`)."""
     h = M.norm_apply(cfg, p["ln1"], x)
     window = cfg.window if btype in ("swa", "hybrid_s") else None
     kv = None
     if btype == "ssm":
-        out = M.ssm_apply(p["ssm"], h, cfg)
+        out = M.ssm_apply(p["ssm"], h, cfg, ctx)
     elif btype.startswith("hybrid"):
         a_out, kv = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
-                                 window=window, causal=True, return_kv=True)
-        s_out = M.ssm_apply(p["ssm"], h, cfg)
+                                 window=window, causal=True, return_kv=True,
+                                 ctx=ctx)
+        s_out = M.ssm_apply(p["ssm"], h, cfg, ctx)
         out = 0.5 * (M.norm_apply(cfg, p["fuse_attn"], a_out)
                      + M.norm_apply(cfg, p["fuse_ssm"], s_out))
     elif btype in ("attn", "swa"):
         out, kv = M.attn_apply(p["attn"], h, cfg=cfg, positions=positions,
-                               window=window, causal=True, return_kv=True)
+                               window=window, causal=True, return_kv=True,
+                               ctx=ctx)
     else:
         raise NotImplementedError(f"block type {btype!r} is not ported yet")
     if kvs is not None:
@@ -268,23 +275,33 @@ def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _unit_apply(lps: list, x: torch.Tensor, unit: tuple, cfg: LMConfig,
-                positions: torch.Tensor, kvs: list | None = None
-                ) -> torch.Tensor:
+                positions: torch.Tensor, kvs: list | None = None,
+                ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """One unit of a `plan` segment (the reference's scan body): its
     blocks in order."""
     for bt, lp in zip(unit, lps):
-        x = _block_apply(lp, x, bt, cfg, positions, kvs)
+        x = _block_apply(lp, x, bt, cfg, positions, kvs, ctx)
     return x
 
 
+def positions_of(ctx: ShardCtx, s_local: int, device) -> torch.Tensor:
+    """The global positions of this rank's S_local tokens: its shard index
+    along the sequence axis times S_local, plus 0 .. S_local-1 (what RoPE
+    and the masks see; the reference's `arange(S)` over the global
+    array)."""
+    return ctx.seq_index * s_local + torch.arange(s_local, device=device)
+
+
 def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
-            remat: bool = False, collect_kv: bool = False):
-    """tokens: (B, S) -> logits (B, S, V).  The layers run unit by unit
+            remat: bool = False, collect_kv: bool = False,
+            ctx: ShardCtx = ShardCtx()):
+    """tokens: (B, S) -> logits (B, S, V); under a `ctx` that splits the
+    sequence, this rank's blocks of both.  The layers run unit by unit
     of `plan(cfg)`; with `remat` each unit is a
     `torch.utils.checkpoint` region (the reference's `jax.checkpoint` of
     its scan body): only its input is kept, and the backward runs its
     forward again.  With `collect_kv`, returns (logits, kv): each layer's
-    (k, v) in order, None for an SSM layer."""
+    (k, v) in order (this rank's blocks), None for an SSM layer."""
     _check_ported(cfg)
     if remat and collect_kv:
         raise ValueError("collect_kv under remat: the K/V of a recomputed "
@@ -294,7 +311,7 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
         raise ValueError(f"{len(params['layers'])} layers given, "
                          f"{len(types)} wanted")
     x = _embed(params, cfg, tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
+    positions = positions_of(ctx, x.shape[1], x.device)
     kvs = [] if collect_kv else None
     first = 0
     for unit, count in plan(cfg):
@@ -302,10 +319,10 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
             lps = params["layers"][first:first + len(unit)]
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _unit_apply, lps, x, unit, cfg, positions,
+                    _unit_apply, lps, x, unit, cfg, positions, None, ctx,
                     use_reentrant=False)
             else:
-                x = _unit_apply(lps, x, unit, cfg, positions, kvs)
+                x = _unit_apply(lps, x, unit, cfg, positions, kvs, ctx)
             first += len(unit)
     x = M.norm_apply(cfg, params["final_norm"], x)
     logits = _logits(params, cfg, x)
@@ -313,15 +330,22 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """Next-token cross entropy in fp32.  batch: tokens (B, S), labels
-    (B, S).  `remat`: see `forward`."""
-    logits = forward(params, cfg, batch["tokens"], remat)
+    (B, S).  `remat`: see `forward`.  On a mesh (`ctx.mesh` of more than
+    one rank; the batch this rank's block: B over `ctx.batch_axes`, S
+    over `ctx.seq_axis`) it is this rank's share of the global mean: the
+    local sum over the global token count, as `meshnet.loss_fn`'s, so
+    that the train step's sum over the mesh is the mean."""
+    logits = forward(params, cfg, batch["tokens"], remat, ctx=ctx)
     labels = batch["labels"].long()
     logits = logits[:, -labels.shape[1]:].float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return (logz - gold).mean()
+    if ctx.mesh is None or ctx.mesh.size == 1:
+        return (logz - gold).mean()
+    shards = ctx.mesh.axis_size(ctx.batch_axes) * ctx.seq_size
+    return (logz - gold).sum() / (labels.numel() * shards)
 
 
 # ---------------------------------------------------------------------------
@@ -329,14 +353,27 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
 # ---------------------------------------------------------------------------
 
 @torch.no_grad()
-def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor):
+def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
+            ctx: ShardCtx = ShardCtx()):
     """Run the whole prompt (B, S) through the forward (the attention and
     SSD-chunk kernels on the card) and return (the last position's logits
     (B, 1, V), each layer's (k, v) (B, S, Hkv, hd), None for an SSM
     layer).  `tree_to_jax({"layers": kv}, cfg)["segments"]` is the
-    reference's per-segment stacked layout (count, B, S, Hkv, hd)."""
-    logits, kv = forward(params, cfg, tokens, collect_kv=True)
-    return logits[:, -1:], kv
+    reference's per-segment stacked layout (count, B, S, Hkv, hd).
+
+    Under a `ctx` that splits the sequence, `tokens` is this rank's block
+    (B over the batch axes, S over the sequence axis) and so is each
+    layer's (k, v), as the reference's `P(ba, "model")` caches; the last
+    position's logits come from the last shard of the sequence axis, on
+    every rank of it (a sum over the axis in which the others add
+    zeros)."""
+    logits, kv = forward(params, cfg, tokens, collect_kv=True, ctx=ctx)
+    last = logits[:, -1:]
+    if ctx.sharded:
+        mine = ctx.seq_index == ctx.seq_size - 1
+        last = ctx.mesh.all_reduce(last if mine else torch.zeros_like(last),
+                                   ctx.seq_axis)
+    return last, kv
 
 
 def init_decode_state(cfg: LMConfig, batch: int, max_len: int, *,

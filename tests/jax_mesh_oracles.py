@@ -22,7 +22,9 @@ DIR/resnetK.npz, and the one-device SGD trajectory of a case with
 steps, into DIR/audit_ref.json), `compress` (`cross_pod_mean` on a pod-2
 mesh, into DIR/compress.npz) or `zero` (the reference trainer's step on
 pod 2 x data 2 with its ZeRO placement and each pod compression, into
-DIR/zero.npz and the checkpoint DIR/ckpt_ref).  Inputs are
+DIR/zero.npz and the checkpoint DIR/ckpt_ref), or `lm_prefill` (the
+LM SMOKEs' `T.prefill` under a mesh ctx, into DIR/lm_prefill.npz).
+Inputs are
 `torch_dist_cases`' (numpy seeds).  The local convs run on XLA, the
 reference's default backend.
 """
@@ -436,6 +438,58 @@ def _zero(d):
     np.savez(os.path.join(d, "zero.npz"), **out)
 
 
+# the sequence over "model" and the batch over "data" at once (the port's
+# runs on model 2 alone are held against it too)
+LM_MESH = (2, 2)
+
+
+def lm_reference_params(arch: str):
+    """`arch`'s SMOKE config in the reference and its `init` params (seed
+    0), what `torch_dist_cases.lm_params` carries over."""
+    import jax
+    from repro.configs import registry
+    from repro.models.lm import transformer as T
+    cfg = registry.get(arch.replace("-", "_").replace(".", "_"), smoke=True)
+    return cfg, T.init(jax.random.PRNGKey(0), cfg)
+
+
+def _lm_prefill(d):
+    """The reference's `T.prefill` of batch 0's tokens under a mesh ctx
+    (the sequence over "model", the batch over "data") on LM_MESH, for
+    each `torch_dist_cases.LM_ARCHS` SMOKE, into DIR/lm_prefill.npz: the
+    last logits and every layer's K/V (global arrays), unstacked from the
+    reference's segments in layer order."""
+    import jax
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import torch_dist_cases as cases
+    from repro.data.pipeline import synthetic_lm_batch
+    from repro.models.lm import transformer as T
+    from repro.models.lm.modules import ShardCtx
+    out = {}
+    for arch in cases.LM_ARCHS:
+        cfg, params = lm_reference_params(arch)
+        tokens = synthetic_lm_batch(0, cases.LM_BATCH, cases.LM_SEQ,
+                                    cfg.vocab)["tokens"]
+        mesh = _mesh(LM_MESH)
+        ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+        with mesh:
+            tok = jax.device_put(tokens, NamedSharding(mesh,
+                                                       P("data", "model")))
+            last, kv, _ = jax.jit(lambda p, t: T.prefill(
+                p, cfg, t, ctx))(params, tok)
+        out[f"{arch}/logits"] = np.asarray(last)
+        layer = 0
+        for (unit, count), seg in zip(T.plan(cfg), kv):
+            for c in range(count):
+                for bi in range(len(unit)):
+                    if seg[bi] is not None:
+                        for name, t in zip("kv", seg[bi]):
+                            out[f"{arch}/{layer}.{name}"] = np.asarray(t[c])
+                    layer += 1
+    np.savez(os.path.join(d, "lm_prefill.npz"), **out)
+
+
 def popen(what: str, d: str, *args: str) -> subprocess.Popen:
     """Start `what` (with `args`) in a subprocess with 8 host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -484,4 +538,4 @@ if __name__ == "__main__":
     {"bn_local": _bn_local, "meshnet": _meshnet, "cf": _cf,
      "plan": _plan, "resnet": _resnet,
      "audit": _audit, "compress": _compress,
-     "zero": _zero}[sys.argv[1]](*sys.argv[2:])
+     "zero": _zero, "lm_prefill": _lm_prefill}[sys.argv[1]](*sys.argv[2:])

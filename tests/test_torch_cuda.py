@@ -302,6 +302,51 @@ SSD = [
 ]
 
 
+# the block call (ring attention's tile): (b, s, hq, hkv, d, delta,
+# window, softcap) with Sq = Sk = s; the off-diagonal window blocks have
+# rows that see no key, and at delta -s (a later shard's block) none does
+BLOCKS = [
+    (1, 300, 4, 2, 64, 0, None, None),
+    (2, 200, 6, 3, 32, 200, None, None),
+    (1, 256, 5, 1, 64, 256, 200, 30.0),
+    (1, 129, 3, 1, 20, 129, 129, None),
+    (1, 150, 2, 2, 128, -150, None, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,hq,hkv,d,delta,window,cap", BLOCKS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_block_kernel_matches_plain_and_emulation(cuda, b, s, hq, hkv,
+                                                        d, delta, window,
+                                                        cap, dtype):
+    """`flash_attention_block`: o in fp32 and lse against the plain
+    version and the emulation on the rows that see a key (o at TOL, lse at
+    2e-5); every other row's lse <= -1e29 and its o finite; one launch."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(cuda, tdt)
+               for a in _attn_inputs(b, s, hq, hkv, d, seed=4))
+    opts = dict(delta=delta, window=window, softcap=cap)
+    before = tfa.flash_attention.launches
+    o, lse = tfa.flash_attention_block(q, k, v, **opts)
+    assert tfa.flash_attention.launches == before + 1
+    assert o.dtype == lse.dtype == torch.float32
+    assert lse.shape == (b, hq, s)
+    want_o, want_lse = flash_attention_ref(q, k, v, return_lse=True, **opts)
+    emu_o, emu_lse = tfa.flash_attention_emulated(q, k, v, return_lse=True,
+                                                  **opts)
+    seen = (want_lse[0, 0] > -1e29).cpu()
+    assert bool(torch.isfinite(o).all())
+    assert bool((lse[..., ~seen.to(cuda)] <= -1e29).all())
+    for wo, wl in ((want_o, want_lse), (emu_o, emu_lse)):
+        np.testing.assert_allclose(o[:, seen].cpu().numpy(),
+                                   wo[:, seen].cpu().numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+        np.testing.assert_allclose(lse[..., seen].cpu().numpy(),
+                                   wl[..., seen].cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
+
 def _ssd_inputs(b, l, h, p, n, seed=0):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, l, h, p)).astype(np.float32) * 0.5,

@@ -39,6 +39,7 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.train.metrics", "repro_torch.data.pipeline",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.ssd", "repro_torch.core.ring_attention",
+                "repro_torch.core.seq_ssm",
                 "repro_torch.models.lm.config",
                 "repro_torch.models.lm.modules",
                 "repro_torch.models.lm.transformer",

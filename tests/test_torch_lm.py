@@ -207,8 +207,13 @@ def test_ring_attention_matches_jax(b, s, hq, hkv, d, window, cap, scale):
                              scale=scale, window=window, softcap=cap)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32,
                                atol=F32)
-    with pytest.raises(NotImplementedError, match="halo"):
-        tra.ring_attention(_t(q), _t(k), _t(v), seq_axis="model")
+    # a sequence axis without a mesh (one shard) is the one-device path;
+    # the ring over a mesh is tests/test_torch_ring_dist.py's
+    one = tra.ring_attention(_t(q), _t(k), _t(v), seq_axis="model",
+                             scale=scale, window=window, softcap=cap)
+    assert torch.equal(one, got)
+    with pytest.raises(ValueError, match="one mesh axis"):
+        tra.ring_attention(_t(q), _t(k), _t(v), seq_axis=("data", "model"))
 
 
 @pytest.mark.parametrize("b,l,h,p,n,chunk,with_h0", [
@@ -563,3 +568,84 @@ def test_train_cli_hymba_smoke_on_cpu():
     assert train_cli.parse_args(["--arch", "hymba-1.5b", "--remat"]).remat
     with pytest.raises(SystemExit):                 # the LM archs' flag
         train_cli.parse_args(["--arch", "mesh1k", "--remat"])
+
+
+# ---------------------------------------------------------------------------
+# the sequence split (the multi-rank runs are tests/test_torch_lm_dist.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [{"data": 1, "model": 2},
+                                   {"data": 2, "model": 2},
+                                   {"pod": 2, "data": 1, "model": 4}])
+def test_shard_lm_batch_is_the_reference_placement(shape):
+    """Each rank's block of a global token batch is its block under the
+    reference's `P(batch_axes, "model")`: B cut over the batch axes
+    (major-to-minor), S over model; the blocks tile the global batch."""
+    from repro_torch.launch.mesh import Mesh, batch_axes
+    nb = tpipe.synthetic_lm_batch(2, 4, 16, 97)
+    n = int(np.prod(list(shape.values())))
+    seen = {k: np.zeros(v.shape, int) for k, v in nb.items()}
+    for r in range(n):
+        mesh = Mesh(shape, rank=r)
+        ba = batch_axes(mesh)
+        got = tpipe.shard_lm_batch(nb, mesh, "model", ba)
+        bi, bn = mesh.index(ba), mesh.axis_size(ba)
+        si, sn = mesh.index("model"), mesh.axis_size("model")
+        rows = slice(bi * 4 // bn, (bi + 1) * 4 // bn)
+        cols = slice(si * 16 // sn, (si + 1) * 16 // sn)
+        for k, v in nb.items():
+            np.testing.assert_array_equal(got[k], v[rows, cols])
+            assert got[k].flags.c_contiguous
+            seen[k][rows, cols] += 1
+    reps = n // (mesh.axis_size(ba) * mesh.axis_size("model"))
+    assert all((s == reps).all() for s in seen.values())
+    assert tpipe.shard_lm_batch(nb, None) is nb
+
+
+def test_positions_are_global_on_a_sequence_shard():
+    from repro_torch.launch.mesh import Mesh
+    for r in range(4):
+        ctx = tM.ShardCtx(mesh=Mesh({"data": 2, "model": 2}, rank=r),
+                          seq_axis="model", batch_axes=("data",))
+        assert ctx.sharded and ctx.seq_index == r % 2
+        np.testing.assert_array_equal(tT.positions_of(ctx, 8, "cpu"),
+                                      np.arange(8) + 8 * (r % 2))
+    assert not tM.ShardCtx().sharded
+    np.testing.assert_array_equal(tT.positions_of(tM.ShardCtx(), 5, "cpu"),
+                                  np.arange(5))
+
+
+@pytest.mark.parametrize("delta,window", [(0, None), (32, None), (32, 16),
+                                          (-8, 4)])
+def test_flash_attention_block_on_the_cpu_is_the_plain_version(delta,
+                                                               window):
+    """`ops.flash_attention_block` on CPU tensors is the plain version's
+    block call (o in fp32 and lse), differentiable in both."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import flash_attention_ref
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .requires_grad_() for s in ((1, 32, 4, 16), (1, 32, 2, 16),
+                                           (1, 32, 2, 16)))
+    o, lse = ops.flash_attention_block(q, k, v, delta=delta, window=window)
+    want = flash_attention_ref(q, k, v, delta=delta, window=window,
+                               return_lse=True)
+    assert torch.equal(o, want[0]) and torch.equal(lse, want[1])
+    assert o.dtype == lse.dtype == torch.float32
+    seen = lse > -1e29
+    (o.sum() + lse[seen].sum()).backward()
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_train_cli_sequence_split_flags():
+    """An LM arch on a mesh needs --seq divisible by --model and refuses
+    --elastic (its remesh rebuilds a CNN plan); --audit and --profile
+    stay the meshnet archs'."""
+    ok = train_cli.parse_args(["--arch", "hymba-1.5b", "--smoke", "--model",
+                               "2", "--seq", "128", "--device", "cpu"])
+    assert ok.model == 2
+    for bad in (["--seq", "127", "--model", "2"],
+                ["--model", "2", "--elastic", "--ckpt-dir", "x"],
+                ["--model", "2", "--audit"], ["--model", "2", "--profile"]):
+        with pytest.raises(SystemExit):
+            train_cli.parse_args(["--arch", "hymba-1.5b", "--smoke"] + bad)

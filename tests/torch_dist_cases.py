@@ -1350,6 +1350,181 @@ def case_serve(mesh, d):
     return out
 
 
+# the ring: tests/dist_checks.py check_attention's shapes and cases
+# (causal; window 7; bidirectional; window 12 with softcap 30)
+RING_SHAPE = (2, 32, 8, 4, 16)          # B, S, Hq, Hkv, D
+RING_CASES = [(True, None, None), (True, 7, None), (False, None, None),
+              (True, 12, 30.0)]
+# seq_prefix_state: check_ssm's B, H, dh, ds (one summary a shard)
+PREFIX_SHAPE = (2, 3, 4, 5)
+
+
+def ring_inputs() -> dict:
+    """q, k, v and the output's cotangent g, global, from numpy seed 11."""
+    b, s, hq, hkv, d = RING_SHAPE
+    rng = np.random.default_rng(11)
+    shapes = {"q": (b, s, hq, d), "k": (b, s, hkv, d), "v": (b, s, hkv, d),
+              "g": (b, s, hq, d)}
+    return {n: rng.standard_normal(sh).astype(np.float32)
+            for n, sh in shapes.items()}
+
+
+def prefix_inputs(n: int) -> dict:
+    """Per-shard decays a (n, B, H, 1, 1) in [0.5, 0.99), states s (n, B,
+    H, dh, ds) and the cotangent g of the incoming states, numpy seed
+    12."""
+    b, h, dh, ds = PREFIX_SHAPE
+    rng = np.random.default_rng(12)
+    return {"a": rng.uniform(0.5, 0.99, (n, b, h, 1, 1)).astype(np.float32),
+            "s": rng.standard_normal((n, b, h, dh, ds)).astype(np.float32),
+            "g": rng.standard_normal((n, b, h, dh, ds)).astype(np.float32)}
+
+
+def _prefix_case(mesh, out):
+    """`seq_prefix_state` over "model" on this shard's summary, and the
+    gradients of sum(s_in * g) in a and s."""
+    import torch
+    from repro_torch.core.seq_ssm import seq_prefix_state
+    n, i = mesh.shape["model"], mesh.index("model")
+    x = prefix_inputs(n)
+    a = torch.from_numpy(x["a"][i]).requires_grad_()
+    s = torch.from_numpy(x["s"][i]).requires_grad_()
+    s_in = seq_prefix_state(a, s, "model", mesh)
+    (s_in * torch.from_numpy(x["g"][i])).sum().backward()
+    out.update({"prefix.s_in": s_in.detach().numpy(),
+                "prefix.da": a.grad.numpy(), "prefix.ds": s.grad.numpy()})
+
+
+def case_ring(mesh, d):
+    """`ring_attention` over "model" (B over "data") on this rank's blocks
+    for every RING_CASES row: the output block, the gradients of sum(o *
+    g) in this rank's q, k and v blocks, and how many block calls this
+    rank made; then `_prefix_case`."""
+    import torch
+    from unittest import mock
+    from repro_torch.core.ring_attention import ring_attention
+    from repro_torch.kernels import ops
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    x = ring_inputs()
+    t = {n: torch.from_numpy(decode_block(a, rank, dims, ("data",),
+                                          "model"))
+         for n, a in x.items()}
+    out = {}
+    for ci, (causal, window, cap) in enumerate(RING_CASES):
+        q, k, v = (t[n].clone().requires_grad_() for n in "qkv")
+        with mock.patch.object(ops, "flash_attention_block",
+                               wraps=ops.flash_attention_block) as blk:
+            o = ring_attention(q, k, v, mesh=mesh, seq_axis="model",
+                               causal=causal, window=window, softcap=cap)
+        (o * t["g"]).sum().backward()
+        out.update({f"ring.{ci}.o": o.detach().numpy(),
+                    f"ring.{ci}.dq": q.grad.numpy(),
+                    f"ring.{ci}.dk": k.grad.numpy(),
+                    f"ring.{ci}.dv": v.grad.numpy(),
+                    f"ring.{ci}.blocks": np.array(blk.call_count)})
+    _prefix_case(mesh, out)
+    return out
+
+
+def case_prefix(mesh, d):
+    """`_prefix_case` alone (an axis the ring's S does not divide over)."""
+    out = {}
+    _prefix_case(mesh, out)
+    return out
+
+
+# the LM on a mesh: each arch's SMOKE at batch 2 x seq 64 (past hymba's
+# window of 16), the sequence over "model" and the batch over "data"
+LM_ARCHS = ("hymba-1.5b", "qwen1.5-0.5b")
+LM_BATCH, LM_SEQ, LM_STEPS = 2, 64, 3
+
+
+def lm_argv(arch: str, dims: tuple) -> list[str]:
+    """The trainer's arguments of the trajectory (dims (1, 1): one
+    device)."""
+    return ["--arch", arch, "--smoke", "--steps", str(LM_STEPS), "--batch",
+            str(LM_BATCH), "--seq", str(LM_SEQ), "--device", "cpu",
+            "--data", str(dims[0]), "--model", str(dims[1]),
+            "--log-every", "1"]
+
+
+def lm_ssd_inputs(d_model: int) -> dict:
+    """x (B, S, d) into an SSD block and the cotangent of its output,
+    numpy seed 13."""
+    rng = np.random.default_rng(13)
+    shape = (LM_BATCH, LM_SEQ, d_model)
+    return {"x": rng.standard_normal(shape).astype(np.float32),
+            "g": rng.standard_normal(shape).astype(np.float32)}
+
+
+def lm_params(arch: str, d):
+    """`arch`'s SMOKE config and params from DIR/inputs.npz
+    (`<arch>/<leaf index>`, the reference's init carried over by
+    `params_from_jax`, in `tree_leaves` order)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models.lm import transformer
+    from repro_torch.utils import tree_map, tree_unflatten
+    cfg = registry.get(arch, smoke=True)
+    flat = np.load(os.path.join(d, "inputs.npz"))
+    like = transformer.init(torch.Generator(), cfg, device="cpu")
+    n = sum(k.startswith(f"{arch}/") for k in flat)
+    params = tree_unflatten(like, iter(torch.from_numpy(flat[f"{arch}/{i}"])
+                                       for i in range(n)))
+    return cfg, tree_map(lambda t: t.requires_grad_(), params)
+
+
+def case_lm(mesh, d):
+    """Each LM_ARCHS SMOKE on this mesh, the sequence over "model" and
+    the batch over "data": the SSD block of layer 0 (where there is one)
+    on this rank's block of `lm_ssd_inputs` with the gradient of sum(y *
+    g) in x; this rank's share of `loss_fn` on batch 0 and its gradient in
+    every param; `prefill`'s last logits and every layer's K/V block; then
+    `launch.train` (the process group the launcher made) for LM_STEPS
+    steps: the losses, gradient norms and final params."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.lm import modules as M
+    from repro_torch.models.lm import transformer
+    from repro_torch.utils import tree_leaves
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    ctx = M.ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    out = {}
+    for arch in LM_ARCHS:
+        cfg, params = lm_params(arch, d)
+        if "ssm" in params["layers"][0]:
+            x = {n: torch.from_numpy(decode_block(a, rank, dims, ("data",),
+                                                  "model"))
+                 for n, a in lm_ssd_inputs(cfg.d_model).items()}
+            xs = x["x"].clone().requires_grad_()
+            y = M.ssm_apply(params["layers"][0]["ssm"], xs, cfg, ctx)
+            (y * x["g"]).sum().backward()
+            out[f"{arch}.ssd.y"] = y.detach().numpy()
+            out[f"{arch}.ssd.dx"] = xs.grad.numpy()
+        batch = pipeline.to_device(pipeline.shard_lm_batch(
+            pipeline.synthetic_lm_batch(0, LM_BATCH, LM_SEQ, cfg.vocab),
+            mesh, "model", ("data",)), torch.device("cpu"))
+        leaves = tree_leaves(params)
+        share = transformer.loss_fn(params, batch, cfg, ctx=ctx)
+        grads = torch.autograd.grad(share, leaves)
+        out[f"{arch}.loss_share"] = np.array(share.item())
+        out.update({f"{arch}.grad.{i}": g.numpy()
+                    for i, g in enumerate(grads)})
+        last, kv = transformer.prefill(params, cfg, batch["tokens"], ctx)
+        out[f"{arch}.prefill.logits"] = last.numpy()
+        for li, layer_kv in enumerate(kv):
+            if layer_kv is not None:
+                out[f"{arch}.prefill.{li}.k"] = layer_kv[0].numpy()
+                out[f"{arch}.prefill.{li}.v"] = layer_kv[1].numpy()
+        res = train_cli.run(train_cli.parse_args(lm_argv(arch, dims)))
+        out[f"{arch}.train.losses"] = np.array(res["losses"])
+        out[f"{arch}.train.grad_norms"] = np.array(res["grad_norms"])
+        out.update({f"{arch}.train.param.{i}": p.detach().numpy()
+                    for i, p in enumerate(tree_leaves(res["params"]))})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -1359,7 +1534,8 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "elastic": case_elastic, "subset": case_subset,
          "audit": case_audit, "halo_order": case_halo_order,
          "compress": case_compress, "zero": case_zero,
-         "decode": case_decode, "serve": case_serve}
+         "decode": case_decode, "serve": case_serve, "ring": case_ring,
+         "prefix": case_prefix, "lm": case_lm}
 
 
 # ------------------------------------------------------------ launcher --
