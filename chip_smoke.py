@@ -142,7 +142,7 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    held as in phase 5 (`check_attention`, `check_ssd`) at the prefill
    shapes (batch 4 x each prompt); the host-bound decode step (qwen1.5
    at full width, 63 steps) timed in this process and in a fresh one,
-   twice each, with the thread and process counts of each; full-width
+   once each, with the thread and process counts of each; full-width
    hymba-1.5b (prompt 1088, 64 past its window) and qwen1.5-0.5b (prompt
    256), batch 4, 32 generated tokens, each in a fresh process (so its
    times owe nothing to the earlier phases), through the serve entry point
@@ -176,13 +176,42 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    derives them (attention 32 / 64 a forward on rank 0 / 1, the causal
    skip; SSD 32); peak memory, step seconds and one profiled step's
    device time by kind and idle share;
-7. print every kernel's registers, static shared memory and spills (the
+7. the vocab-parallel loss: the attention kernel at the shapes of its
+   runs, f32 and bf16: gemma2-9b's (D 256, 16 / 8 heads, softcap 50) on
+   one device at 1 x 4096, causal and window 4096, and at 1 x 8192, where
+   the window binds, and the ring's block call at 2048 rows (the diagonal
+   and the off-diagonal, with and without the window); qwen2.5-14b's (D
+   128, 40 / 8 heads) on one device at 1 x 2048 and the ring's block call
+   at 1024 rows (the diagonal and the off-diagonal); each against its
+   plain version (bf16 element by element), timed 20 launches an event
+   pair beside the plain version's time, the bound and one library
+   call's (gemma2: compiled `flex_attention` with the softcap as its
+   score_mod; qwen2.5: SDPA); then full-width
+   gemma2-9b cut to one local + global unit (batch 1 x seq 4096, the
+   tied table) and qwen2.5-14b cut to one layer (batch 1 x seq 2048, the
+   untied unembed), params drawn on the card: the one-device dense
+   `loss_fn` and its gradients in a process of its own, then 2 gloo
+   ranks sharing the card (data 1 x model 2, not a scaling result) run
+   `loss_fn(vocab_parallel=True)` with its backward on their vocabulary
+   and sequence blocks: the shares summed within 1e-5 of the one-device
+   loss, each rank's table-block gradients and the summed layer
+   gradients within 1e-4 of the one-device gradients' largest
+   magnitude, the attention launches a rank as the ring derives them,
+   the table rotations (4 (P - 1) + P messages of one block a rank, each
+   staged through the host), s for forward + backward and peak memory a
+   rank against one device;
+8. print every kernel's registers, static shared memory and spills (the
    ptxas report), the HGMMA counts, the `kernels` JSON line (with each LM
    kernel's launches in prefill, `serve_launches`, and on the mesh,
-   `mesh_launches_per_rank`; the block call's times, `ring_block`) and,
+   `mesh_launches_per_rank`; the block call's times, `ring_block`; the
+   attention kernel's rows and launches on phase 7's runs, `vocab`) and,
    last, the `ok` JSON line.
 
-Each launch count is read from a run that starts with every count at 0.
+The full-width hymba-1.5b and qwen1.5-0.5b params are drawn from their
+CPU generator once a run and kept, with the generator's state after the
+draw, under build/params for every later draw of the same seed
+(`_init_once`, held once a run against a fresh draw).  Each launch count
+is read from a run that starts with every count at 0.
 Any failed phase raises and the script exits non-zero.  Per-shape rows go
 to chiprun_out/chip_smoke.json.
 """
@@ -210,7 +239,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa
-from repro_torch.configs import hymba_1_5b, qwen1_5_0_5b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    gemma2_9b, hymba_1_5b, qwen1_5_0_5b, qwen2_5_14b)
 from repro_torch.core import calibrate, channel_conv  # noqa: E402
 from repro_torch.core import collectives, halo, perfmodel  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
@@ -232,13 +262,15 @@ from repro_torch.models.cnn import layers as cnn_layers  # noqa: E402
 from repro_torch.models.cnn import meshnet, resnet  # noqa: E402
 from repro_torch.models.lm import modules as lm_modules  # noqa: E402
 from repro_torch.models.lm import transformer  # noqa: E402
+from repro_torch.models.lm import vocab_parallel  # noqa: E402
 from repro_torch.models.lm.modules import ShardCtx  # noqa: E402
 from repro_torch.optim.optimizer import (  # noqa: E402
     adamw, sgd, state_tree)
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainStepConfig, make_train_step, reduce_replicated_grads)
 from repro_torch.utils import (  # noqa: E402
-    FP32, interleaved_samples, same_pads, time_fn, tree_leaves, tree_map)
+    FP32, interleaved_samples, same_pads, time_fn, tree_leaves, tree_map,
+    tree_unflatten, trimmed_mean)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 on the CUDA cores
@@ -288,6 +320,55 @@ LM_LOSS_RTOL = 1e-4
 # the 4-layer full-width forward check: types g, s, g, g and a sequence
 # longer than the 1024 window, a multiple of the SSD chunk
 CHECK_LAYERS, CHECK_SEQ = 4, 1280
+# where the full-width hymba and qwen1.5 draws are kept between their
+# calls (git-ignored)
+PARAMS_DIR = os.path.join(HERE, "build", "params")
+DRAW_ONCE = (HYMBA, qwen1_5_0_5b.CONFIG)
+_init = transformer.init
+
+
+def _init_once(gen: torch.Generator, cfg, *, device):
+    """`transformer.init`, with each DRAW_ONCE config's full-width draw
+    from a fresh CPU generator (as the trainer, serving and the phases
+    each make one from a seed) made once a run: the first call draws and
+    saves the tree and the generator's state after the draw under
+    PARAMS_DIR; every later one, in this process or a spawned one, loads
+    both, so that it returns the same bits and leaves the generator as a
+    draw would (hymba's draw on the CPU takes about 12 s).  The first load
+    of each config in a run is held against a fresh draw, leaf by leaf
+    and the generator's state, and raises if they differ.  Any other call
+    is `transformer.init`'s own."""
+    fresh = gen.device.type == "cpu" and torch.equal(
+        gen.get_state(),
+        torch.Generator().manual_seed(gen.initial_seed()).get_state())
+    if cfg not in DRAW_ONCE or not fresh:
+        return _init(gen, cfg, device=device)
+    path = os.path.join(PARAMS_DIR,
+                        f"{cfg.name}-seed{gen.initial_seed()}.pt")
+    if os.path.exists(path):
+        saved = torch.load(path, mmap=True)
+        if not os.path.exists(f"{path}.checked"):
+            again = torch.Generator().manual_seed(gen.initial_seed())
+            want = tree_leaves(_init(again, cfg, device="cpu"))
+            got = tree_leaves(saved["tree"])
+            if not (torch.equal(saved["gen_state"], again.get_state())
+                    and len(got) == len(want)
+                    and all(torch.equal(a, b) for a, b in zip(got, want))):
+                raise AssertionError(f"{cfg.name}: the saved draw is not "
+                                     f"transformer.init's")
+            open(f"{path}.checked", "w").close()
+        gen.set_state(saved["gen_state"])
+        tree = saved["tree"]
+    else:
+        tree = tree_map(lambda t: t.detach(), _init(gen, cfg, device="cpu"))
+        os.makedirs(PARAMS_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"tree": tree, "gen_state": gen.get_state()}, tmp)
+        os.replace(tmp, path)
+    return tree_map(lambda t: t.to(device, copy=True).requires_grad_(), tree)
+
+
+transformer.init = _init_once
 
 
 def card_line() -> str:
@@ -3301,17 +3382,14 @@ def decode_probe_rank(rank: int, world: int) -> dict:
 
 
 def probe_phase(card: str) -> list[dict]:
-    """The decode probe in this process and in a fresh one, twice each,
-    alternated: whether what the earlier phases left in this process
-    slows the eager step, or the host as a whole varies."""
+    """The decode probe in this process and in a fresh one: whether what
+    the earlier phases left in this process slows the eager step, or the
+    host as a whole varies."""
     cfg = SERVE_CFG["qwen1.5-0.5b"]
     params = transformer.init(torch.Generator().manual_seed(0), cfg,
                               device="cuda")
-    out = []
-    for _ in range(2):
-        out.append(dict(decode_probe(params), process="this"))
-        out.append(dict(spawn_ranks(decode_probe_rank, 1)[0],
-                        process="fresh"))
+    out = [dict(decode_probe(params), process="this"),
+           dict(spawn_ranks(decode_probe_rank, 1)[0], process="fresh")]
     del params
     torch.cuda.empty_cache()
     for r in out:
@@ -3780,6 +3858,497 @@ def lm_mesh_phase(card: str, plain: dict, served: dict) -> dict:
     return out
 
 
+# ------------------------------------------------- the vocab-parallel loss --
+
+# full width, depth cut: gemma2-9b to one local-4096 + global unit at batch
+# 1 x seq 4096 (the tied table, 917.5 M rows x d; 2048 tokens a rank),
+# qwen2.5-14b to one layer at batch 1 x seq 2048 (the untied unembed);
+# data 1 x model 2, FP32, params drawn on the card from VOCAB_SEED
+VOCAB_MODEL = 2
+VOCAB_RUNS = [
+    {"arch": "gemma2-9b",
+     "cfg": dataclasses.replace(gemma2_9b.CONFIG, n_layers=2), "seq": 4096},
+    {"arch": "qwen2.5-14b",
+     "cfg": dataclasses.replace(qwen2_5_14b.CONFIG, n_layers=1),
+     "seq": 2048},
+]
+VOCAB_SEED = 26
+VOCAB_DIR = os.path.join(HERE, "build", "vocab")
+# the ranks' shares summed against the one-device dense loss: fp32 sums of
+# 256,000 exponentials a token in another order (streamed over two blocks)
+VOCAB_LOSS_RTOL = 1e-5
+# each gradient against the one-device one, over its largest magnitude:
+# the same products split over two vocab blocks and two sequence shards
+VOCAB_GRAD_TOL = 1e-4
+# the attention kernel at the shapes phase 7's runs give it: gemma2-9b
+# (D 256, 16 / 8 heads, softcap 50) on one device at 1 x 4096, causal and
+# window 4096 (at this length the window admits what causality does), and
+# beside them at 1 x 8192, where the window binds (no run launches these:
+# count 0); the ring's blocks of 2048 rows on the 2-rank run: each layer's
+# diagonal on both ranks and its off-diagonal on rank 1.  qwen2.5-14b (D
+# 128, 40 / 8 heads, no softcap, every layer global) on one device at 1 x
+# 2048, and the ring's blocks of 1024 rows: the diagonal on both ranks, the
+# off-diagonal on rank 1.  count: the calls of one forward (the ring's
+# summed over the ranks)
+GEMMA = gemma2_9b.CONFIG
+QWEN25 = qwen2_5_14b.CONFIG
+GEMMA_WINDOW = f"window {GEMMA.window}"
+VOCAB_ATTN = [
+    {"cfg": GEMMA, "s": 4096, "mask": "causal", "window": None, "count": 1},
+    {"cfg": GEMMA, "s": 4096, "mask": GEMMA_WINDOW, "window": GEMMA.window,
+     "count": 1},
+    {"cfg": GEMMA, "s": 8192, "mask": "causal", "window": None, "count": 0},
+    {"cfg": GEMMA, "s": 8192, "mask": GEMMA_WINDOW, "window": GEMMA.window,
+     "count": 0},
+    {"cfg": GEMMA, "s": 2048, "delta": 0, "mask": "causal diagonal",
+     "window": None, "count": 2},
+    {"cfg": GEMMA, "s": 2048, "delta": 0, "mask": f"{GEMMA_WINDOW} diagonal",
+     "window": GEMMA.window, "count": 2},
+    {"cfg": GEMMA, "s": 2048, "delta": 2048, "mask": "off-diagonal",
+     "window": None, "count": 1},
+    {"cfg": GEMMA, "s": 2048, "delta": 2048,
+     "mask": f"{GEMMA_WINDOW} off-diagonal", "window": GEMMA.window,
+     "count": 1},
+    {"cfg": QWEN25, "s": 2048, "mask": "causal", "window": None, "count": 1},
+    {"cfg": QWEN25, "s": 1024, "delta": 0, "mask": "causal diagonal",
+     "window": None, "count": 2},
+    {"cfg": QWEN25, "s": 1024, "delta": 1024, "mask": "off-diagonal",
+     "window": None, "count": 1},
+]
+KERNEL_LAUNCHES = 20        # kernel launches an event pair
+# a call at least this long is timed in one pair after the warm one (a
+# pair then lasts 40 ms or more)
+LONG_CALL_MS = 2.0
+# the yardstick against the kernel's output (o on the rows that see a
+# key) over its largest magnitude: a wrong mask or softcap shows at O(1);
+# within it, what the library's own tiles and roundings leave
+LIBRARY_TOL = 5e-2
+
+
+def _ms_a_launch(fn, reps: int = 5) -> float:
+    """ms a call of `fn`: KERNEL_LAUNCHES calls between a pair of CUDA
+    events, the trimmed mean of `reps` pairs after one warm pair (one pair
+    where the warm pair's calls take LONG_CALL_MS or more)."""
+    samples, i = [], 0
+    while i <= reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(KERNEL_LAUNCHES):
+            fn()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / KERNEL_LAUNCHES
+        if i:
+            samples.append(ms)
+        elif ms >= LONG_CALL_MS:
+            reps = 1
+        i += 1
+    return trimmed_mean(samples)
+
+
+# what `_flex_mask` reads: the query rows' offset and the window (a large
+# number for none), 0-dim tensors on the card, so that every mask of one
+# shape and dtype runs one compiled kernel
+_FLEX = {}
+
+
+def _flex_mask(b, h, qi, ki):
+    qpos = qi + _FLEX["delta"]
+    return (qpos >= ki) & (qpos - ki < _FLEX["window"])
+
+
+def _flex_softcap(score, b, h, qi, ki):
+    return GEMMA.attn_softcap * torch.tanh(score / GEMMA.attn_softcap)
+
+
+def flex_library(q, k, v, *, window, delta, block: bool):
+    """The yardstick for softcapped attention: one compiled
+    `flex_attention` call (GQA, the softcap as its score_mod, causality,
+    the window and `delta` as its block mask) on (B, H, S, D) views of
+    q, k, v; with `block`, its lse too.  Returns the call, ready to time.
+    Never called by the port."""
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention)
+    if "fn" not in _FLEX:
+        # its caches in the checkout's build directory, its kernels
+        # compiled in this process
+        import torch._inductor.config
+        os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(
+            HERE, "build", "inductor")
+        os.environ["TRITON_CACHE_DIR"] = os.path.join(HERE, "build",
+                                                      "triton")
+        torch._inductor.config.compile_threads = 1
+        _FLEX["delta"] = torch.zeros((), dtype=torch.int64, device=q.device)
+        _FLEX["window"] = torch.zeros((), dtype=torch.int64, device=q.device)
+        torch._dynamo.config.recompile_limit = 64
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    _FLEX["delta"].fill_(delta)
+    _FLEX["window"].fill_(2 ** 40 if window is None else window)
+    s = q.shape[1]
+    mask = create_block_mask(_flex_mask, None, None, s, s, device=q.device)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    fn = _FLEX["fn"]
+
+    def library():
+        return fn(qt, kt, vt, score_mod=_flex_softcap, block_mask=mask,
+                  enable_gqa=True, return_lse=block)
+    return library
+
+
+def sdpa_library(q, k, v, *, window, delta, block: bool):
+    """The yardstick without a softcap: one SDPA call on (B, H, S, D)
+    views, GQA, `is_causal` for a one-device causal call, else the
+    block's bool mask.  Never called by the port."""
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if window is None and delta == 0 and not block:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    s = q.shape[1]
+    pos = torch.arange(s, device=q.device)
+    keep = pos[:, None] + delta >= pos[None, :]
+    if window is not None:
+        keep &= pos[:, None] + delta - pos[None, :] < window
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, enable_gqa=True)
+
+
+def vocab_attention_row(case: dict, dtype: torch.dtype,
+                        gen: torch.Generator) -> dict:
+    """The attention kernel at `case`'s config (its heads, D and softcap)
+    on one device at 1 x s, or (a case with `delta`) the ring's block call
+    at 1 x s rows against as many keys, `delta` after them.  Held against
+    the plain version: max |err| within LM_FWD_TOL of the largest
+    magnitude (o and, for a block, lse), bf16 element by element within
+    one bf16 ulp of A + |o32|.  Its ms (KERNEL_LAUNCHES a pair), the plain
+    version's, one library call's (`flex_library` with a softcap, else
+    `sdpa_library`, held within LIBRARY_TOL of the kernel) and the bound
+    over the admitted pairs."""
+    dev = torch.device("cuda")
+    cfg, s = case["cfg"], case["s"]
+    hq, hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.attn_softcap
+    block = "delta" in case
+    delta = case.get("delta", 0)
+    opts = dict(window=case["window"], softcap=cap)
+    what = f"{cfg.name} {'block ' if block else ''}{case['mask']} {dtype}"
+    q = torch.randn((1, s, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(dtype)
+    p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, case["window"])
+    if (p.path, p.d_pad) != ("wgmma" if dtype == torch.bfloat16 else "fma",
+                             d):
+        raise AssertionError(f"{what} planned {p}")
+    if block:
+        def kernel():
+            return kfa.flash_attention_block(q, k, v, delta=delta, **opts)
+
+        def plain():
+            return flash_attention_ref(q, k, v, delta=delta,
+                                       return_lse=True, **opts)
+    else:
+        def kernel():
+            return kfa.flash_attention(q, k, v, **opts)
+
+        def plain():
+            return flash_attention_ref(q, k, v, **opts)
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    o, w = (got[0], want[0]) if block else (got, want)
+    # a block's rows that see a key (at these shapes every row does)
+    seen = want[1][0, 0] > -1e29 if block else slice(None)
+    err = _check_close(what, o[:, seen], w[:, seen], LM_FWD_TOL[dtype])
+    lse_err = _check_close(f"{what} lse", got[1][..., seen],
+                           want[1][..., seen],
+                           LM_FWD_TOL[torch.float32]) if block else None
+    del want, w
+    elem = None
+    if dtype == torch.bfloat16:
+        ref_opts = dict(opts, delta=delta, return_lse=True) if block else opts
+        want = flash_attention_ref(*(t.float() for t in (q, k, v)),
+                                   **ref_opts)
+        spread = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                     **ref_opts)
+        w, a = (want[0], spread[0]) if block else (want, spread)
+        elem = float(((o.float() - w).abs()
+                      / (ATTN_ELEM_ULP * (a + w.abs())))[:, seen].max())
+        del want, spread, w, a
+        if not elem <= 1.0:
+            raise AssertionError(f"{what}: an element is {elem} x its limit "
+                                 f"(one bf16 ulp of A + |o32|)")
+    make = flex_library if cap else sdpa_library
+    library = make(q, k, v, window=case["window"], delta=delta, block=block)
+    t0 = time.perf_counter()
+    lib = library()
+    torch.cuda.synchronize()
+    library_first_s = time.perf_counter() - t0
+    lib_o = (lib[0] if isinstance(lib, tuple) else lib).transpose(1, 2)
+    lib_err = float((lib_o.float() - o.float())[:, seen].abs().max()) / \
+        float(o.float()[:, seen].abs().max())
+    if not lib_err <= LIBRARY_TOL:
+        raise AssertionError(f"{what}: the library call is {lib_err:.3e} "
+                             f"of the largest magnitude from the kernel "
+                             f"(tol {LIBRARY_TOL}): not the same function")
+    del got, o, lib, lib_o
+    torch.cuda.empty_cache()
+    pairs = admitted_pairs(s, case["window"], delta)
+    flops = 4.0 * d * pairs * hq
+    nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + (
+        4 * (q.numel() + hq * s) if block else q.numel() * q.element_size())
+    ms = _ms_a_launch(kernel)
+    library_ms = _ms_a_launch(library)
+    plain_ms = time_fn(plain, reps=3, warmup=1) * 1e3
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return {"kernel": "flash_attention_block" if block else
+            "flash_attention", "model": cfg.name, "mask": case["mask"],
+            "delta": delta, "window": case["window"], "softcap": cap,
+            "dtype": str(dtype).split(".")[-1], "count": case["count"],
+            "q": list(q.shape), "kv": list(k.shape), "pairs": pairs,
+            "max_abs_err": err, "lse_err": lse_err,
+            "max_err_over_elem_limit": elem, "plan": dataclasses.asdict(p),
+            "plan_str": f"{p.path} {p.tile_q}x{p.tile_k} d{p.d_pad}",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "flex_attention (compiled)" if cap else "SDPA",
+            "library_vs_kernel_err": lib_err,
+            "library_first_call_s": library_first_s,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "tflops_s": flops / ms / 1e9}
+
+
+def vocab_kernel_rows(card: str) -> list[dict]:
+    """Phase 7's kernel rows: every VOCAB_ATTN case in f32 and bf16,
+    printed."""
+    gen = torch.Generator(device="cuda").manual_seed(VOCAB_SEED)
+    rows = []
+    for dt, c in itertools.product((torch.float32, torch.bfloat16),
+                                   VOCAB_ATTN):
+        rows.append(r := vocab_attention_row(c, dt, gen))
+        print(f"{r['model']} attention {r['kernel']} {r['mask']} (delta "
+              f"{r['delta']}), {r['dtype']}, q {r['q']} kv {r['kv']}, "
+              f"softcap {r['softcap']}, {r['count']} a forward: "
+              f"{r['plan_str']}; max |err| {r['max_abs_err']:.3e}"
+              + ("" if r["lse_err"] is None else f", lse {r['lse_err']:.3e}")
+              + ("" if r["max_err_over_elem_limit"] is None else
+                 f", err/elem limit {r['max_err_over_elem_limit']:.3f}")
+              + f"; kernel {r['ms']:.4f} ms ({KERNEL_LAUNCHES} launches a "
+              f"pair), plain {r['plain_ms']:.4f} ms, {r['library']} "
+              f"{r['library_ms']:.4f} ms (its first call "
+              f"{r['library_first_call_s']:.1f} s; "
+              f"{r['library_vs_kernel_err']:.2e} from the kernel), bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['pairs']} "
+              f"pairs), {r['tflops_s']:.1f} TFLOP/s ({card})", flush=True)
+    return rows
+
+
+def _grad_err(got: torch.Tensor, want: torch.Tensor, scale: float) -> float:
+    """max |got - want| over `scale` (the gradient's largest magnitude)."""
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def _vocab_setup(run: dict, dev: torch.device):
+    """The run's config, its params drawn on the card from VOCAB_SEED (the
+    same on every process) and its global batch 0."""
+    cfg = run["cfg"]
+    params = transformer.init(torch.Generator(device=dev).manual_seed(
+        VOCAB_SEED), cfg, device=dev)
+    return cfg, params, pipeline.synthetic_lm_batch(0, 1, run["seq"],
+                                                    cfg.vocab)
+
+
+def vocab_dense_rank(rank: int, world: int, i: int) -> dict:
+    """One device, in its own process: the dense `loss_fn` of VOCAB_RUNS[i]
+    and its gradients (forward + backward timed on the host clock,
+    synchronised: the first pass, as the ranks time theirs, and a second,
+    warm one), saved under VOCAB_DIR for the ranks."""
+    dev = torch.device("cuda")
+    cfg, params, nb = _vocab_setup(VOCAB_RUNS[i], dev)
+    batch = pipeline.to_device(nb, dev)
+    leaves = tree_leaves(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = transformer.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    torch.autograd.grad(transformer.loss_fn(params, batch, cfg), leaves)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    path = os.path.join(VOCAB_DIR, f"{VOCAB_RUNS[i]['arch']}.pt")
+    torch.save({"loss": loss.item(), "grads": tree_unflatten(
+        params, iter(g.cpu() for g in grads))}, path)
+    return {"loss": loss.item(), "s": seconds, "s_warm": warm,
+            "peak_gib": peak, "launches": launches, "path": path,
+            "n_params": sum(t.numel() for t in leaves)}
+
+
+def vocab_rank(rank: int, world: int, i: int) -> dict:
+    """One of VOCAB_MODEL gloo ranks on the card (data 1 x model
+    VOCAB_MODEL): VOCAB_RUNS[i]'s `loss_fn(vocab_parallel=True)` on this
+    rank's vocabulary blocks (`shardings.vocab_blocks`) and its sequence
+    block, forward + backward timed; the shares and the layer gradients
+    summed over the ranks; this rank's table blocks' gradients against
+    the one-device gradient's rows and the summed layer gradients against
+    its layers' (`vocab_dense_rank`'s file)."""
+    dev = torch.device("cuda")
+    run = VOCAB_RUNS[i]
+    mesh = make_mesh(data=1, model=world)
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    cfg, params, nb = _vocab_setup(run, dev)
+    blocks = shardings.vocab_blocks(params, mesh)
+    del params
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        nb, mesh, "model", ("data",)), dev)
+    leaves = tree_leaves(blocks)
+    tables = [n for n in shardings.VOCAB_DIMS if n in blocks]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    vocab_parallel.reset_sent()
+    halo.reset_staged()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    share = transformer.loss_fn(blocks, batch, cfg, ctx=ctx,
+                                vocab_parallel=True)
+    grads = torch.autograd.grad(share, leaves)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    sent = dict(vocab_parallel.sent)
+    staged = halo.staged
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gtree = tree_unflatten(blocks, iter(grads))
+    loss = float(mesh.all_reduce(share.detach(), "model"))
+    layers = [g for n in sorted(gtree) if n not in tables
+              for g in tree_leaves(gtree[n])]
+    flat = mesh.all_reduce(torch.cat([g.flatten() for g in layers]),
+                           "model")
+    want = torch.load(os.path.join(VOCAB_DIR, f"{run['arch']}.pt"),
+                      mmap=True)
+    errs, at = {}, 0
+    for n in sorted(gtree):
+        if n in tables:
+            continue
+        for g, w in zip(tree_leaves(gtree[n]), tree_leaves(want["grads"][n])):
+            w = w.to(dev)
+            errs[n] = max(errs.get(n, 0.0), _grad_err(
+                flat[at:at + g.numel()].view_as(g), w,
+                float(w.abs().max())))
+            at += g.numel()
+    for n in tables:
+        dim = shardings.VOCAB_DIMS[n]
+        g, w = gtree[n], want["grads"][n]
+        m = g.shape[dim]
+        lo = mesh.index("model") * m
+        real = min(m, cfg.vocab - lo)
+        errs[n] = _grad_err(g.narrow(dim, 0, real),
+                            w.narrow(dim, lo, real).to(dev),
+                            float(w.abs().max()))
+        if real < m and g.narrow(dim, real, m - real).any():
+            raise AssertionError(f"{n}: a padded row has a gradient")
+    s_local = run["seq"] // world
+    vshard = shardings.vocab_padded(cfg.vocab, world) // world
+    return {"rank": rank, "share": share.item(), "loss": loss, "s": seconds,
+            "peak_gib": peak, "launches": launches, "sent": sent,
+            "staged": staged, "grad_err": errs, "want_loss": want["loss"],
+            "block_bytes": vshard * cfg.d_model * 4,
+            "chunk_bytes": s_local * vshard * 4,
+            "dense_logit_bytes": run["seq"] * cfg.vocab * 4,
+            "n_params": sum(t.numel() for t in leaves)}
+
+
+def vocab_phase(card: str) -> dict:
+    """Phase 7, the vocab-parallel loss: the attention kernel's rows at
+    the shapes of its runs (`vocab_kernel_rows`: gemma2's D 256, qwen2.5's
+    D 128), then for each VOCAB_RUNS config the one-device
+    dense loss and gradients in a process of its own, then VOCAB_MODEL
+    gloo ranks sharing the card (not a scaling result) running
+    `loss_fn(vocab_parallel=True)` with its backward.  Held: the ranks'
+    shares summed within VOCAB_LOSS_RTOL of the one-device loss; each
+    rank's table-block gradients and the layer gradients summed over the
+    ranks within VOCAB_GRAD_TOL of the one-device gradients' largest
+    magnitude; the attention launches a rank as the ring derives them (a
+    block call a step the causal skip leaves), one a layer on one device;
+    the table rotations 4 (P - 1) + P messages of one block a rank."""
+    from repro_torch.core.ring_attention import ring_steps
+    t0 = time.perf_counter()
+    rows = vocab_kernel_rows(card)
+    shutil.rmtree(VOCAB_DIR, ignore_errors=True)
+    os.makedirs(VOCAB_DIR)
+    out = {"kernel_rows": rows, "runs": []}
+    for i, run in enumerate(VOCAB_RUNS):
+        cfg = run["cfg"]
+        one = spawn_ranks(vocab_dense_rank, 1, i)[0]
+        ranks = spawn_ranks(vocab_rank, VOCAB_MODEL, i)
+        os.remove(one["path"])
+        s_local = run["seq"] // VOCAB_MODEL
+        types = cfg.layer_types()
+        want_one = {"conv2d": 0, "flash_attention": len(types),
+                    "ssd_chunk": 0}
+        if one["launches"] != want_one:
+            raise AssertionError(f"{run['arch']} one device: launches "
+                                 f"{one['launches']}, want {want_one}")
+        p = VOCAB_MODEL
+        for r in ranks:
+            rel = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+            r["loss_rel"] = rel
+            blocks = sum(min(r["rank"] + 1, ring_steps(
+                p, s_local, cfg.window if t == "swa" else None))
+                for t in types)
+            want = {"conv2d": 0, "flash_attention": blocks, "ssd_chunk": 0}
+            msgs = 4 * (p - 1) + p
+            if not (rel <= VOCAB_LOSS_RTOL and
+                    max(r["grad_err"].values()) <= VOCAB_GRAD_TOL and
+                    r["launches"] == want and
+                    r["sent"]["messages"] == msgs and
+                    r["sent"]["bytes"] == msgs * r["block_bytes"]):
+                raise AssertionError(
+                    f"{run['arch']} rank {r['rank']}: loss {r['loss']!r} "
+                    f"against one device's {one['loss']!r} (rel {rel:.2e}, "
+                    f"tol {VOCAB_LOSS_RTOL}); gradients {r['grad_err']} (tol "
+                    f"{VOCAB_GRAD_TOL}); launches {r['launches']} (want "
+                    f"{want}); table messages {r['sent']} (want {msgs} of "
+                    f"{r['block_bytes']} B)")
+            print(f"vocab-parallel {run['arch']} ({cfg.n_layers} "
+                  f"layer{'s' * (cfg.n_layers > 1)} {types}, full width, "
+                  f"{r['n_params'] / 1e6:.1f} M params "
+                  f"a rank against {one['n_params'] / 1e6:.1f} M), batch 1 x "
+                  f"seq {run['seq']} over model {p}, rank {r['rank']}: loss "
+                  f"{r['loss']!r} against one device's {one['loss']!r} (rel "
+                  f"{rel:.2e}); gradients over their largest magnitude "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in
+                              sorted(r["grad_err"].items()))
+                  + f"; fwd + bwd (first pass) {r['s']:.3f} s against "
+                  f"{one['s']:.3f} (warm {one['s_warm']:.3f}); "
+                  f"peak {r['peak_gib']:.2f} GiB against "
+                  f"{one['peak_gib']:.2f}; launches {r['launches']} (one "
+                  f"device {one['launches']}); table rotations "
+                  f"{r['sent']['messages']} messages, "
+                  f"{r['sent']['bytes'] / 1e9:.3f} GB staged through the host "
+                  f"(all halo/ring messages staged {r['staged']}); logits "
+                  f"never formed: the dense {r['dense_logit_bytes'] / 1e9:.2f}"
+                  f" GB, a rank's largest chunk "
+                  f"{r['chunk_bytes'] / 1e9:.3f} GB ({card})", flush=True)
+        out["runs"].append({"arch": run["arch"], "cfg_name": cfg.name,
+                            "layers": cfg.n_layers,
+                            "seq": run["seq"], "one": one, "ranks": ranks})
+    shutil.rmtree(VOCAB_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"vocab-parallel phase ({len(rows)} attention rows, "
+          f"{len(VOCAB_RUNS)} configs on one device and {VOCAB_MODEL} card "
+          f"ranks) took {out['phase_s']:.1f} s of this run ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -3790,7 +4359,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    shutil.rmtree(PARAMS_DIR, ignore_errors=True)
+    t_start = t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f}s")
     resources = [line for name, path in sorted(libs.items())
@@ -3871,6 +4441,8 @@ def main() -> int:
     lm_breakdown = lm_profile_phase()
     served = serve_phase(card)
     meshed = lm_mesh_phase(card, lm_train, served)
+    shutil.rmtree(PARAMS_DIR, ignore_errors=True)   # the last draw kept
+    vocab = vocab_phase(card)
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -3893,7 +4465,7 @@ def main() -> int:
                    "lm_train_bf16": lm_train_bf16,
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
-                   "serve": served, "lm_mesh": meshed,
+                   "serve": served, "lm_mesh": meshed, "vocab": vocab,
                    "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
@@ -3966,6 +4538,50 @@ def main() -> int:
             out[dt]["max_abs_err"] = max(r["max_abs_err"] for r in sel)
         return out
 
+    def vocab_rows():
+        """The kernel on phase 7's runs, per config: its rows' times the
+        calls of one forward, summed, one device and the ring's blocks on
+        VOCAB_MODEL ranks apart (f32, bf16 beside); the rows no run
+        launches (count 0) each on its own; the phase's launches (one
+        device, then a rank each)."""
+        rows = vocab["kernel_rows"]
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        out = {}
+        for run in vocab["runs"]:
+            name = run["cfg_name"]
+            sel = [r for r in rows if r["model"] == name]
+            cut = f"{run['arch']} cut to {run['layers']} layer" \
+                f"{'s' * (run['layers'] > 1)}"
+            out[run["arch"]] = o = {
+                "library": sel[0]["library"],
+                "one_device_scope": f"one {cut} forward, batch 1 x seq "
+                                    f"{run['seq']}: " + ", ".join(
+                    f"{r['count']} {r['mask']}" for r in sel
+                    if r["kernel"] == "flash_attention" and r["count"]
+                    and r["dtype"] == "float32"),
+                "ring_scope": f"one {cut} forward on {VOCAB_MODEL} ranks, "
+                              f"{run['seq'] // VOCAB_MODEL} rows a block: "
+                              + ", ".join(
+                    f"{r['count']} {r['mask']}" for r in sel
+                    if r["kernel"] == "flash_attention_block"
+                    and r["dtype"] == "float32"),
+                "launches": [run["one"]["launches"]["flash_attention"]] + [
+                    r["launches"]["flash_attention"] for r in run["ranks"]],
+                "not_launched": [
+                    {k: r[k] for k in ("mask", "dtype", "q", "max_abs_err")
+                     + keys + ("bound_by",)}
+                    for r in sel if not r["count"]]}
+            for dt in ("float32", "bfloat16"):
+                for part, kernel in (("one_device", "flash_attention"),
+                                     ("ring", "flash_attention_block")):
+                    cs = [r for r in sel if r["kernel"] == kernel
+                          and r["dtype"] == dt and r["count"]]
+                    o.setdefault(dt, {})[part] = dict(
+                        {k: sum(r[k] * r["count"] for r in cs)
+                         for k in keys},
+                        max_abs_err=max(r["max_abs_err"] for r in cs))
+        return out
+
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
     lm_scope = f"one hymba-1.5b forward, batch {LM_BATCH} x seq {LM_SEQ}, " \
         f"float32: "
@@ -4009,7 +4625,7 @@ def main() -> int:
              serve_launches=serve_launches("flash_attention"),
              serve_prefill=serve_prefill("flash_attention"),
              mesh_launches_per_rank=mesh_launches("flash_attention"),
-             ring_block=ring_block()),
+             ring_block=ring_block(), vocab=vocab_rows()),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],
@@ -4025,6 +4641,8 @@ def main() -> int:
     print("; ".join(f"{name} library: {n} "
                     f"{'HMMA' if name == 'ssd' else 'HGMMA'} instructions "
                     f"in its SASS" for name, n in hgmma.items()))
+    print(f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s of "
+          f"this run, the build included ({card})")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

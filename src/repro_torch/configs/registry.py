@@ -11,9 +11,9 @@ from __future__ import annotations
 import importlib
 
 CNN_ARCHS = ["resnet50", "mesh1k", "mesh2k"]
-LM_ARCHS = ["hymba_1_5b", "qwen1_5_0_5b"]
+LM_ARCHS = ["hymba_1_5b", "qwen1_5_0_5b", "gemma2_9b", "qwen2_5_14b"]
 NOT_PORTED = [
-    "gemma2_9b", "qwen2_5_14b", "olmo_1b",
+    "olmo_1b",
     "mixtral_8x7b", "olmoe_1b_7b", "pixtral_12b", "mamba2_780m",
     "seamless_m4t_large_v2",
 ]

@@ -39,13 +39,16 @@
 // 2048 tokens) attention does about 64 FLOPs per byte of q, k, v and o per
 // key tile, so both paths are bound by operations: 0.20 ms per causal call
 // at the 67 TFLOP/s of the fp32 CUDA cores, 0.014 ms at the 989 TFLOP/s of
-// the bf16 tensor cores.  What the design does about it:
+// the bf16 tensor cores.  At gemma2's (D = 256, 16/8 heads, softcap 50,
+// 8192 tokens) the causal call's bound is 8.21 ms f32 and 0.556 ms bf16;
+// the kernel took 19.15 and 3.29 ms on an H100 80GB HBM3 at 700 W
+// (PERF.md).  What the design does about it:
 //
 // - bf16 (`wgmma`): 128 queries x 64 keys per step, two consumer
 //   warpgroups of 64 query rows.  Q is staged once; K and V go through a
 //   2-stage ring of 16-byte cp.async copies into 128-byte-swizzled shared
-//   memory (D padded with zeros to 64 or 128 = one or two swizzle atoms),
-//   loaded one tile ahead of the compute.  S = Q.K^T is `wgmma m64n64k16`
+//   memory (D padded with zeros to 64, 128 or 256 = one, two or four
+//   swizzle atoms), loaded one tile ahead of the compute.  S = Q.K^T is `wgmma m64n64k16`
 //   with Q and K both K-major (D contiguous, as they lie).  The online
 //   softmax runs on the S accumulator fragments (row max over a quad of
 //   lanes, per-thread partial row sums); P, rounded to bf16 pairs, lies
@@ -55,10 +58,17 @@
 //   the two products and the softmax in step, so at D = 64 two CTAs share
 //   an SM (128 registers a thread) and one's softmax (the exponentials on
 //   the special-function unit cost about as much as the products on the
-//   tensor cores) runs beside the other's wgmma.
+//   tensor cores) runs beside the other's wgmma.  At D = 256 (gemma2) the
+//   shared memory still fits two stages (64 KB of Q, 64 KB of K and V a
+//   stage: 193 KB) and registers are the tight part: a warpgroup's 64 x
+//   256 fp32 O tile is 128 registers a thread beside the 32 of S, so one
+//   CTA holds the SM and P.V runs as two m64n128 halves of the O tile,
+//   each over two 64-column atoms of V.
 // - f32: full FP32 FMAs on the CUDA cores (no TF32), register-tiled as
 //   the f32 conv is.  A thread holds 8 query rows x 4 keys of the 128 x
-//   64 score tile and 8 rows x D/16 columns of the output.  Q, K and V
+//   64 score tile and 8 rows x D/16 columns of the output (at D = 256 the
+//   CTA takes 64 query rows, 4 a thread: 128 would need 260 KB of shared
+//   memory with one stage, 64 take 211 KB).  Q, K and V
 //   stay row-major as they lie (rows padded by 4 floats, so the float4
 //   reads are conflict-free) and are filled by 16-byte cp.async copies, K
 //   and V through a 2-stage ring (one stage at D > 64, where two do not
@@ -86,7 +96,10 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int WG_BQ = 128;       // query rows per CTA, bf16 path
 constexpr int WG_BK = 64;        // keys per tile, bf16 path
-constexpr int FMA_BQ = 128;      // query rows per CTA, f32 path
+// query rows per CTA, f32 path: 128, or 64 at D padded to 256
+__host__ __device__ constexpr int fma_bq(int dp) {
+  return dp == 256 ? 64 : 128;
+}
 constexpr int FMA_BK = 64;       // keys per tile, f32 path
 constexpr int THREADS = 256;     // both paths
 constexpr float NEG_BIG = -1e30f;
@@ -297,12 +310,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+// O (64 x DP, fp32) += P (64 x 16, registers) . V (16 x DP at v_addr,
+// MN-major, 64-column atoms ROWS * 128 bytes apart): one wgmma at DP 64 or
+// 128, two m64n128 halves at DP 256 (registers 0-63 hold columns 0-127,
+// 64-127 columns 128-255: the accumulator layout of one m64n256)
+template <int DP, int ROWS>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 128) wgmma_rs_n128(d, a, db);
-  else wgmma_rs_n64(d, a, db);
+                                         uint32_t v_addr) {
+  constexpr uint32_t ATOM = ROWS * 128;
+  if constexpr (DP == 256) {
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                  sw128_desc(v_addr, ATOM, 1024));
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                  sw128_desc(v_addr + 2 * ATOM, ATOM, 1024));
+  } else if constexpr (DP == 128) {
+    wgmma_rs_n128(d, a, sw128_desc(v_addr, ATOM, 1024));
+  } else {
+    wgmma_rs_n64(d, a, sw128_desc(v_addr, ATOM, 1024));
+  }
 }
 
 // Copy rows r0 .. r0+ROWS-1 (of n_rows; stride rs elements) of a (rows, D)
@@ -330,8 +356,8 @@ __host__ __device__ constexpr int wgmma_smem_bytes(int dp, int bk) {
   return WG_BQ * dp * 2 + 2 * (2 * bk * dp * 2) + 1024;   // + alignment
 }
 
-// DP: D padded to 64 or 128.  At DP = 64 two CTAs share an SM (at most
-// 128 registers a thread), so that one CTA's softmax runs beside the
+// DP: D padded to 64, 128 or 256.  At DP = 64 two CTAs share an SM (at
+// most 128 registers a thread), so that one CTA's softmax runs beside the
 // other's wgmma.
 template <int DP>
 __global__ void __launch_bounds__(THREADS, DP == 64 ? 2 : 1)
@@ -459,7 +485,7 @@ flash_fwd_wgmma_kernel(const Args a) {
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<DP>(o, p[kk], sw128_desc(v_s + kk * 2048, BK * 128, 1024));
+      wgmma_pv<DP, BK>(o, p[kk], v_s + kk * 2048);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(o);
@@ -527,16 +553,17 @@ __device__ __forceinline__ void load_rows(float* dst, int ds, const T* src,
 }
 
 __host__ __device__ constexpr int fma_smem_bytes(int dp, int st) {
-  return (FMA_BQ * (dp + 4) + st * FMA_BK * (dp + 4) + st * FMA_BK * dp +
-          FMA_BQ * (FMA_BK + 4)) * 4;
+  return (fma_bq(dp) * (dp + 4) + st * FMA_BK * (dp + 4) +
+          st * FMA_BK * dp + fma_bq(dp) * (FMA_BK + 4)) * 4;
 }
 
-// DP: D padded to 64 or 128; ST: K/V stages (2, or 1 at DP = 128, where
-// two do not fit in shared memory)
+// DP: D padded to 64, 128 or 256; ST: K/V stages (2, or 1 at DP >= 128,
+// where two do not fit in shared memory)
 template <typename T, int DP, int ST, bool VEC>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_fma_kernel(const Args a) {
-  constexpr int BQ = FMA_BQ, BK = FMA_BK;
+  constexpr int BQ = fma_bq(DP), BK = FMA_BK;
+  constexpr int RI = BQ / 16;               // query rows per thread
   constexpr int QP = DP + 4, PP = BK + 4;   // padded row strides (floats)
   constexpr int NC = DP / 16;               // output columns per thread
   extern __shared__ float4 smem_f4[];
@@ -545,7 +572,7 @@ flash_fwd_fma_kernel(const Args a) {
   float* Vs = Ks + ST * BK * QP;                    // [ST][BK][DP]
   float* Ps = Vs + ST * BK * DP;                    // [BQ][PP]
 
-  // thread (ty, tx): rows ty + 16i (i < 8), keys tx + 16j (j < 4), output
+  // thread (ty, tx): rows ty + 16i (i < RI), keys tx + 16j (j < 4), output
   // columns 64h + 4tx .. +3 (h < DP/64); a row's 16 threads are one
   // half-warp
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -574,9 +601,9 @@ flash_fwd_fma_kernel(const Args a) {
 
   const float sl2 = a.scale * LOG2E;
   const bool plain = !(a.softcap > 0.f);
-  float acc[8][NC], m[8], l[8];   // l: this thread's part of the row sum
+  float acc[RI][NC], m[RI], l[RI];   // l: this thread's part of the row sum
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = NEG_BIG2;
     l[i] = 0.f;
 #pragma unroll
@@ -602,24 +629,24 @@ flash_fwd_fma_kernel(const Args a) {
     const float* Kt = Ks + (it % ST) * BK * QP;
     const float* Vt = Vs + (it % ST) * BK * DP;
 
-    // S = Q.K^T: per 4 dims, a float4 of each of the 8 rows (the same
+    // S = Q.K^T: per 4 dims, a float4 of each of the RI rows (the same
     // address across a quarter-warp) and of each of the 4 keys
-    float s[8][4];
+    float s[RI][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < DP; d += 4) {
-      float4 qv[8], kv[4];
+      float4 qv[RI], kv[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
         qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * QP + d);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         kv[j] = *reinterpret_cast<const float4*>(Kt + (tx + 16 * j) * QP + d);
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
@@ -633,9 +660,9 @@ flash_fwd_fma_kernel(const Args a) {
     // the scale into the exponent's FMA
     const bool fast = plain && sl2 > 0.f && !tl.edge(a, k0, BK);
     const float mul = fast ? sl2 : 1.f;
-    float corr[8];
+    float corr[RI];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -661,17 +688,17 @@ flash_fwd_fma_kernel(const Args a) {
     }
     __syncwarp();   // P's rows are this half-warp's own
 
-    // O += P.V: per 4 keys, a float4 of P of each of the 8 rows and a
+    // O += P.V: per 4 keys, a float4 of P of each of the RI rows and a
     // float4 of V of each key
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int c = 0; c < NC; ++c) acc[i][c] *= corr[i];
 #pragma unroll 2
     for (int kk = 0; kk < BK; kk += 4) {
-      float4 pv[8];
+      float4 pv[RI];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < RI; ++i)
         pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * PP + kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -686,7 +713,7 @@ flash_fwd_fma_kernel(const Args a) {
           vv[4 * h + 3] = v4.w;
         }
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < RI; ++i) {
           const float pu = u == 0 ? pv[i].x : u == 1 ? pv[i].y
                          : u == 2 ? pv[i].z : pv[i].w;
 #pragma unroll
@@ -698,7 +725,7 @@ flash_fwd_fma_kernel(const Args a) {
   cp_async_wait_all();
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
 #pragma unroll
     for (int off = 8; off > 0; off >>= 1)
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], off, 16);
@@ -774,7 +801,7 @@ bool misaligned(const void* p) {
 // softcap <= 0 means none; window <= 0 means none.  path: 1 = wgmma (bf16
 // with d a multiple of 8), 0 = fma (anything else), as kernels/
 // flash_attention.py::plan picks it; each path's tiles and stages follow
-// from d here.  Where a path copies 16 bytes at a time (wgmma; fma on fp32
+// from d (at most 256) here.  Where a path copies 16 bytes at a time (wgmma; fma on fp32
 // with d a multiple of 4) the buffers must be 16-byte aligned.  Returns
 // the cudaError_t of the launch (0 on success).  delta: query row i sits
 // at position i + delta (0 for a one-device call).  lse: null for a
@@ -788,15 +815,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int64_t window, int path, int64_t delta,
                                      float* lse, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 ||
-      d < 1 || d > 128 || (dtype != 0 && dtype != 1) ||
+      d < 1 || d > 256 || (dtype != 0 && dtype != 1) ||
       (path != 0 && path != 1) || (path == 1 && (dtype != 1 || d % 8 != 0)))
     return (int)cudaErrorInvalidValue;
-  const int dp = d <= 64 ? 64 : 128;
+  const int dp = d <= 64 ? 64 : d <= 128 ? 128 : 256;
   const bool vec = path == 1 || (dtype == 0 && d % 4 == 0);
   if (vec && (misaligned(q) || misaligned(k) || misaligned(v) ||
               misaligned(o)))
     return (int)cudaErrorMisalignedAddress;
-  const int tile_q = path == 1 ? WG_BQ : FMA_BQ;
+  const int tile_q = path == 1 ? WG_BQ : fma_bq(dp);
   const int64_t tiles_q = (sq + tile_q - 1) / tile_q;
   if (tiles_q > 65535 || b > 65535 || hq > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
@@ -811,11 +838,14 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   const dim3 grid((unsigned)hq, (unsigned)tiles_q, (unsigned)b);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (path == 1)
-    return (int)(dp == 64 ? launch_wgmma<64>(a, grid, st)
-                          : launch_wgmma<128>(a, grid, st));
+    return (int)(dp == 64    ? launch_wgmma<64>(a, grid, st)
+                 : dp == 128 ? launch_wgmma<128>(a, grid, st)
+                             : launch_wgmma<256>(a, grid, st));
   if (dtype == 0)
-    return (int)(dp == 64 ? launch_fma<float, 64, 2>(a, vec, grid, st)
-                          : launch_fma<float, 128, 1>(a, vec, grid, st));
-  return (int)(dp == 64 ? launch_fma<bf16, 64, 2>(a, false, grid, st)
-                        : launch_fma<bf16, 128, 1>(a, false, grid, st));
+    return (int)(dp == 64    ? launch_fma<float, 64, 2>(a, vec, grid, st)
+                 : dp == 128 ? launch_fma<float, 128, 1>(a, vec, grid, st)
+                             : launch_fma<float, 256, 1>(a, vec, grid, st));
+  return (int)(dp == 64    ? launch_fma<bf16, 64, 2>(a, false, grid, st)
+               : dp == 128 ? launch_fma<bf16, 128, 1>(a, false, grid, st)
+                           : launch_fma<bf16, 256, 1>(a, false, grid, st));
 }

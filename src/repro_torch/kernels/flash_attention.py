@@ -40,7 +40,7 @@ import torch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"fma": 0, "wgmma": 1}
 _I64 = ctypes.c_int64
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,17 +69,19 @@ def plan(q_shape, k_shape, dtype: torch.dtype, causal: bool,
 
     bf16 with D a multiple of 8 (16-byte rows for the copies) takes
     `wgmma`: 128 queries x 64 keys, D padded to 64 (one swizzle atom; two
-    CTAs share an SM) or 128 (two atoms), a 2-stage K/V ring.  f32, and
-    bf16 with any other D, take `fma`: 128 queries x 64 keys, D padded to
-    64 with a 2-stage ring or to 128 with one stage (two do not fit in
-    shared memory).  The window does not change the plan: masks cost only
-    on the tiles they cross."""
+    CTAs share an SM), 128 or 256 (two or four atoms; one CTA an SM), a
+    2-stage K/V ring.  f32, and bf16 with any other D, take `fma`: 64
+    keys a tile, D padded to 64 with a 2-stage ring, to 128 with one stage
+    (two do not fit in shared memory), both at 128 queries, or to 256 with
+    one stage at 64 queries (128 would not fit either).  The window does
+    not change the plan: masks cost only on the tiles they cross."""
     d = q_shape[3]
-    d_pad = 64 if d <= 64 else 128
+    d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
     order = "longest-first" if causal else "in-order"
     if dtype == torch.bfloat16 and d % 8 == 0:
         return Plan("wgmma", 128, 64, d_pad, 2, order)
-    return Plan("fma", 128, 64, d_pad, 2 if d_pad == 64 else 1, order)
+    return Plan("fma", 64 if d_pad == 256 else 128, 64, d_pad,
+                2 if d_pad == 64 else 1, order)
 
 
 _fn = None
@@ -105,7 +107,7 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int | None, softcap: float | None,
                scale: float | None, block: bool = False) -> None:
     """Raise on anything the kernel does not take: ranks and shapes, GQA
-    grouping, dtype, devices, contiguity, head dim > 128, a window below 1,
+    grouping, dtype, devices, contiguity, head dim > 256, a window below 1,
     a softcap that is not positive, and, unless this is a `block` call
     (which returns each row's lse for a merge), rows that no key is
     admitted to."""

@@ -25,6 +25,12 @@ split along S over the sequence axes, B over the batch axes where the
 batch is split, the SSM state and conv buffers whole in S), and
 `cache_blocks` / `gather_caches` cut each rank's block of a global cache
 and gather it back.
+
+The vocab-parallel loss (`transformer.loss_fn(vocab_parallel=True)`):
+`vocab_blocks` cuts each rank's block of the vocabulary over "model" from
+whole params (`embed`'s rows, `unembed`'s columns, padded to the shard
+count with zeros, as the reference pads), and `gather_vocab` gathers
+such blocks (params or their gradients) back whole.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core import trace
-from repro_torch.launch.mesh import Mesh, batch_axes
+from repro_torch.launch.mesh import MODEL_AXIS, Mesh, batch_axes
 from repro_torch.optim import optimizer
 from repro_torch.utils import tree_leaves, tree_map
 
@@ -292,3 +298,53 @@ def gather_caches(blocks: Any, specs: Any, mesh: Mesh | None) -> Any:
             x = mesh.all_gather(x.contiguous(), axes, d)
         return x
     return blocks if mesh is None else _map_entries(whole, blocks, specs)
+
+
+# --------------------------------------------------- the vocabulary blocks --
+
+VOCAB_DIMS = {"embed": 0, "unembed": 1}     # the vocabulary's dim
+
+
+def vocab_padded(vocab: int, n: int) -> int:
+    """The vocabulary padded to a multiple of `n` shards (the reference's
+    `vocab_parallel` rule: n - vocab % n zero rows where n does not
+    divide it)."""
+    return vocab + (n - vocab % n) % n
+
+
+def vocab_blocks(params: dict, mesh: Mesh | None) -> dict:
+    """`params` with `embed` (V, d) and `unembed` (d, V) replaced by this
+    rank's block of the vocabulary over "model": V padded with zeros to
+    `vocab_padded`, then cut into equal blocks in shard order.  Each
+    block is a new contiguous leaf that requires grad; the other leaves
+    are `params`' own."""
+    n = 1 if mesh is None else mesh.axis_size(MODEL_AXIS)
+    i = 0 if mesh is None else mesh.index(MODEL_AXIS)
+    out = dict(params)
+    for name, dim in VOCAB_DIMS.items():
+        if name in params:
+            t = params[name].detach()
+            pad = vocab_padded(t.shape[dim], n) - t.shape[dim]
+            if pad:
+                shape = list(t.shape)
+                shape[dim] = pad
+                t = torch.cat([t, t.new_zeros(shape)], dim)
+            m = t.shape[dim] // n
+            out[name] = t.narrow(dim, i * m, m).clone(
+                memory_format=torch.contiguous_format).requires_grad_()
+    return out
+
+
+def gather_vocab(tree: dict, mesh: Mesh | None, vocab: int) -> dict:
+    """`vocab_blocks`' inverse on `tree` (params, or their gradients):
+    `embed` / `unembed` gathered whole over "model" and cut back to
+    `vocab` (every rank of the axis takes part and gets them whole); the
+    other leaves as they are."""
+    out = dict(tree)
+    for name, dim in VOCAB_DIMS.items():
+        if name in tree:
+            t = tree[name].detach()
+            if mesh is not None:
+                t = mesh.all_gather(t.contiguous(), MODEL_AXIS, dim)
+            out[name] = t.narrow(dim, 0, vocab)
+    return out

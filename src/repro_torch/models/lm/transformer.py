@@ -22,8 +22,11 @@ convert them to and from the reference's per-segment stacks.
 split over its axis (training and prefill on a mesh, the batch over the
 batch axes), each rank runs its own block of tokens at its global
 positions, attention as the ring and the SSD with its state halo
-(`modules`).  MoE, encoder-decoder (and so cross-attention decode), the
-modality frontends and the vocab-parallel loss wait for their slices.
+(`modules`).  `loss_fn(vocab_parallel=True)` keeps the embedding (and
+the unembedding) as each rank's block of the vocabulary and runs the
+lookup and the cross entropy as rings over the sequence axis
+(`vocab_parallel`).  MoE, encoder-decoder (and so cross-attention
+decode) and the modality frontends wait for their slices.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import torch.utils.checkpoint
 
 from repro_torch.core.decode_attention import cache_append, decode_attention
 from repro_torch.models.lm import modules as M
+from repro_torch.models.lm import vocab_parallel as VP
 from repro_torch.models.lm.config import LMConfig
 from repro_torch.models.lm.modules import ShardCtx
 from repro_torch.utils import tree_leaves, tree_map
@@ -306,13 +310,21 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     if remat and collect_kv:
         raise ValueError("collect_kv under remat: the K/V of a recomputed "
                          "unit would be collected twice")
+    kvs = [] if collect_kv else None
+    x = _layers(params, cfg, _embed(params, cfg, tokens), remat, kvs, ctx)
+    logits = _logits(params, cfg, x)
+    return (logits, kvs) if collect_kv else logits
+
+
+def _layers(params: dict, cfg: LMConfig, x: torch.Tensor, remat: bool,
+            kvs: list | None, ctx: ShardCtx) -> torch.Tensor:
+    """The embedded tokens x (B, S, d) through every layer, unit by unit
+    of `plan(cfg)`, and the final norm."""
     types = cfg.layer_types()
     if len(params["layers"]) != len(types):
         raise ValueError(f"{len(params['layers'])} layers given, "
                          f"{len(types)} wanted")
-    x = _embed(params, cfg, tokens)
     positions = positions_of(ctx, x.shape[1], x.device)
-    kvs = [] if collect_kv else None
     first = 0
     for unit, count in plan(cfg):
         for _ in range(count):
@@ -324,19 +336,27 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
             else:
                 x = _unit_apply(lps, x, unit, cfg, positions, kvs, ctx)
             first += len(unit)
-    x = M.norm_apply(cfg, params["final_norm"], x)
-    logits = _logits(params, cfg, x)
-    return (logits, kvs) if collect_kv else logits
+    return M.norm_apply(cfg, params["final_norm"], x)
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig,
-            remat: bool = False, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+            remat: bool = False, ctx: ShardCtx = ShardCtx(),
+            vocab_parallel: bool = False) -> torch.Tensor:
     """Next-token cross entropy in fp32.  batch: tokens (B, S), labels
     (B, S).  `remat`: see `forward`.  On a mesh (`ctx.mesh` of more than
     one rank; the batch this rank's block: B over `ctx.batch_axes`, S
     over `ctx.seq_axis`) it is this rank's share of the global mean: the
     local sum over the global token count, as `meshnet.loss_fn`'s, so
-    that the train step's sum over the mesh is the mean."""
+    that the train step's sum over the mesh is the mean.
+
+    With `vocab_parallel`, `params["embed"]` (and `params["unembed"]`)
+    are this rank's blocks of the vocabulary over "model"
+    (`launch.shardings.vocab_blocks`) and the lookup and the cross
+    entropy run as rings (`vocab_parallel`): no rank forms the logits of
+    the whole vocabulary.  Their gradients come back as whole blocks of
+    the global gradient; every other gradient is this rank's share."""
+    if vocab_parallel:
+        return _loss_vocab_parallel(params, batch, cfg, remat, ctx)
     logits = forward(params, cfg, batch["tokens"], remat, ctx=ctx)
     labels = batch["labels"].long()
     logits = logits[:, -labels.shape[1]:].float()
@@ -346,6 +366,21 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
         return (logz - gold).mean()
     shards = ctx.mesh.axis_size(ctx.batch_axes) * ctx.seq_size
     return (logz - gold).sum() / (labels.numel() * shards)
+
+
+def _loss_vocab_parallel(params: dict, batch: dict, cfg: LMConfig,
+                         remat: bool, ctx: ShardCtx) -> torch.Tensor:
+    """The reference's `_loss_vocab_parallel`: the ring lookup (scaled by
+    sqrt(d) where the config says), the layers, the final norm, and the
+    ring cross entropy against `unembed`'s block transposed, or the tied
+    `embed` block."""
+    _check_ported(cfg)
+    x = VP.embed_lookup(params["embed"], cfg, batch["tokens"], ctx)
+    if cfg.scale_embedding:
+        x = x * math.sqrt(cfg.d_model)
+    x = _layers(params, cfg, x, remat, None, ctx)
+    table = params["unembed"].T if "unembed" in params else params["embed"]
+    return VP.xent_loss(table, cfg, x, batch["labels"], ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,10 @@ steps, into DIR/audit_ref.json), `compress` (`cross_pod_mean` on a pod-2
 mesh, into DIR/compress.npz) or `zero` (the reference trainer's step on
 pod 2 x data 2 with its ZeRO placement and each pod compression, into
 DIR/zero.npz and the checkpoint DIR/ckpt_ref), or `lm_prefill` (the
-LM SMOKEs' `T.prefill` under a mesh ctx, into DIR/lm_prefill.npz).
+LM SMOKEs' `T.prefill` under a mesh ctx, into DIR/lm_prefill.npz) or
+`vocab` (the reference's `loss_fn(vocab_parallel=True)` of each
+`torch_dist_cases.VOCAB_RUNS` config on both MESHES, into
+DIR/vocab.npz).
 Inputs are
 `torch_dist_cases`' (numpy seeds).  The local convs run on XLA, the
 reference's default backend.
@@ -490,6 +493,53 @@ def _lm_prefill(d):
     np.savez(os.path.join(d, "lm_prefill.npz"), **out)
 
 
+def vocab_reference_params(key: str):
+    """The reference's SMOKE config of a `torch_dist_cases.VOCAB_RUNS` key
+    (its vocabulary cut where the key says) and its `init` params (seed
+    0)."""
+    import dataclasses
+    import jax
+    from repro.models.lm import transformer as T
+    from repro.configs import registry
+    arch, _, vocab = key.partition("@")
+    cfg = registry.get(arch.replace("-", "_").replace(".", "_"), smoke=True)
+    if vocab:
+        cfg = dataclasses.replace(cfg, vocab=int(vocab))
+    return cfg, T.init(jax.random.PRNGKey(0), cfg)
+
+
+def _vocab(d):
+    """The reference's vocab-parallel loss on batch 0 under a mesh ctx
+    (the sequence over "model", the batch over "data") on each MESHES
+    shape, for each `torch_dist_cases.VOCAB_RUNS` config, into
+    DIR/vocab.npz as `<key>/<data>x<model>`."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import torch_dist_cases as cases
+    from repro.data.pipeline import synthetic_lm_batch
+    from repro.models.lm import transformer as T
+    from repro.models.lm.modules import ShardCtx
+    out = {}
+    for arch, vocab in cases.VOCAB_RUNS:
+        key = cases.vocab_key(arch, vocab)
+        cfg, params = vocab_reference_params(key)
+        batch = synthetic_lm_batch(0, cases.VOCAB_BATCH, cases.VOCAB_SEQ,
+                                   cfg.vocab)
+        for dims in MESHES:
+            mesh = _mesh(dims)
+            ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+            with mesh:
+                sb = {k: jax.device_put(jnp.asarray(v), NamedSharding(
+                    mesh, P("data", "model"))) for k, v in batch.items()}
+                loss = jax.jit(lambda p, b: T.loss_fn(
+                    p, b, cfg, ctx, remat=False, vocab_parallel=True))(
+                        params, sb)
+            out[f"{key}/{dims[0]}x{dims[1]}"] = np.asarray(loss)
+    np.savez(os.path.join(d, "vocab.npz"), **out)
+
+
 def popen(what: str, d: str, *args: str) -> subprocess.Popen:
     """Start `what` (with `args`) in a subprocess with 8 host devices."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -538,4 +588,5 @@ if __name__ == "__main__":
     {"bn_local": _bn_local, "meshnet": _meshnet, "cf": _cf,
      "plan": _plan, "resnet": _resnet,
      "audit": _audit, "compress": _compress,
-     "zero": _zero, "lm_prefill": _lm_prefill}[sys.argv[1]](*sys.argv[2:])
+     "zero": _zero, "lm_prefill": _lm_prefill,
+     "vocab": _vocab}[sys.argv[1]](*sys.argv[2:])

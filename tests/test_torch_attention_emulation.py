@@ -2,7 +2,8 @@
 (`kernels/flash_attention.flash_attention_emulated`).
 
 The emulation walks `plan` as `csrc/flash_attention.cu` does: 128-query x
-64-key tiles, query tiles longest first under causality, key tiles from
+64-key tiles (64-query on the fma path at D 256), query tiles longest
+first under causality, key tiles from
 the first one the window admits to the last one causality admits, fp32
 running max and sum rescaled per key tile in log2 units, masked logits at
 -1e30 on the tiles a diagonal or window edge crosses, the softcap, P
@@ -34,7 +35,10 @@ TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 # (b, sq, hq, hkv, d, causal, window, softcap): several 128-query and
 # 64-key tiles with ragged ends, GQA g = 1, 2, 3, 5; a window inside one
 # key tile (5) and one straddling two (70); softcap; D = 128 (two swizzle
-# atoms on wgmma), D = 20 (bf16 on the fma path) and D = 8
+# atoms on wgmma), D = 20 (bf16 on the fma path) and D = 8; then gemma2's
+# D = 256 (four atoms on wgmma, 64-query tiles on fma) under causality, a
+# window and its softcap of 50, bidirectional, and D = 250 (bf16 on fma,
+# f32 rows of element copies)
 ATTN = [
     (1, 300, 4, 2, 16, True, None, None),
     (2, 200, 6, 3, 32, True, 70, None),
@@ -42,6 +46,9 @@ ATTN = [
     (1, 150, 2, 2, 128, False, None, None),
     (1, 129, 3, 1, 20, True, None, 20.0),
     (1, 64, 2, 1, 8, False, 5, None),
+    (1, 200, 4, 2, 256, True, 70, 50.0),
+    (1, 130, 2, 1, 256, False, None, None),
+    (1, 90, 2, 2, 250, True, None, None),
 ]
 
 
@@ -106,9 +113,24 @@ def test_emulation_rounds_p_on_the_wgmma_path_only():
     assert torch.equal(got, f32.to(torch.bfloat16))
 
 
+@pytest.mark.parametrize("d,dtype,want", [
+    (256, torch.bfloat16, ("wgmma", 128, 64, 256, 2)),
+    (200, torch.bfloat16, ("wgmma", 128, 64, 256, 2)),
+    (256, torch.float32, ("fma", 64, 64, 256, 1)),
+    (252, torch.bfloat16, ("fma", 64, 64, 256, 1)),
+    (128, torch.float32, ("fma", 128, 64, 128, 1)),
+])
+def test_plan_at_head_dims_up_to_256(d, dtype, want):
+    """D up to 256 pads to four swizzle atoms: bf16 (D a multiple of 8)
+    keeps `wgmma`'s 128 x 64 tiles and two stages; the `fma` path takes
+    64-query tiles with one stage there (128 x 64 at D <= 128)."""
+    p = tfa.plan((1, 300, 4, d), (1, 300, 2, d), dtype, True, None)
+    assert (p.path, p.tile_q, p.tile_k, p.d_pad, p.stages) == want
+
+
 def test_emulation_refuses_what_the_kernel_refuses():
-    q = torch.zeros(1, 8, 2, 160)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros(1, 8, 2, 264)
+    with pytest.raises(ValueError, match="head dim 264 > 256"):
         tfa.flash_attention_emulated(q, q, q)
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="see no"):
@@ -137,6 +159,7 @@ BLOCKS = [
     (1, 50, 50, 4, 4, 8, 100, 0, True, 40, None),
     (1, 72, 40, 3, 1, 20, 0, 40, False, None, 20.0),
     (1, 72, 40, 3, 1, 20, 40, 0, False, None, None),
+    (1, 130, 130, 4, 2, 256, 130, 0, True, 100, 50.0),
 ]
 
 
@@ -249,6 +272,8 @@ BLOCK_EDGES = [
     (1, 130, 200, 2, 2, 20, -50, True, None, None),
     (1, 260, 70, 2, 1, 8, 0, False, 5, None),
     (1, 150, 150, 4, 2, 128, 150, True, 151, None),
+    (1, 150, 150, 4, 2, 256, 150, True, 151, 50.0),
+    (1, 100, 100, 2, 1, 256, 0, True, None, None),
 ]
 
 

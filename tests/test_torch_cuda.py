@@ -178,7 +178,10 @@ def test_smoke_training_runs_through_the_kernel(cuda):
 # then hymba's full shape (causal, and window 1024), Sq at the 128-query
 # tile's edges (127, 129), a window smaller than one key tile (5) and one
 # that straddles two (70), and head dims that are not whole 16-byte rows
-# (bf16 D = 20 and f32 D = 6 take the fma path with element copies)
+# (bf16 D = 20 and f32 D = 6 take the fma path with element copies); then
+# gemma2's D = 256 (four swizzle atoms on wgmma, 64-query tiles on fma):
+# its heads 16 / 8 under causality, window and its softcap of 50, ragged
+# and bidirectional, D = 200 (padded to 256) and D = 250 (bf16 on fma)
 ATTN = [
     (1, 128, 4, 2, 16, True, 16, None), (2, 100, 6, 3, 32, True, None, None),
     (1, 200, 25, 5, 64, True, 64, None), (1, 96, 5, 1, 64, True, 37, 30.0),
@@ -189,6 +192,10 @@ ATTN = [
     (1, 127, 5, 1, 64, True, None, None), (2, 129, 4, 2, 128, True, 70, None),
     (1, 129, 25, 5, 64, True, 5, None), (1, 200, 2, 1, 64, False, 70, None),
     (1, 65, 3, 1, 20, True, None, None), (1, 33, 2, 2, 6, False, None, 20.0),
+    (1, 1024, 16, 8, 256, True, None, 50.0),
+    (1, 1024, 16, 8, 256, True, 300, 50.0),
+    (2, 129, 4, 2, 256, True, 70, None), (1, 200, 2, 1, 256, False, None, None),
+    (1, 130, 3, 1, 200, True, None, 30.0), (1, 70, 2, 2, 250, True, 5, None),
 ]
 
 
@@ -311,6 +318,8 @@ BLOCKS = [
     (1, 256, 5, 1, 64, 256, 200, 30.0),
     (1, 129, 3, 1, 20, 129, 129, None),
     (1, 150, 2, 2, 128, -150, None, None),
+    (1, 256, 16, 8, 256, 256, 200, 50.0),
+    (1, 130, 4, 2, 256, 0, None, 50.0),
 ]
 
 
@@ -437,8 +446,8 @@ def test_attention_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                             q.transpose(1, 2))
-    with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros(1, 8, 2, 136, device=cuda)
+    with pytest.raises(ValueError, match="head dim 264 > 256"):
+        big = torch.zeros(1, 8, 2, 264, device=cuda)
         tfa.flash_attention(big, big, big)
     with pytest.raises(TypeError):
         tfa.flash_attention(q.half(), q.half(), q.half())

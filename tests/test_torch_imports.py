@@ -43,7 +43,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.models.lm.config",
                 "repro_torch.models.lm.modules",
                 "repro_torch.models.lm.transformer",
+                "repro_torch.models.lm.vocab_parallel",
                 "repro_torch.configs.hymba_1_5b",
+                "repro_torch.configs.gemma2_9b",
+                "repro_torch.configs.qwen2_5_14b",
                 "repro_torch.launch.mesh", "repro_torch.core.halo",
                 "repro_torch.core.spatial_conv",
                 "repro_torch.core.spatial_norm",

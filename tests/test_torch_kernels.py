@@ -447,9 +447,9 @@ def test_flash_attention_checks_raise(bad):
         opts["window"] = 0
     elif bad == "softcap":
         opts["softcap"] = -1.0
-    elif bad == "head_dim":
-        q = torch.zeros(1, 8, 4, 136)
-        k = v = torch.zeros(1, 8, 2, 136)
+    elif bad == "head_dim":     # the kernel takes D <= 256
+        q = torch.zeros(1, 8, 4, 264)
+        k = v = torch.zeros(1, 8, 2, 264)
     elif bad == "unseen_rows":
         q = torch.zeros(1, 12, 4, 16)
         opts["window"] = 4

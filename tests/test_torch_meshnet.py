@@ -283,7 +283,9 @@ def test_registry_refuses_unported_archs():
     with pytest.raises(ValueError, match="not ported yet"):
         treg.get("olmo-1b")
     with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("qwen2.5-14b")
+        treg.get("mamba2-780m")
+    assert treg.get("qwen2.5-14b").head_dim == 128
+    assert treg.get("gemma2-9b", smoke=True).vocab == 256
 
 
 def test_prefetcher_is_step_addressable():

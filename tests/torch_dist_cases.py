@@ -1457,15 +1457,15 @@ def lm_ssd_inputs(d_model: int) -> dict:
             "g": rng.standard_normal(shape).astype(np.float32)}
 
 
-def lm_params(arch: str, d):
-    """`arch`'s SMOKE config and params from DIR/inputs.npz
+def lm_params(arch: str, d, cfg=None):
+    """`arch`'s SMOKE config (or `cfg`) and params from DIR/inputs.npz
     (`<arch>/<leaf index>`, the reference's init carried over by
     `params_from_jax`, in `tree_leaves` order)."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.models.lm import transformer
     from repro_torch.utils import tree_map, tree_unflatten
-    cfg = registry.get(arch, smoke=True)
+    cfg = cfg or registry.get(arch, smoke=True)
     flat = np.load(os.path.join(d, "inputs.npz"))
     like = transformer.init(torch.Generator(), cfg, device="cpu")
     n = sum(k.startswith(f"{arch}/") for k in flat)
@@ -1525,6 +1525,122 @@ def case_lm(mesh, d):
     return out
 
 
+# the vocab-parallel loss: gemma2 SMOKE (tied, softcaps), qwen2.5 SMOKE
+# (untied) and gemma2 SMOKE with its vocabulary cut to 255 (padded to the
+# model axis), at batch 2 x seq 64; the sharded decode of dist_checks'
+# models group (a 32-position cache, 2 steps)
+VOCAB_RUNS = (("gemma2-9b", None), ("qwen2.5-14b", None), ("gemma2-9b", 255))
+VOCAB_BATCH, VOCAB_SEQ = 2, 64
+VOCAB_DECODE_LEN = 32
+VOCAB_DECODE_TOKENS = ([[3], [5]], [[7], [9]])
+
+
+def vocab_key(arch: str, vocab) -> str:
+    return arch if vocab is None else f"{arch}@{vocab}"
+
+
+def vocab_cfg(key: str):
+    """The port's SMOKE config of a VOCAB_RUNS key (its vocabulary cut
+    where the key says)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    arch, _, vocab = key.partition("@")
+    cfg = registry.get(arch, smoke=True)
+    return dataclasses.replace(cfg, vocab=int(vocab)) if vocab else cfg
+
+
+def vocab_aux_inputs(d_model: int) -> dict:
+    """The lookup's output cotangent g (B, S, d), and the cross entropy's
+    hidden states x (B, S, d) and labels (B, S) with every fifth one -1
+    (unscored), from numpy seed 14."""
+    rng = np.random.default_rng(14)
+    shape = (VOCAB_BATCH, VOCAB_SEQ, d_model)
+    labels = rng.integers(0, 255, (VOCAB_BATCH, VOCAB_SEQ)).astype(np.int32)
+    labels[:, ::5] = -1
+    return {"g": rng.standard_normal(shape).astype(np.float32),
+            "x": rng.standard_normal(shape).astype(np.float32),
+            "labels": labels}
+
+
+def case_vocab(mesh, d):
+    """Each VOCAB_RUNS config on this mesh (the sequence over "model", the
+    batch over "data", params from DIR/inputs.npz under the run's key):
+    this rank's share of `loss_fn(vocab_parallel=True)` on its
+    `shardings.vocab_blocks`, every gradient (the table's gathered whole
+    by `gather_vocab`, and its raw block and leaf index), the table
+    rotations it sent; the dense sharded loss share; the sharded decode's
+    logits (2 steps, this rank's rows).  Then, on the padded gemma2, `embed_lookup` alone
+    (its output block and the table block's gradient of sum(x * g)) and
+    `xent_loss` alone on x and labels with unscored rows (the share, dx
+    and the table block's gradient)."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import shardings
+    from repro_torch.models.lm import modules as M
+    from repro_torch.models.lm import transformer
+    from repro_torch.models.lm import vocab_parallel as VP
+    from repro_torch.utils import tree_leaves, tree_unflatten
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    ctx = M.ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    out = {}
+    for arch, vocab in VOCAB_RUNS:
+        key = vocab_key(arch, vocab)
+        cfg, params = lm_params(key, d, vocab_cfg(key))
+        batch = pipeline.to_device(pipeline.shard_lm_batch(
+            pipeline.synthetic_lm_batch(0, VOCAB_BATCH, VOCAB_SEQ,
+                                        cfg.vocab),
+            mesh, "model", ("data",)), torch.device("cpu"))
+        blocks = shardings.vocab_blocks(params, mesh)
+        leaves = tree_leaves(blocks)
+        VP.reset_sent()
+        share = transformer.loss_fn(blocks, batch, cfg, ctx=ctx,
+                                    vocab_parallel=True)
+        grads = torch.autograd.grad(share, leaves)
+        gathered = shardings.gather_vocab(tree_unflatten(blocks,
+                                                         iter(grads)),
+                                          mesh, cfg.vocab)
+        tables = {n: next(i for i, t in enumerate(leaves) if t is blocks[n])
+                  for n in shardings.VOCAB_DIMS if n in blocks}
+        out[f"{key}.vp.loss_share"] = np.array(share.item())
+        out[f"{key}.vp.messages"] = np.array(VP.sent["messages"])
+        out.update({f"{key}.vp.table_leaf.{n}": np.array(i)
+                    for n, i in tables.items()})
+        out.update({f"{key}.vp.grad.{i}": g.numpy()
+                    for i, g in enumerate(tree_leaves(gathered))})
+        out.update({f"{key}.vp.block.{n}": grads[i].numpy()
+                    for n, i in tables.items()})
+        out[f"{key}.dense.loss_share"] = np.array(transformer.loss_fn(
+            params, batch, cfg, ctx=ctx).item())
+        if vocab is None:
+            rows = VOCAB_BATCH // dims[0]
+            r0 = mesh.index("data") * rows
+            caches = transformer.init_decode_state(
+                cfg, rows, VOCAB_DECODE_LEN // dims[1], device="cpu")
+            for step, tok in enumerate(VOCAB_DECODE_TOKENS):
+                logits, caches = transformer.decode_step(
+                    params, cfg, torch.tensor(tok[r0:r0 + rows]), caches,
+                    step, ctx)
+                out[f"{key}.decode.{step}"] = logits.detach().numpy()
+    cfg, params = lm_params("gemma2-9b@255", d, vocab_cfg("gemma2-9b@255"))
+    block = shardings.vocab_blocks(params, mesh)["embed"]
+    aux = {n: torch.from_numpy(decode_block(a, rank, dims, ("data",),
+                                            "model"))
+           for n, a in vocab_aux_inputs(cfg.d_model).items()}
+    tokens = pipeline.shard_lm_batch(pipeline.synthetic_lm_batch(
+        0, VOCAB_BATCH, VOCAB_SEQ, cfg.vocab), mesh, "model",
+        ("data",))["tokens"]
+    x = VP.embed_lookup(block, cfg, torch.as_tensor(tokens), ctx)
+    out["lookup.x"] = x.detach().numpy()
+    out["lookup.dtable"] = torch.autograd.grad((x * aux["g"]).sum(),
+                                               block)[0].numpy()
+    hx = aux["x"].clone().requires_grad_()
+    share = VP.xent_loss(block, cfg, hx, aux["labels"], ctx)
+    dx, dtable = torch.autograd.grad(share, [hx, block])
+    out.update({"xent.loss_share": np.array(share.item()),
+                "xent.dx": dx.numpy(), "xent.dtable": dtable.numpy()})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -1535,7 +1651,7 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "audit": case_audit, "halo_order": case_halo_order,
          "compress": case_compress, "zero": case_zero,
          "decode": case_decode, "serve": case_serve, "ring": case_ring,
-         "prefix": case_prefix, "lm": case_lm}
+         "prefix": case_prefix, "lm": case_lm, "vocab": case_vocab}
 
 
 # ------------------------------------------------------------ launcher --
