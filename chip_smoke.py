@@ -129,12 +129,13 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    that BN's statistics are the ranks'), bf16 and int8_ef within a
    rounding bound of `none`; the state bytes, the bytes put on the pod
    axis, the peak memory and step seconds a rank.  Not a scaling result.
-   Then full-width hymba-1.5b, FP32, with and without `--remat`: losses
-   within 1e-6, 2 x 32 x 3 LM kernel launches against 32 x 3, both
-   peaks;
-5. hymba-1.5b: the same entry at full width and depth, batch 1 x seq
+   Then full-width hymba-1.5b (cut to 16 layers, `HYMBA_LAYERS`, handed
+   to the trainer as its config), FP32, with and without `--remat`:
+   losses within 1e-6, 2 x 16 x 3 LM kernel launches against 16 x 3,
+   both peaks;
+5. hymba-1.5b: the same entry at full width (16 layers), batch 1 x seq
    2048, 3 steps, FP32 (phase 4h's run) and then `--bf16`: each with
-   finite losses and 32 x 3 launches of each LM kernel;
+   finite losses and 16 x 3 launches of each LM kernel;
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone, with its launches per layer;
@@ -148,7 +149,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    times owe nothing to the earlier phases), through the serve entry point
    (the prompt replayed a token a step, then greedy decode: no kernel
    launch, asserted), then `transformer.prefill` of the same prompt on
-   the kernels (32 / 32 and 24 / 0 launches): its last logits against
+   the kernels (one attention and one SSD launch a hymba layer, 24 / 0
+   for qwen1.5): its last logits against
    the replay's at the last prompt position and its K/V against the
    decode caches, within 1e-3 of the largest magnitude; prefill ms and
    tokens/s, decode ms a step (median of the generation steps) and
@@ -158,7 +160,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    steps on the card against the CPU; and the sequence-sharded decode on
    2 gloo ranks sharing the card (model 2, the 4-layer hymba, prompt 64,
    gen 16) against one rank: every step's logits and the caches within
-   1e-4, the ids equal.  Not a scaling result;
+   1e-4, the ids equal.  Not a scaling result.  hymba runs at 16
+   layers here and in phase 6 (its prefill launches 16 / 16);
 6. the LM on a mesh: the attention kernel's block call (ring attention's
    tile, query rows `delta` after the keys, o in fp32 and the rows' lse)
    at hymba's ring shapes (1 x 1024 rows a block, 25 / 5 heads, D 64):
@@ -173,8 +176,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    magnitude and the first ids serving's; 2 steps of the trainer's entry
    with `--model 2 --remat` (seq 2048, 1024 a rank), losses within 1e-5
    of phase 4h's one-device FP32 run; the launches a rank as the ring
-   derives them (attention 32 / 64 a forward on rank 0 / 1, the causal
-   skip; SSD 32); peak memory, step seconds and one profiled step's
+   derives them (attention one / two a layer a forward on rank 0 / 1,
+   the causal skip; SSD one a layer); peak memory, step seconds and one profiled step's
    device time by kind and idle share;
 7. the vocab-parallel loss: the attention kernel at the shapes of its
    runs, f32 and bf16: gemma2-9b's (D 256, 16 / 8 heads, softcap 50) on
@@ -204,8 +207,45 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    ptxas report), the HGMMA counts, the `kernels` JSON line (with each LM
    kernel's launches in prefill, `serve_launches`, and on the mesh,
    `mesh_launches_per_rank`; the block call's times, `ring_block`; the
-   attention kernel's rows and launches on phase 7's runs, `vocab`) and,
-   last, the `ok` JSON line.
+   attention kernel's rows and launches on phase 7's runs, `vocab`, and
+   on phase 9's, `moe`; the SSD's on mamba2-780m, `mamba2`) and, last,
+   the `ok` JSON line;
+9. mixture of experts (run before the lines of 8): the attention kernel
+   at mixtral-8x7b's shapes (32 / 8 heads, D 128, window 4096) on one
+   device at 1 x 8192, where the window binds, and the ring's blocks of
+   4096 rows (the diagonal, the window's off-diagonal), and at olmoe's
+   prefill (16 / 16 heads, causal, 4 x 256), f32 and bf16, each against
+   its plain version and timed beside SDPA (`is_causal` or a bool window
+   mask) and the bound; full-width mixtral cut to one SWA layer, batch 1
+   x seq 8192, params drawn on the card: the one-device `loss_fn` and
+   its gradients in a process of its own (with the MoE layer's forward
+   timed whole and in parts: the routing, the expert products, the
+   dispatch and combine), then 2 gloo ranks sharing the card (data 1 x
+   model 2, not a scaling result) with the sequence split and the 8
+   experts 4 a rank over "model" (`ShardCtx(tp_axis="model")`, the
+   dispatched slots moved by all-to-all): the shares summed within 1e-5
+   of one device's, each rank's expert-block gradients and the summed
+   other gradients within 1e-4 of the one-device gradients' largest
+   magnitude, the routing against one device's (at most 2 differing
+   decisions admitted, each only below a top-k margin of 1e-5: then the
+   final hidden states are held on the tokens whose routing groups route
+   alike, the loss within 1e-5 plus what the other tokens' cross
+   entropies moved, the gradients not), the attention launches as the
+   ring derives them, the all-to-all bytes a rank, fwd + bwd s and peak
+   memory a rank against one device; full-width olmoe-1b-7b at full
+   depth (16 layers, 64 experts, top 8) through the serve entry point in
+   a fresh process, params drawn on the card, batch 4, prompt 256, 16
+   generated tokens: no kernel launch in the decode loop, prefill on the
+   kernels (16 launches, its ms, each layer's dropped pairs; not held
+   against the replay, which routes each token alone and drops nothing),
+   decode ms a step beside its bytes bound (every weight, and only the
+   experts each step routes to), peak memory; at 2 layers the card
+   against the CPU on the same params (prefill logits and K/V, 8 decode
+   steps' logits and ids, within 1e-4, on the batch rows where no
+   routing decision differs, the same rule); full-width mamba2-780m at
+   full depth (48 SSD layers) through the trainer's entry, batch 1 x seq
+   2048, 3 FP32 steps: finite losses, 48 x 3 SSD launches, s a step and
+   peak memory.
 
 The full-width hymba-1.5b and qwen1.5-0.5b params are drawn from their
 CPU generator once a run and kept, with the generator's state after the
@@ -217,6 +257,7 @@ to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -240,7 +281,8 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa
 from repro_torch.configs import (  # noqa: E402
-    gemma2_9b, hymba_1_5b, qwen1_5_0_5b, qwen2_5_14b)
+    gemma2_9b, hymba_1_5b, mamba2_780m, mixtral_8x7b, olmoe_1b_7b,
+    qwen1_5_0_5b, qwen2_5_14b)
 from repro_torch.core import calibrate, channel_conv  # noqa: E402
 from repro_torch.core import collectives, halo, perfmodel  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
@@ -312,7 +354,15 @@ LM_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # which scales with the largest output, it sees a key tile gone astray in
 # a row that averages over a thousand keys.
 ATTN_ELEM_ULP = 2.0 ** -7
-HYMBA = hymba_1_5b.CONFIG
+# hymba-1.5b's earlier paths (phase 4h's FP32 and --remat runs and the
+# step breakdown that profiles the same step, phase 5's BF16 run,
+# serving's, phase 6's sharded prefill and --remat steps, and the
+# one-device runs they are held against) at full width, cut to
+# HYMBA_LAYERS of its 32 layers (global attention on layers 0, 8 and 15),
+# handed to the trainer and the server as their `cfg` (the registry's
+# config cut in depth, which they announce)
+HYMBA_LAYERS = 16
+HYMBA = dataclasses.replace(hymba_1_5b.CONFIG, n_layers=HYMBA_LAYERS)
 LM_BATCH, LM_SEQ = 1, 2048
 # the 4-layer full-width forward loss, card vs CPU: fp32 through four
 # hybrid blocks whose sums (up to 6400 products) run in another order
@@ -711,7 +761,8 @@ def _free_port() -> int:
 def _rank_entry(rank: int, world: int, port: int, fn, out_dir: str,
                 args: tuple) -> None:
     """One spawned rank on cuda:0: join the gloo group, run fn(rank, world,
-    *args), write its dict to out_dir/rank<r>.json."""
+    *args), write its dict to out_dir/rank<r>.json, with the wall-clock
+    time at which fn was called."""
     import torch.distributed as dist
     torch.cuda.set_device(0)
     torch.backends.cudnn.allow_tf32 = False
@@ -719,19 +770,23 @@ def _rank_entry(rank: int, world: int, port: int, fn, out_dir: str,
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)
     try:
+        started = time.time()
         out = fn(rank, world, *args)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
+            json.dump({"out": out, "started": started}, f)
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
 def spawn_ranks(fn, world: int, *args) -> list[dict]:
-    """fn(rank, world, *args) in `world` processes spawned on the one card,
-    one gloo group on a free port; each rank's returned dict.  The kernels
-    are built before (the ranks load the cached libraries); a rank that
-    raises fails the run."""
+    """fn(rank, world, *args) in `world` fresh processes on the one card,
+    one gloo group on a free port; each rank's returned dict.  The
+    processes are forked from a server that imported torch, numpy and the
+    port once, started at the first call and ended with this process
+    (each process still imports this script anew, and starts CUDA on its
+    own).  The kernels are built before (the ranks load the cached
+    libraries); a rank that raises fails the run."""
     import torch.multiprocessing as mp
     out_dir = os.path.join(HERE, "build", "spatial")
     os.makedirs(out_dir, exist_ok=True)
@@ -740,13 +795,22 @@ def spawn_ranks(fn, world: int, *args) -> list[dict]:
         if os.path.exists(path):
             os.remove(path)
     torch.cuda.empty_cache()
-    mp.spawn(_rank_entry, args=(world, _free_port(), fn, out_dir, args),
-             nprocs=world, join=True)
+    mp.set_forkserver_preload(
+        ["numpy", "torch", "torch.distributed"]
+        + sorted(m for m in sys.modules if m.startswith("repro_torch")))
+    t0 = time.time()
+    mp.start_processes(_rank_entry, args=(world, _free_port(), fn, out_dir,
+                                          args),
+                       nprocs=world, join=True, start_method="forkserver")
+    ended = time.time() - t0
     out = []
     for r in range(world):
         with open(os.path.join(out_dir, f"rank{r}.json")) as f:
             out.append(json.load(f))
-    return out
+    print(f"spawned {world} x {fn.__name__}: the last rank reached it "
+          f"after {max(o['started'] for o in out) - t0:.1f} s, all ended "
+          f"after {ended:.1f} s", flush=True)
+    return [o["out"] for o in out]
 
 
 def _block(t: torch.Tensor, mesh, sh: ConvSharding) -> torch.Tensor:
@@ -2370,7 +2434,6 @@ def audit_dryrun_rank(rank: int, world: int, out_path: str,
     """One of 4 ranks on the card: `python -m repro_torch.launch.dryrun
     --audit` on this gloo group (data 2 x model 2, the H100 preset), its
     findings tables into `log_path` (rank 0)."""
-    import contextlib
     import io
     from repro_torch.launch import dryrun
     buf = io.StringIO()
@@ -2685,7 +2748,8 @@ def zero_phase(card: str) -> dict:
     if rel > REMAT_RTOL:
         raise AssertionError(f"--remat: losses {remat['losses']} against "
                              f"{plain['losses']} (rel {rel:.2e})")
-    print(f"remat, full-width hymba-1.5b FP32 at batch {LM_BATCH} x seq "
+    print(f"remat, full-width hymba-1.5b ({HYMBA.n_layers} layers) FP32 at "
+          f"batch {LM_BATCH} x seq "
           f"{LM_SEQ}: losses within {rel:.2e} of the plain run's; peak "
           f"{remat['peak_gib']:.2f} GiB against {plain['peak_gib']:.2f}; "
           f"{remat['steady_step_s']:.4f} s/step against "
@@ -2811,15 +2875,17 @@ def check_attention(case: dict, dtype: torch.dtype, gen: torch.Generator,
     return row
 
 
-# the SSD shapes: hymba's (its path) and mamba2-780m's (repro/configs/
-# mamba2_780m.py: d 1536 x expand 2 / head dim 64 = 48 heads, state 128,
-# chunk 128), which the kernel takes too but no ported path runs yet
+# the SSD shapes: hymba's and mamba2-780m's (d 1536 x expand 2 / head dim
+# 64 = 48 heads, state 128, chunk 128; phase 9 trains it at this batch and
+# sequence), each one call a layer
 SSD_SHAPES = [
     {"model": "hymba-1.5b", "h": HYMBA.ssm_heads, "p": HYMBA.ssm_head_dim,
      "n": HYMBA.ssm_state, "chunk": HYMBA.ssm_chunk,
      "count": HYMBA.n_layers},
-    {"model": "mamba2-780m", "h": 48, "p": 64, "n": 128, "chunk": 128,
-     "count": 0},
+    {"model": "mamba2-780m", "h": mamba2_780m.CONFIG.ssm_heads,
+     "p": mamba2_780m.CONFIG.ssm_head_dim, "n": mamba2_780m.CONFIG.ssm_state,
+     "chunk": mamba2_780m.CONFIG.ssm_chunk,
+     "count": mamba2_780m.CONFIG.n_layers},
 ]
 
 
@@ -2960,7 +3026,7 @@ def lm_train_phase(bf16: bool = False, remat: bool = False) -> dict:
                           "--seq", str(LM_SEQ), "--steps", str(STEPS),
                           "--device", "cuda", "--log-every", "1"]
                          + (["--bf16"] if bf16 else [])
-                         + (["--remat"] if remat else []))
+                         + (["--remat"] if remat else []), cfg=HYMBA)
     counts = ops.launch_counts()
     per_step = HYMBA.n_layers * (2 if remat else 1)
     want = {"conv2d": 0, "flash_attention": per_step * STEPS,
@@ -2977,6 +3043,7 @@ def lm_train_phase(bf16: bool = False, remat: bool = False) -> dict:
     tokens = LM_BATCH * LM_SEQ
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"train: {STEPS} steps of full-width hymba-1.5b "
+          f"({HYMBA.n_layers} layers) "
           f"({res['n_params'] / 1e9:.3f} B params, "
           f"{'BF16' if bf16 else 'FP32'}{', --remat' if remat else ''}) "
           f"at batch {LM_BATCH} x "
@@ -3057,7 +3124,8 @@ def lm_profile_phase() -> dict:
     args = train_cli.parse_args(["--arch", "hymba-1.5b", "--batch",
                                  str(LM_BATCH), "--seq", str(LM_SEQ),
                                  "--steps", str(STEPS)])
-    cfg, params, _, loss, mk, prec, _ = train_cli.build(args, dev)
+    cfg, params, _, loss, mk, prec, _ = train_cli.build(args, dev,
+                                                        cfg=HYMBA)
     opt = adamw(0.0)
     step = make_train_step(loss, opt, TrainStepConfig(precision=prec))
     state = opt.init(params)
@@ -3228,7 +3296,7 @@ def serve_arch_phase(arch: str, card: str) -> dict:
     res = serve.run(serve.parse_args(
         ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
          str(prompt), "--gen", str(SERVE_GEN), "--device", "cuda"]),
-        keep={prompt - 1})
+        keep={prompt - 1}, cfg=cfg)
     decode_launches = ops.launch_counts()
     decode_peak = torch.cuda.max_memory_allocated() / 2**30
     if any(decode_launches.values()):
@@ -3724,7 +3792,7 @@ def lm_mesh_rank(rank: int, world: int, first_ids: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     halo.reset_staged()
-    res = train_cli.main(MESH_ARGS)
+    res = train_cli.main(MESH_ARGS, cfg=HYMBA)
     train_launches = ops.launch_counts()
     train_staged = halo.staged
     train_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3916,8 +3984,8 @@ VOCAB_ATTN = [
      "window": None, "count": 1},
 ]
 KERNEL_LAUNCHES = 20        # kernel launches an event pair
-# a call at least this long is timed in one pair after the warm one (a
-# pair then lasts 40 ms or more)
+# a call at least this long (its warm call's time) is timed in one pair
+# (which then lasts 40 ms or more)
 LONG_CALL_MS = 2.0
 # the yardstick against the kernel's output (o on the rows that see a
 # key) over its largest magnitude: a wrong mask or softcap shows at O(1);
@@ -3927,24 +3995,20 @@ LIBRARY_TOL = 5e-2
 
 def _ms_a_launch(fn, reps: int = 5) -> float:
     """ms a call of `fn`: KERNEL_LAUNCHES calls between a pair of CUDA
-    events, the trimmed mean of `reps` pairs after one warm pair (one pair
-    where the warm pair's calls take LONG_CALL_MS or more)."""
-    samples, i = [], 0
-    while i <= reps:
+    events, the trimmed mean of `reps` pairs after one warm call (one pair
+    where the warm call takes LONG_CALL_MS or more)."""
+    def pair(n: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(KERNEL_LAUNCHES):
+        for _ in range(n):
             fn()
         end.record()
         end.synchronize()
-        ms = start.elapsed_time(end) / KERNEL_LAUNCHES
-        if i:
-            samples.append(ms)
-        elif ms >= LONG_CALL_MS:
-            reps = 1
-        i += 1
-    return trimmed_mean(samples)
+        return start.elapsed_time(end) / n
+    if pair(1) >= LONG_CALL_MS:
+        reps = 1
+    return trimmed_mean([pair(KERNEL_LAUNCHES) for _ in range(reps)])
 
 
 # what `_flex_mask` reads: the query rows' offset and the window (a large
@@ -3967,7 +4031,8 @@ def flex_library(q, k, v, *, window, delta, block: bool):
     `flex_attention` call (GQA, the softcap as its score_mod, causality,
     the window and `delta` as its block mask) on (B, H, S, D) views of
     q, k, v; with `block`, its lse too.  Returns the call, ready to time.
-    Never called by the port."""
+    Compiled for each shape: with dynamic shapes inductor fails to lower
+    it (torch 2.11, "unbacked_bindings").  Never called by the port."""
     from torch.nn.attention.flex_attention import (
         create_block_mask, flex_attention)
     if "fn" not in _FLEX:
@@ -4016,8 +4081,9 @@ def sdpa_library(q, k, v, *, window, delta, block: bool):
 def vocab_attention_row(case: dict, dtype: torch.dtype,
                         gen: torch.Generator) -> dict:
     """The attention kernel at `case`'s config (its heads, D and softcap)
-    on one device at 1 x s, or (a case with `delta`) the ring's block call
-    at 1 x s rows against as many keys, `delta` after them.  Held against
+    on one device at b x s (`case["b"]`, 1 where it has none), or (a case
+    with `delta`) the ring's block call at b x s rows against as many
+    keys, `delta` after them.  Held against
     the plain version: max |err| within LM_FWD_TOL of the largest
     magnitude (o and, for a block, lse), bf16 element by element within
     one bf16 ulp of A + |o32|.  Its ms (KERNEL_LAUNCHES a pair), the plain
@@ -4025,16 +4091,16 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
     `sdpa_library`, held within LIBRARY_TOL of the kernel) and the bound
     over the admitted pairs."""
     dev = torch.device("cuda")
-    cfg, s = case["cfg"], case["s"]
+    cfg, s, b = case["cfg"], case["s"], case.get("b", 1)
     hq, hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.attn_softcap
     block = "delta" in case
     delta = case.get("delta", 0)
     opts = dict(window=case["window"], softcap=cap)
     what = f"{cfg.name} {'block ' if block else ''}{case['mask']} {dtype}"
-    q = torch.randn((1, s, hq, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((1, s, hkv, d), generator=gen, device=dev).to(dtype)
+    q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
     p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, case["window"])
     if (p.path, p.d_pad) != ("wgmma" if dtype == torch.bfloat16 else "fma",
                              d):
@@ -4092,10 +4158,11 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
                              f"(tol {LIBRARY_TOL}): not the same function")
     del got, o, lib, lib_o
     torch.cuda.empty_cache()
-    pairs = admitted_pairs(s, case["window"], delta)
+    pairs = b * admitted_pairs(s, case["window"], delta)
     flops = 4.0 * d * pairs * hq
     nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + (
-        4 * (q.numel() + hq * s) if block else q.numel() * q.element_size())
+        4 * (q.numel() + b * hq * s) if block else
+        q.numel() * q.element_size())
     ms = _ms_a_launch(kernel)
     library_ms = _ms_a_launch(library)
     plain_ms = time_fn(plain, reps=3, warmup=1) * 1e3
@@ -4266,6 +4333,28 @@ def vocab_rank(rank: int, world: int, i: int) -> dict:
             "n_params": sum(t.numel() for t in leaves)}
 
 
+def vocab_dense_runs(rank: int, world: int) -> dict:
+    """`vocab_dense_rank` of every VOCAB_RUNS config, in turn, in one
+    process (a later config's first pass finds the process warm)."""
+    out = []
+    for i in range(len(VOCAB_RUNS)):
+        out.append(vocab_dense_rank(rank, world, i))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": out}
+
+
+def vocab_rank_runs(rank: int, world: int) -> dict:
+    """`vocab_rank` of every VOCAB_RUNS config, in turn, on the same
+    spawned ranks."""
+    out = []
+    for i in range(len(VOCAB_RUNS)):
+        out.append(vocab_rank(rank, world, i))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"runs": out}
+
+
 def vocab_phase(card: str) -> dict:
     """Phase 7, the vocab-parallel loss: the attention kernel's rows at
     the shapes of its runs (`vocab_kernel_rows`: gemma2's D 256, qwen2.5's
@@ -4285,10 +4374,11 @@ def vocab_phase(card: str) -> dict:
     shutil.rmtree(VOCAB_DIR, ignore_errors=True)
     os.makedirs(VOCAB_DIR)
     out = {"kernel_rows": rows, "runs": []}
+    ones = spawn_ranks(vocab_dense_runs, 1)[0]["runs"]
+    every = spawn_ranks(vocab_rank_runs, VOCAB_MODEL)
     for i, run in enumerate(VOCAB_RUNS):
         cfg = run["cfg"]
-        one = spawn_ranks(vocab_dense_rank, 1, i)[0]
-        ranks = spawn_ranks(vocab_rank, VOCAB_MODEL, i)
+        one, ranks = ones[i], [r["runs"][i] for r in every]
         os.remove(one["path"])
         s_local = run["seq"] // VOCAB_MODEL
         types = cfg.layer_types()
@@ -4346,6 +4436,701 @@ def vocab_phase(card: str) -> dict:
     print(f"vocab-parallel phase ({len(rows)} attention rows, "
           f"{len(VOCAB_RUNS)} configs on one device and {VOCAB_MODEL} card "
           f"ranks) took {out['phase_s']:.1f} s of this run ({card})")
+    return out
+
+
+# ------------------------------------------------ mixture of experts (9) --
+
+# full width: mixtral-8x7b cut to one SWA layer at batch 1 x seq 8192
+# (1.71 B params: 1.41 B of experts), one device and MOE_MODEL gloo ranks
+# with the sequence split and the experts over "model" (expert
+# parallelism: 4 of 8 a rank); olmoe-1b-7b at full depth (16 layers, 64
+# experts, top 8, 6.9 B params) served at batch 4 x prompt 256, 16
+# generated tokens, and at 2 layers against the CPU; mamba2-780m at full
+# depth trained at batch 1 x seq 2048.  The MoE params are drawn on the
+# card from MOE_SEED (a CPU draw of olmoe would take minutes)
+MOE_MODEL = 2
+MIXTRAL = dataclasses.replace(mixtral_8x7b.CONFIG, n_layers=1)
+MIXTRAL_SEQ = 8192
+OLMOE = olmoe_1b_7b.CONFIG
+MAMBA2 = mamba2_780m.CONFIG
+MOE_SEED = 27
+MOE_DIR = os.path.join(HERE, "build", "moe")
+OLMOE_PROMPT, OLMOE_GEN = 256, 16
+OLMOE_CHECK_LAYERS, OLMOE_CHECK_PROMPT, OLMOE_CHECK_GEN = 2, 4, 5
+MAMBA2_SEQ = 2048
+# routing is discrete: a token whose k-th and (k+1)-th router
+# probabilities lie closer than this may pick the other expert under
+# another order of summation (the card against the CPU, one device against
+# two ranks); a routing decision that differs with a wider margin fails,
+# and so do more than MOE_MAX_FLIPS admitted ones in one comparison (so
+# that most of what is compared stays held: see `_flips`)
+MOE_FLIP_MARGIN = 1e-5
+MOE_MAX_FLIPS = 2
+# the ranks' loss shares summed against the one-device loss: fp32 sums
+# over 8192 tokens, the experts' products over other row counts (plus,
+# where a routing decision differs, what its tokens' cross entropies
+# differ by)
+MOE_LOSS_RTOL = 1e-5
+# each gradient (a rank's expert blocks, the others summed over the ranks)
+# against the one-device one, over the latter's largest magnitude; and, as
+# it, each token's final hidden state, where no routing decision of its
+# group differs
+MOE_GRAD_TOL = 1e-4
+# olmoe at 2 layers, card against CPU: prefill logits and K/V, 8 decode
+# steps' logits, over the largest magnitude (fp32 through 2 blocks of 64
+# experts; the attention kernel against its plain version on the CPU)
+MOE_CHECK_TOL = 1e-4
+# the attention kernel at the shapes of phase 9's runs: mixtral (32 / 8
+# heads, D 128, window 4096) on one device at 1 x 8192, where the window
+# binds, and the ring's blocks of 4096 rows on the 2 ranks: the diagonal on
+# both, the off-diagonal within the window on rank 1; olmoe's prefill (16 /
+# 16 heads, D 128, causal) at 4 x 256, one call a layer
+MIXTRAL_WINDOW = f"window {MIXTRAL.window}"
+MOE_ATTN = [
+    {"cfg": MIXTRAL, "s": MIXTRAL_SEQ, "mask": MIXTRAL_WINDOW,
+     "window": MIXTRAL.window, "count": 1},
+    {"cfg": MIXTRAL, "s": MIXTRAL_SEQ // MOE_MODEL, "delta": 0,
+     "mask": f"{MIXTRAL_WINDOW} diagonal", "window": MIXTRAL.window,
+     "count": MOE_MODEL},
+    {"cfg": MIXTRAL, "s": MIXTRAL_SEQ // MOE_MODEL,
+     "delta": MIXTRAL_SEQ // MOE_MODEL,
+     "mask": f"{MIXTRAL_WINDOW} off-diagonal", "window": MIXTRAL.window,
+     "count": 1},
+    {"cfg": OLMOE, "b": SERVE_BATCH, "s": OLMOE_PROMPT, "mask": "causal",
+     "window": None, "count": OLMOE.n_layers},
+]
+
+
+def moe_kernel_rows(card: str) -> list[dict]:
+    """Phase 9's kernel rows: every MOE_ATTN case in f32 and bf16 (held
+    and timed as phase 7's, SDPA the library call), printed."""
+    gen = torch.Generator(device="cuda").manual_seed(MOE_SEED)
+    rows = []
+    for dt, c in itertools.product((torch.float32, torch.bfloat16),
+                                   MOE_ATTN):
+        rows.append(r := vocab_attention_row(c, dt, gen))
+        print(f"{r['model']} attention {r['kernel']} {r['mask']} (delta "
+              f"{r['delta']}), {r['dtype']}, q {r['q']} kv {r['kv']}, "
+              f"{r['count']} a forward: {r['plan_str']}; max |err| "
+              f"{r['max_abs_err']:.3e}"
+              + ("" if r["lse_err"] is None else f", lse {r['lse_err']:.3e}")
+              + ("" if r["max_err_over_elem_limit"] is None else
+                 f", err/elem limit {r['max_err_over_elem_limit']:.3f}")
+              + f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['pairs']} pairs), "
+              f"{r['tflops_s']:.1f} TFLOP/s ({card})", flush=True)
+    return rows
+
+
+def _card_init(cfg, dev: torch.device, layers: int | None = None):
+    """`cfg` (cut to `layers`) and its params drawn on the card from
+    MOE_SEED: the same bits in every process."""
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, transformer.init(torch.Generator(device=dev).manual_seed(
+        MOE_SEED), cfg, device=dev)
+
+
+@contextlib.contextmanager
+def _observed(module, name: str, keep):
+    """While open, `module.name` wrapped: each call's `keep(result,
+    *args)` appended to the yielded list (the port calls it by its
+    module's name, so every caller sees the wrapper)."""
+    log, fn = [], getattr(module, name)
+
+    def observed(*a, **k):
+        out = fn(*a, **k)
+        log.append(keep(out, *a))
+        return out
+    setattr(module, name, observed)
+    try:
+        yield log
+    finally:
+        setattr(module, name, fn)
+
+
+def routes_logged():
+    """Every MoE layer's `Routing` (`moe_route`'s, which `moe_apply`
+    calls), in call order, its tensors left on their device."""
+    return _observed(lm_modules, "moe_route", lambda r, *a: r)
+
+
+def final_hidden_logged():
+    """Each forward's final hidden state (after the final norm: what
+    `transformer._logits` takes), detached."""
+    return _observed(transformer, "_logits",
+                     lambda out, params, cfg, x: x.detach())
+
+
+def _routes(log: list) -> list[dict]:
+    """Each logged layer's routing on the host: expert ids, kept mask,
+    top-k margins and each token's routing group."""
+    return [{"idx": r.idx.cpu(), "keep": r.keep.cpu(),
+             "margin": r.margin.cpu(), "group": r.group.cpu()} for r in log]
+
+
+def _flips(got: list[dict], want: list[dict], rows=slice(None),
+           carry: str = "positions") -> dict:
+    """Routing decisions of `got` (each logged layer's routing, in call
+    order) that differ from `want`'s (its tokens `rows` of the sequence):
+    tokens whose set of k experts differs (two of its experts trading
+    places within the top k change nothing: each takes one slot of a
+    different expert's buffer either way).  Such a token taints its whole
+    routing group (the slots of the group's later pairs may move), and a
+    taint is carried to the next entries: to every later position of its
+    row ("positions": the next layers' attention), or to its whole row
+    ("rows": a decode loop, whose caches carry it to every later step).
+    A differing decision on a token that came in tainted is excused; every
+    other counts, and must have a top-k margin below MOE_FLIP_MARGIN, at
+    most MOE_MAX_FLIPS of them.  On the untainted tokens the kept experts
+    must be equal.  Returns the count, the widest margin, the tokens
+    tainted after the last entry and the rows tainted anywhere."""
+    n, widest, taint = 0, 0.0, None
+    for g, w in zip(got, want):
+        idx, ref = g["idx"], w["idx"][:, rows]
+        b, s, _ = idx.shape
+        t_in = torch.zeros((b, s), dtype=torch.bool) if taint is None \
+            else taint.expand(b, s)
+        differ = (idx.sort(-1).values != ref.sort(-1).values).any(-1)
+        new = differ & ~t_in
+        n += int(new.sum())
+        if new.any():
+            widest = max(widest, float(w["margin"][:, rows][new].max()))
+        hit = torch.zeros((b, int(g["group"].max()) + 1), dtype=torch.bool)
+        bb, ss = differ.nonzero(as_tuple=True)
+        hit[bb, g["group"][ss]] = True
+        t_out = t_in | hit[:, g["group"]]
+        kept = torch.where(g["keep"], idx, -1).sort(-1).values
+        k_ref = torch.where(w["keep"][:, rows], ref, -1).sort(-1).values
+        if ((kept != k_ref).any(-1) & ~t_out).any():
+            raise AssertionError("the kept experts differ on a token whose "
+                                 "routing group routes alike")
+        taint = t_out.any(-1, keepdim=True) if carry == "rows" \
+            else t_out.cumsum(-1) > 0
+    if widest >= MOE_FLIP_MARGIN or n > MOE_MAX_FLIPS:
+        raise AssertionError(f"{n} routing decisions differ (at most "
+                             f"{MOE_MAX_FLIPS} admitted), the widest top-k "
+                             f"margin {widest:.3e} (admitted below "
+                             f"{MOE_FLIP_MARGIN})")
+    return {"flips": n, "widest_margin": widest, "tainted": t_out,
+            "rows": taint.reshape(b, -1).any(-1)}
+
+
+@torch.no_grad()
+def token_ce(params: dict, cfg, x: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+    """Each token's cross entropy (b, s) from its final hidden state x,
+    as `transformer.loss_fn` forms the mean."""
+    logits = transformer._logits(params, cfg, x).float()
+    return torch.logsumexp(logits, -1) - torch.gather(
+        logits, -1, labels.long()[..., None])[..., 0]
+
+
+def moe_dense_rank(rank: int, world: int) -> dict:
+    """One device, in its own process: mixtral cut to one layer, the dense
+    `loss_fn` at batch 1 x MIXTRAL_SEQ and its gradients (forward +
+    backward timed on the host clock, synchronised: the first pass and a
+    warm one), its routing; then the MoE layer's parts timed alone on the
+    layer's own input (CUDA events, 5 calls each): the routing, the
+    expert products on the dispatched buffers, and the whole layer
+    forward.  Loss, gradients, routing, the final hidden states and each
+    token's cross entropy saved under MOE_DIR."""
+    dev = torch.device("cuda")
+    cfg, params = _card_init(MIXTRAL, dev)
+    batch = pipeline.to_device(pipeline.synthetic_lm_batch(
+        0, 1, MIXTRAL_SEQ, cfg.vocab), dev)
+    leaves = tree_leaves(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with routes_logged() as log, final_hidden_logged() as hidden:
+        t0 = time.perf_counter()
+        loss = transformer.loss_fn(params, batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = _routes(log)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    torch.autograd.grad(transformer.loss_fn(params, batch, cfg), leaves)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    split = moe_time_split(params["layers"][0], cfg, batch, params)
+    path = os.path.join(MOE_DIR, "mixtral.pt")
+    torch.save({"loss": loss.item(), "routes": routes,
+                "hidden": hidden[0].cpu(),
+                "ce": token_ce(params, cfg, hidden[0], batch["labels"]).cpu(),
+                "grads": tree_unflatten(params, iter(g.cpu() for g in
+                                                     grads))}, path)
+    drops = [int((~r["keep"]).sum()) for r in routes]
+    return {"loss": loss.item(), "s": seconds, "s_warm": warm,
+            "peak_gib": peak, "launches": launches, "path": path,
+            "drops": drops, "split": split,
+            "min_margin": min(float(r["margin"].min()) for r in routes),
+            "n_params": sum(t.numel() for t in leaves)}
+
+
+def moe_time_split(lp: dict, cfg, batch: dict, params: dict) -> dict:
+    """The MoE layer's forward on its input in the one-device run (the
+    layer's ln2 of the attention's residual), timed whole and in parts,
+    ms a call (CUDA events, 5 calls after one warm): `moe_route`, the
+    three expert products (`torch.bmm`) on buffers of the dispatched
+    shape, and the rest of `moe_apply` (the index copy into the
+    buffers, the index add out of them) as the difference."""
+    with torch.no_grad():
+        x = transformer._embed(params, cfg, batch["tokens"])
+        h = lm_modules.norm_apply(cfg, lp["ln1"], x)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + lm_modules.attn_apply(lp["attn"], h, cfg=cfg, positions=pos,
+                                      window=cfg.window)
+        h = lm_modules.norm_apply(cfg, lp["ln2"], x)
+        p = lp["moe"]
+        r = lm_modules.moe_route(p["router"], h, cfg)
+        nb = h.shape[0] * r.n_groups * r.cap
+        xe = torch.randn((cfg.n_experts, nb, cfg.d_model), device=h.device)
+
+        def experts():
+            g = torch.bmm(xe, p["wi"])
+            return torch.bmm(F.silu(torch.bmm(xe, p["wg"])) * g, p["wo"])
+        out = {"route_ms": time_fn(lambda: lm_modules.moe_route(
+                   p["router"], h, cfg), reps=5, warmup=1) * 1e3,
+               "experts_ms": time_fn(experts, reps=5, warmup=1) * 1e3,
+               "layer_ms": time_fn(lambda: lm_modules.moe_apply(p, h, cfg),
+                                   reps=5, warmup=1) * 1e3,
+               "buffer_rows": nb, "cap": r.cap, "groups": r.n_groups}
+        out["dispatch_combine_ms"] = out["layer_ms"] - out["route_ms"] \
+            - out["experts_ms"]
+        # the bound over every buffer row (the empty slots too: what the
+        # batched products do) and over the kept pairs' rows only (what
+        # the layer needs)
+        kept = int(r.keep.sum())
+        w_bytes = 4.0 * 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+        for key, rows in (("", cfg.n_experts * nb), ("kept_", kept)):
+            flops = 2.0 * 3 * rows * cfg.d_model * cfg.d_ff
+            out[f"experts_{key}gflop"] = flops / 1e9
+            out[f"experts_{key}bound_ms"] = max(
+                flops / PEAK_FLOPS[torch.float32],
+                (w_bytes + 4.0 * 2 * rows * cfg.d_model) / PEAK_BYTES_S) * 1e3
+        out["kept_pairs"] = kept
+    return out
+
+
+def moe_rank(rank: int, world: int) -> dict:
+    """One of MOE_MODEL gloo ranks on the card (data 1 x model
+    MOE_MODEL): mixtral's `loss_fn` on this rank's sequence block with its
+    experts over "model" (`ShardCtx(tp_axis="model")`, the blocks of
+    `shardings.expert_blocks`), forward + backward timed; the routing of
+    its tokens against the one-device run's (`_flips`), the final hidden
+    states of the tokens whose groups route alike against the one-device
+    rows, and what the other tokens' cross entropies differ by (summed
+    over the ranks: the room a differing decision gives the loss); the
+    shares and the other gradients summed over the ranks, its expert
+    blocks' gradients against the one-device rows; the bytes each
+    all-to-all sent and one dispatch all-to-all timed alone."""
+    dev = torch.device("cuda")
+    mesh = make_mesh(data=1, model=world)
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",),
+                   tp_axis="model")
+    cfg, params = _card_init(MIXTRAL, dev)
+    blocks = shardings.expert_blocks(params, mesh)
+    del params
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        pipeline.synthetic_lm_batch(0, 1, MIXTRAL_SEQ, cfg.vocab), mesh,
+        "model", ("data",)), dev)
+    leaves = tree_leaves(blocks)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    collectives.reset_sent()
+    halo.reset_staged()
+    mesh.barrier()
+    with routes_logged() as log, final_hidden_logged() as hidden:
+        t0 = time.perf_counter()
+        share = transformer.loss_fn(blocks, batch, cfg, ctx=ctx)
+        grads = torch.autograd.grad(share, leaves)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    sent = dict(collectives.sent)
+    staged = halo.staged
+    routes = _routes(log)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = torch.load(os.path.join(MOE_DIR, "mixtral.pt"), mmap=True)
+    s_local = MIXTRAL_SEQ // world
+    i = mesh.index("model")
+    mine = slice(i * s_local, (i + 1) * s_local)
+    flips = _flips(routes, want["routes"], mine)
+    # what no routing decision moved: the untainted tokens' final hidden
+    # states; and the loss, up to what the tainted tokens' cross
+    # entropies differ by
+    clean = ~flips["tainted"]
+    x, x_ref = hidden[0].cpu(), want["hidden"][:, mine]
+    hidden_err = float((x - x_ref)[clean].abs().max()) / float(
+        x_ref[clean].abs().max())
+    ce = token_ce(blocks, cfg, hidden[0], batch["labels"]).cpu()
+    moved = float(mesh.all_reduce(torch.tensor(
+        float((ce - want["ce"][:, mine])[~clean].abs().sum())
+        / MIXTRAL_SEQ, dtype=torch.float64), "model"))
+    del hidden, x, x_ref
+    gtree = tree_unflatten(blocks, iter(grads))
+    loss = float(mesh.all_reduce(share.detach(), "model"))
+    errs = {}
+    experts = {id(lp["moe"][n]) for lp in gtree["layers"]
+               for n in shardings.EXPERT_LEAVES}
+    e_loc = cfg.n_experts // world
+    for (path, g), w in zip(_leaf_paths(gtree), tree_leaves(want["grads"])):
+        if id(g) in experts:
+            w = w[i * e_loc:(i + 1) * e_loc]
+        else:
+            g = mesh.all_reduce(g, "model")
+        w = w.to(dev)
+        errs[path] = _grad_err(g, w, float(w.abs().max()))
+    xe = torch.randn((cfg.n_experts, sent_rows(cfg, s_local), cfg.d_model),
+                     device=dev)
+    a2a = []
+    for _ in range(3):
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        collectives.all_to_all(xe, mesh, "model", 0, 1)
+        torch.cuda.synchronize()
+        a2a.append(time.perf_counter() - t1)
+    return {"rank": rank, "share": share.item(), "loss": loss,
+            "want_loss": want["loss"], "s": seconds, "peak_gib": peak,
+            "launches": launches, "sent": sent, "staged": staged,
+            "grad_err": errs, "hidden_err": hidden_err,
+            "ce_moved": moved, "held_tokens": int(clean.sum()),
+            "flips": {k: flips[k] for k in ("flips", "widest_margin")},
+            "drops": [int((~r["keep"]).sum()) for r in routes],
+            "a2a_ms": [t * 1e3 for t in a2a],
+            "a2a_bytes": xe.numel() * 4 * (world - 1) // world,
+            "n_params": sum(t.numel() for t in leaves)}
+
+
+def sent_rows(cfg, s_local: int, b: int = 1) -> int:
+    """Rows of one expert's dispatch buffer on a rank: b x its groups x
+    the capacity."""
+    gs = min(s_local * MOE_MODEL, lm_modules.MOE_GROUP)
+    cap = max(1, int(cfg.capacity_factor * cfg.top_k * gs / cfg.n_experts))
+    return b * (s_local // gs) * cap
+
+
+def _leaf_paths(tree, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(path, leaf) in `tree_leaves` order; the path's head names the
+    group an error is reported under (embed, layers.attn, layers.moe,
+    ...)."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in _leaf_paths(tree[k], f"{prefix}.{k}" if prefix
+                                      else k)]
+    if isinstance(tree, (list, tuple)):
+        return [pl for t in tree for pl in _leaf_paths(t, prefix)]
+    return [(prefix, tree)]
+
+
+def olmoe_serve_rank(rank: int, world: int, card: str) -> dict:
+    """A fresh process: full-width olmoe-1b-7b at full depth through the
+    serve entry point (`launch.serve`, batch 4, prompt OLMOE_PROMPT,
+    OLMOE_GEN generated tokens; params drawn on the card) with no kernel
+    launch in the decode loop, then `transformer.prefill` of the same
+    prompt on the kernels (16 attention launches), timed, with each
+    layer's dropped (token, choice) pairs; then cut to OLMOE_CHECK_LAYERS
+    layers, the card against the CPU on the same params: prefill's last
+    logits and K/V and OLMOE_CHECK_GEN + OLMOE_CHECK_PROMPT - 1 decode
+    steps' logits and ids."""
+    dev = torch.device("cuda")
+    draw = transformer.init
+
+    def on_card(gen, cfg, *, device):
+        return draw(torch.Generator(device=dev).manual_seed(
+            gen.initial_seed()), cfg, device=device)
+    transformer.init = on_card
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with routes_logged() as steps:
+        res = serve.run(serve.parse_args(
+            ["--arch", "olmoe-1b-7b", "--batch", str(SERVE_BATCH),
+             "--prompt-len", str(OLMOE_PROMPT), "--gen", str(OLMOE_GEN),
+             "--seed", str(MOE_SEED), "--device", "cuda"]))
+    transformer.init = draw
+    decode_launches = ops.launch_counts()
+    if any(decode_launches.values()):
+        raise AssertionError(f"olmoe decode loop launched kernels: "
+                             f"{decode_launches}")
+    cfg, params = res["cfg"], res["params"]
+    tokens = torch.as_tensor(res["prompts"], device=dev)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    transformer.prefill(params, cfg, tokens)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    ops.reset_launch_counts()
+    with routes_logged() as log:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = transformer.prefill(params, cfg, tokens)[0]
+        torch.cuda.synchronize()
+        prefill_warm_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = ops.launch_counts()
+    routes = _routes(log)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen_ms = res["step_ms"][OLMOE_PROMPT - 1:]
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))
+    # the bytes a generation step needs: every weight but the experts',
+    # and of each layer's experts those its 4 tokens route to (at most 4
+    # x top-k of 64), the step's own routing
+    expert_bytes = sum(params["layers"][0]["moe"][n][0].numel() * 4
+                       for n in shardings.EXPERT_LEAVES)
+    routed = [len(r.idx.unique()) for r in
+              steps[(OLMOE_PROMPT - 1) * cfg.n_layers:]]
+    gen_bytes = [weight_bytes - cfg.n_layers * cfg.n_experts * expert_bytes
+                 + expert_bytes * sum(routed[j:j + cfg.n_layers])
+                 for j in range(0, len(routed), cfg.n_layers)]
+    del steps
+    replay_ms = res["step_ms"][:OLMOE_PROMPT - 1]
+    first = res["ids"][0].tolist()
+    del params, res, last
+    torch.cuda.empty_cache()
+    check = olmoe_cpu_check(dev)
+    return {"prefill_ms": prefill_ms, "prefill_warm_ms": prefill_warm_ms,
+            "prefill_launches": prefill_launches,
+            "drops": [int((~r["keep"]).sum()) for r in routes],
+            "pairs": SERVE_BATCH * OLMOE_PROMPT * cfg.top_k,
+            "cap": max(1, int(cfg.capacity_factor * cfg.top_k
+                              * min(OLMOE_PROMPT, lm_modules.MOE_GROUP)
+                              / cfg.n_experts)),
+            "min_margin": min(float(r["margin"].min()) for r in routes),
+            "decode_ms": float(np.median(gen_ms)),
+            "replay_ms": float(np.median(replay_ms)),
+            "weight_bytes": weight_bytes,
+            "bound_ms": weight_bytes / PEAK_BYTES_S * 1e3,
+            "routed_experts": [min(routed), max(routed)],
+            "routed_bound_ms": float(np.median(gen_bytes)) / PEAK_BYTES_S
+            * 1e3,
+            "peak_gib": peak, "ids_row0": first, "check": check}
+
+
+def olmoe_cpu_check(dev: torch.device) -> dict:
+    """olmoe cut to OLMOE_CHECK_LAYERS layers, params drawn on the card
+    and copied to the CPU: prefill of the serve prompt (batch 4 x
+    OLMOE_PROMPT) on the card (kernels) and the CPU (plain versions) --
+    last logits, every layer's K/V, the routing -- then the decode loop on
+    both: every step's logits and the ids.  Each comparison is held on
+    the batch rows where no routing decision differs (`_flips`: a group
+    is a whole row here; at most MOE_MAX_FLIPS decisions, each below
+    MOE_FLIP_MARGIN, may differ, so at least 2 of the 4 rows are held)."""
+    cfg, params = _card_init(OLMOE, dev, OLMOE_CHECK_LAYERS)
+    cpu = tree_map(lambda t: t.detach().cpu(), params)
+    prompts = serve.prompts_for(cfg, SERVE_BATCH, OLMOE_PROMPT, MOE_SEED)
+    short = prompts[:, :OLMOE_CHECK_PROMPT]
+    got = {}
+    for name, p, d in (("card", params, dev), ("cpu", cpu, "cpu")):
+        with routes_logged() as log:
+            last, kv = transformer.prefill(p, cfg, torch.as_tensor(
+                prompts, device=d))
+        with routes_logged() as steps:
+            run = _decode_run(cfg, p, short, OLMOE_CHECK_GEN, d)
+        got[name] = {"last": last.cpu(),
+                     "kv": [tuple(t.cpu() for t in l) for l in kv],
+                     "routes": _routes(log), "steps": _routes(steps),
+                     "run": run}
+    card, host = got["card"], got["cpu"]
+    out = {"flips": _flips(card["routes"], host["routes"], carry="rows"),
+           "decode_flips": _flips(card["steps"], host["steps"],
+                                  carry="rows")}
+    held = ~out["flips"].pop("rows")
+    held_dec = ~out["decode_flips"].pop("rows")
+    for f in (out["flips"], out["decode_flips"]):
+        del f["tainted"]
+    out["held_rows"] = [int(held.sum()), int(held_dec.sum())]
+    out["prefill_logits"] = _rel_err(card["last"][held], host["last"][held])
+    out["prefill_kv"] = max(_rel_err(a[held], b[held]) for la, lb in
+                            zip(card["kv"], host["kv"])
+                            for a, b in zip(la, lb))
+    out["decode_logits"] = _rel_err(card["run"]["logits"][:, held_dec],
+                                    host["run"]["logits"][:, held_dec])
+    out["ids_equal"] = bool(torch.equal(card["run"]["ids"][held_dec],
+                                        host["run"]["ids"][held_dec]))
+    out["steps"] = card["run"]["logits"].shape[0]
+    bad = [k for k in ("prefill_logits", "prefill_kv", "decode_logits")
+           if not out[k] <= MOE_CHECK_TOL]
+    if bad or not out["ids_equal"] or not (held.any() and held_dec.any()):
+        raise AssertionError(f"olmoe {OLMOE_CHECK_LAYERS} layers, card "
+                             f"against CPU: {out} (tol {MOE_CHECK_TOL})")
+    return out
+
+
+def mamba2_train_phase(card: str) -> dict:
+    """Full-width mamba2-780m at full depth (48 SSD layers) through the
+    trainer's own entry, FP32, batch 1 x MAMBA2_SEQ, 3 steps: finite
+    losses, 48 x 3 SSD-chunk launches, no attention."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = train_cli.main(["--arch", "mamba2-780m", "--batch", "1", "--seq",
+                          str(MAMBA2_SEQ), "--steps", str(STEPS),
+                          "--device", "cuda", "--log-every", "1"])
+    counts = ops.launch_counts()
+    want = {"conv2d": 0, "flash_attention": 0,
+            "ssd_chunk": MAMBA2.n_layers * STEPS}
+    if not all(math.isfinite(l) for l in res["losses"]) or counts != want:
+        raise AssertionError(f"mamba2 train: losses {res['losses']}, "
+                             f"launches {counts} (want {want})")
+    steady = res["step_s"][1:]
+    out = {"losses": res["losses"], "step_s": res["step_s"],
+           "steady_step_s": sum(steady) / len(steady),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": counts, "n_params": res["n_params"]}
+    print(f"mamba2-780m train: full width and depth ({MAMBA2.n_layers} SSD "
+          f"layers, {out['n_params'] / 1e9:.3f} B params, FP32), batch 1 x "
+          f"seq {MAMBA2_SEQ}, {STEPS} steps: losses {res['losses']}, step "
+          f"seconds {res['step_s']}, {out['steady_step_s']:.4f} s a step "
+          f"after the first, peak {out['peak_gib']:.2f} GiB, launches "
+          f"{counts} ({card})", flush=True)
+    return out
+
+
+def moe_phase(card: str) -> dict:
+    """Phase 9, mixture of experts: the attention kernel's rows at
+    mixtral's and olmoe's shapes (`moe_kernel_rows`); mixtral cut to one
+    layer, the one-device loss and gradients in a process of its own,
+    then MOE_MODEL gloo ranks sharing the card (not a scaling result)
+    with the sequence split and the experts over "model"; olmoe through
+    the serve entry point in a fresh process; mamba2 through the
+    trainer's entry.  Held on the ranks: the routing against one device's
+    (`_flips`), the final hidden states of the tokens whose groups route
+    alike within MOE_GRAD_TOL of the largest magnitude, the summed shares
+    within MOE_LOSS_RTOL of the one-device loss plus what the other
+    tokens' cross entropies moved, every gradient within MOE_GRAD_TOL of
+    its largest magnitude (where no routing decision differs), the
+    attention launches a rank as the ring derives them, the all-to-all
+    bytes a rank."""
+    from repro_torch.core.ring_attention import ring_steps
+    t0 = time.perf_counter()
+    rows = moe_kernel_rows(card)
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    os.makedirs(MOE_DIR)
+    cfg = MIXTRAL
+    one = spawn_ranks(moe_dense_rank, 1)[0]
+    ranks = spawn_ranks(moe_rank, MOE_MODEL)
+    shutil.rmtree(MOE_DIR, ignore_errors=True)
+    if one["launches"] != {"conv2d": 0, "flash_attention": cfg.n_layers,
+                           "ssd_chunk": 0}:
+        raise AssertionError(f"mixtral one device: launches "
+                             f"{one['launches']}")
+    s_local = MIXTRAL_SEQ // MOE_MODEL
+    half = cfg.n_experts * sent_rows(cfg, s_local) * cfg.d_model * 4 \
+        * (MOE_MODEL - 1) // MOE_MODEL
+    for r in ranks:
+        rel = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+        r["loss_rel"] = rel
+        # a differing routing decision may move the loss by what its
+        # group's cross entropies moved, and every gradient (its tokens'
+        # backward reaches every leaf): the gradients are held where none
+        # differs
+        limit = MOE_LOSS_RTOL + r["ce_moved"] / abs(one["loss"])
+        blocks = cfg.n_layers * min(r["rank"] + 1, ring_steps(
+            MOE_MODEL, s_local, cfg.window))
+        want = {"conv2d": 0, "flash_attention": blocks, "ssd_chunk": 0}
+        sent = {k: r["sent"].get(k) for k in ("moe_dispatch", "moe_combine")}
+        exact = r["flips"]["flips"] == 0
+        if not (r["launches"] == want and all(
+                v == 2 * cfg.n_layers * half for v in sent.values()) and
+                rel <= limit and r["hidden_err"] <= MOE_GRAD_TOL and
+                (not exact or max(r["grad_err"].values()) <= MOE_GRAD_TOL)):
+            raise AssertionError(
+                f"mixtral rank {r['rank']}: loss {r['loss']!r} against one "
+                f"device's {one['loss']!r} (rel {rel:.2e}, limit "
+                f"{limit:.2e}); final hidden states {r['hidden_err']:.2e} "
+                f"on {r['held_tokens']} tokens (tol {MOE_GRAD_TOL}); "
+                f"gradients {r['grad_err']} (tol {MOE_GRAD_TOL}, held where "
+                f"no routing decision differs); routing {r['flips']}; "
+                f"launches {r['launches']} (want {want}); all-to-all bytes "
+                f"{sent} (want {2 * cfg.n_layers * half} each)")
+        print(f"expert-parallel mixtral-8x7b (1 layer, full width, "
+              f"{r['n_params'] / 1e6:.1f} M params a rank against "
+              f"{one['n_params'] / 1e6:.1f} M), batch 1 x seq {MIXTRAL_SEQ} "
+              f"over model {MOE_MODEL}, {cfg.n_experts // MOE_MODEL} experts "
+              f"a rank, rank {r['rank']}: loss {r['loss']!r} against one "
+              f"device's {one['loss']!r} (rel {rel:.2e}, limit "
+              f"{limit:.2e}); routing {r['flips']['flips']} decisions "
+              f"differ; final hidden states {r['hidden_err']:.2e} of the "
+              f"largest magnitude on the {r['held_tokens']} tokens whose "
+              f"groups route alike; dropped pairs "
+              f"{r['drops']} (one device {one['drops']}); gradients over "
+              f"their largest magnitude "
+              + ", ".join(f"{k} {v:.2e}" for k, v in
+                          sorted(r["grad_err"].items()))
+              + f"; fwd + bwd (first pass) {r['s']:.3f} s against "
+              f"{one['s']:.3f} (warm {one['s_warm']:.3f}); peak "
+              f"{r['peak_gib']:.2f} GiB against {one['peak_gib']:.2f}; "
+              f"attention launches {r['launches']['flash_attention']} (the "
+              f"ring derives {blocks}); all-to-all {sent} bytes sent, "
+              f"staged through the host; one dispatch all-to-all of "
+              f"{r['a2a_bytes'] / 1e6:.1f} MB sent alone "
+              + ", ".join(f"{t:.1f}" for t in r["a2a_ms"])
+              + f" ms (gloo, one card: not a scaling result) ({card})",
+              flush=True)
+    sp = one["split"]
+    print(f"mixtral MoE layer forward, one device, batch 1 x seq "
+          f"{MIXTRAL_SEQ} ({sp['groups']} groups, cap {sp['cap']}, "
+          f"{sp['buffer_rows']} buffer rows an expert): layer "
+          f"{sp['layer_ms']:.3f} ms = routing {sp['route_ms']:.3f} + expert "
+          f"products {sp['experts_ms']:.3f} ({sp['experts_gflop']:.1f} "
+          f"GFLOP over every buffer row, bound {sp['experts_bound_ms']:.3f}; "
+          f"over the {sp['kept_pairs']} kept pairs' rows "
+          f"{sp['experts_kept_gflop']:.1f} GFLOP, bound "
+          f"{sp['experts_kept_bound_ms']:.3f}) + dispatch and "
+          f"combine {sp['dispatch_combine_ms']:.3f} ms; smallest top-k "
+          f"margin {one['min_margin']:.3e} ({card})", flush=True)
+    served = spawn_ranks(olmoe_serve_rank, 1, card)[0]
+    ch = served["check"]
+    if served["prefill_launches"] != {"conv2d": 0, "flash_attention":
+                                      OLMOE.n_layers, "ssd_chunk": 0}:
+        raise AssertionError(f"olmoe prefill launches "
+                             f"{served['prefill_launches']}")
+    print(f"serve olmoe-1b-7b: full width and depth ({OLMOE.n_layers} "
+          f"layers, {OLMOE.n_experts} experts, top {OLMOE.top_k}, "
+          f"{served['weight_bytes'] / 4e9:.3f} B params, FP32, drawn on "
+          f"the card), batch {SERVE_BATCH}, prompt {OLMOE_PROMPT}, gen "
+          f"{OLMOE_GEN}: prefill {served['prefill_ms']:.2f} ms (warm "
+          f"{served['prefill_warm_ms']:.2f}), launches "
+          f"{served['prefill_launches']} (not held against the replay: the "
+          f"replay routes each token alone and drops nothing); dropped "
+          f"(token, choice) pairs a "
+          f"layer {served['drops']} of {served['pairs']} (cap "
+          f"{served['cap']}); decode {served['decode_ms']:.3f} ms/step "
+          f"median of {OLMOE_GEN} generation steps (replay "
+          f"{served['replay_ms']:.3f}), bytes bound "
+          f"{served['bound_ms']:.3f} ms (every weight read once: the "
+          f"batched expert products read all {OLMOE.n_experts} experts), "
+          f"{served['routed_bound_ms']:.3f} ms over the experts each step "
+          f"routes to ({served['routed_experts'][0]}-"
+          f"{served['routed_experts'][1]} a layer, median of the steps); "
+          f"peak {served['peak_gib']:.2f} GiB; ids of row 0 "
+          f"{served['ids_row0']} ({card})", flush=True)
+    print(f"serve olmoe card vs cpu, {OLMOE_CHECK_LAYERS} layers, batch "
+          f"{SERVE_BATCH}: prefill logits {ch['prefill_logits']:.3e}, K/V "
+          f"{ch['prefill_kv']:.3e}, {ch['steps']} decode steps' logits "
+          f"{ch['decode_logits']:.3e} of the largest magnitude (tol "
+          f"{MOE_CHECK_TOL}), ids equal {ch['ids_equal']}, routing "
+          f"{ch['flips']['flips']} prefill and "
+          f"{ch['decode_flips']['flips']} decode decisions differ (held on "
+          f"{ch['held_rows'][0]} and {ch['held_rows'][1]} of "
+          f"{SERVE_BATCH} rows) ({card})", flush=True)
+    mamba = mamba2_train_phase(card)
+    out = {"kernel_rows": rows, "one": one, "ranks": ranks,
+           "olmoe": served, "mamba2": mamba,
+           "phase_s": time.perf_counter() - t0}
+    print(f"mixture-of-experts phase ({len(rows)} attention rows, mixtral "
+          f"on one device and {MOE_MODEL} card ranks, olmoe served, mamba2 "
+          f"trained) took {out['phase_s']:.1f} s of this run ({card})")
     return out
 
 
@@ -4443,6 +5228,7 @@ def main() -> int:
     meshed = lm_mesh_phase(card, lm_train, served)
     shutil.rmtree(PARAMS_DIR, ignore_errors=True)   # the last draw kept
     vocab = vocab_phase(card)
+    moe = moe_phase(card)
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -4466,6 +5252,7 @@ def main() -> int:
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
                    "serve": served, "lm_mesh": meshed, "vocab": vocab,
+                   "moe": moe,
                    "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
@@ -4528,7 +5315,8 @@ def main() -> int:
     def ring_block():
         """The block call's numbers over one forward's ring tiles on the
         2-rank mesh (both ranks), float32 (bf16 beside)."""
-        out = {"scope": f"one hymba-1.5b forward on {MESH_MODEL} ranks, "
+        out = {"scope": f"one hymba-1.5b forward ({HYMBA.n_layers} layers) "
+                        f"on {MESH_MODEL} ranks, "
                         f"{MESH_S} rows a block: " + ", ".join(
                             f"{c['count']} {c['mask']}" for c in MESH_BLOCKS)}
         for dt in ("float32", "bfloat16"):
@@ -4582,9 +5370,41 @@ def main() -> int:
                         max_abs_err=max(r["max_abs_err"] for r in cs))
         return out
 
+    def moe_rows():
+        """The kernel on phase 9's runs: mixtral's one-device call and its
+        ring blocks on MOE_MODEL ranks, olmoe's prefill calls, each part's
+        rows times the calls of one forward, summed (f32, bf16 beside);
+        the launches of each run (mixtral one device, then a rank each;
+        olmoe's prefill)."""
+        rows = moe["kernel_rows"]
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        out = {"library": "SDPA",
+               "launches": {
+                   "mixtral one device": moe["one"]["launches"][
+                       "flash_attention"],
+                   "mixtral ranks": [r["launches"]["flash_attention"]
+                                     for r in moe["ranks"]],
+                   "olmoe prefill": moe["olmoe"]["prefill_launches"][
+                       "flash_attention"]}}
+        parts = (("mixtral_one_device", MIXTRAL.name, "flash_attention"),
+                 ("mixtral_ring", MIXTRAL.name, "flash_attention_block"),
+                 ("olmoe_prefill", OLMOE.name, "flash_attention"))
+        for part, model, kernel in parts:
+            sel = [r for r in rows if r["model"] == model
+                   and r["kernel"] == kernel]
+            o = out[part] = {"scope": ", ".join(
+                f"{r['count']} {r['mask']} at {r['q']}" for r in sel
+                if r["dtype"] == "float32")}
+            for dt in ("float32", "bfloat16"):
+                cs = [r for r in sel if r["dtype"] == dt]
+                o[dt] = dict({k: sum(r[k] * r["count"] for r in cs)
+                              for k in keys},
+                             max_abs_err=max(r["max_abs_err"] for r in cs))
+        return out
+
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
-    lm_scope = f"one hymba-1.5b forward, batch {LM_BATCH} x seq {LM_SEQ}, " \
-        f"float32: "
+    lm_scope = f"one hymba-1.5b forward ({HYMBA.n_layers} layers), batch " \
+        f"{LM_BATCH} x seq {LM_SEQ}, float32: "
     kernels = [
         dict(entry("conv2d", "src/repro_torch/kernels/csrc/conv2d.cu",
                    "src/repro/kernels/conv2d.py:43", train["launches"], rows,
@@ -4625,16 +5445,25 @@ def main() -> int:
              serve_launches=serve_launches("flash_attention"),
              serve_prefill=serve_prefill("flash_attention"),
              mesh_launches_per_rank=mesh_launches("flash_attention"),
-             ring_block=ring_block(), vocab=vocab_rows()),
+             ring_block=ring_block(), vocab=vocab_rows(), moe=moe_rows()),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],
-                   [r for r in lm_rows if r["kernel"] == "ssd_chunk"],
+                   [r for r in lm_rows if r["kernel"] == "ssd_chunk"
+                    and r["model"] == "hymba-1.5b"],
                    lm_scope + f"{HYMBA.n_layers} calls"),
              remat_launches=zero["remat"]["launches"]["ssd_chunk"],
              serve_launches=serve_launches("ssd_chunk"),
              serve_prefill=serve_prefill("ssd_chunk"),
-             mesh_launches_per_rank=mesh_launches("ssd_chunk")),
+             mesh_launches_per_rank=mesh_launches("ssd_chunk"),
+             mamba2=dict(entry(
+                 "ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
+                 "src/repro/kernels/ssd.py:55",
+                 moe["mamba2"]["launches"]["ssd_chunk"],
+                 [r for r in lm_rows if r["kernel"] == "ssd_chunk"
+                  and r["model"] == "mamba2-780m"],
+                 f"one mamba2-780m forward, batch {LM_BATCH} x seq "
+                 f"{LM_SEQ}, float32: {MAMBA2.n_layers} calls"))),
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))

@@ -2,21 +2,18 @@
 
 Each ported architecture lives in `repro_torch/configs/<id>.py` exposing
 CONFIG (full size) and SMOKE (the reference's reduced config for CPU
-runs).  The port so far covers the CNNs (ResNet-50 and the
-mesh-tangling nets), hymba-1.5b and qwen1.5-0.5b; every other arch of the
-reference registry raises until its slice lands.
+runs).  The port covers the CNNs (ResNet-50 and the mesh-tangling nets)
+and the decoder-only LMs, dense, hybrid, SSM and mixture-of-experts;
+the encoder-decoder and the VLM backbone raise until their slice lands.
 """
 from __future__ import annotations
 
 import importlib
 
 CNN_ARCHS = ["resnet50", "mesh1k", "mesh2k"]
-LM_ARCHS = ["hymba_1_5b", "qwen1_5_0_5b", "gemma2_9b", "qwen2_5_14b"]
-NOT_PORTED = [
-    "olmo_1b",
-    "mixtral_8x7b", "olmoe_1b_7b", "pixtral_12b", "mamba2_780m",
-    "seamless_m4t_large_v2",
-]
+LM_ARCHS = ["hymba_1_5b", "qwen1_5_0_5b", "gemma2_9b", "qwen2_5_14b",
+            "olmo_1b", "mamba2_780m", "mixtral_8x7b", "olmoe_1b_7b"]
+NOT_PORTED = ["pixtral_12b", "seamless_m4t_large_v2"]
 
 
 def canon(name: str) -> str:

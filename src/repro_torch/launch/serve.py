@@ -34,7 +34,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.launch import shardings
 from repro_torch.launch.mesh import batch_axes
-from repro_torch.launch.train import set_fp32_numerics, setup
+from repro_torch.launch.train import arch_config, set_fp32_numerics, setup
 from repro_torch.models.lm import transformer
 from repro_torch.models.lm.modules import ShardCtx
 
@@ -122,14 +122,15 @@ def generate(params: dict, cfg, tokens: torch.Tensor, gen: int,
             "logits": kept}
 
 
-def run(args: argparse.Namespace, keep=()) -> dict:
-    """Serve one prompt batch as `args` say; rank 0 prints the summary and
+def run(args: argparse.Namespace, keep=(), cfg=None) -> dict:
+    """Serve one prompt batch as `args` say (the arch cut in depth where
+    `cfg` says so: `train.arch_config`); rank 0 prints the summary and
     the generated ids.  Returns the run's cfg, params, prompts, the global
     ids (numpy, on every rank), this rank's caches and `generate`'s
     timings and kept logits."""
     device, mesh, rank = setup(args)
     set_fp32_numerics(device, echo=rank == 0)
-    cfg = registry.get(args.arch, smoke=args.smoke)
+    cfg = arch_config(args, cfg, echo=rank == 0)
     params = transformer.init(torch.Generator().manual_seed(args.seed), cfg,
                               device=device)
     max_len = cache_len(args.prompt_len, args.gen, args.model)
@@ -166,8 +167,8 @@ def run(args: argparse.Namespace, keep=()) -> dict:
     return res
 
 
-def main(argv=None) -> dict:
-    return run(parse_args(argv))
+def main(argv=None, cfg=None) -> dict:
+    return run(parse_args(argv), cfg=cfg)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,11 @@ The vocab-parallel loss (`transformer.loss_fn(vocab_parallel=True)`):
 whole params (`embed`'s rows, `unembed`'s columns, padded to the shard
 count with zeros, as the reference pads), and `gather_vocab` gathers
 such blocks (params or their gradients) back whole.
+
+Expert parallelism (`ShardCtx(tp_axis="model")`): `expert_blocks` cuts
+each rank's block of every MoE layer's experts over "model" (`wi`, `wg`,
+`wo` along E, as the reference's dry-run `ep_spec` places them; the
+router stays whole), and `gather_experts` gathers them back.
 """
 from __future__ import annotations
 
@@ -348,3 +353,49 @@ def gather_vocab(tree: dict, mesh: Mesh | None, vocab: int) -> dict:
                 t = mesh.all_gather(t.contiguous(), MODEL_AXIS, dim)
             out[name] = t.narrow(dim, 0, vocab)
     return out
+
+
+# ------------------------------------------------------ the expert blocks --
+
+EXPERT_LEAVES = ("wi", "wg", "wo")          # (E, ...) each
+
+
+def expert_blocks(params: dict, mesh: Mesh | None) -> dict:
+    """`params` with each layer's MoE `wi`, `wg`, `wo` replaced by this
+    rank's block of E over "model" (E / n experts, in shard order; n must
+    divide E).  Each block is a new contiguous leaf that requires grad;
+    the other leaves are `params`' own."""
+    n = 1 if mesh is None else mesh.axis_size(MODEL_AXIS)
+    i = 0 if mesh is None else mesh.index(MODEL_AXIS)
+    layers = []
+    for lp in params["layers"]:
+        if "moe" in lp:
+            moe = dict(lp["moe"])
+            for name in EXPERT_LEAVES:
+                t = moe[name].detach()
+                if t.shape[0] % n:
+                    raise ValueError(f"{t.shape[0]} experts do not divide "
+                                     f"over {n} model shards")
+                m = t.shape[0] // n
+                moe[name] = t[i * m:(i + 1) * m].clone().requires_grad_()
+            lp = {**lp, "moe": moe}
+        layers.append(lp)
+    return {**params, "layers": layers}
+
+
+def gather_experts(tree: dict, mesh: Mesh | None) -> dict:
+    """`expert_blocks`' inverse on `tree` (params, or their gradients):
+    each MoE layer's expert leaves gathered whole over "model" (every
+    rank of the axis takes part and gets them whole); the other leaves as
+    they are."""
+    layers = []
+    for lp in tree["layers"]:
+        if "moe" in lp:
+            moe = dict(lp["moe"])
+            for name in EXPERT_LEAVES:
+                t = moe[name].detach()
+                moe[name] = t if mesh is None else \
+                    mesh.all_gather(t.contiguous(), MODEL_AXIS, 0)
+            lp = {**lp, "moe": moe}
+        layers.append(lp)
+    return {**tree, "layers": layers}

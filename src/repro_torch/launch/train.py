@@ -90,9 +90,9 @@ batch over the data axes (the reference's `ShardCtx(mesh, seq_axis=
 each rank holds `--seq / model` tokens of `--batch / (pod x data)`
 samples at their global positions, attention runs as the ring over the
 sequence shards (`core.ring_attention`) and the SSD with its conv halo
-and state prefix (`core.seq_ssm`).  `--audit`, `--profile` and
-`--elastic` refuse an LM arch on a mesh (they run the CNN plan's
-machinery).
+and state prefix (`core.seq_ssm`), and a MoE layer routes its groups of
+the global sequence (`models.lm.modules.moe_apply`).  `--audit` and
+`--profile` refuse an LM arch (they run the CNN plan's machinery).
 
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
@@ -115,9 +115,10 @@ ResilientLoop` with a `StragglerMonitor`), as in the reference:
       checkpoint;
   --elastic       on a lost rank (`kill@k`), rebuild the mesh on the
       survivors (`launch.mesh.elastic_factorization`), re-run `build` on
-      it (`--strategy auto` re-solves under the same --mem-limit) and
-      restore the latest checkpoint into it; a rank that is not a
-      survivor returns from `run` with `left_at`;
+      it (`--strategy auto` re-solves under the same --mem-limit; an LM
+      splits its sequence over the new model axis, which must divide
+      --seq) and restore the latest checkpoint into it; a rank that is
+      not a survivor returns from `run` with `left_at`;
   --debug-nans    fail at the first non-finite loss or gradient norm,
       naming the first parameter that holds a NaN.
 
@@ -128,6 +129,7 @@ restores.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import time
 
@@ -285,10 +287,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                  "collective auditor runs meshnet.loss_fn")
     if args.audit and args.profile:
         ap.error("--audit gates training; --profile trains nothing")
-    if args.elastic and arch not in registry.CNN_ARCHS:
-        ap.error("--elastic covers the CNN archs: its remesh re-solves and "
-                 "restores a CNN plan, and an LM's sequence split over the "
-                 "survivors is not built yet")
     if arch not in registry.CNN_ARCHS and args.seq % args.model:
         ap.error(f"--seq {args.seq} must divide over the model axis "
                  f"({args.model} shards): an LM's sequence is split "
@@ -411,15 +409,32 @@ def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
     return plan
 
 
+def arch_config(args: argparse.Namespace, cfg=None, echo: bool = True):
+    """The config of --arch (--smoke): the registry's, or `cfg`, a
+    caller's copy of it cut in depth, which must keep its name and
+    widths; a cut one is announced with the depth it runs at."""
+    full = registry.get(args.arch, smoke=args.smoke)
+    if cfg is None or cfg == full:
+        return full
+    if dataclasses.replace(cfg, n_layers=full.n_layers) != full:
+        raise ValueError(f"{args.arch}: a config other than the registry's "
+                         f"in more than its depth")
+    if echo:
+        print(f"arch={cfg.name} cut to {cfg.n_layers} of its "
+              f"{full.n_layers} layers")
+    return cfg
+
+
 def build(args: argparse.Namespace, device: torch.device, mesh=None,
-          echo: bool = True):
+          echo: bool = True, cfg=None):
     """(cfg, params, optimizer, loss_fn, batch factory, precision, plan) of
-    the arch.  Params are drawn from a CPU generator seeded with `--seed`,
-    so every rank, the card and the CPU start from the same weights.  On a
-    mesh the batch factory returns this rank's block of the global batch.
-    The params are whole; `train_state` cuts the optimizer state to this
-    rank's blocks under `fsdp_tree_specs`."""
-    cfg = registry.get(args.arch, smoke=args.smoke)
+    the arch (`cfg`: an LM arch's config cut in depth, see
+    `arch_config`).  Params are drawn from a CPU generator seeded with
+    `--seed`, so every rank, the card and the CPU start from the same
+    weights.  On a mesh the batch factory returns this rank's block of the
+    global batch.  The params are whole; `train_state` cuts the optimizer
+    state to this rank's blocks under `fsdp_tree_specs`."""
+    cfg = registry.get(args.arch, smoke=args.smoke) if cfg is None else cfg
     gen = torch.Generator().manual_seed(args.seed)
     arch = registry.canon(args.arch)
     if arch in registry.CNN_ARCHS:
@@ -543,9 +558,10 @@ def checkpoint_layout(cfg):
             functools.partial(transformer.tree_from_jax, cfg=cfg))
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace, cfg=None) -> dict:
     """Train to step `args.steps` (from the latest checkpoint of
-    --ckpt-dir where it has one); returns the config it trained, the
+    --ckpt-dir where it has one), an LM arch cut in depth where `cfg`
+    says so (`arch_config`); returns the config it trained, the
     plan, and for every step run (a rolled-back step runs again) its
     index (`steps`), loss, gradient norm, seconds (batch included) and
     seconds of its batch's wait and copy, the trained params with this
@@ -554,8 +570,9 @@ def run(args: argparse.Namespace) -> dict:
     device, mesh, rank = setup(args)
     lead = rank == 0
     set_fp32_numerics(device, echo=lead)
+    cfg = arch_config(args, cfg, echo=lead)
     cfg, params, opt, loss, mk, prec, plan = build(args, device, mesh,
-                                                   echo=lead)
+                                                   echo=lead, cfg=cfg)
     n_params = sum(p.numel() for p in tree_leaves(params))
     tstep = make_train_step(loss, opt, step_config(args, prec), mesh=mesh)
     opt_state, ef = train_state(args, params, opt, mesh, echo=lead)
@@ -657,9 +674,18 @@ def run(args: argparse.Namespace) -> dict:
                                "the ranks that left)")
         data, model = elastic_factorization(len(survivors),
                                             batch=args.batch)
+        lm = registry.canon(args.arch) not in registry.CNN_ARCHS
+        if lm and args.seq % model:     # on every rank, before any group
+            raise ValueError(
+                f"elastic restart: {len(survivors)} survivors -> mesh "
+                f"data={data} model={model}, over which --seq {args.seq} "
+                f"does not divide (an LM's sequence is split over the "
+                f"model axis)")
         if lead:
             print(f"elastic restart: {len(survivors)} survivors -> mesh "
-                  f"data={data} model={model}; re-solving plan")
+                  f"data={data} model={model}; "
+                  + ("re-sharding the sequence" if lm else
+                     "re-solving plan"))
         new_mesh = make_mesh(data=data, model=model, members=survivors) \
             if len(survivors) > 1 else None
         if rank not in survivors:
@@ -667,7 +693,7 @@ def run(args: argparse.Namespace) -> dict:
         args2 = argparse.Namespace(**{**vars(args), "data": data,
                                       "model": model, "pod": 1})
         cfg2, params2, opt2, loss2, mk2, prec2, plan2 = build(
-            args2, device, new_mesh, echo=lead)
+            args2, device, new_mesh, echo=lead, cfg=cfg)
         if ctx["pf"] is not None:
             ctx["pf"].close()
         ctx.update(mesh=new_mesh, mk=mk2, pf=None, plan=plan2,
@@ -791,8 +817,8 @@ def profile(args: argparse.Namespace, cfg, params, mk, device, mesh, plan,
             "mesh": mesh, "params": params}
 
 
-def main(argv=None) -> dict:
-    return run(parse_args(argv))
+def main(argv=None, cfg=None) -> dict:
+    return run(parse_args(argv), cfg)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
 from repro_torch.core.halo import halo_exchange
 from repro_torch.core.ring_attention import ring_attention
 from repro_torch.core.seq_ssm import seq_prefix_state
@@ -39,12 +40,15 @@ from repro_torch.models.lm.config import LMConfig
 class ShardCtx:
     """The mesh (`launch.mesh.Mesh`, None for one device), the axis (a
     name or a tuple of names, ranked major-to-minor) that splits the
-    sequence, and the axes that split the batch.  The reference's
-    `tp_axis` and `unroll` serve its dry-run and MoE, which are not
-    ported."""
+    sequence, the axes that split the batch, and the axis that splits the
+    experts of a MoE layer (`tp_axis`: each rank holds its block of E,
+    `launch.shardings.expert_blocks`; None keeps every expert on every
+    rank).  The reference's `unroll` serves its dry-run probes, which are
+    not ported."""
     mesh: Any = None
     seq_axis: str | tuple[str, ...] | None = None
     batch_axes: tuple[str, ...] = ()
+    tp_axis: str | None = None
 
     @property
     def seq_size(self) -> int:
@@ -177,7 +181,7 @@ def attn_apply(p: dict, x: torch.Tensor, *, cfg: LMConfig,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLP / MoE
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, cfg: LMConfig, device) -> dict:
@@ -199,6 +203,151 @@ def mlp_apply(p: dict, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")
     return h @ p["wo"]
+
+
+def moe_init(gen: torch.Generator, cfg: LMConfig, device) -> dict:
+    """The router (d, e), always fp32, and the experts' `wi`, `wg` (e, d,
+    f) and `wo` (e, f, d)."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    sc_in, sc_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {"router": normal_init(gen, (d, e), sc_in, device),
+            "wi": normal_init(gen, (e, d, f), sc_in, device),
+            "wg": normal_init(gen, (e, d, f), sc_in, device),
+            "wo": normal_init(gen, (e, f, d), sc_out, device)}
+
+
+MOE_GROUP = 256      # tokens per routing group (GShard "group" dimension)
+
+
+@dataclasses.dataclass
+class Routing:
+    """One MoE layer's routing of this rank's tokens (b, s): each token's
+    `k` experts `idx` and renormalised gates `gate` (b, s, k), the gap
+    between its k-th and (k+1)-th router probability (`margin`, (b, s):
+    how near its choice is to a tie), each (token, choice) pair's `slot`
+    in its expert's buffer of its group and whether it is kept (`slot <
+    cap`), the group of each token counted from this rank's first
+    (`group`, (s,)), the number of groups this rank touches, the group
+    size and the capacity."""
+    idx: torch.Tensor
+    gate: torch.Tensor
+    margin: torch.Tensor
+    slot: torch.Tensor
+    keep: torch.Tensor
+    group: torch.Tensor
+    n_groups: int
+    gs: int
+    cap: int
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, cfg: LMConfig,
+              ctx: ShardCtx = ShardCtx()) -> Routing:
+    """The reference's routing: groups of gs = min(S, MOE_GROUP)
+    consecutive positions of the global sequence S (this rank's x is its
+    block under `ctx`), fp32 router logits (a bf16 router is used as its
+    rounded value) and softmax, top-k gates renormalised by max(sum,
+    1e-9), cap = max(1, int(capacity_factor * k * gs / e)), and each
+    (token, choice) pair's slot its expert's running count over the
+    group's pairs in token-major, choice-minor order: where a group spans
+    sequence shards, this rank's counts start from those of the group's
+    earlier shards (an exclusive prefix over the sequence axis)."""
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    seq = s * ctx.seq_size
+    gs = min(seq, MOE_GROUP)
+    if seq % gs:
+        raise ValueError(f"MoE: sequence {seq} is not a multiple of the "
+                         f"routing group {gs} (MOE_GROUP {MOE_GROUP})")
+    cap = max(1, int(cfg.capacity_factor * k * gs / e))
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)
+    # one top-(k+1): its first k are the choices, the last the runner-up
+    top, idx = torch.topk(probs, min(k + 1, e), dim=-1)
+    gate, idx = top[..., :k], idx[..., :k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    with torch.no_grad():
+        margin = top[..., k - 1] - top[..., k] if k < e \
+            else torch.full_like(top[..., 0], math.inf)
+        off = ctx.seq_index * s
+        group = (off + torch.arange(s, device=x.device)) // gs - off // gs
+        n_groups = (off + s - 1) // gs - off // gs + 1
+        oh = F.one_hot(idx, e)                                # (b,s,k,e)
+        inc = oh.reshape(b, s * k, e).cumsum(1).reshape(b, s, k, e)
+        cnt = oh.new_zeros((b, n_groups, e)).index_add_(1, group, oh.sum(2))
+        base = cnt.cumsum(1) - cnt            # this rank's earlier tokens
+        if ctx.sharded and s % gs:
+            base = base - _group_prefix(cnt, off // gs, seq // gs, ctx)
+        slot = ((inc - base[:, group, None]) * oh).sum(-1) - 1   # (b,s,k)
+    return Routing(idx, gate, margin, slot, slot < cap, group, n_groups,
+                   gs, cap)
+
+
+def _group_prefix(cnt: torch.Tensor, g0: int, n_global: int,
+                  ctx: ShardCtx) -> torch.Tensor:
+    """Each of this rank's groups' per-expert pair counts on the earlier
+    shards of the sequence axis: cnt (b, n, e) are this rank's counts of
+    the global groups g0 .. g0+n-1 of n_global."""
+    b, n, e = cnt.shape
+    mine = cnt.new_zeros((1, b, n_global, e))
+    mine[0, :, g0:g0 + n] = cnt
+    every = ctx.mesh.all_gather(mine, ctx.seq_axis, 0)   # (P, b, G, e)
+    before = every[:ctx.seq_index].sum(0)
+    return before[:, g0:g0 + n]
+
+
+def _ep_size(ctx: ShardCtx, e: int) -> int:
+    """The number of expert blocks: the size of `ctx.tp_axis` where it
+    divides the expert count (the reference's condition), else 1."""
+    if ctx.mesh is None or ctx.tp_axis is None:
+        return 1
+    n = ctx.mesh.axis_size(ctx.tp_axis)
+    return n if e % n == 0 else 1
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
+              ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """The reference's `moe_apply` on x (b, s, d), this rank's block
+    under `ctx`.  The kept pairs' tokens are copied into the experts'
+    capacity buffers (e, b * groups * cap, d), the experts run as batched
+    products over them, and each token sums its kept outputs weighted by
+    its gates (cast to x's dtype): the reference's one-hot dispatch and
+    combine as an index copy and an index add over the kept slots.  A
+    dropped pair adds nothing.  With `ctx.tp_axis` splitting the experts
+    (p's expert leaves this rank's block of E), the buffers go to the
+    ranks that own their experts and come back by all-to-all on that
+    axis; the groups must not span sequence shards there."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    r = moe_route(p["router"], x, cfg, ctx)
+    n_ep = _ep_size(ctx, e)
+    if p["wi"].shape[0] * n_ep != e:
+        raise ValueError(f"MoE: {p['wi'].shape[0]} experts held on {n_ep} "
+                         f"expert block(s), {e} wanted")
+    if n_ep > 1 and ctx.sharded and s % r.gs:
+        raise NotImplementedError(
+            f"MoE expert parallelism with routing groups ({r.gs}) that span "
+            f"sequence shards ({s} tokens a rank)")
+    nb = b * r.n_groups * r.cap                 # one expert's buffer rows
+    kb, kt, kc = r.keep.nonzero(as_tuple=True)  # token-major, choice-minor
+    dest = r.idx[kb, kt, kc] * nb \
+        + (kb * r.n_groups + r.group[kt]) * r.cap + r.slot[kb, kt, kc]
+    tok = kb * s + kt
+    xs = x.reshape(b * s, d).index_select(0, tok)
+    xe = x.new_zeros((e * nb, d)).index_copy(0, dest, xs).view(e, nb, d)
+    if n_ep > 1:        # (e, nb, d) -> this rank's experts' (e/P, P nb, d)
+        xe = collectives.all_to_all(xe, ctx.mesh, ctx.tp_axis, 0, 1,
+                                    name="moe_dispatch")
+    h = torch.bmm(xe, p["wi"])
+    if cfg.mlp == "swiglu":
+        h = F.silu(torch.bmm(xe, p["wg"])) * h
+    elif cfg.mlp == "geglu":
+        h = F.gelu(torch.bmm(xe, p["wg"]), approximate="tanh") * h
+    ye = torch.bmm(h, p["wo"])
+    if n_ep > 1:
+        ye = collectives.all_to_all(ye, ctx.mesh, ctx.tp_axis, 1, 0,
+                                    name="moe_combine")
+    ys = ye.reshape(e * nb, d).index_select(0, dest) \
+        * r.gate[kb, kt, kc].to(x.dtype)[:, None]
+    return x.new_zeros((b * s, d)).index_add(0, tok, ys).view(b, s, d)
 
 
 # ---------------------------------------------------------------------------

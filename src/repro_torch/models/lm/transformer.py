@@ -7,11 +7,13 @@ reference's names:
 
     {"embed": (vocab, d), "final_norm": (d,),
      "layers": [{"ln1", "attn": {"wq", "wk", "wv", "wo"}, "ssm": {...},
-                 "fuse_attn", "fuse_ssm", "ln2", "mlp": {...}}, ...]}
+                 "fuse_attn", "fuse_ssm", "ln2", "mlp": {...}
+                 or "moe": {"router", "wi", "wg", "wo"}}, ...]}
 
 `params_from_jax` unstacks the reference's `segments` into that list.
 The dense-attention (`attn`, `swa`), `ssm` and hybrid (`hybrid_g`,
-`hybrid_s`) blocks are ported, and so is serving: `prefill` (the prompt
+`hybrid_s`) blocks are ported, each with a dense MLP or a mixture of
+experts (`moe`, the reference's capacity routing), and so is serving: `prefill` (the prompt
 through the kernels, returning each layer's K/V), `init_decode_state`
 and `decode_step` (one token against the sequence-sharded KV cache of
 `core.decode_attention` and the SSD's recurrence).  Decode state and
@@ -21,12 +23,15 @@ convert them to and from the reference's per-segment stacks.
 `forward`, `loss_fn` and `prefill` take a `ShardCtx`: with the sequence
 split over its axis (training and prefill on a mesh, the batch over the
 batch axes), each rank runs its own block of tokens at its global
-positions, attention as the ring and the SSD with its state halo
-(`modules`).  `loss_fn(vocab_parallel=True)` keeps the embedding (and
+positions, attention as the ring, the SSD with its state halo and the
+MoE's routing groups over the global sequence (`modules`); with
+`ctx.tp_axis` the experts are split over that axis (expert parallelism,
+the params' expert leaves each rank's block, `launch.shardings.
+expert_blocks`).  `loss_fn(vocab_parallel=True)` keeps the embedding (and
 the unembedding) as each rank's block of the vocabulary and runs the
 lookup and the cross entropy as rings over the sequence axis
-(`vocab_parallel`).  MoE, encoder-decoder (and so cross-attention
-decode) and the modality frontends wait for their slices.
+(`vocab_parallel`).  Encoder-decoder (and so cross-attention decode)
+and the modality frontends wait for their slices.
 """
 from __future__ import annotations
 
@@ -65,10 +70,10 @@ def plan(cfg: LMConfig, types: list[str] | None = None) -> list[Segment]:
 
 
 def _check_ported(cfg: LMConfig) -> None:
-    if cfg.n_experts or cfg.is_encdec or cfg.frontend:
+    if cfg.is_encdec or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: MoE, encoder-decoder and modality frontends are "
-            f"not ported yet")
+            f"{cfg.name}: encoder-decoder and modality frontends are not "
+            f"ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -90,7 +95,10 @@ def _block_init(gen: torch.Generator, cfg: LMConfig, btype: str,
         p["ln1_post"] = M.norm_init(cfg, cfg.d_model, device)
     if cfg.d_ff > 0 and btype != "ssm":
         p["ln2"] = M.norm_init(cfg, cfg.d_model, device)
-        p["mlp"] = M.mlp_init(gen, cfg, device)
+        if cfg.n_experts:
+            p["moe"] = M.moe_init(gen, cfg, device)
+        else:
+            p["mlp"] = M.mlp_init(gen, cfg, device)
         if cfg.sandwich_norm:
             p["ln2_post"] = M.norm_init(cfg, cfg.d_model, device)
     return p
@@ -238,20 +246,22 @@ def _block_apply(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,
         raise NotImplementedError(f"block type {btype!r} is not ported yet")
     if kvs is not None:
         kvs.append(kv)
-    return _block_tail(p, x, out, btype, cfg)
+    return _block_tail(p, x, out, btype, cfg, ctx)
 
 
 def _block_tail(p: dict, x: torch.Tensor, out: torch.Tensor, btype: str,
-                cfg: LMConfig) -> torch.Tensor:
-    """The residual add of the mixer's `out`, then the MLP's (shared by
-    the forward and the decode step)."""
+                cfg: LMConfig, ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    """The residual add of the mixer's `out`, then the MLP's or the MoE's
+    (shared by the forward and the decode step; `ctx` as x is split, for
+    the MoE's routing groups and expert blocks)."""
     if cfg.sandwich_norm:
         out = M.norm_apply(cfg, p["ln1_post"], out)
     x = x + out
 
     if cfg.d_ff > 0 and btype != "ssm":
         h = M.norm_apply(cfg, p["ln2"], x)
-        out = M.mlp_apply(p["mlp"], h, cfg)
+        out = M.moe_apply(p["moe"], h, cfg, ctx) if cfg.n_experts \
+            else M.mlp_apply(p["mlp"], h, cfg)
         if cfg.sandwich_norm:
             out = M.norm_apply(cfg, p["ln2_post"], out)
         x = x + out
@@ -492,4 +502,6 @@ def _decode_block(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,
         raise NotImplementedError(f"block type {btype!r} is not ported yet "
                                   f"(cross-attention decode comes with the "
                                   f"encoder-decoder slice)")
+    # the step's one token a row is not split over the sequence: the MoE
+    # routes it alone (a group of 1, capacity 1, nothing dropped)
     return _block_tail(p, x, out, btype, cfg)

@@ -138,9 +138,13 @@ def make_grad_fn(loss_fn: Callable,
     def fwd_bwd(params, batch):
         leaves = tree_leaves(params)
         loss = lfn(cfg.precision.cast_compute(params), batch)
-        # grads come back in each master leaf's own dtype
-        grads = torch.autograd.grad(loss, leaves)
-        return loss.detach(), list(grads)
+        # grads come back in each master leaf's own dtype; an empty leaf
+        # (olmo's non-parametric norms) has an empty one, and any other
+        # leaf the loss does not reach raises
+        grads = iter(torch.autograd.grad(
+            loss, [p for p in leaves if p.numel()]))
+        return loss.detach(), [next(grads) if p.numel() else
+                               torch.zeros_like(p) for p in leaves]
     return fwd_bwd
 
 

@@ -47,6 +47,10 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.configs.hymba_1_5b",
                 "repro_torch.configs.gemma2_9b",
                 "repro_torch.configs.qwen2_5_14b",
+                "repro_torch.configs.olmo_1b",
+                "repro_torch.configs.mamba2_780m",
+                "repro_torch.configs.mixtral_8x7b",
+                "repro_torch.configs.olmoe_1b_7b",
                 "repro_torch.launch.mesh", "repro_torch.core.halo",
                 "repro_torch.core.spatial_conv",
                 "repro_torch.core.spatial_norm",

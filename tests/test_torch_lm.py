@@ -117,7 +117,10 @@ def test_registry_ports_hymba_only_among_lms():
     # gemma2 and qwen2.5 came with the vocab-parallel slice
     assert treg.get("gemma2_9b").name == "gemma2-9b"
     assert treg.get("qwen2.5-14b", smoke=True).name == "qwen2.5-smoke"
-    for arch in ("mamba2-780m", "olmo_1b"):
+    # olmo, mamba2 and the MoE archs came with the MoE slice
+    for arch in ("mamba2-780m", "olmo_1b", "mixtral-8x7b", "olmoe_1b_7b"):
+        assert treg.get(arch, smoke=True).name.endswith("-smoke")
+    for arch in ("pixtral-12b", "seamless_m4t_large_v2"):
         with pytest.raises(ValueError, match="not ported yet"):
             treg.get(arch)
 
@@ -573,6 +576,31 @@ def test_train_cli_hymba_smoke_on_cpu():
         train_cli.parse_args(["--arch", "mesh1k", "--remat"])
 
 
+@pytest.mark.parametrize("entry", ["train", "serve"])
+def test_entry_points_take_a_config_cut_in_depth(entry, capsys):
+    """`cfg`, the arch's config cut in depth, runs in place of the
+    registry's and is announced; a config that differs in more than its
+    depth raises."""
+    from repro_torch.launch import serve
+    cut = dataclasses.replace(thymba.SMOKE, n_layers=2)
+    argv = ["--arch", "hymba-1.5b", "--smoke", "--batch", "2",
+            "--device", "cpu"]
+    if entry == "train":
+        def run(cfg):
+            return train_cli.main(argv + ["--steps", "1", "--seq", "32"],
+                                  cfg=cfg)
+    else:
+        def run(cfg):
+            return serve.main(argv + ["--prompt-len", "4", "--gen", "2"],
+                              cfg=cfg)
+    res = run(cut)
+    assert res["cfg"] is cut and len(res["params"]["layers"]) == 2
+    assert (f"arch={cut.name} cut to 2 of its {thymba.SMOKE.n_layers} "
+            f"layers") in capsys.readouterr().out
+    with pytest.raises(ValueError, match="more than its depth"):
+        run(dataclasses.replace(cut, d_model=2 * cut.d_model))
+
+
 # ---------------------------------------------------------------------------
 # the sequence split (the multi-rank runs are tests/test_torch_lm_dist.py)
 # ---------------------------------------------------------------------------
@@ -641,14 +669,17 @@ def test_flash_attention_block_on_the_cpu_is_the_plain_version(delta,
 
 
 def test_train_cli_sequence_split_flags():
-    """An LM arch on a mesh needs --seq divisible by --model and refuses
-    --elastic (its remesh rebuilds a CNN plan); --audit and --profile
-    stay the meshnet archs'."""
+    """An LM arch on a mesh needs --seq divisible by --model; --elastic
+    takes it (its remesh re-shards the sequence) but, as for every arch,
+    only with --ckpt-dir; --audit and --profile stay the meshnet archs'."""
     ok = train_cli.parse_args(["--arch", "hymba-1.5b", "--smoke", "--model",
                                "2", "--seq", "128", "--device", "cpu"])
     assert ok.model == 2
+    assert train_cli.parse_args(["--arch", "hymba-1.5b", "--smoke",
+                                 "--model", "2", "--elastic", "--ckpt-dir",
+                                 "x"]).elastic
     for bad in (["--seq", "127", "--model", "2"],
-                ["--model", "2", "--elastic", "--ckpt-dir", "x"],
+                ["--model", "2", "--elastic"],
                 ["--model", "2", "--audit"], ["--model", "2", "--profile"]):
         with pytest.raises(SystemExit):
             train_cli.parse_args(["--arch", "hymba-1.5b", "--smoke"] + bad)

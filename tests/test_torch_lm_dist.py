@@ -1,20 +1,24 @@
 """The LM on a mesh (`torch_dist_cases.py` case `lm`) on gloo CPU ranks
 against the JAX reference and the port's one-device run.
 
-hymba-1.5b SMOKE and qwen1.5-0.5b SMOKE at batch 2 x seq 64 (past
-hymba's window of 16), the sequence over `model` and the batch over
-`data`, on model 2 and on data 2 x model 2, from the reference's own
-`init` params carried over by `params_from_jax`:
+hymba-1.5b, qwen1.5-0.5b, mixtral-8x7b and mamba2-780m SMOKE at batch 2
+x seq 64 (past hymba's and mixtral's window of 16; mixtral's MoE routes
+groups of 64 that span the sequence shards), the sequence over `model`
+and the batch over `data`, on model 2 and on data 2 x model 2, from the
+reference's own `init` params carried over by `params_from_jax`:
 
-- the sharded SSD block (layer 0's, the conv's 3-row halo and the state
-  prefix over the shards) against the reference's one-device
+- the sharded SSD block (layer 0's of hymba and mamba2, the conv's 3-row
+  halo and the state prefix over the shards) against the reference's
+  one-device
   `ssm_apply`, and its gradient in x against `jax.grad`, at 2e-5 (the
   same sums in another order);
 - the ranks' loss shares summed against the reference's one-device
   `loss_fn` at rtol 2e-5 (`tests/dist_checks.py:193`'s tolerance), and
   every parameter's gradient, summed over the ranks, against `jax.grad`
   at test_torch_lm's tolerance for the one-device port (rtol 1e-4 /
-  atol 1e-6: five hybrid blocks whose backward divides by rms norms);
+  atol 1e-6: five hybrid blocks whose backward divides by rms norms;
+  mamba2's within 1e-4 of each leaf's largest magnitude,
+  `LEAF_SCALE_GRADS`);
 - `prefill`'s last logits and every layer's K/V blocks, stitched, against
   the reference's `T.prefill` under a mesh ctx on data 2 x model 2 host
   devices (`jax_mesh_oracles.py lm_prefill`) at 2e-5 of the largest
@@ -52,6 +56,11 @@ MESHES = [(1, 2), (2, 2)]
 F32 = 2e-5
 LOSS_RTOL = 2e-5
 TRAIN_RTOL = 1e-5
+# archs whose gradients are held within 1e-4 of each leaf's largest
+# magnitude: mamba2's tied embedding has elements 1e-3 of its largest
+# that differ from the reference's by 5e-4 of themselves on one device
+# too (test_torch_moe's SMOKE loss test)
+LEAF_SCALE_GRADS = ("mamba2-780m",)
 
 
 def _stitch(blocks: list, dims: tuple) -> np.ndarray:
@@ -76,7 +85,7 @@ def _stitch(blocks: list, dims: tuple) -> np.ndarray:
 
 def _reference(arch: str) -> dict:
     """The reference's one-device loss and gradients on batch 0, and
-    (hymba) its SSD block of layer 0 with the gradient in x."""
+    (hymba, mamba2) its SSD block of layer 0 with the gradient in x."""
     cfg, params = oracles.lm_reference_params(arch)
     nb = jpipe.synthetic_lm_batch(0, cases.LM_BATCH, cases.LM_SEQ, cfg.vocab)
     loss, grads = jax.jit(jax.value_and_grad(functools.partial(
@@ -86,7 +95,7 @@ def _reference(arch: str) -> dict:
     out = {"loss": float(loss),
            "grads": [g.detach().numpy() for g in tutils.tree_leaves(
                tT.params_from_jax(jax.tree.map(np.asarray, grads), tcfg))]}
-    if cfg.layer_types()[0] != "attn":
+    if "ssm" in params["segments"][0][0]:
         x = cases.lm_ssd_inputs(cfg.d_model)
         p0 = params["segments"][0][0]["ssm"]
         p0 = jax.tree.map(lambda a: a[0], p0)
@@ -136,9 +145,9 @@ def runs(tmp_path_factory):
     return {"ranks": ranks, "refs": refs, "one": one, "prefill": prefill}
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "mamba2-780m"])
 @pytest.mark.parametrize("dims", MESHES)
-def test_sharded_ssd_block_matches_jax(dims, runs):
-    arch = "hymba-1.5b"
+def test_sharded_ssd_block_matches_jax(dims, arch, runs):
     ranks, ref = runs["ranks"][dims], runs["refs"][arch]
     for name in ("y", "dx"):
         got = _stitch([r[f"{arch}.ssd.{name}"] for r in ranks], dims)
@@ -156,8 +165,12 @@ def test_sharded_loss_and_grads_match_jax(dims, arch, runs):
                                     for k in ranks[0])
     for i, want in enumerate(ref["grads"]):
         got = sum(r[f"{arch}.grad.{i}"] for r in ranks)
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
-                                   err_msg=f"leaf {i}")
+        if arch in LEAF_SCALE_GRADS:
+            assert np.abs(got - want).max(initial=0) <= \
+                1e-4 * np.abs(want).max(initial=0), f"leaf {i}"
+        else:
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6,
+                                       err_msg=f"leaf {i}")
 
 
 @pytest.mark.parametrize("arch", cases.LM_ARCHS)
@@ -180,7 +193,9 @@ def test_sharded_prefill_matches_jax_under_a_mesh(dims, arch, runs):
                     if k.startswith(head) and k.endswith(".k"))
     assert layers == sorted(int(k[len(arch) + 1:-2]) for k in want
                             if k.startswith(f"{arch}/") and k.endswith(".k"))
-    assert layers
+    # every layer but an SSM one has a K/V cache
+    assert len(layers) == sum(t != "ssm" for t in treg.get(
+        arch, smoke=True).layer_types())
     for li in layers:
         for name in "kv":
             ref = want[f"{arch}/{li}.{name}"]

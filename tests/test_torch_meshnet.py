@@ -281,9 +281,9 @@ def test_registry_refuses_unported_archs():
     assert treg.get("mesh2k").name == "mesh2k"
     assert treg.get("mesh1k", smoke=True).input_hw == 64
     with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("olmo-1b")
+        treg.get("pixtral-12b")
     with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("mamba2-780m")
+        treg.get("seamless-m4t-large-v2")
     assert treg.get("qwen2.5-14b").head_dim == 128
     assert treg.get("gemma2-9b", smoke=True).vocab == 256
 

@@ -1434,8 +1434,9 @@ def case_prefix(mesh, d):
 
 
 # the LM on a mesh: each arch's SMOKE at batch 2 x seq 64 (past hymba's
-# window of 16), the sequence over "model" and the batch over "data"
-LM_ARCHS = ("hymba-1.5b", "qwen1.5-0.5b")
+# window of 16), the sequence over "model" and the batch over "data";
+# mixtral's routing groups of 64 span the sequence shards
+LM_ARCHS = ("hymba-1.5b", "qwen1.5-0.5b", "mixtral-8x7b", "mamba2-780m")
 LM_BATCH, LM_SEQ, LM_STEPS = 2, 64, 3
 
 
@@ -1523,6 +1524,144 @@ def case_lm(mesh, d):
         out.update({f"{arch}.train.param.{i}": p.detach().numpy()
                     for i, p in enumerate(tree_leaves(res["params"]))})
     return out
+
+
+# the MoE layer on a mesh: mixtral SMOKE's first MoE on x (2, 64, d) of
+# numpy seed 15, the sequence over "model" (a routing group of 64 spans
+# every shard, tests/dist_checks.py's lm case), and olmoe SMOKE's loss at
+# batch 2 x seq 512 with its experts over "model" (expert parallelism,
+# groups of 256 within a shard where the model axis is 2)
+MOE_ROUTE_ARCH, MOE_BATCH, MOE_SEQ = "mixtral-8x7b", 2, 64
+MOE_EP_ARCH, MOE_EP_SEQ = "olmoe-1b-7b", 512
+
+
+def moe_inputs(d_model: int) -> dict:
+    """x (B, S, d) into a MoE layer and its output's cotangent g, numpy
+    seed 15."""
+    rng = np.random.default_rng(15)
+    shape = (MOE_BATCH, MOE_SEQ, d_model)
+    return {"x": rng.standard_normal(shape).astype(np.float32),
+            "g": rng.standard_normal(shape).astype(np.float32)}
+
+
+def case_moe(mesh, d):
+    """On this mesh (params from DIR/inputs.npz, `lm_params`' layout):
+    mixtral SMOKE's layer-0 `moe_apply` on this rank's block of
+    `moe_inputs` (B over "data", S over "model"): the routing (`idx`,
+    `slot`, `keep`), y, and the gradients of sum(y * g) in x and the
+    layer's params (this rank's shares); then olmoe SMOKE's `loss_fn` on
+    batch 0 with `ShardCtx(tp_axis="model")` and the experts cut by
+    `shardings.expert_blocks`: the share, every gradient whole (the
+    expert blocks' summed over "data" and gathered by
+    `shardings.gather_experts`, the others summed over the mesh) and the
+    bytes each all-to-all sent; where the groups span the shards, the
+    error it raises instead."""
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.data import pipeline
+    from repro_torch.launch import shardings
+    from repro_torch.models.lm import modules as M
+    from repro_torch.models.lm import transformer
+    from repro_torch.utils import tree_leaves, tree_unflatten
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    ctx = M.ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    out = {}
+    cfg, params = lm_params(MOE_ROUTE_ARCH, d)
+    moe = params["layers"][0]["moe"]
+    x = {n: torch.from_numpy(decode_block(a, rank, dims, ("data",), "model"))
+         for n, a in moe_inputs(cfg.d_model).items()}
+    r = M.moe_route(moe["router"], x["x"], cfg, ctx)
+    out.update({"route.idx": r.idx.numpy(), "route.slot": r.slot.numpy(),
+                "route.keep": r.keep.numpy()})
+    xs = x["x"].clone().requires_grad_()
+    y = M.moe_apply(moe, xs, cfg, ctx)
+    names = sorted(moe)
+    grads = torch.autograd.grad((y * x["g"]).sum(),
+                                [xs] + [moe[n] for n in names])
+    out["moe.y"] = y.detach().numpy()
+    out["moe.dx"] = grads[0].numpy()
+    out.update({f"moe.grad.{n}": g.numpy()
+                for n, g in zip(names, grads[1:])})
+
+    cfg, params = lm_params(MOE_EP_ARCH, d)
+    ep = M.ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",),
+                    tp_axis="model")
+    blocks = shardings.expert_blocks(params, mesh)
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        pipeline.synthetic_lm_batch(0, MOE_BATCH, MOE_EP_SEQ, cfg.vocab),
+        mesh, "model", ("data",)), torch.device("cpu"))
+    collectives.reset_sent()
+    try:
+        share = transformer.loss_fn(blocks, batch, cfg, ctx=ep)
+    except NotImplementedError as e:
+        out["ep.error"] = np.array(str(e))
+        return out
+    leaves = tree_leaves(blocks)
+    g = tree_unflatten(blocks, iter(torch.autograd.grad(share, leaves)))
+    for lp in g["layers"]:
+        for n in shardings.EXPERT_LEAVES:
+            lp["moe"][n] = mesh.all_reduce(lp["moe"][n], "data")
+    whole = shardings.gather_experts(g, mesh)
+    experts = {id(lp["moe"][n]) for lp in whole["layers"]
+               for n in shardings.EXPERT_LEAVES}
+    out["ep.loss_share"] = np.array(share.item())
+    for i, t in enumerate(tree_leaves(whole)):
+        if id(t) not in experts:
+            t = mesh.all_reduce(t, ("data", "model"))
+        out[f"ep.grad.{i}"] = t.numpy()
+    out.update({f"ep.sent.{k}": np.array(v)
+                for k, v in collectives.sent.items()})
+    return out
+
+
+# an LM's elastic restart: qwen1.5 SMOKE trained with --elastic from data
+# 2 x model 2, losing 2 ranks (-> data 1 x model 2) at --seq 64 or 1 rank
+# (-> data 1 x model 3) at --seq 48 (and at 64, which model 3 does not
+# divide), a checkpoint every 2 steps, the kill at step 5
+LM_ELASTIC_ARCH, LM_ELASTIC_STEPS, LM_ELASTIC_KILL = "qwen1.5-0.5b", 6, 5
+LM_ELASTIC_RUNS = (("x2", 64, 2), ("x1", 48, 1), ("x1_bad", 64, 1))
+
+
+def lm_elastic_argv(seq: int, dims: tuple, ckdir: str) -> list[str]:
+    return ["--arch", LM_ELASTIC_ARCH, "--smoke", "--steps",
+            str(LM_ELASTIC_STEPS), "--batch", str(LM_BATCH), "--seq",
+            str(seq), "--device", "cpu", "--data", str(dims[0]), "--model",
+            str(dims[1]), "--ckpt-every", "2", "--ckpt-dir", ckdir]
+
+
+def case_lm_elastic(mesh, d):
+    """Each LM_ELASTIC_RUNS run of the trainer from data 2 x model 2 with
+    `--elastic --chaos kill@5xN` into DIR/<run>: every step it ran (the
+    last run of a step) and its loss, `left_at` (-1: none), or the error
+    the remesh raised."""
+    from repro_torch.launch import train as train_cli
+    out = {}
+    for name, seq, kill in LM_ELASTIC_RUNS:
+        argv = lm_elastic_argv(seq, (2, 2), os.path.join(d, name)) + [
+            "--elastic", "--chaos", f"kill@{LM_ELASTIC_KILL}x{kill}"]
+        try:
+            res = train_cli.run(train_cli.parse_args(argv))
+        except ValueError as e:
+            out[f"{name}.error"] = np.array(str(e))
+            continue
+        last = dict(zip(res["steps"], res["losses"]))
+        out[f"{name}.steps"] = np.array(sorted(last))
+        out[f"{name}.losses"] = np.array([last[k] for k in sorted(last)])
+        out[f"{name}.left_at"] = np.array(
+            -1 if res["left_at"] is None else res["left_at"])
+    return out
+
+
+def case_lm_resume(mesh, d):
+    """The trainer on this mesh (data 1 x model 2) resumed from
+    DIR/resume (a copy of an elastic run's step-4 checkpoint) to
+    LM_ELASTIC_STEPS: every step it ran and its loss."""
+    from repro_torch.launch import train as train_cli
+    res = train_cli.run(train_cli.parse_args(lm_elastic_argv(
+        64, (mesh.shape["data"], mesh.shape["model"]),
+        os.path.join(d, "resume"))))
+    return {"steps": np.array(res["steps"]),
+            "losses": np.array(res["losses"])}
 
 
 # the vocab-parallel loss: gemma2 SMOKE (tied, softcaps), qwen2.5 SMOKE
@@ -1651,7 +1790,9 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "audit": case_audit, "halo_order": case_halo_order,
          "compress": case_compress, "zero": case_zero,
          "decode": case_decode, "serve": case_serve, "ring": case_ring,
-         "prefix": case_prefix, "lm": case_lm, "vocab": case_vocab}
+         "prefix": case_prefix, "lm": case_lm, "vocab": case_vocab,
+         "moe": case_moe, "lm_elastic": case_lm_elastic,
+         "lm_resume": case_lm_resume}
 
 
 # ------------------------------------------------------------ launcher --
