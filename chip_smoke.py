@@ -207,9 +207,9 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    ptxas report), the HGMMA counts, the `kernels` JSON line (with each LM
    kernel's launches in prefill, `serve_launches`, and on the mesh,
    `mesh_launches_per_rank`; the block call's times, `ring_block`; the
-   attention kernel's rows and launches on phase 7's runs, `vocab`, and
-   on phase 9's, `moe`; the SSD's on mamba2-780m, `mamba2`) and, last,
-   the `ok` JSON line;
+   attention kernel's rows and launches on phase 7's runs, `vocab`, on
+   phase 9's, `moe`, and on phase 10's, `encdec`; the SSD's on
+   mamba2-780m, `mamba2`) and, last, the `ok` JSON line;
 9. mixture of experts (run before the lines of 8): the attention kernel
    at mixtral-8x7b's shapes (32 / 8 heads, D 128, window 4096) on one
    device at 1 x 8192, where the window binds, and the ring's blocks of
@@ -245,7 +245,34 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    routing decision differs, the same rule); full-width mamba2-780m at
    full depth (48 SSD layers) through the trainer's entry, batch 1 x seq
    2048, 3 FP32 steps: finite losses, 48 x 3 SSD launches, s a step and
-   peak memory.
+   peak memory;
+10. the encoder-decoder and the prefix frontend (run before the lines of
+   8): the attention kernel bidirectional (`causal=False`, the in-order
+   launch) at seamless-m4t-large-v2's shapes (16 / 16 heads, D 64): its
+   encoder at 1 x 4096 and at serving's 4 x 256, the cross call of 1024
+   decoder rows against 1000 frames (the key tail), the decoder's causal
+   call at 1 x 4096 and the encoder ring's block at 2048 rows; and
+   pixtral-12b's (32 / 8, D 128, causal) over prefix + text at 1 x 2048
+   and its ring's blocks of 1024; f32 and bf16, each with its plan,
+   against its plain version and timed beside SDPA and the bound.
+   seamless at full width and depth (24 + 24 layers, params drawn on the
+   card) through the serve entry point in a fresh process, batch 4, 256
+   frames and a 256-token prompt, 16 generated: the encoder's 24
+   launches and none in the decode loop, the encoder's ms, decode ms a
+   step beside its bytes bound, peak memory; at 2 + 2 layers the card
+   against the CPU (the memory, prefill's logits and K/V, every decode
+   step's logits and the ids, within 1e-4).  `encode` alone at 1 x 4096,
+   f32 and bf16 (24 launches each, ms beside the operations bound); one
+   `make_train_step` with AdamW at 1 x 4096: the encoder's gradients
+   exactly 0 and its leaves moved by the decay alone, 24 launches.  On 2
+   gloo ranks sharing the card (data 1 x model 2, not a scaling
+   result): the encoder with its frames split (the bidirectional ring,
+   2 block calls a rank a layer) within 1e-4 of one device's memory, the
+   decoder loss's shares within 1e-5 of one device's.  pixtral cut to 2
+   layers, a 1024-row patch prefix before 1024 text tokens, through
+   phase 7's runs: the one-device loss and gradients, then the
+   vocab-parallel loss on 2 ranks, each holding its block of prefix +
+   text, held as phase 7 holds its runs.
 
 The full-width hymba-1.5b and qwen1.5-0.5b params are drawn from their
 CPU generator once a run and kept, with the generator's state after the
@@ -282,7 +309,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa
 from repro_torch.configs import (  # noqa: E402
     gemma2_9b, hymba_1_5b, mamba2_780m, mixtral_8x7b, olmoe_1b_7b,
-    qwen1_5_0_5b, qwen2_5_14b)
+    pixtral_12b, qwen1_5_0_5b, qwen2_5_14b, seamless_m4t_large_v2)
 from repro_torch.core import calibrate, channel_conv  # noqa: E402
 from repro_torch.core import collectives, halo, perfmodel  # noqa: E402
 from repro_torch.core import plan as plan_lib  # noqa: E402
@@ -307,7 +334,7 @@ from repro_torch.models.lm import transformer  # noqa: E402
 from repro_torch.models.lm import vocab_parallel  # noqa: E402
 from repro_torch.models.lm.modules import ShardCtx  # noqa: E402
 from repro_torch.optim.optimizer import (  # noqa: E402
-    adamw, sgd, state_tree)
+    Optimizer, adamw, sgd, state_tree)
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainStepConfig, make_train_step, reduce_replicated_grads)
 from repro_torch.utils import (  # noqa: E402
@@ -3310,7 +3337,7 @@ def serve_arch_phase(arch: str, card: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    last, kv = transformer.prefill(params, cfg, tokens)
+    last, kv, _ = transformer.prefill(params, cfg, tokens)
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     prefill_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3484,10 +3511,12 @@ def _cut_hymba():
                                  device="cpu")
 
 
-def _decode_run(cfg, params, prompts, gen: int, device, mesh=None) -> dict:
+def _decode_run(cfg, params, prompts, gen: int, device, mesh=None,
+                memory=None) -> dict:
     """`serve.generate` of `prompts` on `device` (the KV cache split along
-    S over `mesh`'s model axis where there is one): every step's logits
-    and the final caches (gathered whole), on the host."""
+    S over `mesh`'s model axis where there is one; an encoder-decoder's
+    `memory` given to every step): every step's logits and the final
+    caches (gathered whole), on the host."""
     ctx = ShardCtx() if mesh is None else ShardCtx(mesh=mesh,
                                                    seq_axis="model")
     p = tree_map(lambda t: t.detach().to(device), params)
@@ -3500,7 +3529,7 @@ def _decode_run(cfg, params, prompts, gen: int, device, mesh=None) -> dict:
         shardings.kv_cache_specs(caches, mesh, False, "model")
     steps = prompts.shape[1] + gen - 1
     res = serve.generate(p, cfg, torch.as_tensor(prompts, device=device),
-                         gen, caches, ctx, keep=range(steps))
+                         gen, caches, ctx, keep=range(steps), memory=memory)
     caches = shardings.gather_caches(res["caches"], specs, mesh)
     return {"logits": torch.stack([res["logits"][i].cpu()
                                    for i in range(steps)]),
@@ -3770,7 +3799,7 @@ def lm_mesh_rank(rank: int, world: int, first_ids: list) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     halo.reset_staged()
-    last, kv = transformer.prefill(params, cfg, mine, ctx)
+    last, kv, _ = transformer.prefill(params, cfg, mine, ctx)
     torch.cuda.synchronize()
     prefill_launches = ops.launch_counts()
     prefill_staged = halo.staged
@@ -3778,7 +3807,7 @@ def lm_mesh_rank(rank: int, world: int, first_ids: list) -> dict:
     prefill_s = time_fn(lambda: transformer.prefill(params, cfg, mine,
                                                     ctx)[0],
                         reps=3, warmup=1, host=True)
-    one_last, one_kv = transformer.prefill(params, cfg, tokens)
+    one_last, one_kv, _ = transformer.prefill(params, cfg, tokens)
     logit_err = _rel_err(last, one_last)
     kv_err = max(_rel_err(t, w[:, rank * sl:(rank + 1) * sl])
                  for layer, one in zip(kv, one_kv) if layer is not None
@@ -4061,11 +4090,17 @@ def flex_library(q, k, v, *, window, delta, block: bool):
     return library
 
 
-def sdpa_library(q, k, v, *, window, delta, block: bool):
+def sdpa_library(q, k, v, *, window, delta, block: bool,
+                 causal: bool = True):
     """The yardstick without a softcap: one SDPA call on (B, H, S, D)
-    views, GQA, `is_causal` for a one-device causal call, else the
-    block's bool mask.  Never called by the port."""
+    views, GQA, `is_causal` for a one-device causal call, no mask for a
+    bidirectional one (every key of Sk admitted: the encoder's and the
+    cross call's), else the block's bool mask.  Never called by the
+    port."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not causal and window is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True)
     if window is None and delta == 0 and not block:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
@@ -4083,7 +4118,9 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
     """The attention kernel at `case`'s config (its heads, D and softcap)
     on one device at b x s (`case["b"]`, 1 where it has none), or (a case
     with `delta`) the ring's block call at b x s rows against as many
-    keys, `delta` after them.  Held against
+    keys, `delta` after them; causal unless `case["causal"]` is False
+    (bidirectional: every key admitted), against `case["sk"]` keys where
+    it says (cross-attention; else s).  Held against
     the plain version: max |err| within LM_FWD_TOL of the largest
     magnitude (o and, for a block, lse), bf16 element by element within
     one bf16 ulp of A + |o32|.  Its ms (KERNEL_LAUNCHES a pair), the plain
@@ -4092,16 +4129,18 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
     over the admitted pairs."""
     dev = torch.device("cuda")
     cfg, s, b = case["cfg"], case["s"], case.get("b", 1)
+    causal, sk = case.get("causal", True), case.get("sk", case["s"])
     hq, hkv, d, cap = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
         cfg.attn_softcap
     block = "delta" in case
     delta = case.get("delta", 0)
-    opts = dict(window=case["window"], softcap=cap)
+    opts = dict(window=case["window"], softcap=cap, causal=causal)
     what = f"{cfg.name} {'block ' if block else ''}{case['mask']} {dtype}"
     q = torch.randn((b, s, hq, d), generator=gen, device=dev).to(dtype)
-    k = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
-    v = torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype)
-    p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, case["window"])
+    k = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype)
+    p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, causal,
+                 case["window"])
     if (p.path, p.d_pad) != ("wgmma" if dtype == torch.bfloat16 else "fma",
                              d):
         raise AssertionError(f"{what} planned {p}")
@@ -4143,8 +4182,12 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
         if not elem <= 1.0:
             raise AssertionError(f"{what}: an element is {elem} x its limit "
                                  f"(one bf16 ulp of A + |o32|)")
-    make = flex_library if cap else sdpa_library
-    library = make(q, k, v, window=case["window"], delta=delta, block=block)
+    if cap:
+        library = flex_library(q, k, v, window=case["window"], delta=delta,
+                               block=block)
+    else:
+        library = sdpa_library(q, k, v, window=case["window"], delta=delta,
+                               block=block, causal=causal)
     t0 = time.perf_counter()
     lib = library()
     torch.cuda.synchronize()
@@ -4158,7 +4201,8 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
                              f"(tol {LIBRARY_TOL}): not the same function")
     del got, o, lib, lib_o
     torch.cuda.empty_cache()
-    pairs = b * admitted_pairs(s, case["window"], delta)
+    pairs = b * (admitted_pairs(s, case["window"], delta) if causal
+                 else s * sk)
     flops = 4.0 * d * pairs * hq
     nbytes = (q.numel() + k.numel() + v.numel()) * q.element_size() + (
         4 * (q.numel() + b * hq * s) if block else
@@ -4171,11 +4215,13 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
     return {"kernel": "flash_attention_block" if block else
             "flash_attention", "model": cfg.name, "mask": case["mask"],
             "delta": delta, "window": case["window"], "softcap": cap,
+            "causal": causal,
             "dtype": str(dtype).split(".")[-1], "count": case["count"],
             "q": list(q.shape), "kv": list(k.shape), "pairs": pairs,
             "max_abs_err": err, "lse_err": lse_err,
             "max_err_over_elem_limit": elem, "plan": dataclasses.asdict(p),
             "plan_str": f"{p.path} {p.tile_q}x{p.tile_k} d{p.d_pad}",
+            "order": p.order,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "flex_attention (compiled)" if cap else "SDPA",
             "library_vs_kernel_err": lib_err,
@@ -4218,21 +4264,32 @@ def _grad_err(got: torch.Tensor, want: torch.Tensor, scale: float) -> float:
 
 def _vocab_setup(run: dict, dev: torch.device):
     """The run's config, its params drawn on the card from VOCAB_SEED (the
-    same on every process) and its global batch 0."""
+    same on every process) and its global batch 0, with a patch prefix of
+    `run["prefix"]` rows (numpy normals of VOCAB_SEED) where it has one."""
     cfg = run["cfg"]
     params = transformer.init(torch.Generator(device=dev).manual_seed(
         VOCAB_SEED), cfg, device=dev)
-    return cfg, params, pipeline.synthetic_lm_batch(0, 1, run["seq"],
-                                                    cfg.vocab)
+    nb = pipeline.synthetic_lm_batch(0, 1, run["seq"], cfg.vocab)
+    if run.get("prefix"):
+        nb["patch_embeds"] = np.random.default_rng(VOCAB_SEED) \
+            .standard_normal((1, run["prefix"], cfg.d_model),
+                             dtype=np.float32)
+    return cfg, params, nb
 
 
-def vocab_dense_rank(rank: int, world: int, i: int) -> dict:
-    """One device, in its own process: the dense `loss_fn` of VOCAB_RUNS[i]
-    and its gradients (forward + backward timed on the host clock,
-    synchronised: the first pass, as the ranks time theirs, and a second,
-    warm one), saved under VOCAB_DIR for the ranks."""
+def _positions(run: dict) -> int:
+    """The run's sequence: its text and its prefix."""
+    return run["seq"] + run.get("prefix", 0)
+
+
+def vocab_dense_rank(rank: int, world: int, run: dict) -> dict:
+    """One device, in its own process: the dense `loss_fn` of `run` (a
+    VOCAB_RUNS entry, or PIXTRAL_RUN) and its gradients (forward +
+    backward timed on the host clock, synchronised: the first pass, as the
+    ranks time theirs, and a second, warm one), saved under VOCAB_DIR for
+    the ranks."""
     dev = torch.device("cuda")
-    cfg, params, nb = _vocab_setup(VOCAB_RUNS[i], dev)
+    cfg, params, nb = _vocab_setup(run, dev)
     batch = pipeline.to_device(nb, dev)
     leaves = tree_leaves(params)
     torch.cuda.synchronize()
@@ -4249,7 +4306,7 @@ def vocab_dense_rank(rank: int, world: int, i: int) -> dict:
     torch.autograd.grad(transformer.loss_fn(params, batch, cfg), leaves)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    path = os.path.join(VOCAB_DIR, f"{VOCAB_RUNS[i]['arch']}.pt")
+    path = os.path.join(VOCAB_DIR, f"{run['arch']}.pt")
     torch.save({"loss": loss.item(), "grads": tree_unflatten(
         params, iter(g.cpu() for g in grads))}, path)
     return {"loss": loss.item(), "s": seconds, "s_warm": warm,
@@ -4257,16 +4314,16 @@ def vocab_dense_rank(rank: int, world: int, i: int) -> dict:
             "n_params": sum(t.numel() for t in leaves)}
 
 
-def vocab_rank(rank: int, world: int, i: int) -> dict:
+def vocab_rank(rank: int, world: int, run: dict) -> dict:
     """One of VOCAB_MODEL gloo ranks on the card (data 1 x model
-    VOCAB_MODEL): VOCAB_RUNS[i]'s `loss_fn(vocab_parallel=True)` on this
-    rank's vocabulary blocks (`shardings.vocab_blocks`) and its sequence
-    block, forward + backward timed; the shares and the layer gradients
-    summed over the ranks; this rank's table blocks' gradients against
-    the one-device gradient's rows and the summed layer gradients against
-    its layers' (`vocab_dense_rank`'s file)."""
+    VOCAB_MODEL): `run`'s `loss_fn(vocab_parallel=True)` on this rank's
+    vocabulary blocks (`shardings.vocab_blocks`) and its sequence block
+    (with a patch prefix: its block of prefix + text), forward + backward
+    timed; the shares and the layer gradients summed over the ranks; this
+    rank's table blocks' gradients against the one-device gradient's rows
+    and the summed layer gradients against its layers'
+    (`vocab_dense_rank`'s file)."""
     dev = torch.device("cuda")
-    run = VOCAB_RUNS[i]
     mesh = make_mesh(data=1, model=world)
     ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
     cfg, params, nb = _vocab_setup(run, dev)
@@ -4322,14 +4379,16 @@ def vocab_rank(rank: int, world: int, i: int) -> dict:
                             float(w.abs().max()))
         if real < m and g.narrow(dim, real, m - real).any():
             raise AssertionError(f"{n}: a padded row has a gradient")
-    s_local = run["seq"] // world
+    s_local = _positions(run) // world
     vshard = shardings.vocab_padded(cfg.vocab, world) // world
     return {"rank": rank, "share": share.item(), "loss": loss, "s": seconds,
             "peak_gib": peak, "launches": launches, "sent": sent,
             "staged": staged, "grad_err": errs, "want_loss": want["loss"],
             "block_bytes": vshard * cfg.d_model * 4,
             "chunk_bytes": s_local * vshard * 4,
-            "dense_logit_bytes": run["seq"] * cfg.vocab * 4,
+            "dense_logit_bytes": _positions(run) * cfg.vocab * 4,
+            "prefix_rows": int(batch["patch_embeds"].shape[1])
+            if "patch_embeds" in batch else 0,
             "n_params": sum(t.numel() for t in leaves)}
 
 
@@ -4337,8 +4396,8 @@ def vocab_dense_runs(rank: int, world: int) -> dict:
     """`vocab_dense_rank` of every VOCAB_RUNS config, in turn, in one
     process (a later config's first pass finds the process warm)."""
     out = []
-    for i in range(len(VOCAB_RUNS)):
-        out.append(vocab_dense_rank(rank, world, i))
+    for run in VOCAB_RUNS:
+        out.append(vocab_dense_rank(rank, world, run))
         gc.collect()
         torch.cuda.empty_cache()
     return {"runs": out}
@@ -4348,11 +4407,74 @@ def vocab_rank_runs(rank: int, world: int) -> dict:
     """`vocab_rank` of every VOCAB_RUNS config, in turn, on the same
     spawned ranks."""
     out = []
-    for i in range(len(VOCAB_RUNS)):
-        out.append(vocab_rank(rank, world, i))
+    for run in VOCAB_RUNS:
+        out.append(vocab_rank(rank, world, run))
         gc.collect()
         torch.cuda.empty_cache()
     return {"runs": out}
+
+
+def vocab_check(run: dict, one: dict, ranks: list, card: str) -> dict:
+    """Hold and print one run's ranks against its one-device run (see
+    `vocab_phase`); the run's record."""
+    from repro_torch.core.ring_attention import ring_steps
+    cfg = run["cfg"]
+    os.remove(one["path"])
+    s_local = _positions(run) // VOCAB_MODEL
+    types = cfg.layer_types()
+    want_one = {"conv2d": 0, "flash_attention": len(types),
+                "ssd_chunk": 0}
+    if one["launches"] != want_one:
+        raise AssertionError(f"{run['arch']} one device: launches "
+                             f"{one['launches']}, want {want_one}")
+    p = VOCAB_MODEL
+    for r in ranks:
+        rel = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+        r["loss_rel"] = rel
+        blocks = sum(min(r["rank"] + 1, ring_steps(
+            p, s_local, cfg.window if t == "swa" else None))
+            for t in types)
+        want = {"conv2d": 0, "flash_attention": blocks, "ssd_chunk": 0}
+        msgs = 4 * (p - 1) + p
+        if not (rel <= VOCAB_LOSS_RTOL and
+                max(r["grad_err"].values()) <= VOCAB_GRAD_TOL and
+                r["launches"] == want and
+                r["sent"]["messages"] == msgs and
+                r["sent"]["bytes"] == msgs * r["block_bytes"]):
+            raise AssertionError(
+                f"{run['arch']} rank {r['rank']}: loss {r['loss']!r} "
+                f"against one device's {one['loss']!r} (rel {rel:.2e}, "
+                f"tol {VOCAB_LOSS_RTOL}); gradients {r['grad_err']} (tol "
+                f"{VOCAB_GRAD_TOL}); launches {r['launches']} (want "
+                f"{want}); table messages {r['sent']} (want {msgs} of "
+                f"{r['block_bytes']} B)")
+        print(f"vocab-parallel {run['arch']} ({cfg.n_layers} "
+              f"layer{'s' * (cfg.n_layers > 1)} {types}, full width, "
+              f"{r['n_params'] / 1e6:.1f} M params "
+              f"a rank against {one['n_params'] / 1e6:.1f} M), batch 1 x "
+              f"seq {run['seq']}"
+              + (f" after a {run['prefix']}-row patch prefix "
+                 f"({r['prefix_rows']} of its rows on this rank)"
+                 if run.get("prefix") else "")
+              + f" over model {p}, rank {r['rank']}: loss "
+              f"{r['loss']!r} against one device's {one['loss']!r} (rel "
+              f"{rel:.2e}); gradients over their largest magnitude "
+              + ", ".join(f"{k} {v:.2e}" for k, v in
+                          sorted(r["grad_err"].items()))
+              + f"; fwd + bwd (first pass) {r['s']:.3f} s against "
+              f"{one['s']:.3f} (warm {one['s_warm']:.3f}); "
+              f"peak {r['peak_gib']:.2f} GiB against "
+              f"{one['peak_gib']:.2f}; launches {r['launches']} (one "
+              f"device {one['launches']}); table rotations "
+              f"{r['sent']['messages']} messages, "
+              f"{r['sent']['bytes'] / 1e9:.3f} GB staged through the host "
+              f"(all halo/ring messages staged {r['staged']}); logits "
+              f"never formed: the dense {r['dense_logit_bytes'] / 1e9:.2f}"
+              f" GB, a rank's largest chunk "
+              f"{r['chunk_bytes'] / 1e9:.3f} GB ({card})", flush=True)
+    return {"arch": run["arch"], "cfg_name": cfg.name,
+            "layers": cfg.n_layers, "seq": run["seq"],
+            "prefix": run.get("prefix", 0), "one": one, "ranks": ranks}
 
 
 def vocab_phase(card: str) -> dict:
@@ -4367,8 +4489,8 @@ def vocab_phase(card: str) -> dict:
     ranks within VOCAB_GRAD_TOL of the one-device gradients' largest
     magnitude; the attention launches a rank as the ring derives them (a
     block call a step the causal skip leaves), one a layer on one device;
-    the table rotations 4 (P - 1) + P messages of one block a rank."""
-    from repro_torch.core.ring_attention import ring_steps
+    the table rotations 4 (P - 1) + P messages of one block a rank
+    (`vocab_check`)."""
     t0 = time.perf_counter()
     rows = vocab_kernel_rows(card)
     shutil.rmtree(VOCAB_DIR, ignore_errors=True)
@@ -4377,60 +4499,8 @@ def vocab_phase(card: str) -> dict:
     ones = spawn_ranks(vocab_dense_runs, 1)[0]["runs"]
     every = spawn_ranks(vocab_rank_runs, VOCAB_MODEL)
     for i, run in enumerate(VOCAB_RUNS):
-        cfg = run["cfg"]
-        one, ranks = ones[i], [r["runs"][i] for r in every]
-        os.remove(one["path"])
-        s_local = run["seq"] // VOCAB_MODEL
-        types = cfg.layer_types()
-        want_one = {"conv2d": 0, "flash_attention": len(types),
-                    "ssd_chunk": 0}
-        if one["launches"] != want_one:
-            raise AssertionError(f"{run['arch']} one device: launches "
-                                 f"{one['launches']}, want {want_one}")
-        p = VOCAB_MODEL
-        for r in ranks:
-            rel = abs(r["loss"] - one["loss"]) / abs(one["loss"])
-            r["loss_rel"] = rel
-            blocks = sum(min(r["rank"] + 1, ring_steps(
-                p, s_local, cfg.window if t == "swa" else None))
-                for t in types)
-            want = {"conv2d": 0, "flash_attention": blocks, "ssd_chunk": 0}
-            msgs = 4 * (p - 1) + p
-            if not (rel <= VOCAB_LOSS_RTOL and
-                    max(r["grad_err"].values()) <= VOCAB_GRAD_TOL and
-                    r["launches"] == want and
-                    r["sent"]["messages"] == msgs and
-                    r["sent"]["bytes"] == msgs * r["block_bytes"]):
-                raise AssertionError(
-                    f"{run['arch']} rank {r['rank']}: loss {r['loss']!r} "
-                    f"against one device's {one['loss']!r} (rel {rel:.2e}, "
-                    f"tol {VOCAB_LOSS_RTOL}); gradients {r['grad_err']} (tol "
-                    f"{VOCAB_GRAD_TOL}); launches {r['launches']} (want "
-                    f"{want}); table messages {r['sent']} (want {msgs} of "
-                    f"{r['block_bytes']} B)")
-            print(f"vocab-parallel {run['arch']} ({cfg.n_layers} "
-                  f"layer{'s' * (cfg.n_layers > 1)} {types}, full width, "
-                  f"{r['n_params'] / 1e6:.1f} M params "
-                  f"a rank against {one['n_params'] / 1e6:.1f} M), batch 1 x "
-                  f"seq {run['seq']} over model {p}, rank {r['rank']}: loss "
-                  f"{r['loss']!r} against one device's {one['loss']!r} (rel "
-                  f"{rel:.2e}); gradients over their largest magnitude "
-                  + ", ".join(f"{k} {v:.2e}" for k, v in
-                              sorted(r["grad_err"].items()))
-                  + f"; fwd + bwd (first pass) {r['s']:.3f} s against "
-                  f"{one['s']:.3f} (warm {one['s_warm']:.3f}); "
-                  f"peak {r['peak_gib']:.2f} GiB against "
-                  f"{one['peak_gib']:.2f}; launches {r['launches']} (one "
-                  f"device {one['launches']}); table rotations "
-                  f"{r['sent']['messages']} messages, "
-                  f"{r['sent']['bytes'] / 1e9:.3f} GB staged through the host "
-                  f"(all halo/ring messages staged {r['staged']}); logits "
-                  f"never formed: the dense {r['dense_logit_bytes'] / 1e9:.2f}"
-                  f" GB, a rank's largest chunk "
-                  f"{r['chunk_bytes'] / 1e9:.3f} GB ({card})", flush=True)
-        out["runs"].append({"arch": run["arch"], "cfg_name": cfg.name,
-                            "layers": cfg.n_layers,
-                            "seq": run["seq"], "one": one, "ranks": ranks})
+        out["runs"].append(vocab_check(run, ones[i],
+                                       [r["runs"][i] for r in every], card))
     shutil.rmtree(VOCAB_DIR, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t0
     print(f"vocab-parallel phase ({len(rows)} attention rows, "
@@ -4932,7 +5002,7 @@ def olmoe_cpu_check(dev: torch.device) -> dict:
     got = {}
     for name, p, d in (("card", params, dev), ("cpu", cpu, "cpu")):
         with routes_logged() as log:
-            last, kv = transformer.prefill(p, cfg, torch.as_tensor(
+            last, kv, _ = transformer.prefill(p, cfg, torch.as_tensor(
                 prompts, device=d))
         with routes_logged() as steps:
             run = _decode_run(cfg, p, short, OLMOE_CHECK_GEN, d)
@@ -5134,6 +5204,464 @@ def moe_phase(card: str) -> dict:
     return out
 
 
+# ----------------------- the encoder-decoder and the prefix frontend (10) --
+
+# full width: seamless-m4t-large-v2 at full depth (24 + 24 layers, 1.4 B
+# params, drawn on the card from ENCDEC_SEED) served at batch 4 x prompt
+# 256 with 16 generated tokens; its encoder alone at 1 x 4096 frames (f32
+# and bf16); one loss forward + backward and one AdamW step at 1 x 4096;
+# the encoder's bidirectional ring and the decoder's loss on ENCDEC_MODEL
+# gloo ranks; at 2 + 2 layers the card against the CPU.  pixtral-12b cut
+# to 2 layers, a 1024-row patch prefix before 1024 text tokens, through
+# phase 7's runs (one device, then the vocab-parallel loss on VOCAB_MODEL
+# ranks, each holding its block of prefix + text)
+SEAMLESS = seamless_m4t_large_v2.CONFIG
+PIXTRAL = dataclasses.replace(pixtral_12b.CONFIG, n_layers=2)
+PIXTRAL_RUN = {"arch": "pixtral-12b", "cfg": PIXTRAL, "seq": 1024,
+               "prefix": 1024}
+ENCDEC_MODEL = 2
+ENCDEC_SEED = 28
+ENCDEC_DIR = os.path.join(HERE, "build", "encdec")
+SEAMLESS_FRAMES = 4096
+SEAMLESS_PROMPT, SEAMLESS_GEN = 256, 16
+SEAMLESS_CHECK_LAYERS, SEAMLESS_CHECK_PROMPT, SEAMLESS_CHECK_GEN = 2, 32, 8
+SEAMLESS_RING = SEAMLESS_FRAMES // ENCDEC_MODEL
+CROSS_ROWS, CROSS_FRAMES = 1024, 1000
+ENCDEC_LR = 3e-3
+# the card against the CPU at 2 + 2 layers (the memory, prefill's logits
+# and K/V, the decode steps' logits) and the ranks' memory against one
+# device's, over the largest magnitude: fp32 through full-width blocks,
+# the ring's blocks merged by their lse
+ENCDEC_TOL = 1e-4
+# the ranks' decoder loss shares summed against the one-device loss: fp32
+# sums of 256,206 exponentials a token over other row counts
+ENCDEC_LOSS_RTOL = 1e-5
+# the attention kernel at the shapes of phase 10's runs: seamless (16 / 16
+# heads, D 64) bidirectional at 1 x 4096 (one encode: a call a layer), the
+# cross shape (1024 decoder rows against 1000 frames: the key tail; no
+# registered config reaches cross-attention, count 0), the served encoder
+# at 4 x 256, the decoder's causal calls at 1 x 4096 (the loss's forward),
+# the encoder ring's block at 2048 rows (every rank calls every block of
+# every layer: P^2 a layer); pixtral (32 / 8 heads, D 128, causal) over
+# prefix + text at 1 x 2048 and the ring's blocks of 1024 rows
+ENCDEC_ATTN = [
+    {"cfg": SEAMLESS, "s": SEAMLESS_FRAMES, "causal": False,
+     "mask": "bidirectional", "window": None,
+     "count": SEAMLESS.n_enc_layers},
+    {"cfg": SEAMLESS, "s": CROSS_ROWS, "sk": CROSS_FRAMES, "causal": False,
+     "mask": f"cross (Sk {CROSS_FRAMES})", "window": None, "count": 0},
+    {"cfg": SEAMLESS, "b": SERVE_BATCH, "s": SEAMLESS_PROMPT,
+     "causal": False, "mask": "bidirectional (served)", "window": None,
+     "count": SEAMLESS.n_enc_layers},
+    {"cfg": SEAMLESS, "s": SEAMLESS_FRAMES, "mask": "causal",
+     "window": None, "count": SEAMLESS.n_layers},
+    {"cfg": SEAMLESS, "s": SEAMLESS_RING, "delta": SEAMLESS_RING,
+     "causal": False, "mask": "bidirectional block", "window": None,
+     "count": ENCDEC_MODEL ** 2 * SEAMLESS.n_enc_layers},
+    {"cfg": PIXTRAL, "s": PIXTRAL_RUN["seq"] + PIXTRAL_RUN["prefix"],
+     "mask": "causal", "window": None, "count": PIXTRAL.n_layers},
+    {"cfg": PIXTRAL, "s": 1024, "delta": 0, "mask": "causal diagonal",
+     "window": None, "count": VOCAB_MODEL * PIXTRAL.n_layers},
+    {"cfg": PIXTRAL, "s": 1024, "delta": 1024, "mask": "off-diagonal",
+     "window": None, "count": PIXTRAL.n_layers},
+]
+
+
+def encdec_kernel_rows(card: str) -> list[dict]:
+    """Phase 10's kernel rows: every ENCDEC_ATTN case in f32 and bf16 (held
+    and timed as phase 7's, SDPA the library call), printed with the
+    launch plan (path, tiles, padded D, order)."""
+    gen = torch.Generator(device="cuda").manual_seed(ENCDEC_SEED)
+    rows = []
+    for dt, c in itertools.product((torch.float32, torch.bfloat16),
+                                   ENCDEC_ATTN):
+        rows.append(r := vocab_attention_row(c, dt, gen))
+        print(f"{r['model']} attention {r['kernel']} {r['mask']} (delta "
+              f"{r['delta']}), {r['dtype']}, q {r['q']} kv {r['kv']}, "
+              f"{r['count']} a run: {r['plan_str']} {r['order']}; max |err| "
+              f"{r['max_abs_err']:.3e}"
+              + ("" if r["lse_err"] is None else f", lse {r['lse_err']:.3e}")
+              + ("" if r["max_err_over_elem_limit"] is None else
+                 f", err/elem limit {r['max_err_over_elem_limit']:.3f}")
+              + f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['pairs']} pairs), "
+              f"{r['tflops_s']:.1f} TFLOP/s ({card})", flush=True)
+    return rows
+
+
+def _encdec_params(cfg, dev: torch.device) -> dict:
+    """`cfg`'s params drawn on the card from ENCDEC_SEED: the same bits in
+    every process."""
+    return transformer.init(torch.Generator(device=dev).manual_seed(
+        ENCDEC_SEED), cfg, device=dev)
+
+
+def seamless_batch(cfg) -> dict:
+    """Batch 0 at 1 x SEAMLESS_FRAMES tokens with as many frames
+    (`serve.frames_for` of ENCDEC_SEED)."""
+    nb = pipeline.synthetic_lm_batch(0, 1, SEAMLESS_FRAMES, cfg.vocab)
+    nb["frames"] = serve.frames_for(cfg, 1, SEAMLESS_FRAMES, ENCDEC_SEED)
+    return nb
+
+
+def _decoder_bytes(params: dict) -> int:
+    """The bytes a decode step reads at least: every weight but the
+    encoder's (no layer reads the memory), once."""
+    return sum(t.numel() * t.element_size() for k, v in params.items()
+               if not k.startswith("enc_") for t in tree_leaves(v))
+
+
+def seamless_serve_rank(rank: int, world: int, card: str) -> dict:
+    """A fresh process: full-width seamless at full depth through the
+    serve entry point (`launch.serve`, batch SERVE_BATCH, prompt
+    SEAMLESS_PROMPT, SEAMLESS_GEN generated tokens, params drawn on the
+    card): the encoder's launches (one bidirectional call a layer) and
+    none in the decode loop, the encoder's ms (the serve run's first
+    call, then warm), decode ms a step beside its bytes bound, peak
+    memory; then `seamless_cpu_check`."""
+    dev = torch.device("cuda")
+    draw = transformer.init
+
+    def on_card(gen, cfg, *, device):
+        return draw(torch.Generator(device=dev).manual_seed(
+            gen.initial_seed()), cfg, device=device)
+    transformer.init = on_card
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    try:
+        res = serve.run(serve.parse_args(
+            ["--arch", "seamless-m4t-large-v2", "--batch", str(SERVE_BATCH),
+             "--prompt-len", str(SEAMLESS_PROMPT), "--gen",
+             str(SEAMLESS_GEN), "--seed", str(ENCDEC_SEED), "--device",
+             "cuda"]))
+    finally:
+        transformer.init = draw
+    launches = ops.launch_counts()
+    want = {"conv2d": 0, "flash_attention": SEAMLESS.n_enc_layers,
+            "ssd_chunk": 0}
+    if launches != want:
+        raise AssertionError(f"seamless serve: launches {launches} (want "
+                             f"{want}: the encoder's, none in the decode "
+                             f"loop)")
+    cfg, params = res["cfg"], res["params"]
+    frames = torch.as_tensor(res["frames"], device=dev)
+    with torch.no_grad():
+        warm_ms = time_fn(lambda: transformer.encode(params, cfg, frames),
+                          reps=3) * 1e3
+    gen_ms = res["step_ms"][SEAMLESS_PROMPT - 1:]
+    dec_bytes = _decoder_bytes(params)
+    out = {"launches": launches, "encode_ms": res["encode_ms"],
+           "encode_warm_ms": warm_ms,
+           "decode_ms": float(np.median(gen_ms)),
+           "replay_ms": float(np.median(res["step_ms"][:SEAMLESS_PROMPT - 1])),
+           "decoder_bytes": dec_bytes,
+           "bound_ms": dec_bytes / PEAK_BYTES_S * 1e3,
+           "n_params": sum(t.numel() for t in tree_leaves(params)),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "memory_finite": bool(torch.isfinite(res["memory"]).all()),
+           "ids_row0": res["ids"][0].tolist()}
+    del params, res, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["check"] = seamless_cpu_check(dev)
+    return out
+
+
+def seamless_cpu_check(dev: torch.device) -> dict:
+    """seamless cut to SEAMLESS_CHECK_LAYERS + SEAMLESS_CHECK_LAYERS
+    layers, params drawn on the card and copied to the CPU: `prefill` of
+    a serve batch (SERVE_BATCH x SEAMLESS_CHECK_PROMPT, the frames of
+    `serve.frames_for`) on the card (kernels) and the CPU (plain
+    versions) -- the memory, the last logits, every layer's K/V -- then
+    the decode loop with the memory on both: every step's logits and the
+    ids."""
+    cfg = dataclasses.replace(SEAMLESS, n_layers=SEAMLESS_CHECK_LAYERS,
+                              n_enc_layers=SEAMLESS_CHECK_LAYERS)
+    params = _encdec_params(cfg, dev)
+    cpu = tree_map(lambda t: t.detach().cpu(), params)
+    prompts = serve.prompts_for(cfg, SERVE_BATCH, SEAMLESS_CHECK_PROMPT,
+                                ENCDEC_SEED)
+    frames = serve.frames_for(cfg, SERVE_BATCH, SEAMLESS_CHECK_PROMPT,
+                              ENCDEC_SEED)
+    got = {}
+    for name, p, d in (("card", params, dev), ("cpu", cpu, "cpu")):
+        last, kv, memory = transformer.prefill(
+            p, cfg, torch.as_tensor(prompts, device=d),
+            frames=torch.as_tensor(frames, device=d))
+        run = _decode_run(cfg, p, prompts, SEAMLESS_CHECK_GEN, d,
+                          memory=memory)
+        got[name] = {"last": last.cpu(), "memory": memory.cpu(),
+                     "kv": [tuple(t.cpu() for t in l) for l in kv],
+                     "run": run}
+    card, host = got["card"], got["cpu"]
+    out = {"memory": _rel_err(card["memory"], host["memory"]),
+           "prefill_logits": _rel_err(card["last"], host["last"]),
+           "prefill_kv": max(_rel_err(a, b) for la, lb in
+                             zip(card["kv"], host["kv"])
+                             for a, b in zip(la, lb)),
+           "decode_logits": _rel_err(card["run"]["logits"],
+                                     host["run"]["logits"]),
+           "ids_equal": bool(torch.equal(card["run"]["ids"],
+                                         host["run"]["ids"])),
+           "steps": card["run"]["logits"].shape[0]}
+    bad = [k for k in ("memory", "prefill_logits", "prefill_kv",
+                       "decode_logits") if not out[k] <= ENCDEC_TOL]
+    if bad or not out["ids_equal"]:
+        raise AssertionError(f"seamless {SEAMLESS_CHECK_LAYERS} + "
+                             f"{SEAMLESS_CHECK_LAYERS} layers, card against "
+                             f"CPU: {out} (tol {ENCDEC_TOL})")
+    return out
+
+
+def seamless_one_rank(rank: int, world: int) -> dict:
+    """One device, in its own process: full-width seamless at full depth,
+    params drawn on the card.  `encode` alone at 1 x SEAMLESS_FRAMES, f32
+    and bf16 (the params and frames cast): its launches (one a layer) and
+    ms a call, the bf16 memory against the f32 one; the f32 memory saved
+    under ENCDEC_DIR for the ranks.  Then one step of
+    `train_loop.make_train_step` with AdamW (FP32) on batch 0 with its
+    frames: the loss (saved), the attention launches (the decoder's, one
+    a layer: the loss runs no dead encoder), every encoder gradient
+    exactly 0, the encoder's leaves after the step moved by AdamW's decay
+    alone (bit for bit), the step's seconds and peak memory."""
+    dev = torch.device("cuda")
+    cfg = SEAMLESS
+    params = _encdec_params(cfg, dev)
+    batch = pipeline.to_device(seamless_batch(cfg), dev)
+    enc = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = params if dt == torch.float32 else \
+            tree_map(lambda t: t.detach().to(dt), params)
+        f = batch["frames"].to(dt)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            memory = transformer.encode(p, cfg, f)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            ms = time_fn(lambda: transformer.encode(p, cfg, f), reps=3) * 1e3
+        enc[str(dt).split(".")[-1]] = {"launches": launches, "ms": ms,
+                                       "memory": memory}
+        del p
+    mem32 = enc["float32"].pop("memory")
+    mem16 = enc["bfloat16"].pop("memory")
+    enc["bfloat16"]["vs_float32"] = _rel_err(mem16, mem32)
+    finite = bool(torch.isfinite(mem32).all() and torch.isfinite(mem16).all())
+    torch.save(mem32.cpu(), os.path.join(ENCDEC_DIR, "memory.pt"))
+    del mem16, mem32
+    torch.cuda.empty_cache()
+
+    enc_ids = {id(t) for t in tree_leaves([params["enc_final_norm"],
+                                           params["enc_layers"]])}
+    enc_idx = [i for i, t in enumerate(tree_leaves(params))
+               if id(t) in enc_ids]
+    watch = [params["enc_final_norm"], params["enc_layers"][0]["attn"]["wq"],
+             params["enc_layers"][-1]["mlp"]["wo"]]
+    before = [t.detach().clone() for t in watch]
+    opt = adamw(ENCDEC_LR)
+    grads_seen = []
+
+    def update(grads, state, ps, norm=None):
+        grads_seen.append(max(float(grads[i].abs().max()) for i in enc_idx))
+        return opt.update(grads, state, ps, norm)
+    step = make_train_step(functools.partial(transformer.loss_fn, cfg=cfg),
+                           Optimizer(opt.init, update),
+                           TrainStepConfig(precision=FP32))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, state, _, m = step(params, state, None, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    loss_launches = ops.launch_counts()
+    decayed = all(torch.equal(t.detach(), b - ENCDEC_LR * (
+        0.0 + 0.1 * b)) for t, b in zip(watch, before))
+    loss = float(m["loss"])
+    torch.save({"loss": loss}, os.path.join(ENCDEC_DIR, "loss.pt"))
+    return {"encode": enc, "finite": finite, "loss": loss,
+            "grad_norm": float(m["grad_norm"]), "step_s": step_s,
+            "launches": loss_launches, "enc_grad_max": grads_seen[0],
+            "enc_decayed": decayed,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "n_params": sum(t.numel() for t in tree_leaves(params))}
+
+
+def seamless_rank(rank: int, world: int) -> dict:
+    """One of ENCDEC_MODEL gloo ranks on the card (data 1 x model
+    ENCDEC_MODEL), full-width seamless at full depth: `encode` of this
+    rank's block of the frames (the bidirectional ring: every block of
+    every layer, P a rank a layer), its memory block against the one
+    device's, the ring messages it staged; then its share of the loss on
+    its block of batch 0 (the decoder's causal ring), the shares summed
+    against the one-device loss; both timed."""
+    dev = torch.device("cuda")
+    mesh = make_mesh(data=1, model=world)
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    cfg = SEAMLESS
+    params = _encdec_params(cfg, dev)
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        seamless_batch(cfg), mesh, "model", ("data",)), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    halo.reset_staged()
+    mesh.barrier()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        memory = transformer.encode(params, cfg, batch["frames"], ctx)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    enc_launches = ops.launch_counts()
+    staged = halo.staged
+    i = mesh.index("model")
+    want = torch.load(os.path.join(ENCDEC_DIR, "memory.pt"))[
+        :, i * memory.shape[1]:(i + 1) * memory.shape[1]]
+    mem_err = _rel_err(memory, want)
+    del memory
+    ops.reset_launch_counts()
+    mesh.barrier()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        share = transformer.loss_fn(params, batch, cfg, ctx=ctx)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+    loss_launches = ops.launch_counts()
+    loss = float(mesh.all_reduce(share, "model"))
+    return {"rank": rank, "encode_s": enc_s, "encode_launches": enc_launches,
+            "staged": staged, "memory_err": mem_err, "share": share.item(),
+            "loss": loss, "loss_s": loss_s, "loss_launches": loss_launches,
+            "want_loss": torch.load(os.path.join(ENCDEC_DIR,
+                                                 "loss.pt"))["loss"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def encdec_phase(card: str) -> dict:
+    """Phase 10, the encoder-decoder and the prefix frontend: the attention
+    kernel's rows at seamless's and pixtral's shapes (`encdec_kernel_rows`:
+    bidirectional and cross calls among them); seamless served at full
+    depth in a fresh process (and at 2 + 2 layers against the CPU); its
+    encoder alone, f32 and bf16, and one AdamW step in a process of its
+    own; its encoder ring and decoder loss on ENCDEC_MODEL gloo ranks
+    sharing the card (not a scaling result); pixtral cut to 2 layers with
+    its patch prefix through phase 7's one-device and vocab-parallel
+    runs (`vocab_check`).  Held: the launches each run derives (the
+    encoder one a layer on one device and P a rank a layer on the ring,
+    the decoder's causal ring i + 1 a rank a layer), the ranks' memory
+    within ENCDEC_TOL of the one device's, their loss within
+    ENCDEC_LOSS_RTOL, the encoder's gradients exactly 0."""
+    t0 = time.perf_counter()
+    rows = encdec_kernel_rows(card)
+    shutil.rmtree(ENCDEC_DIR, ignore_errors=True)
+    os.makedirs(ENCDEC_DIR)
+    cfg = SEAMLESS
+    served = spawn_ranks(seamless_serve_rank, 1, card)[0]
+    ch = served["check"]
+    print(f"serve seamless-m4t-large-v2: full width and depth "
+          f"({cfg.n_enc_layers} + {cfg.n_layers} layers, "
+          f"{served['n_params'] / 1e9:.3f} B params, FP32, drawn on the "
+          f"card), batch {SERVE_BATCH}, {SEAMLESS_PROMPT} frames and a "
+          f"{SEAMLESS_PROMPT}-token prompt, gen {SEAMLESS_GEN}: encoder "
+          f"{served['encode_ms']:.2f} ms (the run's first call; warm "
+          f"{served['encode_warm_ms']:.2f}), launches {served['launches']} "
+          f"(the decode loop none); decode {served['decode_ms']:.3f} "
+          f"ms/step median of {SEAMLESS_GEN} generation steps (replay "
+          f"{served['replay_ms']:.3f}), bytes bound {served['bound_ms']:.3f} "
+          f"ms (the decoder's weights and the tied table read once, "
+          f"{served['decoder_bytes'] / 1e9:.3f} GB: no layer reads the "
+          f"memory); peak {served['peak_gib']:.2f} GiB; ids of row 0 "
+          f"{served['ids_row0']} ({card})", flush=True)
+    print(f"serve seamless card vs cpu, {SEAMLESS_CHECK_LAYERS} + "
+          f"{SEAMLESS_CHECK_LAYERS} layers, batch {SERVE_BATCH}, "
+          f"{SEAMLESS_CHECK_PROMPT} frames and tokens: memory "
+          f"{ch['memory']:.3e}, prefill logits {ch['prefill_logits']:.3e}, "
+          f"K/V {ch['prefill_kv']:.3e}, {ch['steps']} decode steps' logits "
+          f"{ch['decode_logits']:.3e} of the largest magnitude (tol "
+          f"{ENCDEC_TOL}), ids equal {ch['ids_equal']} ({card})", flush=True)
+    one = spawn_ranks(seamless_one_rank, 1)[0]
+    n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+    for dt, e in one["encode"].items():
+        if e["launches"] != {"conv2d": 0, "flash_attention": n_enc,
+                             "ssd_chunk": 0}:
+            raise AssertionError(f"seamless encode {dt}: launches "
+                                 f"{e['launches']}")
+    if not (one["finite"] and math.isfinite(one["loss"])
+            and one["enc_grad_max"] == 0.0 and one["enc_decayed"]
+            and one["launches"] == {"conv2d": 0, "flash_attention": n_dec,
+                                    "ssd_chunk": 0}):
+        raise AssertionError(f"seamless one device: {one}")
+    s, d, h = SEAMLESS_FRAMES, cfg.d_model, cfg.n_heads
+    attn_flops = 4.0 * cfg.head_dim * s * s * h
+    proj_flops = 2.0 * s * (4 * d * h * cfg.head_dim + 2 * d * cfg.d_ff)
+    for dt, e in one["encode"].items():
+        peak = PEAK_FLOPS[getattr(torch, dt)]
+        e["attn_bound_ms"] = n_enc * attn_flops / peak * 1e3
+        e["bound_ms"] = n_enc * (attn_flops + proj_flops) / peak * 1e3
+        print(f"seamless encode alone, 1 x {s} frames, {dt}: {e['ms']:.2f} "
+              f"ms a call, launches {e['launches']['flash_attention']}; "
+              f"operations bound {e['bound_ms']:.2f} ms (the attention's "
+              f"{e['attn_bound_ms']:.2f}: {n_enc} calls of "
+              f"{attn_flops / peak * 1e3:.3f}, the projections' and MLP's "
+              f"the rest)"
+              + (f"; memory {e['vs_float32']:.3e} of the largest magnitude "
+                 f"from float32's" if "vs_float32" in e else "")
+              + f" ({card})", flush=True)
+    print(f"seamless train step (loss forward + backward, AdamW), full "
+          f"width and depth ({one['n_params'] / 1e9:.3f} B params), batch 1 "
+          f"x {s} tokens and frames, FP32: loss {one['loss']!r}, grad norm "
+          f"{one['grad_norm']:.4f}, {one['step_s']:.3f} s (first step), "
+          f"launches {one['launches']} (the decoder's: the loss runs no "
+          f"dead encoder), encoder gradients max |g| "
+          f"{one['enc_grad_max']} (jax.grad's zeros), encoder leaves moved "
+          f"by AdamW's decay alone {one['enc_decayed']}; peak "
+          f"{one['peak_gib']:.2f} GiB ({card})", flush=True)
+    ranks = spawn_ranks(seamless_rank, ENCDEC_MODEL)
+    shutil.rmtree(ENCDEC_DIR, ignore_errors=True)
+    for r in ranks:
+        rel = abs(r["loss"] - one["loss"]) / abs(one["loss"])
+        r["loss_rel"] = rel
+        want_enc = {"conv2d": 0, "flash_attention": ENCDEC_MODEL * n_enc,
+                    "ssd_chunk": 0}
+        want_loss = {"conv2d": 0, "flash_attention": (r["rank"] + 1) * n_dec,
+                     "ssd_chunk": 0}
+        if not (r["encode_launches"] == want_enc
+                and r["loss_launches"] == want_loss
+                and r["memory_err"] <= ENCDEC_TOL
+                and rel <= ENCDEC_LOSS_RTOL):
+            raise AssertionError(
+                f"seamless rank {r['rank']}: memory {r['memory_err']:.3e} "
+                f"(tol {ENCDEC_TOL}), loss {r['loss']!r} against "
+                f"{one['loss']!r} (rel {rel:.2e}, tol {ENCDEC_LOSS_RTOL}), "
+                f"launches {r['encode_launches']} / {r['loss_launches']} "
+                f"(want {want_enc} / {want_loss})")
+        print(f"seamless on {ENCDEC_MODEL} ranks (full width and depth, "
+              f"{s} frames and tokens over model {ENCDEC_MODEL}), rank "
+              f"{r['rank']}: encoder ring memory {r['memory_err']:.3e} of "
+              f"the largest magnitude from one device's, "
+              f"{r['encode_launches']['flash_attention']} block calls "
+              f"({ENCDEC_MODEL} a layer, no causal skip), ring messages "
+              f"staged {r['staged']}, {r['encode_s']:.3f} s; decoder loss "
+              f"{r['loss']!r} against one device's {one['loss']!r} (rel "
+              f"{rel:.2e}), {r['loss_launches']['flash_attention']} block "
+              f"calls, {r['loss_s']:.3f} s; peak {r['peak_gib']:.2f} GiB "
+              f"(gloo, one card: not a scaling result) ({card})", flush=True)
+    os.makedirs(VOCAB_DIR, exist_ok=True)
+    pone = spawn_ranks(vocab_dense_rank, 1, PIXTRAL_RUN)[0]
+    pranks = spawn_ranks(vocab_rank, VOCAB_MODEL, PIXTRAL_RUN)
+    pixtral = vocab_check(PIXTRAL_RUN, pone, pranks, card)
+    shutil.rmtree(VOCAB_DIR, ignore_errors=True)
+    out = {"kernel_rows": rows, "served": served, "one": one,
+           "ranks": ranks, "pixtral": pixtral,
+           "phase_s": time.perf_counter() - t0}
+    print(f"encoder-decoder and prefix phase ({len(rows)} attention rows, "
+          f"seamless served, on one device and {ENCDEC_MODEL} card ranks, "
+          f"pixtral on one device and {VOCAB_MODEL}) took "
+          f"{out['phase_s']:.1f} s of this run ({card})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -5229,6 +5757,7 @@ def main() -> int:
     shutil.rmtree(PARAMS_DIR, ignore_errors=True)   # the last draw kept
     vocab = vocab_phase(card)
     moe = moe_phase(card)
+    encdec = encdec_phase(card)
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -5252,7 +5781,7 @@ def main() -> int:
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
                    "serve": served, "lm_mesh": meshed, "vocab": vocab,
-                   "moe": moe,
+                   "moe": moe, "encdec": encdec,
                    "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
@@ -5402,6 +5931,35 @@ def main() -> int:
                              max_abs_err=max(r["max_abs_err"] for r in cs))
         return out
 
+    def encdec_rows():
+        """The kernel on phase 10's runs: each row (its shape, mask,
+        plan, times and error, f32 and bf16) with the calls a run makes
+        of it, and the launches each run counted (seamless served,
+        encoded alone at 1 x 4096 in f32 and bf16, its loss, a rank each
+        of the ring's encode and loss; pixtral one device, then a rank
+        each)."""
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        fa = "flash_attention"
+        return {
+            "library": "SDPA",
+            "launches": {
+                "seamless served (encoder)": encdec["served"]["launches"][fa],
+                "seamless encode": {dt: e["launches"][fa] for dt, e in
+                                    encdec["one"]["encode"].items()},
+                "seamless loss": encdec["one"]["launches"][fa],
+                "seamless ring encode, ranks": [
+                    r["encode_launches"][fa] for r in encdec["ranks"]],
+                "seamless ring loss, ranks": [
+                    r["loss_launches"][fa] for r in encdec["ranks"]],
+                "pixtral one device": encdec["pixtral"]["one"][
+                    "launches"][fa],
+                "pixtral ranks": [r["launches"][fa] for r in
+                                  encdec["pixtral"]["ranks"]]},
+            "rows": [dict({k: r[k] for k in (
+                "kernel", "model", "mask", "causal", "delta", "dtype",
+                "q", "kv", "count", "plan_str", "order", "max_abs_err",
+                "bound_by") + keys}) for r in encdec["kernel_rows"]]}
+
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
     lm_scope = f"one hymba-1.5b forward ({HYMBA.n_layers} layers), batch " \
         f"{LM_BATCH} x seq {LM_SEQ}, float32: "
@@ -5445,7 +6003,8 @@ def main() -> int:
              serve_launches=serve_launches("flash_attention"),
              serve_prefill=serve_prefill("flash_attention"),
              mesh_launches_per_rank=mesh_launches("flash_attention"),
-             ring_block=ring_block(), vocab=vocab_rows(), moe=moe_rows()),
+             ring_block=ring_block(), vocab=vocab_rows(), moe=moe_rows(),
+             encdec=encdec_rows()),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],

@@ -83,11 +83,19 @@ def shard_batch(batch: dict, mesh, sharding, label_sharding=None) -> dict:
 
 def shard_lm_batch(batch: dict, mesh, seq_axis="model",
                    batch_axes=("pod", "data")) -> dict:
-    """This rank's block of a global token batch (`synthetic_lm_batch`'s):
-    B over the batch axes of the mesh, S over `seq_axis`, contiguous
-    copies (the reference's `P(batch_axes, "model")` placement).  Every
-    rank draws the same global batch, so a step sees the same tokens on
-    any mesh."""
+    """This rank's block of a global token batch (`synthetic_lm_batch`'s,
+    with an encoder-decoder's `frames` (B, S_enc, d) or a VLM's
+    `patch_embeds` (B, S_img, d)): B over the batch axes of the mesh, S
+    over `seq_axis`, contiguous copies (the reference's `P(batch_axes,
+    "model")` placement).  Every rank draws the same global batch, so a
+    step sees the same tokens on any mesh.
+
+    A patch prefix is part of the sequence that is split, as the
+    reference concatenates it in the global view: the prefix + text
+    sequence of S_img + S positions is cut into equal blocks, and each
+    rank gets the prefix rows (`patch_embeds`) and the text tokens
+    (`tokens`) of its block, either possibly empty, and its block of the
+    labels with -1 (unscored) over the prefix."""
     if mesh is None:
         return batch
     ba = tuple(a for a in batch_axes if a in mesh.axis_names)
@@ -95,10 +103,36 @@ def shard_lm_batch(batch: dict, mesh, seq_axis="model",
     for k, v in batch.items():
         if ba:
             v = shard_dim(v, 0, mesh, ba)
-        if seq_axis is not None:
-            v = shard_dim(v, 1, mesh, seq_axis)
-        out[k] = np.ascontiguousarray(v)
-    return out
+        out[k] = v
+    if seq_axis is not None:
+        prefix = _prefix_block(out, mesh, seq_axis) \
+            if "patch_embeds" in out else {}
+        out = {k: prefix[k] if k in prefix else
+               shard_dim(v, 1, mesh, seq_axis) for k, v in out.items()}
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def _prefix_block(batch: dict, mesh, seq_axis) -> dict:
+    """This rank's block along `seq_axis` of the prefix + text sequence:
+    its rows of `patch_embeds`, of `tokens` and of the labels preceded by
+    -1 over the prefix."""
+    n_img = batch["patch_embeds"].shape[1]
+    total = n_img + batch["tokens"].shape[1]
+    m = mesh.axis_size(seq_axis)
+    if total % m:
+        raise ValueError(f"prefix {n_img} + text "
+                         f"{batch['tokens'].shape[1]} does not divide over "
+                         f"{seq_axis} ({m} shards)")
+    lo = mesh.index(seq_axis) * (total // m)
+    hi = lo + total // m
+    labels = np.concatenate([np.full(batch["labels"].shape[:1] + (n_img,), -1,
+                                     batch["labels"].dtype),
+                             batch["labels"]], axis=1)
+    return {"patch_embeds": batch["patch_embeds"][:, min(lo, n_img):
+                                                  min(hi, n_img)],
+            "tokens": batch["tokens"][:, max(lo - n_img, 0):
+                                      max(hi - n_img, 0)],
+            "labels": labels[:, lo:hi]}
 
 
 def to_device(batch: dict, device: torch.device) -> dict:

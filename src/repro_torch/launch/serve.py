@@ -7,6 +7,8 @@ inference).
       --smoke --batch 4 --prompt-len 32 --gen 16 [--device cuda|cpu]
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \\
       --arch hymba-1.5b --smoke --model 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2 --smoke --device cpu
 
 Runs on CUDA unless `--device cpu` is given; asking for CUDA where there
 is none raises.  One process per rank under torchrun (NCCL on the card,
@@ -15,6 +17,11 @@ KV cache along the sequence (`core.decode_attention`), the data axis
 splits the batch.  Params are drawn from a CPU generator seeded with
 `--seed` (`transformer.init`), so every rank and device starts from the
 same weights; the prompts are the reference's (`np.random.default_rng`).
+An encoder-decoder (`audio_stub` frontend) draws its frames from
+`--seed` with numpy (`frames_for`; the reference draws them with
+`jax.random`), runs `transformer.encode` over them once, timed apart,
+and passes the memory to every decode step, as the reference does.  The
+VLM backbone is served text-only, as the reference serves it.
 
 The loop is the reference's: a teacher-forced replay of the prompt, one
 token a step, then greedy generation (`transformer.prefill` runs the
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.data import pipeline
 from repro_torch.launch import shardings
 from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.train import arch_config, set_fp32_numerics, setup
@@ -70,6 +78,15 @@ def prompts_for(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
     return rng.integers(1, cfg.vocab, (batch, prompt_len), dtype=np.int32)
 
 
+def frames_for(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """An `audio_stub` arch's encoder frames: (batch, prompt_len, d)
+    float32 standard normals from numpy's generator seeded with (seed, 1),
+    a stream apart from the prompts'."""
+    rng = np.random.default_rng((seed, 1))
+    return rng.standard_normal((batch, prompt_len, cfg.d_model),
+                               dtype=np.float32)
+
+
 def cache_len(prompt_len: int, gen: int, model: int) -> int:
     """The cache's length: prompt + generated tokens, padded to a multiple
     of the model axis (the sequence shards)."""
@@ -78,10 +95,11 @@ def cache_len(prompt_len: int, gen: int, model: int) -> int:
 
 @torch.no_grad()
 def generate(params: dict, cfg, tokens: torch.Tensor, gen: int,
-             caches: list, ctx: ShardCtx, keep=()) -> dict:
+             caches: list, ctx: ShardCtx, keep=(), memory=None) -> dict:
     """The serve loop on this rank's block of the batch: `tokens` (B,
-    prompt_len) replayed one a step through `transformer.decode_step`,
-    then `gen` greedy tokens.  Returns the generated ids (B, gen) on the
+    prompt_len) replayed one a step through `transformer.decode_step`
+    (each step given the encoder's `memory`, where there is one), then
+    `gen` greedy tokens.  Returns the generated ids (B, gen) on the
     device, the caches, each step's ms and the logits (B, V) of each step
     in `keep` (on the device)."""
     prompt_len = tokens.shape[1]
@@ -101,7 +119,7 @@ def generate(params: dict, cfg, tokens: torch.Tensor, gen: int,
     mark(0)
     for i in range(steps):
         logits, caches = transformer.decode_step(params, cfg, tok, caches, i,
-                                                 ctx)
+                                                 ctx, memory)
         if i in keep:
             kept[i] = logits[:, 0]
         if i + 1 < prompt_len:
@@ -127,7 +145,8 @@ def run(args: argparse.Namespace, keep=(), cfg=None) -> dict:
     `cfg` says so: `train.arch_config`); rank 0 prints the summary and
     the generated ids.  Returns the run's cfg, params, prompts, the global
     ids (numpy, on every rank), this rank's caches and `generate`'s
-    timings and kept logits."""
+    timings and kept logits; an encoder-decoder's frames (global, numpy),
+    this rank's memory and the encoder's ms."""
     device, mesh, rank = setup(args)
     set_fp32_numerics(device, echo=rank == 0)
     cfg = arch_config(args, cfg, echo=rank == 0)
@@ -141,14 +160,24 @@ def run(args: argparse.Namespace, keep=(), cfg=None) -> dict:
     rows = args.batch // args.data
     first = mesh.index(ctx.batch_axes) * rows if split else 0
     tokens = torch.as_tensor(prompts[first:first + rows], device=device)
+    frames = memory = None
+    encode_ms = None
+    if cfg.frontend == "audio_stub":
+        frames = frames_for(cfg, args.batch, args.prompt_len, args.seed)
+        mine = frames[first:first + rows]
+        if args.model > 1:
+            mine = pipeline.shard_dim(mine, 1, mesh, "model")
+        mine = torch.as_tensor(mine, device=device)
 
     t0 = time.perf_counter()
+    if frames is not None:
+        memory, encode_ms = _encode_timed(params, cfg, mine, ctx)
     # this rank's block of the state: its rows, its shard of the sequence
     caches = transformer.init_decode_state(cfg, rows, max_len // args.model,
                                            device=device)
     specs = None if mesh is None else \
         shardings.kv_cache_specs(caches, mesh, split, "model")
-    res = generate(params, cfg, tokens, args.gen, caches, ctx, keep)
+    res = generate(params, cfg, tokens, args.gen, caches, ctx, keep, memory)
     ids = res["ids"]
     if split:
         ids = mesh.all_gather(ids, ctx.batch_axes, 0)
@@ -157,14 +186,34 @@ def run(args: argparse.Namespace, keep=(), cfg=None) -> dict:
     steps = args.prompt_len + args.gen - 1
     if rank == 0:
         shape = dict(mesh.shape) if mesh else {"data": 1, "model": 1}
+        if encode_ms is not None:
+            print(f"arch={cfg.name} encoder over {args.prompt_len} frames: "
+                  f"{encode_ms:.1f} ms ({cfg.n_enc_layers} layers)")
         print(f"arch={cfg.name} mesh={shape} {steps} decode steps in "
               f"{dt:.1f}s ({dt / steps * 1e3:.1f} ms/step, eager, on "
               f"{device})")
         print("generated token ids:\n", ids)
     res.update(cfg=cfg, params=params, prompts=prompts, ids=ids, ctx=ctx,
                mesh=mesh, specs=specs, max_len=max_len, seconds=dt,
-               device=device)
+               device=device, frames=frames, memory=memory,
+               encode_ms=encode_ms)
     return res
+
+
+@torch.no_grad()
+def _encode_timed(params: dict, cfg, frames: torch.Tensor, ctx: ShardCtx):
+    """(`transformer.encode` of this rank's frames, its ms): a pair of
+    CUDA events on the card, the host clock on the CPU."""
+    if frames.is_cuda:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        memory = transformer.encode(params, cfg, frames, ctx)
+        end.record()
+        end.synchronize()
+        return memory, start.elapsed_time(end)
+    t0 = time.perf_counter()
+    memory = transformer.encode(params, cfg, frames, ctx)
+    return memory, (time.perf_counter() - t0) * 1e3
 
 
 def main(argv=None, cfg=None) -> dict:

@@ -93,6 +93,9 @@ sequence shards (`core.ring_attention`) and the SSD with its conv halo
 and state prefix (`core.seq_ssm`), and a MoE layer routes its groups of
 the global sequence (`models.lm.modules.moe_apply`).  `--audit` and
 `--profile` refuse an LM arch (they run the CNN plan's machinery).
+pixtral-12b trains text-only, as the reference's trainer feeds it; an
+encoder-decoder (seamless-m4t-large-v2) is refused: the trainer has no
+frames to feed its encoder.
 
 `--batch` is the global batch; rank r runs on
 `cuda:(local_rank % device_count)` (NCCL) or the CPU (gloo); only rank 0
@@ -271,6 +274,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"--batch {args.batch} (the global batch) must divide over "
                  f"the data axes (pod {args.pod} x data {args.data})")
     arch = registry.canon(args.arch)
+    if arch in registry.LM_ARCHS and registry.get(arch).is_encdec:
+        raise SystemExit(
+            f"--arch {args.arch}: the trainer feeds an LM tokens and labels "
+            f"only, and an encoder-decoder's loss needs its encoder frames "
+            f"(the reference's trainer fails there on forward's assert); "
+            f"train it through transformer.loss_fn with batch['frames'] "
+            f"and train.train_loop.make_train_step")
     if args.bf16 and arch in registry.CNN_ARCHS:
         ap.error("--bf16 covers the LM archs; the CNN archs train in FP32, "
                  "as in the reference")

@@ -11,8 +11,9 @@ and prefill, attention runs as the ring over the sequence shards
 (`core.ring_attention`) and the SSD block as its sharded form (the
 conv's (k-1)-row halo, a local pass from zero state, the state entering
 the shard by `core.seq_ssm.seq_prefix_state`); for a decode step, the KV
-cache is split (`core.decode_attention`).  MoE, encoder and
-cross-attention wait for their slices.
+cache is split (`core.decode_attention`).  Cross-attention is
+`attn_apply` with the encoder memory's K/V in place of the block's own
+(`kv_override`).
 """
 from __future__ import annotations
 
@@ -163,12 +164,17 @@ def attn_qkv(p: dict, cfg: LMConfig, x: torch.Tensor,
 def attn_apply(p: dict, x: torch.Tensor, *, cfg: LMConfig,
                positions: torch.Tensor, window: int | None,
                causal: bool = True, return_kv: bool = False,
-               ctx: ShardCtx = ShardCtx()):
+               ctx: ShardCtx = ShardCtx(), kv_override=None):
     """Self-attention of x (B, S, d): on one device, or with the sequence
     split under `ctx` (x, `positions` and the result this rank's block;
     the ring).  With `return_kv` also its (k, v), rotated, (B, S, Hkv, hd)
-    each: what a KV cache holds (this rank's block)."""
+    each: what a KV cache holds (this rank's block).  `kv_override`
+    (k, v) (B, S_kv, Hkv, hd) replaces the block's own K/V
+    (cross-attention; under `ctx` this rank's block of S_kv); q keeps its
+    rope, as the reference's does."""
     q, k, v = attn_qkv(p, cfg, x, positions)
+    if kv_override is not None:
+        k, v = kv_override
     scale = cfg.attn_scale or 1.0 / math.sqrt(cfg.head_dim)
     o = ring_attention(q, k, v, mesh=ctx.mesh, seq_axis=ctx.seq_axis,
                        scale=scale, causal=causal, window=window,

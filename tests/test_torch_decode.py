@@ -251,7 +251,7 @@ def test_prefill_matches_jax_and_forward(arch):
     jp, params = _params(arch), _port_params(arch)
     toks = _tokens(arch, 16)
     jlast, jkv, _ = jax.jit(lambda p, t: jT.prefill(p, jcfg, t))(jp, toks)
-    last, kv = tT.prefill(params, tcfg, torch.as_tensor(toks))
+    last, kv, _ = tT.prefill(params, tcfg, torch.as_tensor(toks))
     np.testing.assert_allclose(last.numpy(), np.asarray(jlast),
                                rtol=PREFILL_TOL, atol=PREFILL_TOL)
     assert len(kv) == jcfg.n_layers
@@ -287,7 +287,7 @@ def test_replay_matches_forward_and_prefill(arch):
     with torch.no_grad():
         full = tT.forward(params, tcfg, toks)
     _close(torch.cat(steps, 1), full, REPLAY_TOL)
-    _, kv = tT.prefill(params, tcfg, toks)
+    _, kv, _ = tT.prefill(params, tcfg, toks)
     for c, layer_kv in zip(caches, kv):
         for name, want in zip(("k", "v"), layer_kv):
             _close(c[name][:, :REPLAY_SEQ], want, REPLAY_TOL)

@@ -51,6 +51,8 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.configs.mamba2_780m",
                 "repro_torch.configs.mixtral_8x7b",
                 "repro_torch.configs.olmoe_1b_7b",
+                "repro_torch.configs.seamless_m4t_large_v2",
+                "repro_torch.configs.pixtral_12b",
                 "repro_torch.launch.mesh", "repro_torch.core.halo",
                 "repro_torch.core.spatial_conv",
                 "repro_torch.core.spatial_norm",

@@ -120,9 +120,11 @@ def test_registry_ports_hymba_only_among_lms():
     # olmo, mamba2 and the MoE archs came with the MoE slice
     for arch in ("mamba2-780m", "olmo_1b", "mixtral-8x7b", "olmoe_1b_7b"):
         assert treg.get(arch, smoke=True).name.endswith("-smoke")
-    for arch in ("pixtral-12b", "seamless_m4t_large_v2"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            treg.get(arch)
+    # the encoder-decoder and the VLM backbone came with their slice
+    assert treg.get("seamless-m4t-large-v2").is_encdec
+    assert treg.get("pixtral_12b", smoke=True).frontend == "vit_stub"
+    with pytest.raises(ValueError, match="unknown arch"):
+        treg.get("gpt-2")
 
 
 @pytest.mark.parametrize("step,batch,seq,vocab", [

@@ -280,10 +280,10 @@ def test_params_from_jax_rejects_mismatch():
 def test_registry_refuses_unported_archs():
     assert treg.get("mesh2k").name == "mesh2k"
     assert treg.get("mesh1k", smoke=True).input_hw == 64
-    with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("pixtral-12b")
-    with pytest.raises(ValueError, match="not ported yet"):
-        treg.get("seamless-m4t-large-v2")
+    assert treg.get("pixtral-12b").frontend_len == 1024
+    assert treg.get("seamless-m4t-large-v2", smoke=True).n_enc_layers == 2
+    with pytest.raises(ValueError, match="unknown arch"):
+        treg.get("vgg16")
     assert treg.get("qwen2.5-14b").head_dim == 128
     assert treg.get("gemma2-9b", smoke=True).vocab == 256
 

@@ -348,7 +348,7 @@ def test_moe_prefill_and_decode_match_jax(arch):
     toks = np.random.default_rng(7).integers(
         1, jcfg.vocab, (2, 64)).astype(np.int32)
     jlast, jkv, _ = jax.jit(lambda p, t: jT.prefill(p, jcfg, t))(jp, toks)
-    last, kv = tT.prefill(params, tcfg, torch.as_tensor(toks))
+    last, kv, _ = tT.prefill(params, tcfg, torch.as_tensor(toks))
     _close(last, jlast, F32, "prefill logits")
     got = tT.tree_to_jax({"layers": kv}, tcfg)["segments"]
     for si, (gs, ws) in enumerate(zip(got, jkv)):

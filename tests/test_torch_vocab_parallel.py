@@ -44,12 +44,16 @@ import torch
 import jax_mesh_oracles as oracles
 import torch_dist_cases as cases
 from repro.configs import gemma2_9b as jgemma
+from repro.configs import pixtral_12b as jpixtral
 from repro.configs import qwen2_5_14b as jqwen
+from repro.configs import seamless_m4t_large_v2 as jseamless
 from repro.data import pipeline as jpipe
 from repro.models.lm import transformer as jT
 from repro_torch import utils as tutils
 from repro_torch.configs import gemma2_9b as tgemma
+from repro_torch.configs import pixtral_12b as tpixtral
 from repro_torch.configs import qwen2_5_14b as tqwen
+from repro_torch.configs import seamless_m4t_large_v2 as tseamless
 from repro_torch.configs import registry as treg
 from repro_torch.data import pipeline as tpipe
 from repro_torch.launch import shardings
@@ -157,7 +161,9 @@ def runs(tmp_path_factory):
 
 # ---------------------------------------------------------------- configs --
 
-@pytest.mark.parametrize("tmod,jmod", [(tgemma, jgemma), (tqwen, jqwen)])
+@pytest.mark.parametrize("tmod,jmod", [(tgemma, jgemma), (tqwen, jqwen),
+                                       (tseamless, jseamless),
+                                       (tpixtral, jpixtral)])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_configs_equal_the_reference_field_by_field(tmod, jmod, smoke):
     name = jmod.CONFIG.name
@@ -167,6 +173,9 @@ def test_configs_equal_the_reference_field_by_field(tmod, jmod, smoke):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.layer_types() == want.layer_types()
     assert tT.plan(got) == jT.plan(want)
+    assert got.is_encdec == want.is_encdec
+    assert got.params_per_token() == want.params_per_token()
+    assert got.total_params() == want.total_params()
 
 
 # ----------------------------------------------------------- one device --
@@ -193,13 +202,33 @@ def test_one_device_vocab_parallel_is_the_dense_loss(key, runs):
 
 
 def test_vocab_parallel_refuses_a_frontend():
+    """The patch prefix (a frontend the vocab-parallel loss once refused)
+    on one device: `loss_fn(vocab_parallel=True)` with `patch_embeds`
+    is the dense loss, which scores the text tail only, and its
+    gradients are the dense ones, the prefix's labels -1."""
     cfg = dataclasses.replace(tgemma.SMOKE, frontend="vit_stub",
                               frontend_len=4)
-    params = tT.init(torch.Generator().manual_seed(0), tgemma.SMOKE,
-                     device="cpu")
+    params = tT.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     batch = tpipe.to_device(_batch(cfg), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="frontends"):
-        tT.loss_fn(params, batch, cfg, vocab_parallel=True)
+    batch["patch_embeds"] = torch.from_numpy(np.random.default_rng(5)
+                                             .standard_normal(
+        (cases.VOCAB_BATCH, 4, cfg.d_model)).astype(np.float32))
+    leaves = tutils.tree_leaves(params)
+    dense = tT.loss_fn(params, batch, cfg)
+    want = torch.autograd.grad(dense, leaves)
+    got = tT.loss_fn(params, batch, cfg, vocab_parallel=True)
+    grads = torch.autograd.grad(got, leaves)
+    logits = tT.forward(params, cfg, batch["tokens"],
+                        extra_embeds=batch["patch_embeds"])
+    assert logits.shape[1] == 4 + cases.VOCAB_SEQ
+    tail = logits[:, 4:].float()
+    plain = (torch.logsumexp(tail, -1) - torch.gather(
+        tail, -1, batch["labels"].long()[..., None])[..., 0]).mean()
+    np.testing.assert_allclose(dense.item(), plain.item(), rtol=1e-6)
+    np.testing.assert_allclose(got.item(), dense.item(), rtol=1e-6)
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL)
 
 
 @pytest.mark.parametrize("vocab,n", [(255, 2), (256, 4), (10, 3), (7, 1)])

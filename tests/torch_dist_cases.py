@@ -1512,7 +1512,7 @@ def case_lm(mesh, d):
         out[f"{arch}.loss_share"] = np.array(share.item())
         out.update({f"{arch}.grad.{i}": g.numpy()
                     for i, g in enumerate(grads)})
-        last, kv = transformer.prefill(params, cfg, batch["tokens"], ctx)
+        last, kv, _ = transformer.prefill(params, cfg, batch["tokens"], ctx)
         out[f"{arch}.prefill.logits"] = last.numpy()
         for li, layer_kv in enumerate(kv):
             if layer_kv is not None:
@@ -1780,6 +1780,156 @@ def case_vocab(mesh, d):
     return out
 
 
+# the encoder-decoder and the patch prefix on a mesh (tests/dist_checks.py's
+# models group): seamless SMOKE at batch 2 x seq 64 with 64 frames (split
+# over "model" as the tokens are), pixtral SMOKE with its 8-row patch
+# prefix before 64 text tokens (72 positions, 36 a rank on model 2); the
+# xattn block alone (port params of ENCDEC_SEED) on x (2, 32, d) against
+# a memory of 48 frames, and its decode step against that memory
+ENCDEC_ARCH, PREFIX_ARCH = "seamless-m4t-large-v2", "pixtral-12b"
+ENCDEC_BATCH, ENCDEC_SEQ = 2, 64
+ENCDEC_SEED = 16
+XATTN_SEQ, XATTN_MEM = 32, 48
+ENCDEC_DECODE_LEN = 32
+ENCDEC_DECODE_TOKENS = ([[3], [5]], [[7], [9]], [[11], [13]])
+
+
+def encdec_inputs(d_model: int, frontend_len: int) -> dict:
+    """numpy seed ENCDEC_SEED: seamless's frames (B, S, d), pixtral's
+    patch embeddings (B, frontend_len, d), the xattn block's x (B,
+    XATTN_SEQ, d), memory (B, XATTN_MEM, d), its output's cotangent g and
+    the two decode steps' inputs x_dec (B, 2, d)."""
+    rng = np.random.default_rng(ENCDEC_SEED)
+    b = ENCDEC_BATCH
+    shapes = {"frames": (b, ENCDEC_SEQ, d_model),
+              "patch_embeds": (b, frontend_len, d_model),
+              "x": (b, XATTN_SEQ, d_model), "memory": (b, XATTN_MEM, d_model),
+              "g": (b, XATTN_SEQ, d_model), "x_dec": (b, 2, d_model)}
+    return {n: rng.standard_normal(sh).astype(np.float32)
+            for n, sh in shapes.items()}
+
+
+def encdec_batch(cfg) -> dict:
+    """Batch 0 (`synthetic_lm_batch`) with seamless's frames or pixtral's
+    patch prefix from `encdec_inputs`."""
+    from repro_torch.data import pipeline
+    batch = pipeline.synthetic_lm_batch(0, ENCDEC_BATCH, ENCDEC_SEQ,
+                                        cfg.vocab)
+    inp = encdec_inputs(cfg.d_model, cfg.frontend_len)
+    key = "frames" if cfg.is_encdec else "patch_embeds"
+    batch[key] = inp[key]
+    return batch
+
+
+def xattn_block(cfg):
+    """The xattn block's params: the port's init from ENCDEC_SEED, leaves
+    that require grad."""
+    import torch
+    from repro_torch.models.lm import transformer
+    from repro_torch.utils import tree_map
+    p = transformer._block_init(torch.Generator().manual_seed(ENCDEC_SEED),
+                                cfg, "xattn", "cpu")
+    return tree_map(lambda t: t.requires_grad_(), p)
+
+
+def case_encdec(mesh, d):
+    """On this mesh (the sequence over "model", the batch over "data",
+    params from DIR/inputs.npz): seamless's loss share with its frames
+    split and every gradient; `encode`'s memory block (the bidirectional
+    ring); `prefill`'s last logits, K/V and memory blocks; decode steps
+    with the memory block (this rank's rows).  pixtral's dense and
+    vocab-parallel loss shares with the prefix + text split and their
+    gradients (the vocab-parallel table's gathered whole).  The xattn
+    block on this rank's blocks of x and the memory: its output block,
+    dx, dmemory and the params' gradient shares of sum(y * g); its decode
+    step (two tokens, the memory split)."""
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import shardings
+    from repro_torch.models.lm import modules as M
+    from repro_torch.models.lm import transformer
+    from repro_torch.utils import tree_leaves, tree_unflatten
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    ctx = M.ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    cpu = torch.device("cpu")
+    rows = ENCDEC_BATCH // dims[0]
+    r0 = mesh.index("data") * rows
+    out = {}
+
+    cfg, params = lm_params(ENCDEC_ARCH, d)
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        encdec_batch(cfg), mesh, "model", ("data",)), cpu)
+    share = transformer.loss_fn(params, batch, cfg, ctx=ctx)
+    grads = torch.autograd.grad(share, tree_leaves(params))
+    out["seamless.loss_share"] = np.array(share.item())
+    out.update({f"seamless.grad.{i}": g.numpy() for i, g in enumerate(grads)})
+    with torch.no_grad():
+        memory = transformer.encode(params, cfg, batch["frames"], ctx)
+    out["seamless.memory"] = memory.numpy()
+    last, kv, mem = transformer.prefill(params, cfg, batch["tokens"], ctx,
+                                        frames=batch["frames"])
+    out["seamless.prefill.logits"] = last.numpy()
+    out["seamless.prefill.memory"] = mem.numpy()
+    for li, (k, v) in enumerate(kv):
+        out[f"seamless.prefill.{li}.k"] = k.numpy()
+        out[f"seamless.prefill.{li}.v"] = v.numpy()
+    caches = transformer.init_decode_state(
+        cfg, rows, ENCDEC_DECODE_LEN // dims[1], device="cpu")
+    for step, tok in enumerate(ENCDEC_DECODE_TOKENS):
+        logits, caches = transformer.decode_step(
+            params, cfg, torch.tensor(tok[r0:r0 + rows]), caches, step, ctx,
+            memory=memory)
+        out[f"seamless.decode.{step}"] = logits.numpy()
+
+    cfg, params = lm_params(PREFIX_ARCH, d)
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        encdec_batch(cfg), mesh, "model", ("data",)), cpu)
+    share = transformer.loss_fn(params, batch, cfg, ctx=ctx)
+    grads = torch.autograd.grad(share, tree_leaves(params))
+    out["pixtral.dense.loss_share"] = np.array(share.item())
+    out.update({f"pixtral.dense.grad.{i}": g.numpy()
+                for i, g in enumerate(grads)})
+    blocks = shardings.vocab_blocks(params, mesh)
+    share = transformer.loss_fn(blocks, batch, cfg, ctx=ctx,
+                                vocab_parallel=True)
+    grads = torch.autograd.grad(share, tree_leaves(blocks))
+    gathered = shardings.gather_vocab(tree_unflatten(blocks, iter(grads)),
+                                      mesh, cfg.vocab)
+    out["pixtral.vp.loss_share"] = np.array(share.item())
+    out.update({f"pixtral.vp.grad.{i}": g.numpy()
+                for i, g in enumerate(tree_leaves(gathered))})
+    out.update({f"pixtral.batch.{k}": v.numpy() for k, v in batch.items()})
+
+    cfg = lm_params(ENCDEC_ARCH, d)[0]
+    p = xattn_block(cfg)
+    inp = encdec_inputs(cfg.d_model, cfg.frontend_len)
+    t = {n: torch.from_numpy(decode_block(inp[n], rank, dims, ("data",),
+                                          None if n == "x_dec" else "model"))
+         for n in ("x", "memory", "g", "x_dec")}
+    x = t["x"].clone().requires_grad_()
+    m = t["memory"].clone().requires_grad_()
+    y = transformer._block_apply(
+        p, x, "xattn", cfg, transformer.positions_of(ctx, x.shape[1], cpu),
+        ctx=ctx, memory=m)
+    leaves = tree_leaves(p)
+    grads = torch.autograd.grad((y * t["g"]).sum(), [x, m] + leaves)
+    out["xattn.y"] = y.detach().numpy()
+    out["xattn.dx"], out["xattn.dmemory"] = grads[0].numpy(), grads[1].numpy()
+    out.update({f"xattn.grad.{i}": g.numpy() for i, g in
+                enumerate(grads[2:])})
+    cache = transformer.init_decode_state(
+        cfg, rows, ENCDEC_DECODE_LEN // dims[1], device="cpu")[0]
+    scale = 1.0 / np.sqrt(cfg.head_dim)
+    with torch.no_grad():
+        for step in range(2):
+            xd = t["x_dec"][:, step:step + 1]
+            pos = torch.full((rows, 1), step, dtype=torch.long)
+            out[f"xattn.decode.{step}"] = transformer._decode_block(
+                p, xd, "xattn", cfg, ctx, pos, step, cache, scale,
+                t["memory"]).numpy()
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -1792,7 +1942,7 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "decode": case_decode, "serve": case_serve, "ring": case_ring,
          "prefix": case_prefix, "lm": case_lm, "vocab": case_vocab,
          "moe": case_moe, "lm_elastic": case_lm_elastic,
-         "lm_resume": case_lm_resume}
+         "lm_resume": case_lm_resume, "encdec": case_encdec}
 
 
 # ------------------------------------------------------------ launcher --
