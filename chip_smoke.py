@@ -273,6 +273,25 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    phase 7's runs: the one-device loss and gradients, then the
    vocab-parallel loss on 2 ranks, each holding its block of prefix +
    text, held as phase 7 holds its runs.
+11. the dry run (`python -m repro_torch.launch.dryrun --device cuda`):
+   one rank (the last) of qwen1.5-0.5b train_4k, hymba-1.5b prefill_32k,
+   olmoe-1b-7b train_4k under the opt variant (expert parallelism,
+   ZeRO-1 over data x model) on 16 x 16 and mesh1k on 2 x 16 x 16 and
+   16 x 16, each traced on fake CUDA tensors under the fake process
+   group in a fresh process (all at once, started before phase 7 at the
+   lowest CPU priority: they use no card and run on the host's spare
+   cores while phase 7 runs): the reference's line, the peak a rank
+   against 80 GiB.  Then the same rank's real step on the
+   card at full width and depth (qwen1.5's 16 x 256 tokens, hymba's 2 x
+   2048, mesh1k's 2 samples x 64 rows), one fresh process each, held
+   against the trace: FLOPs and the collectives' bytes by kind exactly,
+   kernel launches by kernel against the traced custom-op calls, and
+   `max_memory_allocated` within 10 % of the traced peak plus what the
+   trace does not see, read on the card by a second step op by op (the
+   workspaces cuBLAS keeps, and the largest one an op allocates for its
+   call: cuDNN's, the conv kernel's padded operands); the step's ms
+   beside its compute and memory roofline (one rank's compute: the fake
+   group runs no collective, and what its receives hold is not checked).
 
 The full-width hymba-1.5b and qwen1.5-0.5b params are drawn from their
 CPU generator once a run and kept, with the generator's state after the
@@ -284,6 +303,7 @@ to chiprun_out/chip_smoke.json.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -305,6 +325,7 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro_torch.checkpoint.checkpoint import CheckpointManager  # noqa
 from repro_torch.configs import (  # noqa: E402
@@ -414,11 +435,15 @@ def _init_once(gen: torch.Generator, cfg, *, device):
     draw would (hymba's draw on the CPU takes about 12 s).  The first load
     of each config in a run is held against a fresh draw, leaf by leaf
     and the generator's state, and raises if they differ.  Any other call
-    is `transformer.init`'s own."""
+    is `transformer.init`'s own, as is a draw of fake tensors (a dry
+    run's trace: nothing to keep)."""
+    from torch._guards import detect_fake_mode
+    if cfg not in DRAW_ONCE or detect_fake_mode() is not None:
+        return _init(gen, cfg, device=device)
     fresh = gen.device.type == "cpu" and torch.equal(
         gen.get_state(),
         torch.Generator().manual_seed(gen.initial_seed()).get_state())
-    if cfg not in DRAW_ONCE or not fresh:
+    if not fresh:
         return _init(gen, cfg, device=device)
     path = os.path.join(PARAMS_DIR,
                         f"{cfg.name}-seed{gen.initial_seed()}.pt")
@@ -4743,6 +4768,12 @@ def moe_dense_rank(rank: int, world: int) -> dict:
             "n_params": sum(t.numel() for t in leaves)}
 
 
+# the layer's forward on an H100 80GB HBM3 at 700 W when its dispatch
+# copied the kept pairs alone (a data-dependent shape), before every
+# (token, choice) pair got a destination row
+MOE_LAYER_MS_KEPT = "144.5-145.3"
+
+
 def moe_time_split(lp: dict, cfg, batch: dict, params: dict) -> dict:
     """The MoE layer's forward on its input in the one-device run (the
     layer's ln2 of the attention's residual), timed whole and in parts,
@@ -5157,8 +5188,9 @@ def moe_phase(card: str) -> dict:
           f"over the {sp['kept_pairs']} kept pairs' rows "
           f"{sp['experts_kept_gflop']:.1f} GFLOP, bound "
           f"{sp['experts_kept_bound_ms']:.3f}) + dispatch and "
-          f"combine {sp['dispatch_combine_ms']:.3f} ms; smallest top-k "
-          f"margin {one['min_margin']:.3e} ({card})", flush=True)
+          f"combine {sp['dispatch_combine_ms']:.3f} ms (the layer with the "
+          f"kept pairs' dispatch: {MOE_LAYER_MS_KEPT} ms); smallest "
+          f"top-k margin {one['min_margin']:.3e} ({card})", flush=True)
     served = spawn_ranks(olmoe_serve_rank, 1, card)[0]
     ch = served["check"]
     if served["prefill_launches"] != {"conv2d": 0, "flash_attention":
@@ -5662,6 +5694,279 @@ def encdec_phase(card: str) -> dict:
     return out
 
 
+# phase 11: the dry run (`launch.dryrun`) on the card.  Four cells traced
+# abstractly on cuda, one rank each (the last), in fresh processes run at
+# once: a dense train cell, a hybrid prefill, the MoE opt variant (expert
+# parallelism, ZeRO-1 over data x model) and the CNN on two pods; then the
+# same rank's real step, at full width and depth on real tensors under
+# the same fake group, for three cells, each in a fresh process, held
+# against the trace of its cell: FLOPs and the collectives' bytes by kind
+# exactly, kernel launches by kernel against the trace's custom-op calls,
+# `max_memory_allocated` within DRYRUN_PEAK_TOL of the traced peak plus
+# the device memory the trace cannot see, measured on the card in the same
+# process (`_HiddenBytes`, a second step): the workspaces that library
+# calls allocate inside an op (cuDNN's in the conv backward, cuBLAS's,
+# which it keeps) and the kernels' own buffers (the conv kernel's padded
+# operands and split-K workspace); the limit is the tolerance plus the
+# workspaces held across the step and the largest one op allocates for
+# the time of its call
+DRYRUN_DIR = os.path.join(HERE, "build", "dryrun", "chip_smoke")
+DRYRUN_TRACED = [("qwen1_5_0_5b", "train_4k", False, "base"),
+                 ("hymba_1_5b", "prefill_32k", False, "base"),
+                 ("olmoe_1b_7b", "train_4k", False, "opt"),
+                 ("mesh1k", "cnn", True, "base"),
+                 ("mesh1k", "cnn", False, "base")]
+DRYRUN_REAL = [("qwen1_5_0_5b", "train_4k", False),
+               ("hymba_1_5b", "prefill_32k", False),
+               ("mesh1k", "cnn", False)]
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_STEP_REPS = 3
+
+
+def _wait_for(path: str, timeout: float = 900.0) -> None:
+    t0 = time.time()
+    while not os.path.exists(path):
+        if time.time() - t0 > timeout:
+            raise TimeoutError(f"no {path} after {timeout} s")
+        time.sleep(0.2)
+
+
+class _HiddenBytes(TorchDispatchMode):
+    """A dispatch mode that reads, for each op of a step on the card, the
+    device memory it allocates beyond its outputs' storages, by op: the
+    peak over the call less the bytes allocated before it and its new
+    outputs (`transient`: a workspace held for the call), and what stays
+    allocated after it less its new outputs (`held`: a workspace kept
+    for later calls).  Each op resets the peak statistic, so it runs on
+    a step of its own."""
+
+    def __init__(self):
+        super().__init__()
+        self.transient, self.held = {}, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = func(*args, **(kwargs or {}))
+        peak, after = torch.cuda.max_memory_allocated(), \
+            torch.cuda.memory_allocated()
+        if peak == before:
+            return out
+        # an op whose schema says its results alias its inputs (a view,
+        # an in-place op) makes no new output
+        new = {}
+        if not any(r.alias_info is not None for r in func._schema.returns):
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    st = t.untyped_storage()
+                    new[st._cdata] = -(-st.nbytes() // 512) * 512
+        name = str(func.overloadpacket)
+        for d, v in ((self.transient, peak - before - sum(new.values())),
+                     (self.held, after - before - sum(new.values()))):
+            if v > d.get(name, 0):
+                d[name] = v
+        return out
+
+
+def dryrun_real(arch: str, shape: str, multi_pod: bool, out_path: str
+                ) -> None:
+    """One rank's real step of a dry-run cell (the last rank of the
+    production mesh, under the fake group) on the card, at full size,
+    from seed 0: its FLOPs, collectives and kernel launches, counted as
+    the trace counts them, its `max_memory_allocated`, and the memory
+    the step's ops allocate beyond their outputs (`_HiddenBytes`, one
+    more step, cuBLAS's workspaces freed first so that it allocates them
+    again); then, once `<out_path>.go` exists (the caller's turn for it:
+    the step timed alone on the card), the ms of the step run alone (the
+    best of DRYRUN_STEP_REPS after the counted one), into `out_path`."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import (PRODUCTION_MESH, init_fake_group,
+                                         make_production_mesh)
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    world = math.prod(PRODUCTION_MESH[multi_pod].values())
+    init_fake_group(world - 1, world)
+    mesh = make_production_mesh(multi_pod)
+    if arch in ("mesh1k", "mesh2k", "resnet50"):
+        train_cli.set_fp32_numerics(dev, echo=False)
+    torch.manual_seed(0)
+    step, args, _ = dryrun.build_cell(arch, shape, mesh, "base", dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, res = dryrun.measure_step(step, args, mesh, dev, memory=False)
+    torch.cuda.synchronize()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["launches"] = ops.launch_counts()
+    # memory only, so it runs before this process's turn alone on the card
+    torch._C._cuda_clearCublasWorkspaces()
+    hidden = _HiddenBytes()
+    t0 = time.perf_counter()
+    with hidden:
+        step(*args)
+    torch.cuda.synchronize()
+    res["hidden_s"] = time.perf_counter() - t0
+    res["hidden_held"] = {k: v for k, v in hidden.held.items() if v > 0}
+    res["hidden_transient"] = {k: v for k, v in hidden.transient.items()
+                               if v > 0}
+    _wait_for(out_path + ".go")
+    ms = []
+    for _ in range(DRYRUN_STEP_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        step(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    res["step_ms"] = min(ms)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+
+
+def _dryrun_env() -> dict:
+    return dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+                OMP_NUM_THREADS="1")
+
+
+def dryrun_traces_start() -> tuple[dict, float]:
+    """Start phase 11's traces (DRYRUN_TRACED) through the dry run's own
+    entry, `python -m repro_torch.launch.dryrun --device cuda`, each in a
+    fresh process at the lowest CPU priority: they run on the host's
+    spare cores while phase 7 runs (they use no card), and phase 11
+    collects them.  Returns ({tag: process}, the start time)."""
+    from repro_torch.launch import dryrun
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    os.makedirs(DRYRUN_DIR)
+    procs = {}
+    for arch, shape, pod2, variant in DRYRUN_TRACED:
+        tag = dryrun.cell_tag(arch, shape, pod2, variant)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--variant", variant,
+               "--device", "cuda", "--out", DRYRUN_DIR] \
+            + ["--multi-pod"] * pod2
+        with open(os.path.join(DRYRUN_DIR, tag + ".log"), "w") as log:
+            procs[tag] = subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT, env=_dryrun_env(),
+                cwd=HERE, preexec_fn=lambda: os.nice(19))
+    atexit.register(_stop, list(procs.values()))
+    return procs, time.perf_counter()
+
+
+def _stop(procs) -> None:
+    """End what is still running of `procs` (a failed run's leftovers)."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def dryrun_phase(card: str, started: tuple[dict, float] | None = None
+                 ) -> dict:
+    """Phase 11 (see DRYRUN_TRACED): the traces (`dryrun_traces_start`'s,
+    started here where `started` is None) and each DRYRUN_REAL cell's
+    real step in a fresh process, all at once; the traces' lines (the
+    reference's line each, the peak against 80 GiB); then each real
+    step, timed alone in its turn, held against its trace."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    procs, t_start = started or dryrun_traces_start()
+    env = _dryrun_env()
+    reals = {}
+    for arch, shape, pod2 in DRYRUN_REAL:
+        path = os.path.join(DRYRUN_DIR, dryrun.cell_tag(arch, shape, pod2)
+                            + ".real.json")
+        with open(path + ".log", "w") as log:
+            reals[dryrun.cell_tag(arch, shape, pod2)] = (
+                path, subprocess.Popen(
+                    [sys.executable, "-c", f"import chip_smoke as c; "
+                     f"c.dryrun_real({arch!r}, {shape!r}, {pod2!r}, "
+                     f"{path!r})"], stdout=log, stderr=subprocess.STDOUT,
+                    env=env, cwd=HERE))
+    try:
+        traced = {}
+        for tag, p in procs.items():
+            p.wait(timeout=600)
+            with open(os.path.join(DRYRUN_DIR, tag + ".log")) as f:
+                out = f.read()
+            if p.returncode != 0:
+                raise AssertionError(f"dry run {tag} failed (rc "
+                                     f"{p.returncode}):\n{out[-4000:]}")
+            with open(os.path.join(DRYRUN_DIR, tag + ".json")) as f:
+                traced[tag] = r = json.load(f)
+            pd = r["per_device"]
+            print(out.strip().splitlines()[-1])
+            fits = "fits" if pd["peak_bytes"] <= 80 * 2 ** 30 else "OVER"
+            print(f"dry run {tag}: peak {pd['peak_bytes'] / 2 ** 30:.2f} "
+                  f"GiB a rank against 80 GiB ({fits}), rank {r['rank']} "
+                  f"of {r['chips']}, {r['kernel_calls']} kernel calls, "
+                  f"collectives {pd['collectives']}")
+        t_traced = time.perf_counter() - t_start
+        real = {}
+        for tag, (path, p) in reals.items():
+            with open(path + ".go", "w"):
+                pass
+            p.wait(timeout=900)
+            if p.returncode != 0:
+                with open(path + ".log") as f:
+                    raise AssertionError(f"real step of {tag} failed (rc "
+                                         f"{p.returncode}):\n"
+                                         f"{f.read()[-4000:]}")
+            with open(path) as f:
+                got = json.load(f)
+            want = traced[tag]
+            pd = want["per_device"]
+            rel = got["peak_bytes"] / pd["peak_bytes"] - 1
+            held = sum(got["hidden_held"].values())
+            transient = max(got["hidden_transient"].values(), default=0)
+            limit = DRYRUN_PEAK_TOL * pd["peak_bytes"] + held + transient
+            top = sorted(got["hidden_transient"].items(),
+                         key=lambda kv: -kv[1])[:3]
+            gap = got["peak_bytes"] - pd["peak_bytes"]
+            roof = max(want["roofline_s"]["compute"],
+                       want["roofline_s"]["memory"]) * 1e3
+            print(f"dry run {tag}, rank {want['rank']}: real step against "
+                  f"its trace: FLOPs {got['flops']} / {pd['flops']}, "
+                  f"launches {got['launches']} / {want['kernel_calls']}, "
+                  f"collectives {got['collectives']} / "
+                  f"{pd['collectives']}; peak "
+                  f"{got['peak_bytes'] / 2 ** 30:.3f} GiB real against "
+                  f"{pd['peak_bytes'] / 2 ** 30:.3f} GiB traced "
+                  f"({rel:+.2%}, {gap / 2 ** 20:+.1f} MiB; limit "
+                  f"{DRYRUN_PEAK_TOL:.0%} + held workspaces "
+                  f"{held / 2 ** 20:.1f} MiB {got['hidden_held']} + the "
+                  f"largest op workspace {transient / 2 ** 20:.1f} MiB, "
+                  f"top ops {[(k, round(v / 2 ** 20, 2)) for k, v in top]}"
+                  f", read in {got['hidden_s']:.1f} s); step "
+                  f"{got['step_ms']:.1f} ms against its roofline "
+                  f"{roof:.1f} ms (compute "
+                  f"{want['roofline_s']['compute'] * 1e3:.1f}, memory "
+                  f"{want['roofline_s']['memory'] * 1e3:.1f}; one rank's "
+                  f"compute, collectives not run (fake group)) ({card})")
+            if got["flops"] != pd["flops"]:
+                raise AssertionError(f"{tag}: real FLOPs {got['flops']} "
+                                     f"!= traced {pd['flops']}")
+            if got["launches"] != want["kernel_calls"]:
+                raise AssertionError(f"{tag}: launches {got['launches']} "
+                                     f"!= traced calls "
+                                     f"{want['kernel_calls']}")
+            if got["collectives"] != pd["collectives"]:
+                raise AssertionError(f"{tag}: collectives differ")
+            if abs(got["peak_bytes"] - pd["peak_bytes"]) > limit:
+                raise AssertionError(f"{tag}: real peak {rel:+.2%} from "
+                                     f"the traced one")
+            real[tag] = dict(got, roofline_ms=roof, peak_rel=rel)
+    finally:
+        _stop([p for _, p in reals.values()] + list(procs.values()))
+    phase_s = time.perf_counter() - t0
+    print(f"dry-run phase (3 counted real steps beside the 5 traces, "
+          f"which ended {t_traced:.1f} s after their start, then each real "
+          f"step timed alone) took {phase_s:.1f} s of this run ({card})")
+    return {"traced": traced, "real": real, "phase_s": phase_s,
+            "traced_s": t_traced}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
@@ -5755,9 +6060,11 @@ def main() -> int:
     served = serve_phase(card)
     meshed = lm_mesh_phase(card, lm_train, served)
     shutil.rmtree(PARAMS_DIR, ignore_errors=True)   # the last draw kept
+    dry_started = dryrun_traces_start()
     vocab = vocab_phase(card)
     moe = moe_phase(card)
     encdec = encdec_phase(card)
+    dry = dryrun_phase(card, dry_started)
 
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
@@ -5781,7 +6088,7 @@ def main() -> int:
                    "lm_forward_check": lm_fwd,
                    "lm_step_breakdown": lm_breakdown,
                    "serve": served, "lm_mesh": meshed, "vocab": vocab,
-                   "moe": moe, "encdec": encdec,
+                   "moe": moe, "encdec": encdec, "dryrun": dry,
                    "hgmma": hgmma, "resources": resources}, f,
                   indent=1)
 
@@ -5960,6 +6267,13 @@ def main() -> int:
                 "q", "kv", "count", "plan_str", "order", "max_abs_err",
                 "bound_by") + keys}) for r in encdec["kernel_rows"]]}
 
+    def dryrun_launches(name):
+        """The kernel's launches in each real step of phase 11, beside
+        the trace's custom-op calls of the same cell."""
+        return {tag: {"launches": r["launches"][name],
+                      "traced_calls": dry["traced"][tag]["kernel_calls"][
+                          name]} for tag, r in dry["real"].items()}
+
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
     lm_scope = f"one hymba-1.5b forward ({HYMBA.n_layers} layers), batch " \
         f"{LM_BATCH} x seq {LM_SEQ}, float32: "
@@ -5990,7 +6304,8 @@ def main() -> int:
                  f"float32: {resnet_n_convs(RESNET)} conv calls at "
                  f"{len(resnet_rows) // 2} shapes"),
                  auto_launches_per_rank=[r["launches"] for r in
-                                         resnet_auto["ranks"]])),
+                                         resnet_auto["ranks"]]),
+             dryrun_launches=dryrun_launches("conv2d")),
         dict(entry("flash_attention",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:77",
@@ -6004,7 +6319,8 @@ def main() -> int:
              serve_prefill=serve_prefill("flash_attention"),
              mesh_launches_per_rank=mesh_launches("flash_attention"),
              ring_block=ring_block(), vocab=vocab_rows(), moe=moe_rows(),
-             encdec=encdec_rows()),
+             encdec=encdec_rows(),
+             dryrun_launches=dryrun_launches("flash_attention")),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],
@@ -6022,7 +6338,8 @@ def main() -> int:
                  [r for r in lm_rows if r["kernel"] == "ssd_chunk"
                   and r["model"] == "mamba2-780m"],
                  f"one mamba2-780m forward, batch {LM_BATCH} x seq "
-                 f"{LM_SEQ}, float32: {MAMBA2.n_layers} calls"))),
+                 f"{LM_SEQ}, float32: {MAMBA2.n_layers} calls")),
+             dryrun_launches=dryrun_launches("ssd_chunk")),
     ]
     print("kernel resources (ptxas):")
     print("\n".join(resources))

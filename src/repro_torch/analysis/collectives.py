@@ -12,7 +12,9 @@ execution path reports what it does, in issue order (`ExecutedOp`):
     all-to-all (kinds `psum`, `all_gather`, `reduce_scatter`,
     `all_to_all`);
   * each halo transfer direction (`ppermute`, core.halo), forward and
-    backward, and each §IV-A pin (`pin`: the forward's wait between the
+    backward, each whole-block move of `halo.ring_shift` (the ring's
+    K/V, the vocabulary's table) and `halo.shift` (the SSD's prefix
+    rounds), also a `ppermute`, and each §IV-A pin (`pin`: the forward's wait between the
     interior and the boundary convs, the backward's post of the halo
     gradients);
   * each conv launch (`conv`, core.spatial_conv) and its backward

@@ -39,9 +39,11 @@ where nothing is sent, as JAX's `ppermute` counts it), and each `pin`
 one `pin` op, forward where it waits and backward where it posts.
 
 Two whole-block moves sit beside the stencil halo: `ring_shift`, the
-wrapping rotation of ring attention's K/V blocks, and `shift`, the
-non-wrapping shift by d shards of `core.seq_ssm`'s prefix rounds; both
-are autograd Functions whose backward moves the cotangents back.
+wrapping rotation of ring attention's K/V blocks (and of the
+vocabulary's table blocks), and `shift`, the non-wrapping shift by d
+shards of `core.seq_ssm`'s prefix rounds; both are autograd Functions
+whose backward moves the cotangents back.  Under an audit each move,
+forward or backward, is one `ppermute` op of the block's bytes.
 
 Transport follows the backend (`Mesh.to_wire`): NCCL sends device
 tensors; gloo sends host tensors, so a CUDA halo goes through host memory
@@ -335,6 +337,8 @@ class _RingShift(torch.autograd.Function):
 def _rotate(x: torch.Tensor, axis, mesh: Mesh, step: int) -> torch.Tensor:
     n = mesh.axis_size(axis)
     i = mesh.index(axis)
+    if trace.RECORDER is not None:
+        trace.note("ppermute", x, axes_tuple(axis))
     buf = mesh.wire_buffer(x.shape, x.dtype, x.device)
     ranks = [mesh.global_rank(r) for r in mesh.ranks(axis)]
     for w in _p2p([(_wire(mesh, x), ranks[(i + step) % n])],
@@ -373,6 +377,8 @@ class _Shift(torch.autograd.Function):
 def _shift(x: torch.Tensor, axis, mesh: Mesh, d: int) -> torch.Tensor:
     n = mesh.axis_size(axis)
     i = mesh.index(axis)
+    if trace.RECORDER is not None:     # the block received, zeros or not
+        trace.note("ppermute", x, axes_tuple(axis))
     ranks = [mesh.global_rank(r) for r in mesh.ranks(axis)]
     sends = [(_wire(mesh, x), ranks[i + d])] if 0 <= i + d < n else []
     recvs, out = [], x.new_zeros(x.shape)

@@ -37,6 +37,7 @@ import json
 from typing import Mapping
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 SCHEMA = "repro/step_trace@1"
 
@@ -108,7 +109,9 @@ def annotate(region: str, like: torch.Tensor | None = None,
         return
     layer = layer or current_layer()
     name = qualified(region, layer)
-    nvtx = like is not None and like.is_cuda
+    # no NVTX range on a fake tensor (a dry run's trace makes no CUDA call)
+    nvtx = like is not None and like.is_cuda and \
+        not isinstance(like, FakeTensor)
     _REGION_STACK.append((region, layer, "bwd" if bwd else "fwd"))
     if RECORDER is not None:
         RECORDER.enter(layer, region)

@@ -5,6 +5,10 @@ library with a plain C interface, at first use, into the repository's
 `build/kernels/` directory (git-ignored), cached by a hash of the source
 and the flags.  Nothing here includes PyTorch's headers, so a build takes
 seconds.  `build_all` starts one `nvcc` per source, all at once.
+
+`define_op` registers a kernel's launch as an operator of the `repro`
+namespace, so that a dry run's fake tensors reach its shapes and its FLOP
+formula and never the launch.
 """
 from __future__ import annotations
 
@@ -15,6 +19,9 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Callable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -97,3 +104,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build_all([name])[name]))
             _loaded[name] = lib
         return lib
+
+
+# the kernels' operators: each a launch of its kernel, its shapes a fake
+# implementation (`torch.library.Library` rather than
+# `torch.library.custom_op`, which puts a Python autograd kernel in front
+# of every call: the kernels' autograd is their modules' Functions)
+_OPS = torch.library.Library("repro", "FRAGMENT")
+
+
+def define_op(schema: str, launch: Callable, fake: Callable):
+    """`torch.ops.repro.<name>.default` for `schema` ("name(args) ->
+    outs"): `launch` on real tensors (it launches on CUDA ones and raises
+    on any other), `fake` (the outputs' shapes and dtypes, nothing
+    computed) on fake ones."""
+    name = schema.split("(", 1)[0]
+    _OPS.define(schema)
+    _OPS.impl(name, launch, "CompositeExplicitAutograd")
+    torch.library.register_fake(f"repro::{name}", fake, lib=_OPS)
+    return getattr(torch.ops.repro, name).default

@@ -16,6 +16,9 @@ halo rows last (the reference's `interior_first` grid order).
 `conv2d_emulated` runs `plan` and `tile_order` in plain PyTorch on the
 CPU, tile by tile, as the CUDA kernel does.
 
+The launch is the custom op `repro::conv2d` (`ops` says why); its FLOP
+formula (`conv_flops`) is 2 N Ho Wo KH KW C F.
+
 `Conv2d` is the differentiable op the model calls.  Its forward is
 `ops.conv2d`; its backward is PyTorch's `conv2d_input` / `conv2d_weight`
 (cuDNN on the card) on NCHW/OIHW views of the same tensors.  That mirrors
@@ -31,8 +34,10 @@ import functools
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core import trace
+from repro_torch.kernels import _build
 from repro_torch.utils import same_pads
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -144,7 +149,6 @@ def pad_operands(x: torch.Tensor, w: torch.Tensor, p: Plan
 
 
 def _lib():
-    from repro_torch.kernels import _build
     lib = _build.load("conv2d")
     fn = lib.repro_conv2d
     if fn.argtypes is None:
@@ -184,8 +188,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
 
     Pads C and F as `plan` says, allocates y and any split-K workspace,
     takes the pixel tiles in `tile_order`, launches on the current stream
-    and does not synchronise; raises if a launch is refused."""
+    and does not synchronise; raises if a launch is refused.  One call of
+    the custom op `repro::conv2d`; on fake tensors (a dry run's trace,
+    `launch.dryrun`) it computes nothing and returns y's shape and dtype,
+    and counts no launch."""
     check_args(x, w, stride)
+    return _conv_op(x, w, int(stride), bool(interior_first))
+
+
+def _conv_launch(x: torch.Tensor, w: torch.Tensor, stride: int,
+                 interior_first: bool) -> torch.Tensor:
+    """The launch: the custom op's real implementation."""
     if not x.is_cuda:
         raise ValueError(f"the conv2d kernel runs on CUDA tensors; got "
                          f"{x.device} (ops.conv2d takes the plain version "
@@ -215,6 +228,33 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
                            f"stride {stride}, {p})")
     conv2d.launches += 1
     return y
+
+
+def _out_hw(x_shape, w_shape, stride: int) -> tuple[int, int]:
+    return ((x_shape[1] - w_shape[0]) // stride + 1,
+            (x_shape[2] - w_shape[1]) // stride + 1)
+
+
+def _conv_fake(x, w, stride, interior_first):
+    ho, wo = _out_hw(x.shape, w.shape, stride)
+    return x.new_empty((x.shape[0], ho, wo, w.shape[3]))
+
+
+_conv_op = _build.define_op(
+    "conv2d(Tensor x, Tensor w, int stride, bool interior_first) -> Tensor",
+    _conv_launch, _conv_fake)
+
+
+def conv_flops(x_shape, w_shape, stride: int) -> int:
+    """2 N Ho Wo KH KW C F: a multiply and an add per tap."""
+    ho, wo = _out_hw(x_shape, w_shape, stride)
+    kh, kw, c, f = w_shape
+    return 2 * x_shape[0] * ho * wo * kh * kw * c * f
+
+
+@register_flop_formula(torch.ops.repro.conv2d)
+def _(x_shape, w_shape, stride, *args, out_shape=None, **kwargs) -> int:
+    return conv_flops(x_shape, w_shape, stride)
 
 
 conv2d.launches = 0

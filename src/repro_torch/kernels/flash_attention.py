@@ -18,6 +18,11 @@ fp32 log-sum-exp of each row, and a row that the masks admit no key of
 the block to is allowed (lse <= -1e29, a finite output: its weight in
 the ring's merge is 0).
 
+Each launch is a custom op, `repro::flash_attention` or
+`repro::flash_attention_block` (`ops` says why); their FLOP formula
+counts 4 B Hq D per (query, key) pair the masks admit
+(`admitted_pairs`), as the bound does.
+
 `FlashAttention` is the differentiable op on the card.  Its forward is the
 kernel, which on the `wgmma` path rounds P to bf16 before P.V, as the
 Pallas kernel does (`p.astype(v.dtype)`); the plain version keeps P in
@@ -35,7 +40,11 @@ import dataclasses
 import functools
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PATHS = {"fma": 0, "wgmma": 1}
@@ -91,7 +100,6 @@ def _lib():
     """The C entry point, resolved once."""
     global _fn
     if _fn is None:
-        from repro_torch.kernels import _build
         fn = _build.load("flash_attention").repro_flash_attention
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, _I64, _I64, _I64, _I64,
@@ -144,12 +152,41 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"key (Sk {sk}, window {window})")
 
 
+def admitted_pairs(sq: int, sk: int, causal: bool, window: int | None,
+                   delta: int = 0) -> int:
+    """(query, key) pairs that causality and the window admit between sq
+    query rows (row i at position i + delta) and sk keys: the work the
+    masks leave, which the FLOP formula and the bound count."""
+    return _pairs(int(sq), int(sk), bool(causal),
+                  None if window is None else int(window), int(delta))
+
+
+@functools.lru_cache(maxsize=4096)
+def _pairs(sq: int, sk: int, causal: bool, window: int | None,
+           delta: int) -> int:
+    # numpy: a FLOP formula runs inside a fake-tensor trace
+    pos = np.arange(sq, dtype=np.int64) + delta
+    hi = np.minimum(pos, sk - 1) if causal else np.full_like(pos, sk - 1)
+    lo = np.zeros_like(pos) if window is None else \
+        np.maximum(pos - window + 1, 0)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def attention_flops(q_shape, k_shape, causal: bool, window: int | None,
+                    delta: int = 0) -> int:
+    """4 B Hq D per admitted pair: Q.K^T and P.V, a multiply and an add
+    each (the softmax's exponentials not counted)."""
+    b, sq, hq, d = q_shape
+    return 4 * b * hq * d * admitted_pairs(sq, k_shape[1], causal, window,
+                                           delta)
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: int | None, softcap: float | None,
             scale: float | None, delta: int, block: bool):
-    """One launch of the kernel: o in q's dtype, or with `block` (o in
-    fp32, lse (B, Hq, Sq) in fp32)."""
-    check_args(q, k, v, window, softcap, scale, block)
+    """One launch of the kernel (the custom ops' real implementation): o
+    in q's dtype, or with `block` (o in fp32, lse (B, Hq, Sq) in
+    fp32)."""
     if not q.is_cuda:
         raise ValueError(f"the flash_attention kernel runs on CUDA tensors; "
                          f"got {q.device} (ops.flash_attention takes the "
@@ -182,6 +219,45 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (o, lse) if block else o
 
 
+def _attention_launch(q, k, v, causal, window, softcap, scale):
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, delta=0, block=False)
+
+
+def _block_launch(q, k, v, delta, causal, window, softcap, scale):
+    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
+                   scale=scale, delta=delta, block=True)
+
+
+def _block_fake(q, k, v, delta, causal, window, softcap, scale):
+    return (q.new_empty(q.shape, dtype=torch.float32),
+            q.new_empty((q.shape[0], q.shape[2], q.shape[1]),
+                        dtype=torch.float32))
+
+
+_ARGS = ("Tensor q, Tensor k, Tensor v, bool causal, int? window, "
+         "float? softcap, float? scale")
+_attention_op = _build.define_op(
+    f"flash_attention({_ARGS}) -> Tensor", _attention_launch,
+    lambda q, k, v, *_: q.new_empty(q.shape))
+_block_op = _build.define_op(
+    f"flash_attention_block(Tensor q, Tensor k, Tensor v, int delta, "
+    f"bool causal, int? window, float? softcap, float? scale) "
+    f"-> (Tensor, Tensor)", _block_launch, _block_fake)
+
+
+@register_flop_formula(torch.ops.repro.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, window, *args, out_shape=None,
+      **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, window)
+
+
+@register_flop_formula(torch.ops.repro.flash_attention_block)
+def _(q_shape, k_shape, v_shape, delta, causal, window, *args,
+      out_shape=None, **kwargs) -> int:
+    return attention_flops(q_shape, k_shape, causal, window, delta)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None,
@@ -189,10 +265,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention on the card: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) ->
     (B,Sq,Hq,D) in q's dtype, as `plan` says.
 
-    Launches on the current stream and does not synchronise; raises if the
-    launch is refused."""
-    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
-                   scale=scale, delta=0, block=False)
+    One call of the custom op `repro::flash_attention`: on CUDA tensors
+    it launches the kernel on the current stream and does not
+    synchronise (raises if the launch is refused); on fake tensors (a
+    dry run's trace, `launch.dryrun`) it computes nothing and returns the
+    output's shape and dtype, and counts no launch."""
+    check_args(q, k, v, window, softcap, scale)
+    return _attention_op(q, k, v, causal, window, softcap, scale)
 
 
 flash_attention.launches = 0
@@ -207,10 +286,11 @@ def flash_attention_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     i + delta against key j at j -> (o (B,Sq,Hq,D) fp32, lse (B,Hq,Sq)
     fp32), the block's partial softmax normalised by its own sum and the
     log of that sum plus the row max.  Rows that no key of the block is
-    admitted to come back with lse <= -1e29 and a finite o.  One launch,
-    counted in `flash_attention.launches`."""
-    return _launch(q, k, v, causal=causal, window=window, softcap=softcap,
-                   scale=scale, delta=delta, block=True)
+    admitted to come back with lse <= -1e29 and a finite o.  One call of
+    the custom op `repro::flash_attention_block` (one launch on CUDA
+    tensors, counted in `flash_attention.launches`)."""
+    check_args(q, k, v, window, softcap, scale, block=True)
+    return _block_op(q, k, v, int(delta), causal, window, softcap, scale)
 
 
 class FlashAttention(torch.autograd.Function):

@@ -2,6 +2,16 @@
 kernel, CPU tensors to its plain version.  There is no other switch and no
 fallback between the two.
 
+On CUDA tensors each kernel launch is one call of a custom op
+(`repro::conv2d`, `repro::flash_attention`,
+`repro::flash_attention_block`, `repro::ssd_chunk`, registered by
+`_build.define_op`).  Its CUDA implementation is the ctypes launch; its
+fake implementation returns the
+outputs' shapes and dtypes only, so the dry run (`launch.dryrun`) traces
+the card's path on fake tensors, and each op has a FLOP formula
+(`torch.utils.flop_counter`) that counts the work its bound counts.  The
+launch counters count real launches only.
+
 `conv2d` is the bare forward (`conv2d.Conv2d` wraps it for autograd).
 `flash_attention`, `flash_attention_block` and `ssd_chunk` are
 differentiable: on CUDA through

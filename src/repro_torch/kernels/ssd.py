@@ -15,6 +15,9 @@ masked and, for bf16, M and xdt * w split into a bf16 high and low part
 at the kernel's places.  `elem_limit` is the element-wise bound the bf16
 kernel is held to.
 
+The launch is the custom op `repro::ssd_chunk` (`ops` says why); its
+FLOP formula (`ssd_flops`) counts what the bound counts.
+
 `SsdChunk` is the differentiable op on the card.  Its forward is the
 kernel; its backward recomputes both outputs through the plain version and
 differentiates that with autograd, as the reference differentiates its
@@ -28,7 +31,9 @@ import dataclasses
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF, ssd_chunked_ref, ssd_scores
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -79,7 +84,6 @@ def _lib():
     """The C entry point, resolved once."""
     global _fn
     if _fn is None:
-        from repro_torch.kernels import _build
         fn = _build.load("ssd").repro_ssd_chunk
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -94,7 +98,6 @@ def occupancy(chunk: int, n: int, dtype: torch.dtype) -> int:
     """CTAs of the kernel that fit one SM of the current card at this
     chunk, state size and dtype (the CUDA occupancy query); builds the
     kernel if needed."""
-    from repro_torch.kernels import _build
     fn = _build.load("ssd").repro_ssd_ctas_per_sm
     fn.argtypes = [ctypes.c_int, _I64, _I64]
     fn.restype = ctypes.c_int
@@ -150,10 +153,20 @@ def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     """The intra-chunk pass on the card: y (b, l, h, p) in xdt's dtype and
     the per-chunk zero-inflow states S (b, l // chunk, h, p, n) in fp32.
 
-    la is read in fp32 (a bfloat16 la is widened first).  Launches on the
-    current stream and does not synchronise; raises if the launch is
-    refused."""
+    la is read in fp32 (a bfloat16 la is widened first).  One call of the
+    custom op `repro::ssd_chunk`: on CUDA tensors it launches the kernel
+    on the current stream and does not synchronise (raises if the launch
+    is refused); on fake tensors (a dry run's trace, `launch.dryrun`) it
+    computes nothing and returns the outputs' shapes and dtypes, and
+    counts no launch."""
     check_args(xdt, la, B, C, chunk)
+    return _ssd_op(xdt, la.float(), B, C, int(chunk))
+
+
+def _ssd_launch(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
+                C: torch.Tensor, chunk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The launch: the custom op's real implementation (la in fp32)."""
     if not xdt.is_cuda:
         raise ValueError(f"the ssd_chunk kernel runs on CUDA tensors; got "
                          f"{xdt.device} (ops.ssd_chunk takes the plain "
@@ -161,7 +174,6 @@ def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     b, l, h, p = xdt.shape
     n = B.shape[-1]
     nc = l // chunk
-    la = la.float()
     y = torch.empty_like(xdt)
     S = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=xdt.device)
     args = (xdt.data_ptr(), la.data_ptr(), B.data_ptr(), C.data_ptr(),
@@ -178,6 +190,34 @@ def ssd_chunk(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
                            f"{chunk})")
     ssd_chunk.launches += 1
     return y, S
+
+
+def _ssd_fake(xdt, la, B, C, chunk):
+    b, l, h, p = xdt.shape
+    return (torch.empty_like(xdt),
+            xdt.new_empty((b, l // chunk, h, p, B.shape[-1]),
+                          dtype=torch.float32))
+
+
+_ssd_op = _build.define_op(
+    "ssd_chunk(Tensor xdt, Tensor la, Tensor B, Tensor C, int chunk) "
+    "-> (Tensor, Tensor)", _ssd_launch, _ssd_fake)
+
+
+def ssd_flops(xdt_shape, n: int, chunk: int) -> int:
+    """The operations of one call that the bound counts: G = C.B^T once
+    per chunk (2 cl^2 n), then per head y over the causal pairs (p cl
+    (cl + 1)) and S (2 cl p n)."""
+    b, l, h, p = xdt_shape
+    return b * (l // chunk) * (2 * chunk * chunk * n
+                               + h * (p * chunk * (chunk + 1)
+                                      + 2 * chunk * p * n))
+
+
+@register_flop_formula(torch.ops.repro.ssd_chunk)
+def _(xdt_shape, la_shape, B_shape, C_shape, chunk, *args, out_shape=None,
+      **kwargs) -> int:
+    return ssd_flops(xdt_shape, B_shape[-1], chunk)
 
 
 ssd_chunk.launches = 0

@@ -26,6 +26,11 @@ rank's in another order.)  A shard's index along a tuple of axes is its
 coordinates linearized major-to-minor in tuple order (`core/halo.py`'s
 convention).
 
+The dry run (`launch.dryrun`) builds the reference's production mesh
+(`make_production_mesh`) over torch.distributed's fake group
+(`init_fake_group`): one process is one rank of 256 or 512, its
+collectives move nothing, and nothing is staged through the host.
+
 Transport follows the backend.  NCCL moves device tensors.  gloo moves
 host tensors: a CUDA tensor is copied to the host and back explicitly
 (`to_wire`, `wire_buffer`), and each collective staged so (all-reduce,
@@ -231,7 +236,8 @@ class Mesh:
             trace.note("psum" if op == "sum" else "pmax", t,
                        axes_tuple(axes))
         buf = self.to_wire(t)
-        buf = buf.clone() if buf.data_ptr() == t.data_ptr() else buf
+        if not self.stages(t.device) and t.is_contiguous():
+            buf = buf.clone()       # the wire tensor is t's own storage
         dist.all_reduce(buf, op=dist.ReduceOp.SUM if op == "sum" else
                         dist.ReduceOp.MAX, group=group)
         return self._land(buf, t.device)
@@ -335,6 +341,35 @@ def make_mesh(data: int = 1, model: int = 1, pod: int = 1,
         return Mesh({"pod": pod, "data": data, "model": model},
                     members=members)
     return Mesh({"data": data, "model": model}, members=members)
+
+
+PRODUCTION_MESH = {False: {"data": 16, "model": 16},
+                   True: {"pod": 2, "data": 16, "model": 16}}
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh over the running process group:
+    data 16 x model 16, or pod 2 x data 16 x model 16 with `multi_pod`
+    (256 or 512 ranks; the dry run runs one of them, `init_fake_group`)."""
+    return Mesh(PRODUCTION_MESH[bool(multi_pod)])
+
+
+def init_fake_group(rank: int, world: int) -> None:
+    """Start torch.distributed's fake process group in this process, as
+    rank `rank` of `world`: every collective and transfer returns at once
+    and moves nothing, so one process runs one rank of a mesh of any size
+    (`launch.dryrun`).  The group is global to the process; one that
+    already exists raises."""
+    if dist.is_initialized():
+        raise RuntimeError(f"a process group already exists "
+                           f"({dist.get_backend()}, rank "
+                           f"{dist.get_rank()} of {dist.get_world_size()})")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    # registers the "fake" backend; imports no test framework
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
 
 
 def init_distributed(device: torch.device) -> tuple[int, int, int]:

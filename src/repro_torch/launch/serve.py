@@ -50,7 +50,7 @@ from repro_torch.models.lm.modules import ShardCtx
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="an LM arch: " + ", ".join(registry.LM_ARCHS))
+                    help="an LM arch: " + ", ".join(registry.ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -61,9 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.set_defaults(pod=1)         # the mesh is data x model (train.setup)
     args = ap.parse_args(argv)
-    if registry.canon(args.arch) not in registry.LM_ARCHS:
+    if registry.canon(args.arch) not in registry.ARCHS:
         ap.error(f"--arch {args.arch}: serving takes an LM arch "
-                 f"({', '.join(registry.LM_ARCHS)})")
+                 f"({', '.join(registry.ARCHS)})")
     if args.prompt_len < 1 or args.gen < 1:
         ap.error("--prompt-len and --gen must be >= 1")
     if args.batch % args.data:

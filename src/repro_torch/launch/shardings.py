@@ -20,6 +20,16 @@ exist for that block only, and the updated blocks are gathered over
 training state around `optim.optimizer`'s mesh-free `state_tree` /
 `load_state_tree`.
 
+ZeRO-1 over all chips (the reference's opt / vpz variants of the dry
+run): `zero1_tree_specs` puts each optimizer-state leaf of at least 2^14
+elements over ("data", "model") on its largest dim that the product
+divides, else over "data"; `zero_specs(axes=("data", "model"))` cuts
+the step's state so (a tuple entry of a spec is a product axis), and
+`leaf_roles` says which leaves are a rank's block over "model" (the
+vocabulary's, the experts'): their state is cut over "data" within the
+block, and their gradient arrives summed over the axes `reduce_axes`
+leaves out.  `lm_batch_spec` is the reference's batch placement.
+
 Serving: `kv_cache_specs` gives the decode state's specs (the KV cache
 split along S over the sequence axes, B over the batch axes where the
 batch is split, the SSM state and conv buffers whole in S), and
@@ -44,9 +54,9 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core import trace
-from repro_torch.launch.mesh import MODEL_AXIS, Mesh, batch_axes
+from repro_torch.launch.mesh import MODEL_AXIS, Mesh, axes_tuple, batch_axes
 from repro_torch.optim import optimizer
-from repro_torch.utils import tree_leaves, tree_map
+from repro_torch.utils import leaves_with_path, tree_leaves, tree_map
 
 MIN_SHARDED = 2 ** 14     # leaves below this many elements replicate
 
@@ -88,18 +98,136 @@ def fsdp_tree_specs(tree: Any, mesh) -> Any:
     return tree_map(lambda x: fsdp_spec(tuple(x.shape), n_data), tree)
 
 
+def zero1_spec(shape: Sequence[int], mesh_shape: dict[str, int],
+               axes=("data", "model")) -> Spec:
+    """The reference's ZeRO-1 rule for one optimizer-state leaf of
+    `shape`: () under 2^14 elements; else the tuple of `axes` on the mesh
+    (one product axis of n shards) on the largest dim that n divides;
+    else "data" on the largest dim that the data axis divides; else ()."""
+    shape = tuple(int(s) for s in shape)
+    size = 1
+    for s in shape:
+        size *= s
+    if not shape or size < MIN_SHARDED:
+        return ()
+    ax = _entry(tuple(a for a in axes if a in mesh_shape))
+    n = 1
+    for a in axes_tuple(ax):
+        n *= mesh_shape[a]
+    n_data = mesh_shape.get("data", 1)
+    for want, entry in ((n, ax), (n_data, "data")):
+        for d in sorted(range(len(shape)), key=lambda d: -shape[d]):
+            if shape[d] % want == 0 and shape[d] >= want:
+                s: list = [None] * len(shape)
+                s[d] = entry
+                return tuple(s)
+    return ()
+
+
+def _entry(axes: tuple):
+    """A spec entry of `axes`: one axis by its name (as a PartitionSpec
+    holds it), several as their tuple."""
+    return axes[0] if len(axes) == 1 else axes
+
+
+def zero1_tree_specs(tree: Any, mesh, axes=("data", "model")) -> Any:
+    """The reference's optimizer-state sharding over both axes (ZeRO-1
+    over all chips): `zero1_spec` for every leaf of `tree` (anything
+    with a `.shape`) on `mesh` (a `Mesh` or a dict of axis sizes)."""
+    shape = _shape_map(mesh)
+    return tree_map(lambda x: zero1_spec(tuple(x.shape), shape, axes), tree)
+
+
+def lm_batch_spec(mesh, kind: str) -> dict[str, Spec]:
+    """The reference's LM batch specs: tokens (and labels) B over the
+    batch axes, S over "model" (train, prefill); a decode step's one
+    token a row B only."""
+    shape = _shape_map(mesh)
+    ba = _entry(tuple(a for a in ("pod", "data") if a in shape))
+    if kind == "train":
+        return {"tokens": (ba, "model"), "labels": (ba, "model")}
+    if kind == "prefill":
+        return {"tokens": (ba, "model")}
+    if kind == "decode":
+        return {"tokens": (ba, None)}
+    raise ValueError(kind)
+
+
 def sharded_dim(spec: Spec) -> int | None:
-    """The dim that `spec` shards over "data", None for a whole leaf."""
-    return spec.index("data") if "data" in spec else None
+    """The dim that `spec` shards (its one entry that is not None), None
+    for a whole leaf."""
+    for d, a in enumerate(spec):
+        if a is not None:
+            return d
+    return None
 
 
-def zero_specs(leaves: Sequence, mesh: Mesh | None) -> list[Spec]:
-    """The spec of each leaf as the step holds it: `fsdp_tree_specs`'s
-    where the mesh's data axis has more than one rank, else () for every
-    leaf (one data rank holds every leaf whole)."""
-    if mesh is None or mesh.shape.get("data", 1) == 1:
+def spec_axes(spec: Spec) -> tuple[str, ...]:
+    """The mesh axes that `spec` shards its dim over, () for a whole
+    leaf."""
+    d = sharded_dim(spec)
+    return () if d is None else axes_tuple(spec[d])
+
+
+# what a param leaf is on this rank: the global leaf ("whole"), or this
+# rank's block over "model" of the vocabulary (`vocab_blocks`: its
+# gradient arrives whole, summed over every axis) or of a MoE layer's
+# experts (`expert_blocks`: summed over "model" by the all-to-alls)
+_SUMMED = {"whole": (), "vocab": None, "expert": (MODEL_AXIS,)}
+
+
+def leaf_roles(params: Any, *, vocab: bool = False, experts: bool = False
+               ) -> list[str]:
+    """The role of each leaf of an LM's `params` (`tree_leaves` order):
+    `embed` / `unembed` "vocab" with `vocab`, each MoE layer's `wi`,
+    `wg`, `wo` "expert" with `experts`, else "whole"."""
+    def role(path: str) -> str:
+        if vocab and path in ("['embed']", "['unembed']"):
+            return "vocab"
+        if experts and any(path.endswith(f"['moe']['{n}']")
+                           for n in EXPERT_LEAVES):
+            return "expert"
+        return "whole"
+    return [role(p) for p, _ in leaves_with_path(params)]
+
+
+def reduce_axes(role: str, mesh: Mesh) -> tuple[str, ...]:
+    """The axes over which a leaf of `role`'s gradient still has to be
+    summed on `mesh`."""
+    done = _SUMMED[role]
+    if done is None:
+        return ()
+    return tuple(a for a in mesh.axis_names if a not in done)
+
+
+def block_axes(role: str) -> tuple[str, ...]:
+    """The axes over which the param itself is cut into blocks."""
+    return () if role == "whole" else (MODEL_AXIS,)
+
+
+def zero_specs(leaves: Sequence, mesh: Mesh | None, axes=("data",),
+               roles: Sequence[str] | None = None) -> list[Spec]:
+    """The spec of each leaf's optimizer state as the step holds it.
+    With `axes` ("data",): `fsdp_tree_specs`'s; with ("data", "model")
+    (ZeRO-1 over all chips), `zero1_spec`'s for a whole leaf and
+    `fsdp_spec`'s for a block over "model" (its state is cut within the
+    block).  A spec over axes of one rank is () (one data rank holds
+    every leaf whole)."""
+    if mesh is None:
         return [() for _ in leaves]
-    return list(fsdp_tree_specs(list(leaves), mesh))
+    shape = dict(mesh.shape)
+    roles = roles or ["whole"] * len(leaves)
+    out = []
+    for x, role in zip(leaves, roles):
+        if role == "whole" and tuple(axes) != ("data",):
+            spec = zero1_spec(tuple(x.shape), shape, axes)
+        else:
+            spec = fsdp_spec(tuple(x.shape), shape.get("data")
+                             if "data" in shape else None)
+        if spec and mesh.axis_size(spec_axes(spec)) == 1:
+            spec = ()
+        out.append(spec)
+    return out
 
 
 def shard(x: torch.Tensor, spec: Spec, mesh: Mesh | None) -> torch.Tensor:
@@ -108,26 +236,29 @@ def shard(x: torch.Tensor, spec: Spec, mesh: Mesh | None) -> torch.Tensor:
     d = sharded_dim(spec)
     if d is None or mesh is None:
         return x
-    n = x.shape[d] // mesh.shape["data"]
-    return x.narrow(d, mesh.index("data") * n, n)
+    axes = spec_axes(spec)
+    n = x.shape[d] // mesh.axis_size(axes)
+    return x.narrow(d, mesh.index(axes) * n, n)
 
 
 def unshard(block: torch.Tensor, spec: Spec, mesh: Mesh | None
             ) -> torch.Tensor:
-    """The global leaf of this rank's `block` (every data rank takes
-    part): all-gathered over "data" along the sharded dim."""
+    """The global leaf of this rank's `block` (every rank of the spec's
+    axes takes part): all-gathered along the sharded dim."""
     d = sharded_dim(spec)
     if d is None or mesh is None:
         return block
-    return mesh.all_gather(block.contiguous(), "data", d)
+    return mesh.all_gather(block.contiguous(), spec_axes(spec), d)
 
 
-def local_shards(params: Any, mesh: Mesh | None) -> list[torch.Tensor]:
+def local_shards(params: Any, mesh: Mesh | None, axes=("data",),
+                 roles: Sequence[str] | None = None) -> list[torch.Tensor]:
     """This rank's block of every param leaf (views, in `tree_leaves`
-    order): what the optimizer updates and keeps moments for."""
+    order) under `zero_specs(axes, roles)`: what the optimizer updates
+    and keeps moments for."""
     leaves = tree_leaves(params)
-    return [shard(p, s, mesh) for p, s in zip(leaves,
-                                             zero_specs(leaves, mesh))]
+    return [shard(p, s, mesh) for p, s in
+            zip(leaves, zero_specs(leaves, mesh, axes, roles))]
 
 
 def state_bytes(params: Any, mesh: Mesh | None) -> tuple[int, int]:
@@ -159,26 +290,30 @@ def unpack(flat: torch.Tensor, like: torch.Tensor, spec: Spec
 
 
 @torch.no_grad()
-def gather_params_(params: Any, mesh: Mesh | None) -> None:
-    """Every sharded param whole again on every rank, in place: the
-    updated blocks of all sharded leaves go as one flat buffer through one
-    all-gather over "data" (the named region `param_gather`)."""
-    if mesh is None or mesh.shape.get("data", 1) == 1:
+def gather_params_(params: Any, mesh: Mesh | None, axes=("data",),
+                   roles: Sequence[str] | None = None) -> None:
+    """Every sharded param (`zero_specs(axes, roles)`) whole again on
+    every rank, in place: the updated blocks of the leaves sharded over
+    the same axes go as one flat buffer through one all-gather over them
+    (the named region `param_gather`)."""
+    if mesh is None or mesh.size == 1:
         return
     leaves = tree_leaves(params)
-    specs = zero_specs(leaves, mesh)
-    big = [(p, s) for p, s in zip(leaves, specs) if s]
-    if not big:
-        return
-    blocks = [shard(p, s, mesh) for p, s in big]
-    flat = pack_rows(blocks, [s for _, s in big], 1)
-    with trace.annotate("param_gather", flat, bwd=True):
-        rows = mesh.all_gather(flat[None], "data", 0)        # (k, S)
-    i = 0
-    for b, (p, s) in zip(blocks, big):
-        n = b.numel()
-        p.copy_(unpack(rows[:, i:i + n].reshape(-1), p, s).to(p.dtype))
-        i += n
+    specs = zero_specs(leaves, mesh, axes, roles)
+    groups: dict[tuple, list] = {}
+    for p, s in zip(leaves, specs):
+        if s:
+            groups.setdefault(spec_axes(s), []).append((p, s))
+    for over, big in groups.items():
+        blocks = [shard(p, s, mesh) for p, s in big]
+        flat = pack_rows(blocks, [s for _, s in big], 1)
+        with trace.annotate("param_gather", flat, bwd=True):
+            rows = mesh.all_gather(flat[None], over, 0)      # (k, S)
+        i = 0
+        for b, (p, s) in zip(blocks, big):
+            n = b.numel()
+            p.copy_(unpack(rows[:, i:i + n].reshape(-1), p, s).to(p.dtype))
+            i += n
 
 
 def sharded_state_tree(params: Any, state, ef: list | None,

@@ -168,7 +168,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                                  allow_abbrev=False)
     ap.add_argument("--arch", default="mesh1k",
                     help="architecture id; ported: "
-                         + ", ".join(registry.CNN_ARCHS + registry.LM_ARCHS))
+                         + ", ".join(registry.CNN_ARCHS + registry.ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="the reference's reduced config (CPU runs)")
     ap.add_argument("--steps", type=int, default=100)
@@ -274,7 +274,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"--batch {args.batch} (the global batch) must divide over "
                  f"the data axes (pod {args.pod} x data {args.data})")
     arch = registry.canon(args.arch)
-    if arch in registry.LM_ARCHS and registry.get(arch).is_encdec:
+    if arch in registry.ARCHS and registry.get(arch).is_encdec:
         raise SystemExit(
             f"--arch {args.arch}: the trainer feeds an LM tokens and labels "
             f"only, and an encoder-decoder's loss needs its encoder frames "

@@ -316,8 +316,12 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     capacity buffers (e, b * groups * cap, d), the experts run as batched
     products over them, and each token sums its kept outputs weighted by
     its gates (cast to x's dtype): the reference's one-hot dispatch and
-    combine as an index copy and an index add over the kept slots.  A
-    dropped pair adds nothing.  With `ctx.tp_axis` splitting the experts
+    combine as an index copy and an index add over the kept slots.  The
+    shapes do not depend on the routing: every (token, choice) pair has a
+    destination row, a dropped pair the one spare row past the buffers,
+    which is cut off before the experts run, and in the combine a dropped
+    pair reads row 0 with weight 0, so it adds nothing.  With
+    `ctx.tp_axis` splitting the experts
     (p's expert leaves this rank's block of E), the buffers go to the
     ranks that own their experts and come back by all-to-all on that
     axis; the groups must not span sequence shards there."""
@@ -333,12 +337,15 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
             f"MoE expert parallelism with routing groups ({r.gs}) that span "
             f"sequence shards ({s} tokens a rank)")
     nb = b * r.n_groups * r.cap                 # one expert's buffer rows
-    kb, kt, kc = r.keep.nonzero(as_tuple=True)  # token-major, choice-minor
-    dest = r.idx[kb, kt, kc] * nb \
-        + (kb * r.n_groups + r.group[kt]) * r.cap + r.slot[kb, kt, kc]
-    tok = kb * s + kt
+    k = cfg.top_k
+    row = (torch.arange(b, device=x.device)[:, None, None] * r.n_groups
+           + r.group[None, :, None]) * r.cap          # (b, s, 1)
+    dest = torch.where(r.keep, r.idx * nb + row + r.slot,
+                       e * nb).reshape(-1)   # token-major, choice-minor
+    tok = torch.arange(b * s, device=x.device).repeat_interleave(k)
     xs = x.reshape(b * s, d).index_select(0, tok)
-    xe = x.new_zeros((e * nb, d)).index_copy(0, dest, xs).view(e, nb, d)
+    xe = x.new_zeros((e * nb + 1, d)).index_copy(0, dest, xs)[:e * nb] \
+        .view(e, nb, d)
     if n_ep > 1:        # (e, nb, d) -> this rank's experts' (e/P, P nb, d)
         xe = collectives.all_to_all(xe, ctx.mesh, ctx.tp_axis, 0, 1,
                                     name="moe_dispatch")
@@ -351,8 +358,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     if n_ep > 1:
         ye = collectives.all_to_all(ye, ctx.mesh, ctx.tp_axis, 1, 0,
                                     name="moe_combine")
-    ys = ye.reshape(e * nb, d).index_select(0, dest) \
-        * r.gate[kb, kt, kc].to(x.dtype)[:, None]
+    keep = r.keep.reshape(-1)
+    ys = ye.reshape(e * nb, d).index_select(0, torch.where(keep, dest, 0)) \
+        * torch.where(keep, r.gate.reshape(-1), 0.0).to(x.dtype)[:, None]
     return x.new_zeros((b * s, d)).index_add(0, tok, ys).view(b, s, d)
 
 

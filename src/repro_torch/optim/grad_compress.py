@@ -19,7 +19,8 @@ is what crosses the pod axis.  (The reference calls it on a gradient
 GSPMD has already reduced over every axis: there it rounds a gradient
 that is the same on every pod.  With the same input on every pod the two
 compute the same thing.)  Under ZeRO a sharded leaf's int8 scale is still
-the whole leaf's: its maximum is taken over "data" first.
+the whole leaf's: its maximum is taken over the axes the leaf is cut over
+first.
 
 gloo reduces and gathers a narrower set of dtypes than NCCL (no int16 in
 torch 2.13's, for one), so the bf16 payload travels as its bytes (a
@@ -93,7 +94,7 @@ def _split(flat: torch.Tensor, leaves) -> list[torch.Tensor]:
 
 def cross_pod_mean(grads: Any, *, mesh: Mesh | None, method: str = "bf16",
                    error_feedback: Any = None,
-                   sharded: Sequence[bool] | None = None):
+                   cut_axes: Sequence[str] = ()):
     """Average each pod's `grads` over the pod axis with optional
     compression: (the mean, in every pod's `grads` structure and dtypes,
     the new error-feedback state).
@@ -101,8 +102,9 @@ def cross_pod_mean(grads: Any, *, mesh: Mesh | None, method: str = "bf16",
     grads: a tree of this pod's gradient blocks (the same on every rank
     of the pod that holds the same blocks).  error_feedback: under
     `int8_ef`, this pod's residual of every leaf (a list in `tree_leaves`
-    order; None: zeros).  sharded: which leaves are a "data" block of a
-    larger leaf, whose int8 scale is the whole leaf's (None: none).
+    order; None: zeros).  cut_axes: the axes over which the leaves are
+    blocks of larger leaves (the ZeRO cut, a block over "model"), whose
+    int8 scale is the whole leaf's: its maximum is taken over these.
     Returns `(grads, error_feedback)` unchanged on a mesh with no pod
     axis."""
     if mesh is None or "pod" not in mesh.axis_names:
@@ -134,8 +136,8 @@ def cross_pod_mean(grads: Any, *, mesh: Mesh | None, method: str = "bf16",
                                       device=x.device) for x in leaves]
     x32 = [x.float() + e for x, e in zip(leaves, error_feedback)]
     amax = torch.stack([x.abs().amax() for x in x32])
-    if sharded is not None and any(sharded):
-        amax = mesh.all_reduce(amax, "data", op="max")
+    if cut_axes:
+        amax = mesh.all_reduce(amax, tuple(cut_axes), op="max")
     qs, scales, new_e = [], [], []
     for x, m in zip(x32, amax):
         q, scale = _quantize_int8(x, m)

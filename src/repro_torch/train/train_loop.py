@@ -2,7 +2,10 @@
 gradient accumulation (micro-batching, the out-of-core technique the
 paper cites in §VII), on a mesh the gradient reduction with the
 training state sharded over "data" (ZeRO, `launch.shardings`) and the
-cross-pod gradient compression (`optim.grad_compress`), and remat of the
+cross-pod gradient compression (`optim.grad_compress`), ZeRO-1 over
+("data", "model") with leaves that are a rank's block over "model"
+(`TrainStepConfig.zero_axes`, `make_train_step(roles=)`: the dry run's
+opt / vpz cells), and remat of the
 whole loss (`TrainStepConfig.remat`, the reference's `jax.checkpoint` of
 the loss fn).  The trainer asks for remat in the LM loss instead
 (`models.lm.transformer.loss_fn(remat=)`, a checkpoint a unit of the
@@ -30,6 +33,10 @@ class TrainStepConfig:
     precision: Precision = BF16
     remat: bool = False                  # rematerialize the loss fn
     pod_compression: str = "none"        # none | bf16 | int8_ef
+    # the axes the optimizer state is sharded over: ("data",) (ZeRO over
+    # data, FSDP's rule) or ("data", "model") (ZeRO-1 over all chips, the
+    # reference's opt / vpz variants, `launch.shardings.zero1_spec`)
+    zero_axes: tuple = ("data",)
 
 
 def reduce_replicated_grads(grads: list[torch.Tensor],
@@ -58,69 +65,118 @@ def reduce_replicated_grads(grads: list[torch.Tensor],
 
 
 def reduce_grads(grads: list[torch.Tensor], mesh: Mesh | None, *,
-                 method: str = "none", ef=None):
+                 method: str = "none", ef=None, zero_axes=("data",),
+                 roles=None):
     """(the gradient blocks this rank holds, the new error-feedback
     state): each rank's share of the gradient (params-tree order) reduced
     over the mesh, in the named region `grad_bucket`.
 
-    With one data rank every leaf is held whole.  Otherwise the leaves
-    that `launch.shardings.fsdp_tree_specs` shards go, as one flat buffer
-    whose per-rank blocks are contiguous, through one reduce-scatter over
-    "data", and each rank's blocks through one all-reduce over the other
-    axes; the rest (`reduce_replicated_grads`) through one all-reduce
-    over every axis.  Under a compressing `method` the pod axis is left
-    out of both, and each pod's gradient (its share times the pod count)
-    goes through `cross_pod_mean` instead.  On one data rank and with
-    nothing to compress every leaf is small: one all-reduce over every
-    axis, as `reduce_replicated_grads` alone."""
+    The leaves go in groups with the same (axes their state is cut over,
+    `launch.shardings.zero_specs`', and axes their gradient is summed
+    over), the cut groups first, each group one flat buffer whose
+    per-rank blocks are contiguous: a reduce-scatter over its cut and a
+    psum over the rest of its sum (a local cut where the sum has none of
+    the cut's axes); an uncut group one all-reduce
+    (`reduce_replicated_grads`).  With ZeRO over "data" and whole leaves
+    that is a reduce-scatter over "data" of the leaves
+    `shardings.fsdp_tree_specs` shards, a psum over the other axes, and
+    one all-reduce over every axis of the rest.  A leaf that is this
+    rank's block over "model" (`roles`) is summed only over the axes its
+    gradient has not been summed over already (`shardings.reduce_axes`:
+    none for a vocabulary block, the batch axes for an expert block).
+
+    Under a compressing `method` the pod axis is left out of every sum,
+    and each pod's gradient (its share times the pod count) goes through
+    `cross_pod_mean` instead, its int8 scale each whole leaf's; a
+    vocabulary block, already summed over the pods, goes through it as
+    it is (its rounding alone, as in the reference, which compresses a
+    gradient summed over every axis)."""
     if mesh is None or mesh.size == 1:
         return grads, ef
-    pods = method != "none" and "pod" in mesh.axis_names
-    specs = shardings.zero_specs(grads, mesh)
-    if "pod" in mesh.axis_names and not pods:     # fp32, in the psums
+    roles = roles or ["whole"] * len(grads)
+    specs = shardings.zero_specs(grads, mesh, zero_axes, roles)
+    pods = "pod" in mesh.axis_names
+    compress = pods and method != "none"
+    if pods and not compress:                     # fp32, in the psums
         count_sent("none", 4 * sum(shardings.shard(g, s, mesh).numel()
                                    for g, s in zip(grads, specs)),
                    mesh.shape["pod"], gather=False)
-    rest_axes = tuple(a for a in mesh.axis_names if a != "pod" or not pods)
-    held: list = [None] * len(grads)
-    big = [i for i, s in enumerate(specs) if s]
-    small = [i for i, s in enumerate(specs) if not s]
     with trace.annotate("grad_bucket", grads[0], bwd=True):
-        if big:
-            flat = shardings.pack_rows([grads[i] for i in big],
-                                       [specs[i] for i in big],
-                                       mesh.shape["data"])
-            flat = mesh.reduce_scatter(flat, "data", 0)
-            flat = mesh.all_reduce(flat, tuple(a for a in rest_axes
-                                               if a != "data"))
-            n = 0
-            for i in big:
-                like = shardings.shard(grads[i], specs[i], mesh)
-                held[i] = shardings.unpack(flat[n:n + like.numel()], like,
-                                           specs[i]).to(grads[i].dtype)
-                n += like.numel()
-        if small:
-            for i, g in zip(small, reduce_replicated_grads(
-                    [grads[i] for i in small], mesh, rest_axes)):
-                held[i] = g
-        if pods:
+        held = _reduce_groups(grads, mesh, specs, roles,
+                              skip=("pod",) if compress else ())
+        if compress:
+            # a pod's share times the pod count; a vocabulary block
+            # arrives summed over the pods already
+            npods = [mesh.shape["pod"] if "pod" in
+                     shardings.reduce_axes(r, mesh) else 1 for r in roles]
+            cut = {a for s, r in zip(specs, roles)
+                   for a in shardings.spec_axes(s) + shardings.block_axes(r)}
             held, ef = cross_pod_mean(
-                [h * mesh.shape["pod"] for h in held], mesh=mesh,
+                [h * k for h, k in zip(held, npods)], mesh=mesh,
                 method=method, error_feedback=ef,
-                sharded=[bool(s) for s in specs])
+                cut_axes=tuple(a for a in mesh.axis_names if a in cut))
     return held, ef
 
 
-def held_norm(held: list[torch.Tensor], specs: list, mesh: Mesh | None
-              ) -> torch.Tensor:
+def _reduce_groups(grads: list[torch.Tensor], mesh: Mesh, specs, roles,
+                   skip=()) -> list[torch.Tensor]:
+    """`reduce_grads`' sums: the leaves grouped by (the axes their state
+    is cut over, `specs`, the axes their gradient is summed over, less
+    `skip`), the cut groups first."""
+    groups: dict[tuple, list[int]] = {}
+    for i, (s, r) in enumerate(zip(specs, roles)):
+        over = tuple(a for a in shardings.reduce_axes(r, mesh)
+                     if a not in skip)
+        groups.setdefault((shardings.spec_axes(s), over), []).append(i)
+    held: list = [None] * len(grads)
+    for (cut, over), idx in sorted(groups.items(),
+                                   key=lambda kv: not kv[0][0]):
+        if not cut:
+            for i, g in zip(idx, reduce_replicated_grads(
+                    [grads[i] for i in idx], mesh, over)):
+                held[i] = g
+            continue
+        k = mesh.axis_size(cut)
+        flat = shardings.pack_rows([grads[i] for i in idx],
+                                   [specs[i] for i in idx], k)
+        if set(cut) <= set(over):
+            flat = mesh.reduce_scatter(flat, cut, 0)
+        elif set(cut) & set(over):
+            raise ValueError(f"state cut over {cut}, gradient summed "
+                             f"over {over}")
+        else:
+            flat = flat.view(k, -1)[mesh.index(cut)]
+        flat = mesh.all_reduce(flat, tuple(a for a in over
+                                           if a not in cut))
+        n = 0
+        for i in idx:
+            like = shardings.shard(grads[i], specs[i], mesh)
+            held[i] = shardings.unpack(flat[n:n + like.numel()], like,
+                                       specs[i]).to(grads[i].dtype)
+            n += like.numel()
+    return held
+
+
+def held_norm(held: list[torch.Tensor], specs: list, mesh: Mesh | None,
+              roles=None) -> torch.Tensor:
     """The global norm of the whole gradient from the blocks this rank
-    holds (`specs`: the whole leaves' `shardings.zero_specs`): the
-    sharded blocks' squares summed over "data", the whole leaves' once."""
-    if not any(specs):
+    holds (`specs`: the leaves' `shardings.zero_specs`): each block's
+    squares summed over the axes its leaf is cut over (the state's cut,
+    and "model" for a leaf of `roles` that is a block over it), a whole
+    leaf's once."""
+    roles = roles or ["whole"] * len(held)
+    over = [shardings.spec_axes(s) + tuple(
+        a for a in shardings.block_axes(r) if a not in shardings.spec_axes(s))
+        for s, r in zip(specs, roles)]
+    if not any(over):
         return global_norm(held)
     sq = [h.float().square().sum() for h in held]
-    blocks = mesh.all_reduce(sum(q for q, s in zip(sq, specs) if s), "data")
-    return torch.sqrt(sum((q for q, s in zip(sq, specs) if not s), blocks))
+    total = None
+    for axes in dict.fromkeys(o for o in over if o):
+        part = mesh.all_reduce(sum(q for q, o in zip(sq, over) if o == axes),
+                               axes)
+        total = part if total is None else total + part
+    return torch.sqrt(sum((q for q, o in zip(sq, over) if not o), total))
 
 
 def make_grad_fn(loss_fn: Callable,
@@ -150,7 +206,7 @@ def make_grad_fn(loss_fn: Callable,
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
                     cfg: TrainStepConfig = TrainStepConfig(),
-                    mesh: Mesh | None = None):
+                    mesh: Mesh | None = None, roles=None):
     """loss_fn(params, batch) -> scalar loss (params in compute dtype); on
     a mesh, this rank's share of it (`meshnet.loss_fn`).
 
@@ -158,7 +214,9 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
     opt_state, ef_state, metrics), the reference's signature, with
     metrics {"loss", "grad_norm"} as 0-d tensors on the params' device.
     `opt_state` holds moments for this rank's blocks
-    (`opt.init(launch.shardings.local_shards(params, mesh))`), `ef_state`
+    (`opt.init(launch.shardings.local_shards(params, mesh,
+    cfg.zero_axes, roles))`; `roles`, `shardings.leaf_roles`', says
+    which leaves are blocks over "model"), `ef_state`
     the int8 residuals of `grad_compress.init_error_feedback` (or None).
     On a mesh the grads are `reduce_grads`'s before the update, the norm
     is the whole gradient's after compression, the loss is summed over
@@ -186,16 +244,18 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
             grads = [g / k for g in grads]
         else:
             loss, grads = fwd_bwd(params, batch)
-        specs = shardings.zero_specs(grads, mesh)
+        specs = shardings.zero_specs(grads, mesh, cfg.zero_axes, roles)
         if mesh is not None and mesh.size > 1:
             grads, ef_state = reduce_grads(
-                grads, mesh, method=cfg.pod_compression, ef=ef_state)
+                grads, mesh, method=cfg.pod_compression, ef=ef_state,
+                zero_axes=cfg.zero_axes, roles=roles)
             loss = mesh.all_reduce(loss, mesh.axis_names)
-        gnorm = held_norm(grads, specs, mesh)
-        _, opt_state = opt.update(grads, opt_state,
-                                  shardings.local_shards(params, mesh),
-                                  norm=gnorm)
-        shardings.gather_params_(params, mesh)
+        gnorm = held_norm(grads, specs, mesh, roles)
+        _, opt_state = opt.update(
+            grads, opt_state,
+            shardings.local_shards(params, mesh, cfg.zero_axes, roles),
+            norm=gnorm)
+        shardings.gather_params_(params, mesh, cfg.zero_axes, roles)
         return params, opt_state, ef_state, {"loss": loss,
                                              "grad_norm": gnorm}
 

@@ -540,13 +540,77 @@ def _vocab(d):
     np.savez(os.path.join(d, "vocab.npz"), **out)
 
 
-def popen(what: str, d: str, *args: str) -> subprocess.Popen:
-    """Start `what` (with `args`) in a subprocess with 8 host devices."""
+# the dry run's cells the port's argument blocks are held against: (arch,
+# shape, multi_pod, variant), each kind, variant and pod count
+DRYRUN_CELLS = [
+    ("qwen1_5_0_5b", "train_4k", False, "base"),
+    ("olmoe_1b_7b", "train_4k", False, "opt"),
+    ("mixtral_8x7b", "train_4k", True, "vpz"),
+    ("hymba_1_5b", "prefill_32k", True, "base"),
+    ("pixtral_12b", "prefill_32k", False, "base"),
+    ("seamless_m4t_large_v2", "decode_32k", False, "base"),
+    ("qwen2_5_14b", "long_500k", True, "base"),
+    ("seamless_m4t_large_v2", "long_500k", False, "base"),
+    ("mesh1k", "cnn", True, "base"),
+    ("resnet50", "cnn", False, "base"),
+]
+
+
+def _dryrun(d):
+    """The reference's dry-run builders (`build_lm_cell`, `build_cnn_cell`)
+    on the production meshes of 512 host devices, shapes only (no lower,
+    no compile): each DRYRUN_CELLS cell's argument leaves but the params
+    (keypath -> global shape and the per-device shard shape), its chip
+    count, the total per-device elements of its optimizer moments, and
+    `model_flops_total` as the reference's `run_cell` computes it, into
+    DIR/dryrun.json."""
+    import json
+
+    import jax
+    import numpy as np
+    from repro.configs import registry
+    from repro.launch import dryrun as D
+    from repro.launch.mesh import make_production_mesh
+    out = {}
+    for arch, shape, pod2, variant in DRYRUN_CELLS:
+        mesh = make_production_mesh(multi_pod=pod2)
+        if arch in registry.CNN_ARCHS:
+            _, args, cfg = D.build_cnn_cell(arch, mesh, variant=variant)
+        else:
+            _, args, cfg = D.build_lm_cell(arch, shape, mesh, variant)
+        leaves = {}
+        moments = 0
+        for path, s in jax.tree_util.tree_leaves_with_path(args[1:]):
+            if not hasattr(s, "sharding"):
+                continue
+            key = jax.tree_util.keystr(path)
+            shard = tuple(s.sharding.shard_shape(s.shape))
+            if ".mu" in key or key.startswith("[0][1]"):
+                moments += int(np.prod(shard))
+            leaves[key] = [list(s.shape), list(shard)]
+        mf = None
+        if arch not in registry.CNN_ARCHS:
+            info = registry.SHAPES[shape]
+            toks = info["seq_len"] * info["global_batch"] \
+                if info["kind"] != "decode" else info["global_batch"]
+            mf = (6.0 if info["kind"] == "train" else 2.0) \
+                * cfg.params_per_token() * toks
+        out[f"{arch}-{shape}-{'pod2' if pod2 else 'pod1'}-{variant}"] = {
+            "chips": int(np.prod(list(dict(mesh.shape).values()))),
+            "leaves": leaves, "moments": moments, "model_flops_total": mf}
+    with open(os.path.join(d, "dryrun.json"), "w") as f:
+        json.dump(out, f)
+
+
+def popen(what: str, d: str, *args: str, devices: int = 8
+          ) -> subprocess.Popen:
+    """Start `what` (with `args`) in a subprocess with `devices` host
+    devices (8; the dry run's 512)."""
     here = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([os.path.join(os.path.dirname(here),
                                                       "src"), here])
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     env["JAX_PLATFORMS"] = "cpu"
     return subprocess.Popen([sys.executable, os.path.abspath(__file__),
                              what, d, *args], stdout=subprocess.PIPE,
@@ -589,4 +653,4 @@ if __name__ == "__main__":
      "plan": _plan, "resnet": _resnet,
      "audit": _audit, "compress": _compress,
      "zero": _zero, "lm_prefill": _lm_prefill,
-     "vocab": _vocab}[sys.argv[1]](*sys.argv[2:])
+     "vocab": _vocab, "dryrun": _dryrun}[sys.argv[1]](*sys.argv[2:])

@@ -1930,6 +1930,83 @@ def case_encdec(mesh, d):
     return out
 
 
+# ZeRO-1 over (data, model) against ZeRO over data, and the reference's
+# opt variant (vocab-parallel loss, expert parallelism) on top of it:
+# olmoe SMOKE at batch 2 x seq 512 (routing groups of 256 within a shard
+# on model 2), the same params (seed 0) and batch 0, ZERO1_STEPS AdamW
+# steps in FP32 each at the dry run's learning rate
+ZERO1_ARCH, ZERO1_BATCH, ZERO1_SEQ, ZERO1_STEPS = "olmoe-1b-7b", 2, 512, 2
+ZERO1_LR = 3e-4
+
+
+def case_zero1(mesh, d, method="none", steps=ZERO1_STEPS):
+    """`make_train_step` three ways on this mesh: ZeRO over "data", ZeRO-1
+    over ("data", "model"), and ZeRO-1 with the vocabulary and the experts
+    each rank's block over "model" (`shardings.leaf_roles`); each run's
+    losses, gradient norms and final params (blocks gathered back
+    whole), under the pod compression `method`."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data import pipeline
+    from repro_torch.launch import shardings
+    from repro_torch.models.lm import transformer
+    from repro_torch.models.lm.modules import ShardCtx
+    from repro_torch.optim.grad_compress import init_error_feedback
+    from repro_torch.optim.optimizer import adamw
+    from repro_torch.train.train_loop import TrainStepConfig, make_train_step
+    from repro_torch.utils import FP32, tree_leaves
+    cfg = registry.get(ZERO1_ARCH, smoke=True)
+    bax = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    batch = pipeline.to_device(pipeline.shard_lm_batch(
+        pipeline.synthetic_lm_batch(0, ZERO1_BATCH, ZERO1_SEQ, cfg.vocab),
+        mesh, "model", bax), torch.device("cpu"))
+    out = {}
+    for name, axes, tuned in (("data", ("data",), False),
+                              ("zero1", ("data", "model"), False),
+                              ("opt", ("data", "model"), True)):
+        params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+        if tuned:
+            params = shardings.expert_blocks(
+                shardings.vocab_blocks(params, mesh), mesh)
+        roles = shardings.leaf_roles(params, vocab=tuned, experts=tuned)
+        ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=bax,
+                       tp_axis="model" if tuned else None)
+
+        def loss(p, b, ctx=ctx, tuned=tuned):
+            return transformer.loss_fn(p, b, cfg, ctx=ctx,
+                                       vocab_parallel=tuned)
+        scfg = TrainStepConfig(precision=FP32, zero_axes=axes,
+                               pod_compression=method)
+        opt = adamw(ZERO1_LR)
+        held = shardings.local_shards(params, mesh, axes, roles)
+        state, ef = opt.init(held), init_error_feedback(held, mesh, method)
+        step = make_train_step(loss, opt, scfg, mesh=mesh, roles=roles)
+        losses, norms = [], []
+        for _ in range(steps):
+            params, state, ef, m = step(params, state, ef, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        out[f"{name}.moments"] = np.array(
+            sum(t.numel() for t in state.mu))
+        if tuned:
+            params = shardings.gather_vocab(
+                shardings.gather_experts(params, mesh), mesh, cfg.vocab)
+        out[f"{name}.losses"] = np.array(losses)
+        out[f"{name}.grad_norms"] = np.array(norms)
+        out.update({f"{name}.param.{i}": p.detach().numpy()
+                    for i, p in enumerate(tree_leaves(params))})
+    return out
+
+
+def case_zero1_pod(mesh, d):
+    """`case_zero1` on a mesh with a pod axis, one step under int8_ef:
+    each pod's blocks through the pod exchange, their int8 scale the
+    whole leaf's (one step: a later step's rounding turns the first's
+    last-bit differences into whole int8 units)."""
+    return case_zero1(mesh, d, method="int8_ef", steps=1)
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -1942,7 +2019,8 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "decode": case_decode, "serve": case_serve, "ring": case_ring,
          "prefix": case_prefix, "lm": case_lm, "vocab": case_vocab,
          "moe": case_moe, "lm_elastic": case_lm_elastic,
-         "lm_resume": case_lm_resume, "encdec": case_encdec}
+         "lm_resume": case_lm_resume, "encdec": case_encdec,
+         "zero1": case_zero1, "zero1_pod": case_zero1_pod}
 
 
 # ------------------------------------------------------------ launcher --
