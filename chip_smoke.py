@@ -127,8 +127,10 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    of 1 too), `none` within
    1e-5 of one device on the same global batch (in 4 micro-batches, so
    that BN's statistics are the ranks'), bf16 and int8_ef within a
-   rounding bound of `none`; the state bytes, the bytes put on the pod
-   axis, the peak memory and step seconds a rank.  Not a scaling result.
+   rounding bound of `none`; the state bytes, the params' bytes a rank
+   holds at rest (its FSDP blocks over data) beside their whole bytes,
+   the bytes put on the pod axis, the peak memory and step seconds a
+   rank.  Not a scaling result.
    Then full-width hymba-1.5b (cut to 16 layers, `HYMBA_LAYERS`, handed
    to the trainer as its config), FP32, with and without `--remat`:
    losses within 1e-6, 2 x 16 x 3 LM kernel launches against 16 x 3,
@@ -283,8 +285,9 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    cores while phase 7 runs): the reference's line, the peak a rank
    against 80 GiB.  Then the same rank's real step on the
    card at full width and depth (qwen1.5's 16 x 256 tokens, hymba's 2 x
-   2048, mesh1k's 2 samples x 64 rows), one fresh process each, held
-   against the trace: FLOPs and the collectives' bytes by kind exactly,
+   2048, mesh1k's 2 samples x 64 rows; a train cell's params held at rest
+   as its FSDP blocks, their bytes a rank printed), one fresh process
+   each, held against the trace: FLOPs and the collectives' bytes by kind exactly,
    kernel launches by kernel against the traced custom-op calls, and
    `max_memory_allocated` within 10 % of the traced peak plus what the
    trace does not see, read on the card by a second step op by op (the
@@ -2631,7 +2634,8 @@ def zero_rank(rank: int, world: int) -> dict:
             params = [p.detach() for p in tree_leaves(res["params"])]
             digest = hashlib.sha256(b"".join(
                 p.cpu().numpy().tobytes() for p in params))
-            big, small = shardings.state_bytes(res["params"], res["mesh"])
+            big, small = shardings.state_bytes(res["held"], res["mesh"],
+                                               res["rest"])
             mu = sum(m.numel() * m.element_size()
                      for m in res["opt_state"].mu)
             row = {
@@ -2640,6 +2644,9 @@ def zero_rank(rank: int, world: int) -> dict:
                 "digest": digest.hexdigest(),
                 "momentum_bytes": mu, "sharded_bytes": big,
                 "replicated_bytes": small, "n_leaves": len(params),
+                "param_bytes_at_rest": shardings.held_bytes(res["held"]),
+                "param_bytes_whole": sum(p.numel() * p.element_size()
+                                         for p in params),
                 "pod_bytes_per_step": sum(grad_compress.sent.values())
                 / STEPS,
                 "max_abs": max(seen) if seen else 0.0,
@@ -2787,7 +2794,9 @@ def zero_phase(card: str) -> dict:
                   f"2..{STEPS}: {sum(steady) / len(steady):.4f}); state a "
                   f"rank: {x['sharded_bytes']} B of blocks + "
                   f"{x['replicated_bytes']} B replicated, momentum "
-                  f"{x['momentum_bytes']} B; over pod "
+                  f"{x['momentum_bytes']} B; params at rest "
+                  f"{x['param_bytes_at_rest']} B of "
+                  f"{x['param_bytes_whole']} B whole; over pod "
                   f"{x['pod_bytes_per_step']:.0f} B a step; max |x| "
                   f"exchanged {x['max_abs']:.4g}; peak "
                   f"{x['peak_gib']:.2f} GiB; conv launches "
@@ -4656,7 +4665,7 @@ def final_hidden_logged():
     """Each forward's final hidden state (after the final norm: what
     `transformer._logits` takes), detached."""
     return _observed(transformer, "_logits",
-                     lambda out, params, cfg, x: x.detach())
+                     lambda out, params, cfg, x, *ctx: x.detach())
 
 
 def _routes(log: list) -> list[dict]:
@@ -5797,6 +5806,8 @@ def dryrun_real(arch: str, shape: str, multi_pod: bool, out_path: str
     _, res = dryrun.measure_step(step, args, mesh, dev, memory=False)
     torch.cuda.synchronize()
     res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    res["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in tree_leaves(args[0]))
     res["launches"] = ops.launch_counts()
     # memory only, so it runs before this process's turn alone on the card
     torch._C._cuda_clearCublasWorkspaces()
@@ -5926,7 +5937,10 @@ def dryrun_phase(card: str, started: tuple[dict, float] | None = None
             gap = got["peak_bytes"] - pd["peak_bytes"]
             roof = max(want["roofline_s"]["compute"],
                        want["roofline_s"]["memory"]) * 1e3
-            print(f"dry run {tag}, rank {want['rank']}: real step against "
+            print(f"dry run {tag}, rank {want['rank']}: params held "
+                  f"{got['param_bytes']} B "
+                  f"({got['param_bytes'] / 2 ** 30:.3f} GiB) a rank; real "
+                  f"step against "
                   f"its trace: FLOPs {got['flops']} / {pd['flops']}, "
                   f"launches {got['launches']} / {want['kernel_calls']}, "
                   f"collectives {got['collectives']} / "

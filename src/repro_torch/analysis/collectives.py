@@ -58,8 +58,16 @@ The port's own differences, by construction:
     prices a weight's psum once per conv application (an interior-split
     layer), the bucket sends it once (`grad-bucket`, info).  The held
     blocks' psum over the other axes, the pod exchange
-    (`optim.grad_compress`) and the post-update all-gather over data
-    (region `param_gather`) are reported as `grad-bucket` infos;
+    (`optim.grad_compress`) and ZeRO-1's post-update all-gather over
+    model (region `param_gather`) are reported as `grad-bucket` infos;
+  * params held at rest (`launch.shardings.AtUse`): each layer gathers
+    its blocks over data where it runs and reduce-scatters their
+    gradients over data in its backward (region `fsdp_gather`, in the
+    layer), the reference's FSDP collectives, which its plan inventory
+    does not price either.  The reduce-scatters join the gradient
+    bucket's first stage (the whole gradient enters them); the gathers,
+    forward and again in the backward, are reported as a `grad-bucket`
+    info;
   * the §III-C reshards are explicit collectives (core.collectives), so
     `plan_inventory` prices each reshard point's collectives too (term
     `shuffle`, region `reshard`), where the reference leaves them to
@@ -97,7 +105,8 @@ PAYLOAD_ERROR = 0.25
 # the inventory's weight-gradient psums: one gradient bucket in the port
 WEIGHT_GRAD_REGIONS = ("conv", "cf_w_vjp", "gspmd")
 BUCKET = "grad_bucket"
-PARAM_GATHER = "param_gather"      # ZeRO's post-update all-gather
+PARAM_GATHER = "param_gather"      # ZeRO-1's post-update all-gather
+AT_USE = "fsdp_gather"             # launch.shardings.AT_USE
 
 _CHUNKS_RE = re.compile(r"cf chunks=(\d+)")
 
@@ -239,7 +248,7 @@ def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
                         fix="the step must end in train_loop."
                             "reduce_grads"))
         return out
-    kinds = collections.Counter(o.kind for o in first)
+    kinds = collections.Counter(o.kind for o in first if o.region == BUCKET)
     if any(n > 1 for n in kinds.values()):
         out.append(Finding(
             "warning", "collective-count",
@@ -249,8 +258,8 @@ def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
             fix="train_loop.reduce_grads reduces one flat buffer a kind"))
     moved = sum(o.bytes for o in first)
     priced = sum(b for b, _ in once.values())
-    what = " + ".join(f"bwd {o.kind} [{BUCKET}] over {sorted(o.axes)}"
-                      for o in first)
+    what = " + ".join(dict.fromkeys(
+        f"bwd {o.kind} [{o.region}] over {sorted(o.axes)}" for o in first))
     rest = moved - priced
     cmax_sum = sum(max(s.c, s.f) for s in specs)
     if rest > 16 * max(cmax_sum, 1):
@@ -300,19 +309,24 @@ def _bucket_findings(weights: Mapping[str, Sequence[pm.CollectiveSpec]],
     if gathers:
         out.append(Finding(
             "info", "grad-bucket",
-            message=f"param all-gather over data after the update: "
+            message=f"ZeRO-1's all-gather over model after the update: "
                     f"{sum(o.bytes for o in gathers):.0f} B entering on "
                     f"this rank",
             fix=""))
-    elif scattered:
-        out.append(Finding(
-            "info", "grad-bucket",
-            message="the updated blocks are all-gathered over data once a "
-                    "step, after the update (region param_gather); the "
-                    "audited step skips the update, so the gather is not "
-                    "in this record",
-            fix=""))
     return out
+
+
+def _at_use_findings(ops: Sequence[ExecutedOp]) -> list[Finding]:
+    """The gathers at use of params held at rest, as one info."""
+    if not ops:
+        return []
+    n = collections.Counter(f"{o.kind}/{o.direction}" for o in ops)
+    return [Finding(
+        "info", "grad-bucket",
+        message=f"params at rest: {dict(sorted(n.items()))} over data in "
+                f"the layers (region {AT_USE}), "
+                f"{sum(o.bytes for o in ops):.0f} B entering on this rank",
+        fix="")]
 
 
 def join_findings(inventory: Mapping[str, Sequence[pm.CollectiveSpec]],
@@ -329,11 +343,13 @@ def join_findings(inventory: Mapping[str, Sequence[pm.CollectiveSpec]],
     cmax_global = max((max(s.c, s.f) for s in specs), default=1)
 
     coll = [o for o in ops if o.kind in COLLECTIVE_KINDS]
-    bucket = [o for o in coll if o.region == BUCKET]
+    at_use = [o for o in coll if o.region == AT_USE]
+    bucket = [o for o in coll if o.region == BUCKET] + \
+        [o for o in at_use if o.kind == "reduce_scatter"]
     gathers = [o for o in coll if o.region == PARAM_GATHER]
     by_key: dict[tuple, list[ExecutedOp]] = {}
     for o in coll:
-        if o.region not in (BUCKET, PARAM_GATHER):
+        if o.region not in (BUCKET, PARAM_GATHER, AT_USE):
             by_key.setdefault((o.layer, o.direction, o.kind), []).append(o)
 
     ent_by_key: dict[tuple, list[pm.CollectiveSpec]] = {}
@@ -441,7 +457,7 @@ def join_findings(inventory: Mapping[str, Sequence[pm.CollectiveSpec]],
                     f"/ per-channel vectors) — below pricing granularity",
             fix=""))
     out += _bucket_findings(weights, bucket, specs, gathers)
-    return out
+    return out + _at_use_findings(at_use)
 
 
 # ---------------------------------------------------------------------------
@@ -711,8 +727,9 @@ class StepAudit:
         priced weight gradients' bytes once, and over every psum the
         inventory prices)."""
         moved = sum(o.bytes for o in _bucket_stages(
-            [o for o in self.ops if o.region == BUCKET and
-             o.kind in COLLECTIVE_KINDS])[0])
+            [o for o in self.ops if o.kind in COLLECTIVE_KINDS and (
+                o.region == BUCKET or (o.region == AT_USE and
+                                       o.kind == "reduce_scatter"))])[0])
         w = weight_grad_bytes(self.inventory).values()
         return moved, sum(a for a, _ in w), sum(b for _, b in w)
 
@@ -777,9 +794,11 @@ def meshnet_audit(plan, specs: Sequence[pm.ConvLayer], cfg, mesh, *,
     over data where the mesh has more than one data rank, the pod
     exchange under `pod_compression`), no update, on `params` and this
     rank's block `batch` (on `device`), or on params from a generator
-    seeded with `seed` and the synthetic batch of step 0.  `device` is
-    CUDA unless the caller asks for the CPU.  The params are unchanged
-    afterwards."""
+    seeded with `seed`, held at rest as the trainer holds them, and the
+    synthetic batch of step 0.  `params` may be whole or held at rest
+    (each leaf its block where `launch.shardings.fsdp_tree_specs` cuts
+    it), which the layers gather at their use.  `device` is CUDA unless the caller asks for the CPU.
+    The params are unchanged afterwards."""
     import functools
 
     from repro_torch.data import pipeline
@@ -788,11 +807,14 @@ def meshnet_audit(plan, specs: Sequence[pm.ConvLayer], cfg, mesh, *,
                                               reduce_grads)
     from repro_torch.utils import FP32, tree_leaves
 
+    from repro_torch.launch import shardings
     device = resolve_device(device)
-    if params is None:
-        params = meshnet.MeshNet(
+    if params is None:          # held at rest, as the trainer holds them
+        whole = meshnet.MeshNet(
             cfg, generator=torch.Generator().manual_seed(seed),
             device=device).params()
+        params = shardings.param_blocks(
+            whole, shardings.rest_dims(whole, mesh), mesh)
     if batch is None:
         n = specs[0].n
         glob = pipeline.synthetic_mesh_batch(
@@ -805,9 +827,12 @@ def meshnet_audit(plan, specs: Sequence[pm.ConvLayer], cfg, mesh, *,
         meshnet.loss_fn, cfg=cfg, plan=plan, mesh=mesh, overlap=overlap),
         TrainStepConfig(precision=FP32))
 
+    rest = shardings.held_rest(params, meshnet.global_params(cfg), mesh)
+
     def step(p, b):
         _, grads = fwd_bwd(p, b)
-        return reduce_grads(grads, mesh, method=pod_compression)[0]
+        return reduce_grads(grads, mesh, method=pod_compression,
+                            rest=rest)[0]
 
     leaves = tree_leaves(params)
     return audit_step(

@@ -24,7 +24,8 @@ outputs' shapes), counting as it goes:
     views and empty allocations count nothing);
   * `collective_bytes`, `collectives`: every transfer the step issues
     (`analysis.collectives.record`: the mesh's collectives, halos, ring
-    and prefix shifts, all-to-alls, the gradient bucket and the
+    and prefix shifts, all-to-alls, the params' gathers at use and their
+    gradients' reduce-scatters, the gradient bucket and ZeRO-1's
     post-update gather), each by the bytes of its result on this rank, as
     the reference's `collective_bytes` counts them, per kind under the
     reference's names;
@@ -48,12 +49,16 @@ inter-node links are slower than NVLink, so the collective term is a
 lower bound.  An eager step counts every layer, so `raw_scan_counted_once`
 and `probe` (the reference's depth-2/4 extrapolation) are null.
 
-Differences by construction: the parameters are held as the port holds
-them, whole on every rank (its trainer's ZeRO shards the optimizer state
-over "data", or over "data" x "model" under `opt` / `vpz`; serving holds
-fp32 params), not FSDP-sharded as the reference's are; under `opt` /
-`vpz` the vocabulary is each rank's block over "model" and, where "model"
-divides the experts (`opt`), so are the experts.  A VLM's patch prefix
+Params: the train cells hold them at rest as the port's trainer does,
+each leaf the reference's `fsdp_tree_specs` cuts as this rank's block
+over "data" (`launch.shardings.rest_dims`), gathered where a layer uses
+it, with the optimizer state the block (or its cut over "model" under
+`opt` / `vpz`, ZeRO-1 over "data" x "model").  Differences by
+construction: the prefill and decode cells still hold whole fp32 params
+on every rank (not yet the reference's FSDP blocks and bf16); under
+`opt` / `vpz` the vocabulary is each rank's block over "model" and,
+where "model" divides the experts (`opt`), so are the experts, each cut
+within that block at rest.  A VLM's patch prefix
 and its text are one sequence split over "model"
 (`data.pipeline.shard_lm_batch`), where the reference splits each on its
 own; an encoder-decoder's memory is in the params' dtype.  A cell that
@@ -96,6 +101,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -272,6 +278,12 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
         params = shardings.vocab_blocks(params, mesh)
         if ep:
             params = shardings.expert_blocks(params, mesh)
+    rest = None
+    if kind == "train":
+        rest = shardings.rest_dims(params, mesh,
+                                   transformer.stack_counts(params, cfg))
+        params = shardings.param_blocks(params, rest, mesh)
+        ctx = dataclasses.replace(ctx, rest=rest)
 
     extra: dict[str, Any] = {}
     s_loc = seq // mesh.axis_size(ctx.seq_axis)
@@ -299,7 +311,7 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
             precision=BF16, grad_accum=2 if tuned and big_moe else 1,
             zero_axes=("data", "model") if tuned else ("data",))
         opt_state = opt.init(shardings.local_shards(
-            params, mesh, scfg.zero_axes, roles))
+            params, mesh, scfg.zero_axes, roles, rest))
         labels = _ints((b_loc, s_loc), cfg.vocab, dev)
         if fl:
             pos = mesh.index(ctx.seq_axis) * s_loc + torch.arange(
@@ -312,7 +324,8 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
         def loss(p, b):
             return transformer.loss_fn(p, b, cfg, remat=True, ctx=ctx,
                                        vocab_parallel=tuned)
-        step = make_train_step(loss, opt, scfg, mesh=mesh, roles=roles)
+        step = make_train_step(loss, opt, scfg, mesh=mesh, roles=roles,
+                               rest=rest)
         return step, (params, opt_state, None, batch), cfg
 
     if kind == "prefill":
@@ -381,7 +394,8 @@ def build_cnn_cell(arch: str, mesh, batch: int = 32, variant: str = "base",
     plan = NetworkPlan.uniform(
         ConvSharding(batch_axes=batch_axes(mesh), h_axis="model"),
         specs=every, mesh=mesh, graph=graph)
-    params = _rehome(params, dev)
+    rest = shardings.rest_dims(params, mesh)
+    params = shardings.param_blocks(_rehome(params, dev), rest, mesh)
     shape = dict(mesh.shape)
     first = plan.sharding(specs[0].name)
     out = plan.out_sharding(last) if arch == "resnet50" else \
@@ -396,10 +410,10 @@ def build_cnn_cell(arch: str, mesh, batch: int = 32, variant: str = "base",
     bdict["label"] = _ints(y_block, n_classes, dev).long() if n_classes \
         else (torch.rand(y_block, device=dev) < 0.1).float()
     opt = sgd(0.1, momentum=0.9)
-    opt_state = opt.init(shardings.local_shards(params, mesh))
+    opt_state = opt.init(shardings.local_shards(params, mesh, rest=rest))
     loss = functools.partial(mod.loss_fn, cfg=cfg, plan=plan, mesh=mesh)
     step = make_train_step(loss, opt, TrainStepConfig(precision=FP32),
-                           mesh=mesh)
+                           mesh=mesh, rest=rest)
     return step, (params, opt_state, None, bdict), cfg
 
 
@@ -722,11 +736,19 @@ def run_audit(workload_names, out_path: str, hlo: bool = True,
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.dryrun",
-                                 allow_abbrev=False)
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.launch.dryrun", allow_abbrev=False,
+        description="Trace one rank of an (arch x shape) cell on fake "
+                    "tensors, or audit the bench workloads' plans.  The "
+                    "train cells hold the params at rest as the reference's "
+                    "FSDP blocks over data (each layer gathers its blocks "
+                    "at their use); the prefill and decode cells still hold "
+                    "whole fp32 params on every rank.")
     ap.add_argument("--arch")
     ap.add_argument("--shape", default="train_4k",
-                    choices=list(registry.SHAPES) + ["cnn"])
+                    choices=list(registry.SHAPES) + ["cnn"],
+                    help="train_* cells: params as FSDP blocks at rest; "
+                         "prefill_* / decode_* cells: whole fp32 params")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--variant", default="base",
                     choices=["base", "opt", "vpz"])

@@ -286,9 +286,11 @@ class Mesh:
         out = torch.empty((len(order) * src.shape[0],) + tuple(src.shape[1:]),
                           dtype=src.dtype, device=src.device)
         dist.all_gather_into_tensor(out, src, group=group)
-        out = out.view((len(order),) + tuple(src.shape))[torch.tensor(
-            sorted(range(len(order)), key=order.__getitem__))]
-        out = self._land(out.flatten(0, 1), t.device)
+        if order != sorted(order):      # blocks out of shard order
+            out = out.view((len(order),) + tuple(src.shape))[torch.tensor(
+                sorted(range(len(order)), key=order.__getitem__))]
+            out = out.flatten(0, 1)
+        out = self._land(out, t.device)
         return out.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, t: torch.Tensor, axes, dim: int
@@ -303,7 +305,10 @@ class Mesh:
         p = len(self.ranks(axes))
         src = t.movedim(dim, 0)
         src = src.reshape((p, src.shape[0] // p) + tuple(src.shape[1:]))
-        src = self.to_wire(src[torch.tensor(self._group_order(axes))])
+        order = self._group_order(axes)
+        if order != sorted(order):      # blocks out of shard order
+            src = src[torch.tensor(order)]
+        src = self.to_wire(src)
         out = torch.empty(tuple(src.shape[1:]), dtype=src.dtype,
                           device=src.device)
         dist.reduce_scatter_tensor(out, src.flatten(0, 1), group=group)

@@ -73,12 +73,14 @@ the predicted-vs-measured attribution under `--strategy auto`
 BENCH_step_trace.json) and a Chrome trace to `<PATH>.chrome.json`, and
 exits.
 
-The training state is sharded over "data" for every arch, as the
-reference's (`launch.shardings.fsdp_tree_specs`, ZeRO): every param leaf
-of at least 2^14 elements has one block a data rank, which alone takes
-the update and has optimizer moments; the gradient reduction
-reduce-scatters those leaves over "data" and the updated blocks are
-all-gathered once a step (`train.train_loop`).  `--pod-compression
+The params are held at rest as the reference's FSDP blocks for every
+arch (`launch.shardings.fsdp_tree_specs`, `rest_dims`): every param leaf
+of at least 2^14 elements (an LM's layer leaf counted as the reference
+stacks it) is held by each data rank as its block, gathered whole where
+a layer uses it and its gradient reduce-scattered over "data" in that
+layer's backward; the block alone takes the update and has optimizer
+moments (ZeRO), and the rest of the reduction sums over the other axes
+(`train.train_loop`).  `--pod-compression
 bf16|int8_ef` sends each pod's gradient over the pod axis compressed
 (`optim.grad_compress.cross_pod_mean`; int8_ef carries its error-feedback
 residual in the train state and the checkpoint); `none` (the default)
@@ -442,8 +444,9 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
     `arch_config`).  Params are drawn from a CPU generator seeded with
     `--seed`, so every rank, the card and the CPU start from the same
     weights.  On a mesh the batch factory returns this rank's block of the
-    global batch.  The params are whole; `train_state` cuts the optimizer
-    state to this rank's blocks under `fsdp_tree_specs`."""
+    global batch.  The params are whole (`run` holds them at rest, cut by
+    `param_rest`); an LM's loss gathers them at their use
+    (`ShardCtx.rest`)."""
     cfg = registry.get(args.arch, smoke=args.smoke) if cfg is None else cfg
     gen = torch.Generator().manual_seed(args.seed)
     arch = registry.canon(args.arch)
@@ -485,7 +488,8 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
             f"to train it with the uniform sharding)")
     params = transformer.init(gen, cfg, device=device)
     opt = adamw(warmup_cosine(args.lr, 20, args.steps))
-    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=batch_axes(mesh))
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=batch_axes(mesh),
+                   rest=param_rest(cfg, params, mesh))
     loss = functools.partial(transformer.loss_fn, cfg=cfg, remat=args.remat,
                              ctx=ctx)
     mk_global = functools.partial(pipeline.synthetic_lm_batch,
@@ -498,20 +502,34 @@ def build(args: argparse.Namespace, device: torch.device, mesh=None,
     return cfg, params, opt, loss, mk, BF16 if args.bf16 else FP32, None
 
 
+def param_rest(cfg, params, mesh=None):
+    """The params' placement at rest on `mesh` (`launch.shardings.
+    rest_dims`, an LM's layer leaves read as the reference stacks them),
+    or None where it cuts no leaf (one device, a data axis of one rank,
+    only small leaves)."""
+    counts = None if isinstance(cfg, (meshnet.MeshNetConfig,
+                                      resnet.ResNetConfig)) else \
+        transformer.stack_counts(params, cfg)
+    rest = shardings.rest_dims(params, mesh, counts)
+    return rest if any(d is not None for d in tree_leaves(rest)) else None
+
+
 def train_state(args: argparse.Namespace, params, opt, mesh=None,
-                echo: bool = False) -> tuple:
+                echo: bool = False, rest=None) -> tuple:
     """(optimizer state, error-feedback state) of a fresh run: moments for
-    this rank's block of every param leaf (`launch.shardings.local_shards`
-    under `fsdp_tree_specs`), and under `--pod-compression int8_ef` on a
-    mesh with a pod axis a zero residual of each (else None)."""
-    held = shardings.local_shards(params, mesh)
+    this rank's block of every param leaf held at rest (`rest`;
+    `launch.shardings.local_shards`), and under `--pod-compression
+    int8_ef` on a mesh with a pod axis a zero residual of each (else
+    None)."""
+    held = shardings.local_shards(params, mesh, rest=rest)
     if echo and mesh is not None and mesh.shape.get("data", 1) > 1:
-        big, small = shardings.state_bytes(params, mesh)
-        n = sum(1 for s in shardings.zero_specs(tree_leaves(params), mesh)
-                if s)
-        print(f"zero over data: {n} of {len(held)} param leaves sharded, "
-              f"{human_bytes(big)} of blocks and {human_bytes(small)} "
-              f"replicated a moment on this rank")
+        big, small = shardings.state_bytes(params, mesh, rest)
+        n = sum(1 for d in shardings.rest_list(rest, len(held))
+                if d is not None)
+        print(f"params at rest over data: {n} of {len(held)} param leaves "
+              f"cut, {human_bytes(shardings.held_bytes(params))} of params "
+              f"held on this rank; {human_bytes(big)} of blocks and "
+              f"{human_bytes(small)} replicated a moment")
     return opt.init(held), init_error_feedback(held, mesh,
                                                args.pod_compression)
 
@@ -574,8 +592,11 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
     says so (`arch_config`); returns the config it trained, the
     plan, and for every step run (a rolled-back step runs again) its
     index (`steps`), loss, gradient norm, seconds (batch included) and
-    seconds of its batch's wait and copy, the trained params with this
-    rank's optimizer and error-feedback state, and `left_at` (the step at
+    seconds of its batch's wait and copy, the trained params (whole,
+    gathered from every rank's blocks once at the end; a rank that left
+    the mesh keeps its blocks) with this rank's optimizer and
+    error-feedback state, the params as this rank held them at rest
+    (`held`) and their placement (`rest`), and `left_at` (the step at
     which this rank left the mesh under --elastic, else None)."""
     device, mesh, rank = setup(args)
     lead = rank == 0
@@ -584,8 +605,12 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
     cfg, params, opt, loss, mk, prec, plan = build(args, device, mesh,
                                                    echo=lead, cfg=cfg)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    tstep = make_train_step(loss, opt, step_config(args, prec), mesh=mesh)
-    opt_state, ef = train_state(args, params, opt, mesh, echo=lead)
+    rest = param_rest(cfg, params, mesh)
+    params = shardings.param_blocks(params, rest, mesh)
+    tstep = make_train_step(loss, opt, step_config(args, prec), mesh=mesh,
+                            rest=rest)
+    opt_state, ef = train_state(args, params, opt, mesh, echo=lead,
+                                rest=rest)
     where = f"mesh={dict(mesh.shape)} strategy={args.strategy}" \
         if mesh else f"strategy={args.strategy}"
     calib = (plan.predicted or {}).get("calibration") if plan else None
@@ -598,7 +623,8 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
         return profile(args, cfg, params, mk, device, mesh, plan, lead)
 
     # what an elastic remesh swaps: the loop's closures read it
-    ctx = {"mesh": mesh, "tstep": tstep, "mk": mk, "pf": None, "plan": plan,
+    ctx = {"mesh": mesh, "rest": rest, "tstep": tstep, "mk": mk, "pf": None,
+           "plan": plan,
            "plan_spec": plan_record(args, cfg, plan, device, mesh),
            "layer_names": meshnet.layer_names(cfg)
            if isinstance(cfg, meshnet.MeshNetConfig) else None}
@@ -606,12 +632,13 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
 
     def leaves(state):
         p, o, e = state
-        return shardings.sharded_state_tree(p, o, e, ctx["mesh"], to_ref)
+        return shardings.sharded_state_tree(p, o, e, ctx["mesh"], to_ref,
+                                            ctx["rest"])
 
     def load(state_like, tree):
         p, o, e = state_like
         return p, shardings.load_sharded_state_tree(
-            tree, p, o, e, ctx["mesh"], from_ref), e
+            tree, p, o, e, ctx["mesh"], from_ref, ctx["rest"]), e
 
     def agree(step):
         """Mesh rank 0's latest step, on every rank (rank 0 broadcasts
@@ -704,17 +731,19 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
                                       "model": model, "pod": 1})
         cfg2, params2, opt2, loss2, mk2, prec2, plan2 = build(
             args2, device, new_mesh, echo=lead, cfg=cfg)
+        rest2 = param_rest(cfg2, params2, new_mesh)
+        params2 = shardings.param_blocks(params2, rest2, new_mesh)
         if ctx["pf"] is not None:
             ctx["pf"].close()
-        ctx.update(mesh=new_mesh, mk=mk2, pf=None, plan=plan2,
+        ctx.update(mesh=new_mesh, rest=rest2, mk=mk2, pf=None, plan=plan2,
                    tstep=make_train_step(loss2, opt2,
                                          step_config(args, prec2),
-                                         mesh=new_mesh),
+                                         mesh=new_mesh, rest=rest2),
                    plan_spec=plan_record(args2, cfg2, plan2, device,
                                          new_mesh))
         # the survivors' blocks are cut from the checkpoint's global arrays
-        return make_step, (params2,
-                           *train_state(args2, params2, opt2, new_mesh))
+        return make_step, (params2, *train_state(args2, params2, opt2,
+                                                 new_mesh, rest=rest2))
 
     loop = ResilientLoop(ckpt=ck, make_step=make_step,
                          ckpt_every=args.ckpt_every,
@@ -752,10 +781,12 @@ def run(args: argparse.Namespace, cfg=None) -> dict:
         print(f"rank {rank} left the mesh at step {loop.left_at}")
     elif losses and lead:
         print(f"done at step {step}; final loss {losses[-1]:.4f}")
+    whole = params if loop.left_at is not None else \
+        shardings.whole_params(params, ctx["rest"], ctx["mesh"])
     return {"cfg": cfg, "losses": losses, "grad_norms": norms,
             "step_s": step_s, "data_s": data_s, "steps": steps,
-            "n_params": n_params,
-            "params": params, "opt_state": opt_state, "ef": ef,
+            "n_params": n_params, "params": whole, "held": params,
+            "rest": ctx["rest"], "opt_state": opt_state, "ef": ef,
             "mesh": ctx["mesh"], "plan": ctx["plan"],
             "left_at": loop.left_at, "straggler": mon.stats,
             "checkpoint": None if ck is None else

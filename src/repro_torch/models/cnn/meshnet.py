@@ -16,10 +16,15 @@ them; the last two are fitted to the layers' geometry first, with a
 reshard wherever the fit drops a spatial axis.  `apply` runs the
 per-layer callables of `layer_fns`: each layer reshards its input, then
 runs conv -> BN -> ReLU, under its name (`core.trace.layer_context`).
+A layer whose params a rank holds at rest (each leaf `launch.shardings.
+fsdp_tree_specs` cuts held as its block over "data") gathers them where
+it runs and reduce-scatters their gradients in its backward
+(`shardings.AtUse`); a leaf held whole is used as it is.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -29,6 +34,7 @@ from torch import nn
 from repro_torch.core import trace
 from repro_torch.core.perfmodel import ConvLayer
 from repro_torch.core.plan import NetworkPlan
+from repro_torch.launch import shardings
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.cnn import layers as L
 
@@ -66,6 +72,15 @@ def init(gen: torch.Generator, cfg: MeshNetConfig,
             c_in = width
     params.append({"conv": L.conv_init(gen, 1, c_in, cfg.n_classes, dtype)})
     return params
+
+
+@functools.lru_cache(maxsize=None)
+def global_params(cfg: MeshNetConfig) -> list[dict]:
+    """`init`'s tree of `cfg` as meta tensors: the global shape of every
+    leaf, nothing drawn."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily(), torch.device("meta"):
+        return init(torch.Generator(), cfg)
 
 
 def layer_names(cfg: MeshNetConfig) -> list[str]:
@@ -114,13 +129,19 @@ def layer_fns(cfg: MeshNetConfig, plan=None, mesh: Mesh | None = None,
     fit, as the reference) and ReLU.  `apply` is the composition of these
     fns, so the whole network and the segmented profiler
     (`core.trace.trace_plan`, which times each fn alone) share one
-    definition of a layer.  `plan`: see `network_plan`."""
+    definition of a layer.  A layer's params held at rest are gathered
+    in its fn (`shardings.AtUse`).  `plan`: see `network_plan`."""
     plan = network_plan(cfg, plan, mesh)
     names = layer_names(cfg)
+    shapes = global_params(cfg)
+
+    def held(li, lp, use):
+        return use(lp, shardings.held_rest(lp, shapes[li], mesh))
 
     def body_fn(li, name, stride):
         def fn(lp, x):
-            with trace.layer_context(name):
+            with trace.layer_context(name), shardings.AtUse(mesh) as use:
+                lp = held(li, lp, use)
                 x = plan.reshard(x, name, mesh,
                                  src=names[li - 1] if li else None)
                 x = L.conv_apply(lp["conv"], x, stride=stride,
@@ -134,7 +155,8 @@ def layer_fns(cfg: MeshNetConfig, plan=None, mesh: Mesh | None = None,
         return fn
 
     def pred_fn(lp, x):
-        with trace.layer_context("pred"):
+        with trace.layer_context("pred"), shardings.AtUse(mesh) as use:
+            lp = held(len(names) - 1, lp, use)
             x = plan.reshard(x, "pred", mesh, src=names[-2])
             return L.conv_apply(lp["conv"], x, stride=1,
                                 sharding=plan.sharding("pred"), mesh=mesh,

@@ -18,6 +18,12 @@ takes `2a`'s output and `2c` `2b`'s, and the shortcut (identity or
 `branch1`) moves to `2c`'s output sharding before the add.  `flow` reads
 these sources off `resnet_graph`, and `apply` takes them from there.
 
+Params a rank holds at rest (each leaf `launch.shardings.fsdp_tree_specs`
+cuts held as its block over "data") are gathered where they are used, the
+stem's, each bottleneck's and the head's in turn, and their gradients
+reduce-scattered in that part's backward (`shardings.AtUse`); a leaf held
+whole is used as it is.
+
 `resnet_graph` exports the branchy layer DAG (`core.dag.DiGraph`) that
 the strategy optimizer's longest-path-first pass solves (§V-C).
 """
@@ -33,6 +39,7 @@ from torch import nn
 from repro_torch.core import dag
 from repro_torch.core.perfmodel import ConvLayer
 from repro_torch.core.plan import NetworkPlan, compile_order
+from repro_torch.launch import shardings
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.cnn import layers as L
 
@@ -97,6 +104,15 @@ def init(gen: torch.Generator, cfg: ResNetConfig = RESNET50,
         c_out = width * EXPANSION
     params["head"] = L.dense_init(gen, c_out, cfg.n_classes, dtype)
     return params
+
+
+@functools.lru_cache(maxsize=None)
+def global_params(cfg: ResNetConfig = RESNET50) -> dict:
+    """`init`'s tree of `cfg` as meta tensors: the global shape of every
+    leaf, nothing drawn."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    with unset_fake_temporarily(), torch.device("meta"):
+        return init(torch.Generator(), cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -236,26 +252,37 @@ def apply(params: dict, x: torch.Tensor, cfg: ResNetConfig = RESNET50,
     axes (every channel on every rank).
 
     `plan`: see `network_plan`.  `mesh`: the process mesh the plan's axes
-    name (None: one device)."""
+    name (None: one device).  Params held at rest are gathered at their
+    use (see the module docstring)."""
     plan = network_plan(cfg, plan, mesh)
-    x = L.conv_apply(params["conv1"], x, stride=2,
-                     sharding=plan.sharding("conv1"), mesh=mesh,
-                     overlap=overlap)
-    x = plan.reshard_out(x, "conv1", mesh)
-    x = L.relu(L.bn_apply(params["bn1"], x, sharding=L.fitted(
-        plan.out_sharding("conv1"), x, 1, 1, mesh), mesh=mesh,
-        scope=cfg.bn_scope))
+    shapes = global_params(cfg)
+
+    def held(tree, glob, use):
+        return use(tree, shardings.held_rest(tree, glob, mesh))
+    with shardings.AtUse(mesh) as use:
+        stem = held({k: params[k] for k in ("conv1", "bn1")},
+                    {k: shapes[k] for k in ("conv1", "bn1")}, use)
+        x = L.conv_apply(stem["conv1"], x, stride=2,
+                         sharding=plan.sharding("conv1"), mesh=mesh,
+                         overlap=overlap)
+        x = plan.reshard_out(x, "conv1", mesh)
+        x = L.relu(L.bn_apply(stem["bn1"], x, sharding=L.fitted(
+            plan.out_sharding("conv1"), x, 1, 1, mesh), mesh=mesh,
+            scope=cfg.bn_scope))
     src = _sources(cfg)
     x = plan.reshard(x, "pool1", mesh, src=src["pool1", "in"])
     x = L.max_pool(x, window=3, stride=2, sharding=plan.sharding("pool1"),
                    mesh=mesh)
-    for p, (pre, _, _, stride, _) in zip(params["blocks"], _blocks(cfg)):
-        x = _bottleneck_apply(p, x, pre=pre, src=src, stride=stride,
-                              plan=plan, mesh=mesh, scope=cfg.bn_scope,
-                              overlap=overlap)
+    for p, glob, (pre, _, _, stride, _) in zip(
+            params["blocks"], shapes["blocks"], _blocks(cfg)):
+        with shardings.AtUse(mesh) as use:
+            x = _bottleneck_apply(held(p, glob, use), x, pre=pre, src=src,
+                                  stride=stride, plan=plan, mesh=mesh,
+                                  scope=cfg.bn_scope, overlap=overlap)
     x = L.global_avg_pool(x, sharding=L.fitted(
         plan.out_sharding(last_layer(cfg)), x, 1, 1, mesh), mesh=mesh)
-    return L.dense_apply(params["head"], x)
+    with shardings.AtUse(mesh) as use:
+        return L.dense_apply(held(params["head"], shapes["head"], use), x)
 
 
 def nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

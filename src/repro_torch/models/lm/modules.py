@@ -44,12 +44,17 @@ class ShardCtx:
     sequence, the axes that split the batch, and the axis that splits the
     experts of a MoE layer (`tp_axis`: each rank holds its block of E,
     `launch.shardings.expert_blocks`; None keeps every expert on every
-    rank).  The reference's `unroll` serves its dry-run probes, which are
-    not ported."""
+    rank), and `rest`, where the params are held at rest (the trainer's):
+    `launch.shardings.rest_dims`' tree of them, each leaf's dim cut over
+    "data" or None, which the model gathers at its use
+    (`launch.shardings.gather_at_use`); None where every leaf is held as
+    the model reads it (serving, one device).  The reference's `unroll`
+    serves its dry-run probes, which are not ported."""
     mesh: Any = None
     seq_axis: str | tuple[str, ...] | None = None
     batch_axes: tuple[str, ...] = ()
     tp_axis: str | None = None
+    rest: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def seq_size(self) -> int:

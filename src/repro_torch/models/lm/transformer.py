@@ -48,6 +48,17 @@ the sequence that is split: each rank holds its block of prefix + text,
 with -1 labels over the prefix (`data.pipeline.shard_lm_batch`); the
 encoder's frames, and so its memory, are split as the tokens are.
 
+With `ctx.rest` (the trainer's params at rest: each leaf that the
+reference's `fsdp_tree_specs` cuts held as this rank's block over
+"data"), each layer gathers its blocks where it runs, and so do the
+embedding, the final norms and the unembedding at their uses
+(`launch.shardings.gather_at_use`); their gradients are reduce-scattered
+over "data" in the backward.  Outside a checkpointed unit
+(`shardings.AtUse`) an op's saved copy of a gathered leaf is kept as its
+block and gathered again in the backward; under remat the unit's
+recompute gathers again.  `stack_counts` gives the reference's stacked
+leaf count that the placement rule reads (`shardings.rest_dims`).
+
 The loss runs no dead encoder: where no layer of `cfg.layer_types()` is
 `xattn` (every registered encoder-decoder: the reference's `layer_types`
 never yields one), the memory reaches nothing, so `loss_fn` does not run
@@ -65,6 +76,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.core.decode_attention import cache_append, decode_attention
+from repro_torch.launch import shardings
 from repro_torch.models.lm import modules as M
 from repro_torch.models.lm import vocab_parallel as VP
 from repro_torch.models.lm.config import LMConfig
@@ -355,15 +367,61 @@ def _block_tail(p: dict, x: torch.Tensor, out: torch.Tensor, btype: str,
 
 
 # ---------------------------------------------------------------------------
+# params at rest
+# ---------------------------------------------------------------------------
+
+def stack_counts(params: dict, cfg: LMConfig) -> dict:
+    """A tree of `params`' structure: for each leaf of `layers` (and
+    `enc_layers`), the layer count of the `plan` segment whose stacked
+    leaf holds it in the reference's tree (`tree_to_jax`); None for the
+    other leaves, which the reference does not stack."""
+    def per_layer(layers, types):
+        counts = []
+        for unit, count in plan(cfg, types):
+            counts += [count] * (len(unit) * count)
+        return [tree_map(lambda _, c=c: c, lp)
+                for lp, c in zip(layers, counts)]
+    out = tree_map(lambda _: None, params)
+    out["layers"] = per_layer(params["layers"], cfg.layer_types())
+    if "enc_layers" in params:
+        out["enc_layers"] = per_layer(params["enc_layers"], enc_types(cfg))
+    return out
+
+
+def _rest(ctx: ShardCtx, *keys):
+    """`ctx.rest`'s entry at `keys` (None where the params are held as
+    the model reads them)."""
+    r = ctx.rest
+    for k in keys:
+        if r is None:
+            return None
+        r = r[k]
+    return r
+
+
+def _at_use(use, params: dict, ctx: ShardCtx, *names: str,
+            summed: bool = False) -> dict:
+    """`params` with its top-level leaves `names` (those it has) gathered
+    at their use by `use` (`shardings.AtUse`)."""
+    names = [n for n in names if n in params]
+    part = use({n: params[n] for n in names},
+               {n: _rest(ctx, n) for n in names} if ctx.rest is not None
+               else None, summed=summed)
+    return {**params, **part}
+
+
+# ---------------------------------------------------------------------------
 # forward / loss
 # ---------------------------------------------------------------------------
 
 def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor,
-           extra_embeds: torch.Tensor | None = None) -> torch.Tensor:
+           extra_embeds: torch.Tensor | None = None,
+           ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     """The tokens' embeddings (scaled by sqrt(d) where the config says),
     after the frontend's `extra_embeds` (B, S_img, d), cast to their dtype
     (the reference's modality prefix)."""
-    x = params["embed"][tokens.long()]
+    with shardings.AtUse(ctx.mesh) as use:
+        x = _at_use(use, params, ctx, "embed")["embed"][tokens.long()]
     if cfg.scale_embedding:
         x = x * math.sqrt(cfg.d_model)
     if extra_embeds is not None:
@@ -371,9 +429,13 @@ def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     return x
 
 
-def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    emb = params["unembed"] if "unembed" in params else params["embed"].T
-    logits = x @ emb
+def _logits(params: dict, cfg: LMConfig, x: torch.Tensor,
+            ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
+    with shardings.AtUse(ctx.mesh) as use:
+        held = _at_use(use, params, ctx, "unembed" if "unembed" in params
+                       else "embed")
+        emb = held["unembed"] if "unembed" in params else held["embed"].T
+        logits = x @ emb
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -382,10 +444,15 @@ def _logits(params: dict, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
 def _unit_apply(lps: list, x: torch.Tensor, unit: tuple, cfg: LMConfig,
                 positions: torch.Tensor, kvs: list | None = None,
                 ctx: ShardCtx = ShardCtx(),
-                memory: torch.Tensor | None = None) -> torch.Tensor:
+                memory: torch.Tensor | None = None, rests=None,
+                use=None) -> torch.Tensor:
     """One unit of a `plan` segment (the reference's scan body): its
-    blocks in order."""
-    for bt, lp in zip(unit, lps):
+    blocks in order, each gathering its params held at rest (`rests`,
+    their `ctx.rest` entries) at its use (`use`: the `shardings.AtUse`
+    of the unit; None in a checkpointed unit)."""
+    for i, (bt, lp) in enumerate(zip(unit, lps)):
+        lp = shardings.gather_at_use(lp, None if rests is None else
+                                     rests[i], ctx.mesh, saved=use)
         x = _block_apply(lp, x, bt, cfg, positions, kvs, ctx, memory)
     return x
 
@@ -401,13 +468,15 @@ def positions_of(ctx: ShardCtx, s_local: int, device) -> torch.Tensor:
 
 def _run_layers(layers: list, types: list[str], cfg: LMConfig,
                 x: torch.Tensor, remat: bool, kvs: list | None,
-                ctx: ShardCtx, memory: torch.Tensor | None = None
-                ) -> torch.Tensor:
+                ctx: ShardCtx, memory: torch.Tensor | None = None,
+                rest: list | None = None) -> torch.Tensor:
     """x (B, S, d) through `layers` of block `types`, unit by unit of
-    `plan(cfg, types)`, at this rank's global positions; with `remat`
-    each unit is a `torch.utils.checkpoint` region (the reference's
-    `jax.checkpoint` of its scan body): only its inputs are kept, and the
-    backward runs its forward again."""
+    `plan(cfg, types)`, at this rank's global positions, each layer
+    gathering its params held at rest (`rest`, their `ctx.rest`
+    entries) at its use; with `remat` each unit is a
+    `torch.utils.checkpoint` region (the reference's `jax.checkpoint` of
+    its scan body): only its inputs are kept, and the backward runs its
+    forward again, the gathers with it."""
     if len(layers) != len(types):
         raise ValueError(f"{len(layers)} layers given, {len(types)} "
                          f"wanted")
@@ -416,13 +485,15 @@ def _run_layers(layers: list, types: list[str], cfg: LMConfig,
     for unit, count in plan(cfg, types):
         for _ in range(count):
             lps = layers[first:first + len(unit)]
+            rests = None if rest is None else rest[first:first + len(unit)]
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
                     _unit_apply, lps, x, unit, cfg, positions, None, ctx,
-                    memory, use_reentrant=False)
+                    memory, rests, use_reentrant=False)
             else:
-                x = _unit_apply(lps, x, unit, cfg, positions, kvs, ctx,
-                                memory)
+                with shardings.AtUse(ctx.mesh) as use:
+                    x = _unit_apply(lps, x, unit, cfg, positions, kvs, ctx,
+                                    memory, rests, use)
             first += len(unit)
     return x
 
@@ -433,8 +504,10 @@ def _layers(params: dict, cfg: LMConfig, x: torch.Tensor, remat: bool,
     """The embedded tokens x (B, S, d) through every decoder layer and the
     final norm."""
     x = _run_layers(params["layers"], cfg.layer_types(), cfg, x, remat, kvs,
-                    ctx, memory)
-    return M.norm_apply(cfg, params["final_norm"], x)
+                    ctx, memory, _rest(ctx, "layers"))
+    with shardings.AtUse(ctx.mesh) as use:
+        return M.norm_apply(cfg, _at_use(use, params, ctx,
+                                         "final_norm")["final_norm"], x)
 
 
 def encode(params: dict, cfg: LMConfig, frames: torch.Tensor,
@@ -449,8 +522,10 @@ def encode(params: dict, cfg: LMConfig, frames: torch.Tensor,
         raise ValueError(f"{cfg.name} has no encoder")
     x = frames.to(params["embed"].dtype)
     x = _run_layers(params["enc_layers"], enc_types(cfg), cfg, x, remat,
-                    None, ctx)
-    return M.norm_apply(cfg, params["enc_final_norm"], x)
+                    None, ctx, rest=_rest(ctx, "enc_layers"))
+    with shardings.AtUse(ctx.mesh) as use:
+        return M.norm_apply(cfg, _at_use(use, params, ctx, "enc_final_norm")
+                            ["enc_final_norm"], x)
 
 
 def _frames(cfg: LMConfig, frames):
@@ -479,9 +554,9 @@ def forward(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     memory = None if frames is None else \
         encode(params, cfg, frames, ctx, remat)
     kvs = [] if collect_kv else None
-    x = _layers(params, cfg, _embed(params, cfg, tokens, extra_embeds),
+    x = _layers(params, cfg, _embed(params, cfg, tokens, extra_embeds, ctx),
                 remat, kvs, ctx, memory)
-    logits = _logits(params, cfg, x)
+    logits = _logits(params, cfg, x, ctx)
     return (logits, kvs, memory) if collect_kv else logits
 
 
@@ -549,9 +624,9 @@ def loss_fn(params: dict, batch: dict, cfg: LMConfig,
         loss = _loss_vocab_parallel(params, batch, cfg, remat, ctx, memory)
     else:
         extra = batch.get("patch_embeds")
-        x = _layers(params, cfg, _embed(params, cfg, batch["tokens"], extra),
-                    remat, None, ctx, memory)
-        logits = _logits(params, cfg, x).float()
+        x = _layers(params, cfg, _embed(params, cfg, batch["tokens"], extra,
+                                        ctx), remat, None, ctx, memory)
+        logits = _logits(params, cfg, x, ctx).float()
         labels = batch["labels"].long()
         if extra is None:
             loss = _xent(logits, labels, ctx)
@@ -592,7 +667,12 @@ def _loss_vocab_parallel(params: dict, batch: dict, cfg: LMConfig,
     sqrt(d) where the config says), the patch prefix before it (its
     labels -1), the layers, the final norm, and the ring cross entropy
     against `unembed`'s block transposed, or the tied `embed` block."""
-    x = VP.embed_lookup(params["embed"], cfg, batch["tokens"], ctx)
+    # the vocabulary blocks' gradients arrive summed over every axis: the
+    # backward of their gathers at use cuts this rank's block out
+    with shardings.AtUse(ctx.mesh) as use:
+        x = VP.embed_lookup(_at_use(use, params, ctx, "embed",
+                                    summed=True)["embed"], cfg,
+                            batch["tokens"], ctx)
     if cfg.scale_embedding:
         x = x * math.sqrt(cfg.d_model)
     labels = batch["labels"]
@@ -601,8 +681,11 @@ def _loss_vocab_parallel(params: dict, batch: dict, cfg: LMConfig,
         x = torch.cat([extra.to(x.dtype), x], dim=1)
         labels = _front_pad(labels, x.shape[1])
     x = _layers(params, cfg, x, remat, None, ctx, memory)
-    table = params["unembed"].T if "unembed" in params else params["embed"]
-    return VP.xent_loss(table, cfg, x, labels, ctx)
+    with shardings.AtUse(ctx.mesh) as use:
+        held = _at_use(use, params, ctx, "unembed" if "unembed" in params
+                       else "embed", summed=True)
+        table = held["unembed"].T if "unembed" in params else held["embed"]
+        return VP.xent_loss(table, cfg, x, labels, ctx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """The train step, port of `repro.train.train_loop`: mixed precision,
 gradient accumulation (micro-batching, the out-of-core technique the
-paper cites in §VII), on a mesh the gradient reduction with the
-training state sharded over "data" (ZeRO, `launch.shardings`) and the
+paper cites in §VII), on a mesh the params held at rest as each rank's
+FSDP blocks (`launch.shardings.rest_dims`: the models gather a layer's
+blocks at their use and reduce-scatter their gradients over "data" in
+its backward), the gradient reduction over the other axes, the
 cross-pod gradient compression (`optim.grad_compress`), ZeRO-1 over
 ("data", "model") with leaves that are a rank's block over "model"
 (`TrainStepConfig.zero_axes`, `make_train_step(roles=)`: the dry run's
@@ -66,7 +68,7 @@ def reduce_replicated_grads(grads: list[torch.Tensor],
 
 def reduce_grads(grads: list[torch.Tensor], mesh: Mesh | None, *,
                  method: str = "none", ef=None, zero_axes=("data",),
-                 roles=None):
+                 roles=None, rest=None):
     """(the gradient blocks this rank holds, the new error-feedback
     state): each rank's share of the gradient (params-tree order) reduced
     over the mesh, in the named region `grad_bucket`.
@@ -84,6 +86,11 @@ def reduce_grads(grads: list[torch.Tensor], mesh: Mesh | None, *,
     rank's block over "model" (`roles`) is summed only over the axes its
     gradient has not been summed over already (`shardings.reduce_axes`:
     none for a vocabulary block, the batch axes for an expert block).
+    With the params at rest (`rest`, `shardings.rest_dims`' entries) a
+    cut leaf's gradient is its block summed over "data" already: under
+    ZeRO over "data" it goes through the psum over the rest of the axes
+    with the whole leaves', under ZeRO-1 through a reduce-scatter over
+    "model" within the block and a psum over the pods.
 
     Under a compressing `method` the pod axis is left out of every sum,
     and each pod's gradient (its share times the pod count) goes through
@@ -94,7 +101,8 @@ def reduce_grads(grads: list[torch.Tensor], mesh: Mesh | None, *,
     if mesh is None or mesh.size == 1:
         return grads, ef
     roles = roles or ["whole"] * len(grads)
-    specs = shardings.zero_specs(grads, mesh, zero_axes, roles)
+    dims = shardings.rest_list(rest, len(grads))
+    specs = shardings.zero_specs(grads, mesh, zero_axes, roles, rest)
     pods = "pod" in mesh.axis_names
     compress = pods and method != "none"
     if pods and not compress:                     # fp32, in the psums
@@ -103,14 +111,16 @@ def reduce_grads(grads: list[torch.Tensor], mesh: Mesh | None, *,
                    mesh.shape["pod"], gather=False)
     with trace.annotate("grad_bucket", grads[0], bwd=True):
         held = _reduce_groups(grads, mesh, specs, roles,
-                              skip=("pod",) if compress else ())
+                              skip=("pod",) if compress else (), dims=dims)
         if compress:
             # a pod's share times the pod count; a vocabulary block
             # arrives summed over the pods already
             npods = [mesh.shape["pod"] if "pod" in
-                     shardings.reduce_axes(r, mesh) else 1 for r in roles]
-            cut = {a for s, r in zip(specs, roles)
-                   for a in shardings.spec_axes(s) + shardings.block_axes(r)}
+                     shardings.reduce_axes(r, mesh, d) else 1
+                     for r, d in zip(roles, dims)]
+            cut = {a for s, r, d in zip(specs, roles, dims)
+                   for a in shardings.spec_axes(s) +
+                   shardings.block_axes(r, d)}
             held, ef = cross_pod_mean(
                 [h * k for h, k in zip(held, npods)], mesh=mesh,
                 method=method, error_feedback=ef,
@@ -119,13 +129,15 @@ def reduce_grads(grads: list[torch.Tensor], mesh: Mesh | None, *,
 
 
 def _reduce_groups(grads: list[torch.Tensor], mesh: Mesh, specs, roles,
-                   skip=()) -> list[torch.Tensor]:
+                   skip=(), dims=None) -> list[torch.Tensor]:
     """`reduce_grads`' sums: the leaves grouped by (the axes their state
     is cut over, `specs`, the axes their gradient is summed over, less
-    `skip`), the cut groups first."""
+    `skip`), the cut groups first.  `dims`: each leaf's dim cut at rest
+    (None: held as the model reads it)."""
+    dims = dims or [None] * len(grads)
     groups: dict[tuple, list[int]] = {}
-    for i, (s, r) in enumerate(zip(specs, roles)):
-        over = tuple(a for a in shardings.reduce_axes(r, mesh)
+    for i, (s, r, d) in enumerate(zip(specs, roles, dims)):
+        over = tuple(a for a in shardings.reduce_axes(r, mesh, d)
                      if a not in skip)
         groups.setdefault((shardings.spec_axes(s), over), []).append(i)
     held: list = [None] * len(grads)
@@ -158,16 +170,18 @@ def _reduce_groups(grads: list[torch.Tensor], mesh: Mesh, specs, roles,
 
 
 def held_norm(held: list[torch.Tensor], specs: list, mesh: Mesh | None,
-              roles=None) -> torch.Tensor:
+              roles=None, rest=None) -> torch.Tensor:
     """The global norm of the whole gradient from the blocks this rank
     holds (`specs`: the leaves' `shardings.zero_specs`): each block's
     squares summed over the axes its leaf is cut over (the state's cut,
-    and "model" for a leaf of `roles` that is a block over it), a whole
-    leaf's once."""
+    "model" for a leaf of `roles` that is a block over it, and "data"
+    for a leaf cut at rest, `rest`), a whole leaf's once."""
     roles = roles or ["whole"] * len(held)
+    dims = shardings.rest_list(rest, len(held))
     over = [shardings.spec_axes(s) + tuple(
-        a for a in shardings.block_axes(r) if a not in shardings.spec_axes(s))
-        for s, r in zip(specs, roles)]
+        a for a in shardings.block_axes(r, d)
+        if a not in shardings.spec_axes(s))
+        for s, r, d in zip(specs, roles, dims)]
     if not any(over):
         return global_norm(held)
     sq = [h.float().square().sum() for h in held]
@@ -206,23 +220,28 @@ def make_grad_fn(loss_fn: Callable,
 
 def make_train_step(loss_fn: Callable, opt: Optimizer,
                     cfg: TrainStepConfig = TrainStepConfig(),
-                    mesh: Mesh | None = None, roles=None):
+                    mesh: Mesh | None = None, roles=None, rest=None):
     """loss_fn(params, batch) -> scalar loss (params in compute dtype); on
     a mesh, this rank's share of it (`meshnet.loss_fn`).
 
     Returns step(params, opt_state, ef_state, batch) -> (params,
     opt_state, ef_state, metrics), the reference's signature, with
     metrics {"loss", "grad_norm"} as 0-d tensors on the params' device.
+    On a mesh whose data axis cuts a leaf, `params` are held at rest:
+    each such leaf this rank's block (`launch.shardings.param_blocks`
+    under `rest`, `shardings.rest_dims`' tree or its leaves), which
+    `loss_fn` gathers at its use (`shardings.gather_at_use`); `roles`,
+    `shardings.leaf_roles`', says which leaves are blocks over "model".
     `opt_state` holds moments for this rank's blocks
     (`opt.init(launch.shardings.local_shards(params, mesh,
-    cfg.zero_axes, roles))`; `roles`, `shardings.leaf_roles`', says
-    which leaves are blocks over "model"), `ef_state`
-    the int8 residuals of `grad_compress.init_error_feedback` (or None).
-    On a mesh the grads are `reduce_grads`'s before the update, the norm
-    is the whole gradient's after compression, the loss is summed over
-    the ranks (a report: autograd does not go through it), and the
-    updated blocks are gathered over "data" (`shardings.gather_params_`).
-    The params tree is updated in place (see optim.optimizer).
+    cfg.zero_axes, roles, rest))`), `ef_state` the int8 residuals of
+    `grad_compress.init_error_feedback` (or None).  On a mesh the grads
+    are `reduce_grads`'s before the update, the norm is the whole
+    gradient's after compression, the loss is summed over the ranks (a
+    report: autograd does not go through it); under ZeRO-1 the updated
+    pieces of each data block are gathered over "model"
+    (`shardings.gather_cuts_`).  The params tree is updated in place
+    (see optim.optimizer).
     """
     fwd_bwd = make_grad_fn(loss_fn, cfg)
 
@@ -244,18 +263,26 @@ def make_train_step(loss_fn: Callable, opt: Optimizer,
             grads = [g / k for g in grads]
         else:
             loss, grads = fwd_bwd(params, batch)
-        specs = shardings.zero_specs(grads, mesh, cfg.zero_axes, roles)
+        specs = shardings.zero_specs(grads, mesh, cfg.zero_axes, roles,
+                                     rest)
+        if mesh is not None and mesh.shape.get(shardings.DATA_AXIS, 1) > 1 \
+                and any(shardings.DATA_AXIS in shardings.spec_axes(s)
+                        for s in specs):
+            raise ValueError(
+                "a param held whole on a mesh whose data axis cuts it: "
+                "hold the params at rest (launch.shardings.param_blocks) "
+                "and pass their rest_dims")
         if mesh is not None and mesh.size > 1:
             grads, ef_state = reduce_grads(
                 grads, mesh, method=cfg.pod_compression, ef=ef_state,
-                zero_axes=cfg.zero_axes, roles=roles)
+                zero_axes=cfg.zero_axes, roles=roles, rest=rest)
             loss = mesh.all_reduce(loss, mesh.axis_names)
-        gnorm = held_norm(grads, specs, mesh, roles)
+        gnorm = held_norm(grads, specs, mesh, roles, rest)
         _, opt_state = opt.update(
             grads, opt_state,
-            shardings.local_shards(params, mesh, cfg.zero_axes, roles),
-            norm=gnorm)
-        shardings.gather_params_(params, mesh, cfg.zero_axes, roles)
+            shardings.local_shards(params, mesh, cfg.zero_axes, roles,
+                                   rest), norm=gnorm)
+        shardings.gather_cuts_(params, mesh, cfg.zero_axes, roles, rest)
         return params, opt_state, ef_state, {"loss": loss,
                                              "grad_norm": gnorm}
 

@@ -560,7 +560,8 @@ def _dryrun(d):
     """The reference's dry-run builders (`build_lm_cell`, `build_cnn_cell`)
     on the production meshes of 512 host devices, shapes only (no lower,
     no compile): each DRYRUN_CELLS cell's argument leaves but the params
-    (keypath -> global shape and the per-device shard shape), its chip
+    (keypath -> global shape and the per-device shard shape), a train or
+    CNN cell's params too (keypath after "params"), its chip
     count, the total per-device elements of its optimizer moments, and
     `model_flops_total` as the reference's `run_cell` computes it, into
     DIR/dryrun.json."""
@@ -588,6 +589,13 @@ def _dryrun(d):
             if ".mu" in key or key.startswith("[0][1]"):
                 moments += int(np.prod(shard))
             leaves[key] = [list(s.shape), list(shard)]
+        if arch in registry.CNN_ARCHS or \
+                registry.SHAPES[shape]["kind"] == "train":
+            for path, s in jax.tree_util.tree_leaves_with_path(args[0]):
+                if hasattr(s, "sharding"):
+                    leaves["params" + jax.tree_util.keystr(path)] = [
+                        list(s.shape),
+                        list(s.sharding.shard_shape(s.shape))]
         mf = None
         if arch not in registry.CNN_ARCHS:
             info = registry.SHAPES[shape]

@@ -11,7 +11,8 @@ the reference's.
 - The reference's builders on 512 host devices, shapes only
   (`tests/jax_mesh_oracles.py dryrun`, no compile): each sharded argument
   of ten full-size cells (batch, frames, prefix, caches, memory, the
-  optimizer state) against the port's block on the same rank, by
+  optimizer state, and a train or CNN cell's params, held at rest as the
+  reference's FSDP blocks) against the port's block on the same rank, by
   per-device shard shape; the chip count, the tag and
   `model_flops_total`, exactly.
 - The abstract trace against the same rank's real step on the CPU
@@ -46,7 +47,7 @@ from repro_torch.core.ring_attention import ring_steps
 from repro_torch.launch import dryrun, shardings, sweep
 from repro_torch.launch.mesh import PRODUCTION_MESH, Mesh
 from repro_torch.models.lm import transformer as tT
-from repro_torch.utils import leaves_with_path, tree_unflatten
+from repro_torch.utils import leaves_with_path, tree_leaves, tree_unflatten
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = {"pod1": PRODUCTION_MESH[False], "pod2": PRODUCTION_MESH[True]}
@@ -234,6 +235,17 @@ def _moment_paths(params, mu, cfg):
             for path, t in leaves_with_path(tree)}
 
 
+def _param_paths(params, cfg):
+    """{"params" + reference keypath: this rank's block shape} of the
+    port's held `params`, an LM's stacked into the reference's
+    segments."""
+    tree = tT.tree_to_jax(tree_unflatten(params, iter(
+        [torch.empty(p.shape, device="meta") for p in tree_leaves(params)])),
+        cfg) if "layers" in params else params
+    return {"params" + path: tuple(t.shape)
+            for path, t in leaves_with_path(tree)}
+
+
 def _whole(path: str, variant: str, cfg) -> bool:
     """Whether the port holds the param at reference keypath `path`
     whole: not a vocabulary block (opt / vpz) nor an expert block (opt,
@@ -290,6 +302,16 @@ def test_argument_blocks_match_the_reference(runs, cell):
                 continue
             assert mine[key] == s, key
             n_cmp += 1
+        assert n_cmp > 0
+        checked += n_cmp
+        # the params at rest: each leaf but a vocabulary or expert block
+        # (cut within the block) is the reference's FSDP block
+        mine = _param_paths(args[0], cfg)
+        n_cmp = 0
+        for key, (g, s) in leaves.items():
+            if key.startswith("params") and _whole(key[6:], variant, cfg):
+                assert mine[key] == s, key
+                n_cmp += 1
         assert n_cmp > 0
         checked += n_cmp
     elif kind == "prefill":

@@ -8,9 +8,13 @@ reference's (`repro.launch.shardings`).
   a 3x3 kernel's height takes the shard where no width divides by 3.
   The port's own trees (meshnet's, hymba's stacked into segments) get
   the reference's specs.
-- `shard` / `unshard` / `pack_rows` / `gather_params_` on layout-only
+- `shard` / `unshard` / `pack_rows` on layout-only
   meshes: each rank's block, the blocks stitched back, the flat buffer's
   per-rank rows.
+- Params at rest: `rest_dims`, `param_blocks` and `held_rest` on
+  layout-only meshes; the axes a block's gradient is summed over
+  already (`reduce_axes`, `block_axes`); ZeRO-1's state a cut over
+  "model" within the data block, the reference's zero1 block.
 """
 import jax
 import numpy as np
@@ -162,3 +166,84 @@ def test_shard_unshard_and_the_flat_rows():
     assert shardings.unshard(leaves[1], specs[1], meshes[0]) is leaves[1]
     assert shardings.state_bytes(leaves, meshes[0]) == (
         sum(x.numel() * 2 for x, _ in big), 64 * 4)
+
+
+# ------------------------------------------------------- params at rest --
+
+def test_param_blocks_are_the_rank_blocks_at_rest():
+    """`rest_dims` cuts the leaves `fsdp_spec` cuts (at data 2), on the
+    same dim; `param_blocks` gives each rank its block (a new leaf that
+    requires grad, the small leaves themselves); `held_rest` reads the
+    cut back from the global shapes, for whole and held trees alike."""
+    g = np.random.default_rng(5)
+    leaves = [torch.from_numpy(g.standard_normal(s).astype(np.float32))
+              .requires_grad_()
+              for s in [(3, 3, 64, 64), (64,), (3, 3, 32, 128), (256, 72)]]
+    shape = {"pod": 2, "data": 2, "model": 1}
+    rest = shardings.rest_dims(leaves, shape)
+    assert rest == [shardings.sharded_dim(shardings.fsdp_spec(x.shape, 2))
+                    for x in leaves] == [2, None, 3, 0]
+    meta = [torch.empty(x.shape, device="meta") for x in leaves]
+    for m in _layout_meshes(shape):
+        held = shardings.param_blocks(leaves, rest, m)
+        assert held[1] is leaves[1]
+        for x, h, d in zip(leaves, held, rest):
+            spec = shardings.rest_spec(x.dim(), d)
+            np.testing.assert_array_equal(
+                h.detach().numpy(), shardings.shard(x.detach(), spec,
+                                                    m).numpy())
+            assert h.requires_grad and (d is None or h.is_contiguous())
+        assert shardings.held_rest(held, meta, m) == rest
+        assert shardings.held_rest(leaves, meta, m) == [None] * 4
+        # a moment is the held block; the bytes a rank holds
+        assert shardings.state_bytes(held, m, rest) == (
+            sum(h.numel() * 4 for h, d in zip(held, rest) if d is not None),
+            64 * 4)
+        assert shardings.held_bytes(held) == sum(h.numel() * 4
+                                                 for h in held)
+    with pytest.raises(ValueError, match="neither"):
+        shardings.held_rest([torch.zeros(3, 3, 64, 16)], meta[:1],
+                            _layout_meshes(shape)[0])
+    assert shardings.rest_dims(leaves, {"data": 1, "model": 2}) == \
+        [None] * 4
+
+
+def test_a_block_at_rest_is_summed_over_data():
+    """The axes a held leaf's gradient still needs (`reduce_axes`) and the
+    axes it is cut over (`block_axes`): at rest, "data" moves from the
+    first to the second, for a whole leaf and an expert block alike; a
+    vocabulary block needs none."""
+    m = Mesh({"pod": 2, "data": 2, "model": 2}, rank=0)
+    assert shardings.reduce_axes("whole", m) == ("pod", "data", "model")
+    assert shardings.reduce_axes("whole", m, 0) == ("pod", "model")
+    assert shardings.reduce_axes("expert", m, 1) == ("pod",)
+    assert shardings.reduce_axes("vocab", m, 0) == ()
+    assert shardings.block_axes("whole", 0) == ("data",)
+    assert shardings.block_axes("expert", 0) == ("model", "data")
+    assert shardings.block_axes("whole") == ()
+
+
+def test_zero1_state_is_a_cut_within_the_block_at_rest():
+    """Under ZeRO-1 a whole leaf's state cut over (data, model) on the
+    dim data cuts at rest is the block's cut over model on that dim (the
+    reference's zero1 block); where ZeRO-1 falls back to data, the held
+    block; ZeRO over data keeps the block whole."""
+    m = Mesh({"data": 2, "model": 2}, rank=3)
+    glob = (512, 64)
+    held = [torch.zeros(256, 64), torch.zeros(3, 3, 32, 6 * 16)]
+    rest = [0, 2]
+    axes = ("data", "model")
+    specs = shardings.zero_specs(held, m, axes, None, rest)
+    assert shardings.zero1_spec(glob, dict(m.shape), axes) == \
+        (("data", "model"), None)
+    assert specs[0] == ("model", None)
+    # (3, 3, 64, 96): zero1 cuts 96 over both, the block's cut over data
+    # is the 64: the state cuts the block's 96 over model
+    assert specs[1] == (None, None, None, "model")
+    assert shardings.zero_specs(held, m, ("data",), None, rest) == [(), ()]
+    # the reference's zero1 block is this rank's cut of its data block
+    x = torch.arange(512 * 64, dtype=torch.float32).view(glob)
+    z1 = shardings.shard(x, (("data", "model"), None), m)
+    blk = shardings.shard(x, ("data", None), m)
+    np.testing.assert_array_equal(z1.numpy(), shardings.shard(
+        blk, specs[0], m).numpy())

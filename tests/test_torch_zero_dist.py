@@ -28,7 +28,12 @@ shards.  (check_train's config, dist_checks.py:261, shards nothing.)
   loss within |grad| sqrt(n) times its params' bound.
 - The int8_ef run's checkpoint (`repro/ckpt@1`, its residuals in the
   reference's (npods,) + leaf.shape layout) restores in the reference,
-  and the reference's restores in the port, each rank's block cut.
+  and the reference's restores in the port, each rank's block cut, also
+  onto params held at rest.
+
+The port's runs hold the params at rest (each sharded conv's block over
+data, gathered at its use), so the trajectories above are the at-rest
+step's.
 """
 import json
 import os
@@ -218,3 +223,46 @@ def test_reference_int8_ef_checkpoint_restores_in_the_port(runs):
                 state.mu[i].numpy(), shardings.shard(glob_mu, s, m).numpy())
             np.testing.assert_array_equal(
                 ef[i].numpy(), shardings.shard(row, s, m).numpy())
+
+
+def test_reference_checkpoint_restores_at_rest(runs):
+    """The reference's int8_ef checkpoint restored onto params held at
+    rest: each rank's param blocks, moments and residuals are its blocks
+    of the reference's global arrays."""
+    d, _, _ = runs
+    (jp, js, jef), _ = jck.CheckpointManager(
+        str(d / "ckpt_ref"), async_save=False).restore(_ref_template())
+
+    def zeros(lead=()):
+        return jax.tree.map(lambda a: torch.zeros(lead + a.shape),
+                            _ref_params())
+    tree, _ = tck.CheckpointManager(str(d / "ckpt_ref"),
+                                    writer=False).restore(
+        (zeros(), (np.zeros((), np.int32), zeros(), None),
+         zeros((SHAPE["pod"],))))
+    for rank in range(4):
+        m = Mesh(SHAPE, rank=rank)
+        rest = shardings.rest_dims(zeros(), m)
+        params = shardings.param_blocks(zeros(), rest, m)
+        held = jax.tree.leaves(params)
+        assert any(p.shape != a.shape for p, a in
+                   zip(held, jax.tree.leaves(_ref_params())))
+        mu = [torch.zeros_like(p) for p in held]
+        ef = [torch.zeros_like(p) for p in held]
+        state = shardings.load_sharded_state_tree(
+            tree, params, topt.OptState(0, mu, None), ef, m, rest=rest)
+        assert state.step == cases.ZERO_STEPS
+        for i, (p, a, e, dim) in enumerate(zip(
+                zip(held, state.mu), zip(jax.tree.leaves(jp),
+                                         jax.tree.leaves(js.mu)),
+                zip(ef, jax.tree.leaves(jef)),
+                shardings.rest_list(rest, len(held)))):
+            spec = shardings.rest_spec(p[0].dim(), dim)
+
+            def cut(x):
+                return shardings.shard(torch.from_numpy(np.asarray(x).copy()),
+                                       spec, m).numpy()
+            np.testing.assert_array_equal(p[0].detach().numpy(), cut(a[0]))
+            np.testing.assert_array_equal(p[1].numpy(), cut(a[1]))
+            np.testing.assert_array_equal(
+                e[0].numpy(), cut(np.asarray(e[1])[m.coords["pod"]]))

@@ -1036,7 +1036,8 @@ def case_audit(mesh, d):
 def audit_zero(mesh, pods):
     """The ZeRO bucket audited: ZERO_NET's step under the trainer's uniform
     plan (N over the batch axes, H over model) on data 2 x model 2 (its
-    three sharded convs reduce-scattered over data), and on pod 2 x data
+    three sharded convs held at rest, their gradients reduce-scattered
+    over data in their layers' backward), and on pod 2 x data
     2 x model 1 under int8_ef (the pod exchange too; the H split over a
     model axis of one rank runs one dense conv a layer, no halo): each
     audit's findings and recorded bucket ops."""
@@ -1056,7 +1057,9 @@ def audit_zero(mesh, pods):
                                    pod_compression=method)
         out[key] = {"findings": [f.to_json() for f in a.findings],
                     "bucket": [[o.kind, sorted(o.axes), o.bytes]
-                               for o in a.ops if o.region == "grad_bucket"],
+                               for o in a.ops if o.region == "grad_bucket"
+                               or (o.region == "fsdp_gather" and
+                                   o.kind == "reduce_scatter")],
                     "moved": a.bucket()[:2]}
     return out
 
@@ -1156,7 +1159,8 @@ def zero_params(cfg, d):
 
 def case_zero(mesh, d):
     """ZERO_RUNS through the port's train step on this (pod, data, model)
-    mesh, the training state sharded over data: each run's losses, grad
+    mesh, the params held at rest over data and the training state with
+    them: each run's losses, grad
     norms, final params (global), this rank's momentum shapes and the
     largest |x| a pod exchange took (for the compressed runs' bounds); the
     int8_ef run's state as `sharded_state_tree` gathers it (global moments
@@ -1190,15 +1194,18 @@ def case_zero(mesh, d):
                                                 h_axis="model"),
                                    specs=specs, mesh=mesh)
         params = zero_params(cfg, d)
+        rest = shardings.rest_dims(params, mesh)
+        params = shardings.param_blocks(params, rest, mesh)
         opt = sgd(ZERO_LR, momentum=0.9)
-        held = shardings.local_shards(params, mesh)
+        held = shardings.local_shards(params, mesh, rest=rest)
         state = opt.init(held)
         ef = grad_compress.init_error_feedback(held, mesh, method)
         step = train_loop.make_train_step(
             functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
                               mesh=mesh), opt,
             train_loop.TrainStepConfig(grad_accum=accum, precision=FP32,
-                                       pod_compression=method), mesh)
+                                       pod_compression=method), mesh,
+            rest=rest)
         first, last = plan.sharding(specs[0].name), plan.sharding("pred")
         losses, norms = [], []
         seen.clear()
@@ -1216,10 +1223,12 @@ def case_zero(mesh, d):
         out[f"{key}/max_abs"] = np.array(max(seen) if seen else 0.0)
         out[f"{key}/mu_shapes"] = np.array(json.dumps(
             [list(m.shape) for m in state.mu]))
-        for i, p in enumerate(tree_leaves(params)):
+        for i, p in enumerate(tree_leaves(
+                shardings.whole_params(params, rest, mesh))):
             out[f"{key}/param{i}"] = p.detach().numpy()
         if key == "int8_ef":
-            tree = shardings.sharded_state_tree(params, state, ef, mesh)
+            tree = shardings.sharded_state_tree(params, state, ef, mesh,
+                                                rest=rest)
             _, (_, mu, _), ef_g = tree
             for i, (m_, e_, mine) in enumerate(zip(
                     tree_leaves(mu), tree_leaves(ef_g), ef)):
@@ -1970,8 +1979,11 @@ def case_zero1(mesh, d, method="none", steps=ZERO1_STEPS):
             params = shardings.expert_blocks(
                 shardings.vocab_blocks(params, mesh), mesh)
         roles = shardings.leaf_roles(params, vocab=tuned, experts=tuned)
+        rest = shardings.rest_dims(params, mesh,
+                                   transformer.stack_counts(params, cfg))
+        params = shardings.param_blocks(params, rest, mesh)
         ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=bax,
-                       tp_axis="model" if tuned else None)
+                       tp_axis="model" if tuned else None, rest=rest)
 
         def loss(p, b, ctx=ctx, tuned=tuned):
             return transformer.loss_fn(p, b, cfg, ctx=ctx,
@@ -1979,9 +1991,10 @@ def case_zero1(mesh, d, method="none", steps=ZERO1_STEPS):
         scfg = TrainStepConfig(precision=FP32, zero_axes=axes,
                                pod_compression=method)
         opt = adamw(ZERO1_LR)
-        held = shardings.local_shards(params, mesh, axes, roles)
+        held = shardings.local_shards(params, mesh, axes, roles, rest)
         state, ef = opt.init(held), init_error_feedback(held, mesh, method)
-        step = make_train_step(loss, opt, scfg, mesh=mesh, roles=roles)
+        step = make_train_step(loss, opt, scfg, mesh=mesh, roles=roles,
+                               rest=rest)
         losses, norms = [], []
         for _ in range(steps):
             params, state, ef, m = step(params, state, ef, batch)
@@ -1989,6 +2002,7 @@ def case_zero1(mesh, d, method="none", steps=ZERO1_STEPS):
             norms.append(float(m["grad_norm"]))
         out[f"{name}.moments"] = np.array(
             sum(t.numel() for t in state.mu))
+        params = shardings.whole_params(params, rest, mesh)
         if tuned:
             params = shardings.gather_vocab(
                 shardings.gather_experts(params, mesh), mesh, cfg.vocab)
@@ -2007,6 +2021,298 @@ def case_zero1_pod(mesh, d):
     return case_zero1(mesh, d, method="int8_ef", steps=1)
 
 
+# params at rest (FSDP blocks over data) against the whole-weight step:
+# the nets whose leaves data 2 cuts (ZERO_NET, a ResNet cut to one block
+# a stage, qwen1.5 SMOKE), FSDP_STEPS SGD steps each from the same params.
+# (The two reduce some gradients in other orders: at rest over data, then
+# model; whole, a leaf the per-layer rule keeps whole over both at once.
+# AdamW's first steps normalise each element, so an element whose
+# gradient is rounding noise, as the key bias's is, moves by up to the
+# learning rate either way; SGD moves it by its gradient.)
+FSDP_STEPS = 2
+FSDP_RESNET = {"input_hw": 32, "n_classes": 10, "stages": (1, 1, 1, 1),
+               "widths": (8, 16, 32, 64)}
+FSDP_LM, FSDP_LM_BATCH, FSDP_LM_SEQ = "qwen1.5-0.5b", 4, 64
+FSDP_LR = 0.05
+# (key, net, plan, grad_accum, extra): the 2 x 2 runs; each pod run is
+# the uniform meshnet under a pod compression method
+FSDP_RUNS = [("mesh_uniform", "mesh", "uniform", 1, None),
+             ("mesh_auto", "mesh", "auto", 1, None),
+             ("mesh_accum", "mesh", "uniform", 2, None),
+             ("resnet_uniform", "resnet", "uniform", 1, None),
+             ("resnet_auto", "resnet", "auto", 1, None),
+             ("lm", "lm", None, 1, None),
+             ("lm_accum", "lm", None, 2, None),
+             ("lm_remat", "lm", None, 1, "remat"),
+             ("lm_zero1", "lm", None, 1, "zero1")]
+FSDP_POD_METHODS = ("none", "bf16", "int8_ef")
+
+
+def whole_weight_step(loss_fn, opt, scfg, mesh, roles=None):
+    """The train step with every param held whole on every rank, as the
+    port stepped before it held params at rest, from the library's paths
+    for whole leaves (`rest` None): `reduce_grads` reduce-scatters over
+    data the leaves whose state data cuts, the update takes this rank's
+    views of them, and `gather_cuts_` all-gathers the updated blocks whole
+    over their axes."""
+    from repro_torch.launch import shardings
+    from repro_torch.train import train_loop as tl
+    fwd_bwd = tl.make_grad_fn(loss_fn, scfg)
+
+    def step(params, state, ef, batch):
+        k = scfg.grad_accum
+        if k > 1:
+            n = next(iter(batch.values())).shape[0]
+            loss, grads = 0.0, None
+            for i in range(k):
+                l, g = fwd_bwd(params, {key: v[i * n // k:(i + 1) * n // k]
+                                        for key, v in batch.items()})
+                loss = loss + l
+                grads = g if grads is None else \
+                    [a + b for a, b in zip(grads, g)]
+            loss, grads = loss / k, [g / k for g in grads]
+        else:
+            loss, grads = fwd_bwd(params, batch)
+        specs = shardings.zero_specs(grads, mesh, scfg.zero_axes, roles)
+        grads, ef = tl.reduce_grads(grads, mesh, method=scfg.pod_compression,
+                                    ef=ef, zero_axes=scfg.zero_axes,
+                                    roles=roles)
+        loss = mesh.all_reduce(loss, mesh.axis_names)
+        gnorm = tl.held_norm(grads, specs, mesh, roles)
+        _, state = opt.update(grads, state, shardings.local_shards(
+            params, mesh, scfg.zero_axes, roles), norm=gnorm)
+        shardings.gather_cuts_(params, mesh, scfg.zero_axes, roles)
+        return params, state, ef, {"loss": loss, "grad_norm": gnorm}
+    return step
+
+
+def _fsdp_net(net, plan_kind, mesh, extra=None):
+    """(whole params, loss(rest) -> the loss fn of params at rest under
+    `rest` (None: whole), batch(s) -> this rank's block of batch s, the
+    optimizer, the LM's `stack_counts` (None for a CNN), the config) of
+    one FSDP_RUNS net on this mesh (`extra` "remat": the LM's loss under
+    remat)."""
+    import functools
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.perfmodel import LASSEN
+    from repro_torch.core.spatial_conv import ConvSharding
+    from repro_torch.data import pipeline
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models.cnn import meshnet, resnet
+    from repro_torch.models.lm import transformer
+    from repro_torch.models.lm.modules import ShardCtx
+    from repro_torch.optim.optimizer import sgd
+    from repro_torch.utils import tree_map
+    cpu = torch.device("cpu")
+    shape = dict(mesh.shape)
+    bax = batch_axes(mesh)
+    if net == "lm":
+        cfg = registry.get(FSDP_LM, smoke=True)
+        params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+
+        def loss(rest):
+            ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=bax,
+                           rest=rest)
+            return functools.partial(transformer.loss_fn, cfg=cfg, ctx=ctx,
+                                     remat=extra == "remat")
+
+        def batch(s):
+            return pipeline.to_device(pipeline.shard_lm_batch(
+                pipeline.synthetic_lm_batch(s, FSDP_LM_BATCH, FSDP_LM_SEQ,
+                                            cfg.vocab), mesh, "model", bax),
+                cpu)
+        return params, loss, batch, sgd(FSDP_LR, momentum=0.9), \
+            transformer.stack_counts(params, cfg), cfg
+    gen = torch.Generator().manual_seed(0)
+    if net == "mesh":
+        cfg = meshnet.MeshNetConfig("z", **ZERO_NET)
+        n = 4
+        specs = meshnet.layer_specs(cfg, n)
+        params, mod = meshnet.init(gen, cfg), meshnet
+        plan = plan_lib.plan_line(LASSEN, specs, shape) \
+            if plan_kind == "auto" else plan_lib.NetworkPlan.uniform(
+                ConvSharding(batch_axes=bax, h_axis="model"), specs=specs,
+                mesh=mesh)
+        first, last = plan.sharding(specs[0].name), plan.sharding("pred")
+
+        def glob(s):
+            return pipeline.synthetic_mesh_batch(s, n, cfg.input_hw,
+                                                 cfg.in_channels,
+                                                 out_hw=cfg.out_hw)
+    else:
+        cfg = resnet.ResNetConfig("r", **{**FSDP_RESNET})
+        n = 4
+        specs = resnet.layer_specs(n, cfg)
+        graph = resnet.resnet_graph(n, cfg)
+        params, mod = resnet.init(gen, cfg), resnet
+        if plan_kind == "auto":
+            plan = plan_lib.plan_graph(LASSEN, graph, specs, shape)
+        else:
+            plan = resnet.network_plan(cfg, ConvSharding(
+                batch_axes=bax, h_axis="model"), mesh)
+        first = plan.sharding("conv1")
+        last = plan.out_sharding(resnet.last_layer(cfg))
+
+        def glob(s):
+            return pipeline.synthetic_imagenet_batch(s, n, cfg.input_hw,
+                                                     cfg.n_classes)
+    params = tree_map(lambda t: t.requires_grad_(), params)
+
+    def batch(s):
+        return pipeline.to_device(pipeline.shard_batch(
+            glob(s), mesh, first, last), cpu)
+    lf = functools.partial(mod.loss_fn, cfg=cfg, plan=plan, mesh=mesh)
+    return params, lambda rest: lf, batch, sgd(FSDP_LR, momentum=0.9), \
+        None, cfg
+
+
+def _clone(tree):
+    from repro_torch.utils import tree_map
+    return tree_map(lambda t: t.detach().clone().requires_grad_(
+        t.requires_grad), tree)
+
+
+def _op_counts(rec) -> dict:
+    """{region/kind/direction: count} of the recorder's collectives."""
+    out: dict = {}
+    for o in rec.ops:
+        if o.kind in COLLECTIVES:
+            key = f"{o.region}/{o.kind}/{o.direction}"
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _fsdp_run(mesh, d, key, net, plan_kind, accum, extra, method="none"):
+    """One FSDP_RUNS entry: FSDP_STEPS at-rest steps and whole-weight
+    steps from the same params and batches; their losses, gradient norms
+    and final params (whole), the held blocks' shapes, and the at-rest
+    step's collectives by region (its last step, recorded)."""
+    import torch
+    from repro_torch import analysis
+    from repro_torch.launch import shardings
+    from repro_torch.optim.grad_compress import init_error_feedback
+    from repro_torch.train.train_loop import TrainStepConfig, make_train_step
+    from repro_torch.utils import FP32, tree_leaves
+    params0, loss, batch, opt, counts, cfg = _fsdp_net(net, plan_kind, mesh,
+                                                       extra)
+    axes = ("data", "model") if extra == "zero1" else ("data",)
+    scfg = TrainStepConfig(grad_accum=accum, precision=FP32, zero_axes=axes,
+                           pod_compression=method)
+    out = {}
+    rest = shardings.rest_dims(params0, mesh, counts)
+    for mode in ("rest", "whole"):
+        if mode == "rest":
+            params = shardings.param_blocks(_clone(params0), rest, mesh)
+            step = make_train_step(loss(rest), opt, scfg, mesh, rest=rest)
+            held = shardings.local_shards(params, mesh, axes, rest=rest)
+            out[f"{key}/held_shapes"] = np.array(json.dumps(
+                [list(p.shape) for p in tree_leaves(params)]))
+        else:
+            params = _clone(params0)
+            step = whole_weight_step(loss(None), opt, scfg, mesh)
+            held = shardings.local_shards(params, mesh, axes)
+        state = opt.init(held)
+        ef = init_error_feedback(held, mesh, method)
+        losses, norms = [], []
+        for s in range(FSDP_STEPS):
+            if mode == "rest" and s == FSDP_STEPS - 1:
+                with analysis.record() as rec:
+                    params, state, ef, m = step(params, state, ef, batch(s))
+                out[f"{key}/ops"] = np.array(json.dumps(_op_counts(rec)))
+            else:
+                params, state, ef, m = step(params, state, ef, batch(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        whole = shardings.whole_params(params, rest, mesh) \
+            if mode == "rest" else params
+        out[f"{key}/{mode}/losses"] = np.array(losses)
+        out[f"{key}/{mode}/grad_norms"] = np.array(norms)
+        for i, p in enumerate(tree_leaves(whole)):       # copies: the
+            out[f"{key}/{mode}/param{i}"] = p.detach().numpy().copy()
+        if key in ("mesh_uniform", "lm"):     # resume steps in place
+            out.update(_fsdp_resume(mesh, d, key, mode, params, state,
+                                    params0, rest, loss, opt, scfg, batch,
+                                    cfg, step))
+    return out
+
+
+def _fsdp_resume(mesh, d, key, mode, params, state, params0, rest, loss,
+                 opt, scfg, batch, cfg, live_step):
+    """Save the run's training state (`repro/ckpt@1`: the at-rest run's
+    through `sharded_state_tree(rest=)`, the whole-weight run's as the
+    port wrote it before it held params at rest), restore it into fresh
+    blocks at rest (`load_sharded_state_tree`) and run one more step from
+    it; also one more step of the live run (`live_step`).  The restored
+    blocks' and moments' largest differences from the live ones, and
+    both steps' losses and params (whole)."""
+    import torch
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.launch import shardings, train
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.utils import tree_leaves
+    to_ref, from_ref = train.checkpoint_layout(cfg)
+    path = os.path.join(d, f"ckpt_{key}_{mode}")
+    ck = CheckpointManager(path, async_save=False, writer=mesh.rank == 0)
+    ck.save(FSDP_STEPS, shardings.sharded_state_tree(
+        params, state, None, mesh, to_ref, rest if mode == "rest" else None),
+        extra={"step": FSDP_STEPS})
+    mesh.barrier()
+    fresh = shardings.param_blocks(_clone(params0), rest, mesh)
+    fstate = opt.init(shardings.local_shards(fresh, mesh, scfg.zero_axes,
+                                             rest=rest))
+    tree, _ = CheckpointManager(path, writer=False).restore(
+        shardings.sharded_state_tree(fresh, fstate, None, mesh, to_ref,
+                                     rest))
+    fstate = shardings.load_sharded_state_tree(tree, fresh, fstate, None,
+                                               mesh, from_ref, rest)
+    out = {f"{key}/{mode}/restored_step": np.array(fstate.step)}
+    live = params if mode == "rest" else \
+        shardings.param_blocks(params, rest, mesh)
+    live_mu = list(state.mu)
+    if mode == "whole":          # the moments cut as the whole leaves were
+        live_mu = [shardings.shard(shardings.unshard(m, s, mesh),
+                                   shardings.rest_spec(m.dim(), dd), mesh)
+                   for m, s, dd in zip(live_mu, shardings.zero_specs(
+                       tree_leaves(params), mesh), tree_leaves(rest))]
+    diffs = [float((a.detach() - b.detach()).abs().max()) for a, b in
+             zip(tree_leaves(fresh) + list(fstate.mu),
+                 tree_leaves(live) + list(live_mu))]
+    out[f"{key}/{mode}/restored_diff"] = np.array(max(diffs))
+    step = make_train_step(loss(rest), opt, scfg, mesh, rest=rest)
+    fresh, _, _, m = step(fresh, fstate, None, batch(FSDP_STEPS))
+    params, _, _, m_live = live_step(params, state, None, batch(FSDP_STEPS))
+    out[f"{key}/{mode}/resumed_loss"] = np.array(float(m["loss"]))
+    out[f"{key}/{mode}/live_loss"] = np.array(float(m_live["loss"]))
+    live = params if mode == "whole" else \
+        shardings.whole_params(params, rest, mesh)
+    for i, (p, q) in enumerate(zip(tree_leaves(shardings.whole_params(
+            fresh, rest, mesh)), tree_leaves(live))):
+        out[f"{key}/{mode}/resumed{i}"] = p.detach().numpy()
+        out[f"{key}/{mode}/live{i}"] = q.detach().numpy()
+    return out
+
+
+def case_fsdp(mesh, d):
+    """FSDP_RUNS on this (data, model) mesh: `_fsdp_run` each."""
+    out = {}
+    for key, net, plan_kind, accum, extra in FSDP_RUNS:
+        out.update(_fsdp_run(mesh, d, key, net, plan_kind, accum, extra))
+    return out
+
+
+def case_fsdp_pod(mesh, d):
+    """The uniform meshnet run under each pod compression method on this
+    (pod, data, model) mesh."""
+    out = {}
+    for method in FSDP_POD_METHODS:
+        out.update(_fsdp_run(mesh, d, f"pod_{method}", "mesh", "uniform", 1,
+                             None, method))
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -2020,7 +2326,8 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "prefix": case_prefix, "lm": case_lm, "vocab": case_vocab,
          "moe": case_moe, "lm_elastic": case_lm_elastic,
          "lm_resume": case_lm_resume, "encdec": case_encdec,
-         "zero1": case_zero1, "zero1_pod": case_zero1_pod}
+         "zero1": case_zero1, "zero1_pod": case_zero1_pod,
+         "fsdp": case_fsdp, "fsdp_pod": case_fsdp_pod}
 
 
 # ------------------------------------------------------------ launcher --

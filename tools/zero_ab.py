@@ -10,11 +10,16 @@ Needs one CUDA card and `nvcc`.  2 processes share the card over gloo
 spatial split, so that only the gradient reduction, the update and what
 follows it differ between two trees):
 
-- the gradient reduction alone, on mesh1k's 55 gradient leaves (seeded,
-  fp32): a tree with the sharded training state (`launch/shardings.py`)
-  runs `train_loop.reduce_grads` (a reduce-scatter of the sharded leaves
-  over data, an all-reduce of the rest) and `shardings.gather_params_`
-  (the all-gather of the updated blocks); an earlier one
+- the step's collectives alone, on mesh1k's 55 leaves (seeded, fp32): a
+  tree that holds the params at rest (`shardings.param_blocks`) runs
+  each layer's gather at use and its backward (`shardings.
+  gather_at_use`: an all-gather of the layer's blocks over data, a
+  reduce-scatter of their gradients) and `train_loop.reduce_grads` on
+  the blocks (an all-reduce of the small leaves); a tree that held the
+  params whole with the training state sharded runs
+  `train_loop.reduce_grads` (a reduce-scatter of the sharded leaves
+  over data, an all-reduce of the rest; its all-gather of the updated
+  blocks after the update is not timed here); an earlier one
   `train_loop.reduce_replicated_grads` (one all-reduce of everything);
   host ms from a barrier to a synchronise, in rounds after one warm-up;
 - each collective those are made of, alone, on a flat fp32 buffer of
@@ -44,9 +49,10 @@ REDUCE_ROUNDS = 8
 
 
 def _reduction_ms(mesh, params, rounds: int) -> tuple[list[float], str]:
-    """Host ms of this tree's gradient reduction (and, with the sharded
-    state, the gather of the updated blocks), `rounds` times after one
-    warm-up; which reduction ran."""
+    """Host ms of this tree's collectives of a step's params and
+    gradients (the gathers at use and their reduce-scatters, or the
+    gather of the updated blocks), `rounds` times after one warm-up;
+    which ran."""
     import torch
     import torch.distributed as dist
     from repro_torch.train import train_loop
@@ -54,13 +60,27 @@ def _reduction_ms(mesh, params, rounds: int) -> tuple[list[float], str]:
     gen = torch.Generator().manual_seed(1 + mesh.rank)
     grads = [torch.randn(p.shape, generator=gen).to(p.device)
              for p in tree_leaves(params)]
-    if hasattr(train_loop, "reduce_grads"):
-        from repro_torch.launch import shardings
-        what = "reduce_grads + gather_params_"
+    from repro_torch.launch import shardings
+    if hasattr(shardings, "param_blocks"):             # params at rest
+        what = "gather_at_use + its reduce-scatter + reduce_grads"
+        rest = shardings.rest_dims(params, mesh)
+        held = shardings.param_blocks(params, rest, mesh)
+        blocks = [shardings.shard(g, shardings.rest_spec(g.dim(), d), mesh)
+                  for g, d in zip(grads, tree_leaves(rest))]
+
+        def run():
+            for lp, lr in zip(held, rest):
+                wholes = tree_leaves(shardings.gather_at_use(lp, lr, mesh))
+                torch.autograd.backward(
+                    [w for w in wholes if w.grad_fn is not None],
+                    [torch.ones_like(w) for w in wholes
+                     if w.grad_fn is not None])
+            train_loop.reduce_grads(blocks, mesh, rest=rest)
+    elif hasattr(train_loop, "reduce_grads"):
+        what = "reduce_grads"
 
         def run():
             train_loop.reduce_grads(grads, mesh)
-            shardings.gather_params_(params, mesh)
     else:
         what = "reduce_replicated_grads"
 
@@ -132,8 +152,19 @@ def _step_s(plan, mesh, params) -> dict:
                                       cfg.in_channels, out_hw=cfg.out_hw),
         mesh, plan.sharding(specs[0].name), plan.sharding("pred")),
         torch.device("cuda"))
-    if hasattr(train_loop, "reduce_grads"):          # the sharded state
-        from repro_torch.launch import shardings
+    from repro_torch.launch import shardings
+    if hasattr(shardings, "param_blocks"):             # params at rest
+        rest = shardings.rest_dims(params, mesh)
+        params = shardings.param_blocks(params, rest, mesh)
+        step = train_loop.make_train_step(
+            functools.partial(meshnet.loss_fn, cfg=cfg, plan=plan,
+                              mesh=mesh), opt,
+            train_loop.TrainStepConfig(precision=FP32), mesh=mesh, rest=rest)
+        state = opt.init(shardings.local_shards(params, mesh, rest=rest))
+
+        def run():
+            return step(params, state, None, data)[3]["loss"]
+    elif hasattr(train_loop, "reduce_grads"):          # the sharded state
         state = opt.init(shardings.local_shards(params, mesh))
 
         def run():
