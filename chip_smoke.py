@@ -131,13 +131,13 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    holds at rest (its FSDP blocks over data) beside their whole bytes,
    the bytes put on the pod axis, the peak memory and step seconds a
    rank.  Not a scaling result.
-   Then full-width hymba-1.5b (cut to 16 layers, `HYMBA_LAYERS`, handed
+   Then full-width hymba-1.5b (cut to 8 layers, `HYMBA_LAYERS`, handed
    to the trainer as its config), FP32, with and without `--remat`:
-   losses within 1e-6, 2 x 16 x 3 LM kernel launches against 16 x 3,
+   losses within 1e-6, 2 x 8 x 3 LM kernel launches against 8 x 3,
    both peaks;
-5. hymba-1.5b: the same entry at full width (16 layers), batch 1 x seq
+5. hymba-1.5b: the same entry at full width (8 layers), batch 1 x seq
    2048, 3 steps, FP32 (phase 4h's run) and then `--bf16`: each with
-   finite losses and 16 x 3 launches of each LM kernel;
+   finite losses and 8 x 3 launches of each LM kernel;
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone, with its launches per layer;
@@ -162,8 +162,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    steps on the card against the CPU; and the sequence-sharded decode on
    2 gloo ranks sharing the card (model 2, the 4-layer hymba, prompt 64,
    gen 16) against one rank: every step's logits and the caches within
-   1e-4, the ids equal.  Not a scaling result.  hymba runs at 16
-   layers here and in phase 6 (its prefill launches 16 / 16);
+   1e-4, the ids equal.  Not a scaling result.  hymba runs at 8
+   layers here and in phase 6 (its prefill launches 8 / 8);
 6. the LM on a mesh: the attention kernel's block call (ring attention's
    tile, query rows `delta` after the keys, o in fp32 and the rows' lse)
    at hymba's ring shapes (1 x 1024 rows a block, 25 / 5 heads, D 64):
@@ -276,8 +276,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    vocab-parallel loss on 2 ranks, each holding its block of prefix +
    text, held as phase 7 holds its runs.
 11. the dry run (`python -m repro_torch.launch.dryrun --device cuda`):
-   one rank (the last) of qwen1.5-0.5b train_4k, hymba-1.5b prefill_32k,
-   olmoe-1b-7b train_4k under the opt variant (expert parallelism,
+   one rank (the last) of qwen1.5-0.5b train_4k, hymba-1.5b prefill_32k
+   and decode_32k, olmoe-1b-7b train_4k under the opt variant (expert parallelism,
    ZeRO-1 over data x model) on 16 x 16 and mesh1k on 2 x 16 x 16 and
    16 x 16, each traced on fake CUDA tensors under the fake process
    group in a fresh process (all at once, started before phase 7 at the
@@ -285,8 +285,10 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    cores while phase 7 runs): the reference's line, the peak a rank
    against 80 GiB.  Then the same rank's real step on the
    card at full width and depth (qwen1.5's 16 x 256 tokens, hymba's 2 x
-   2048, mesh1k's 2 samples x 64 rows; a train cell's params held at rest
-   as its FSDP blocks, their bytes a rank printed), one fresh process
+   2048 prefill and 8-row decode step against a 2048-position cache
+   block, mesh1k's 2 samples x 64 rows; every cell's params held at rest
+   as its FSDP blocks, in bf16 for serving, their bytes a rank printed),
+   one fresh process
    each, held against the trace: FLOPs and the collectives' bytes by kind exactly,
    kernel launches by kernel against the traced custom-op calls, and
    `max_memory_allocated` within 10 % of the traced peak plus what the
@@ -409,10 +411,12 @@ ATTN_ELEM_ULP = 2.0 ** -7
 # step breakdown that profiles the same step, phase 5's BF16 run,
 # serving's, phase 6's sharded prefill and --remat steps, and the
 # one-device runs they are held against) at full width, cut to
-# HYMBA_LAYERS of its 32 layers (global attention on layers 0, 8 and 15),
+# HYMBA_LAYERS of its 32 layers (global attention on layers 0, 4 and 7),
 # handed to the trainer and the server as their `cfg` (the registry's
-# config cut in depth, which they announce)
-HYMBA_LAYERS = 16
+# config cut in depth, which they announce): 8 keeps the whole script,
+# with phase 11's serving cells, well inside its time limit (the served
+# prompt of 1088 tokens is replayed a token a layer at a time)
+HYMBA_LAYERS = 8
 HYMBA = dataclasses.replace(hymba_1_5b.CONFIG, n_layers=HYMBA_LAYERS)
 LM_BATCH, LM_SEQ = 1, 2048
 # the 4-layer full-width forward loss, card vs CPU: fp32 through four
@@ -428,21 +432,22 @@ DRAW_ONCE = (HYMBA, qwen1_5_0_5b.CONFIG)
 _init = transformer.init
 
 
-def _init_once(gen: torch.Generator, cfg, *, device):
-    """`transformer.init`, with each DRAW_ONCE config's full-width draw
-    from a fresh CPU generator (as the trainer, serving and the phases
-    each make one from a seed) made once a run: the first call draws and
-    saves the tree and the generator's state after the draw under
-    PARAMS_DIR; every later one, in this process or a spawned one, loads
-    both, so that it returns the same bits and leaves the generator as a
-    draw would (hymba's draw on the CPU takes about 12 s).  The first load
+def _init_once(gen: torch.Generator, cfg, *, device, **kw):
+    """`transformer.init`, with each DRAW_ONCE config's full-width fp32
+    draw from a fresh CPU generator (as the trainer, serving and the
+    phases each make one from a seed) made once a run: the first call
+    draws and saves the tree and the generator's state after the draw
+    under PARAMS_DIR; every later one, in this process or a spawned one,
+    loads both, so that it returns the same bits and leaves the generator
+    as a draw would (hymba's draw on the CPU takes about 12 s).  The first load
     of each config in a run is held against a fresh draw, leaf by leaf
     and the generator's state, and raises if they differ.  Any other call
     is `transformer.init`'s own, as is a draw of fake tensors (a dry
-    run's trace: nothing to keep)."""
+    run's trace: nothing to keep) and one in another dtype or placed a
+    layer at a time (`kw`: the dry run's cells)."""
     from torch._guards import detect_fake_mode
-    if cfg not in DRAW_ONCE or detect_fake_mode() is not None:
-        return _init(gen, cfg, device=device)
+    if kw or cfg not in DRAW_ONCE or detect_fake_mode() is not None:
+        return _init(gen, cfg, device=device, **kw)
     fresh = gen.device.type == "cpu" and torch.equal(
         gen.get_state(),
         torch.Generator().manual_seed(gen.initial_seed()).get_state())
@@ -5703,12 +5708,13 @@ def encdec_phase(card: str) -> dict:
     return out
 
 
-# phase 11: the dry run (`launch.dryrun`) on the card.  Four cells traced
+# phase 11: the dry run (`launch.dryrun`) on the card.  Six cells traced
 # abstractly on cuda, one rank each (the last), in fresh processes run at
-# once: a dense train cell, a hybrid prefill, the MoE opt variant (expert
-# parallelism, ZeRO-1 over data x model) and the CNN on two pods; then the
-# same rank's real step, at full width and depth on real tensors under
-# the same fake group, for three cells, each in a fresh process, held
+# once: a dense train cell, a hybrid prefill and decode (params at rest in
+# bf16, bf16 caches), the MoE opt variant (expert parallelism, ZeRO-1
+# over data x model) and the CNN on one and two pods; then the same
+# rank's real step, at full width and depth on real tensors under the
+# same fake group, for four cells, each in a fresh process, held
 # against the trace of its cell: FLOPs and the collectives' bytes by kind
 # exactly, kernel launches by kernel against the trace's custom-op calls,
 # `max_memory_allocated` within DRYRUN_PEAK_TOL of the traced peak plus
@@ -5722,11 +5728,13 @@ def encdec_phase(card: str) -> dict:
 DRYRUN_DIR = os.path.join(HERE, "build", "dryrun", "chip_smoke")
 DRYRUN_TRACED = [("qwen1_5_0_5b", "train_4k", False, "base"),
                  ("hymba_1_5b", "prefill_32k", False, "base"),
+                 ("hymba_1_5b", "decode_32k", False, "base"),
                  ("olmoe_1b_7b", "train_4k", False, "opt"),
                  ("mesh1k", "cnn", True, "base"),
                  ("mesh1k", "cnn", False, "base")]
 DRYRUN_REAL = [("qwen1_5_0_5b", "train_4k", False),
                ("hymba_1_5b", "prefill_32k", False),
+               ("hymba_1_5b", "decode_32k", False),
                ("mesh1k", "cnn", False)]
 DRYRUN_PEAK_TOL = 0.10
 DRYRUN_STEP_REPS = 3
@@ -5974,7 +5982,8 @@ def dryrun_phase(card: str, started: tuple[dict, float] | None = None
     finally:
         _stop([p for _, p in reals.values()] + list(procs.values()))
     phase_s = time.perf_counter() - t0
-    print(f"dry-run phase (3 counted real steps beside the 5 traces, "
+    print(f"dry-run phase ({len(DRYRUN_REAL)} counted real steps beside "
+          f"the {len(DRYRUN_TRACED)} traces, "
           f"which ended {t_traced:.1f} s after their start, then each real "
           f"step timed alone) took {phase_s:.1f} s of this run ({card})")
     return {"traced": traced, "real": real, "phase_s": phase_s,

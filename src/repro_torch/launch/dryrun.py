@@ -42,27 +42,35 @@ outputs' shapes), counting as it goes:
     the plain versions run).
 
 The roofline is the H100 SXM's data sheet: peak 989e12 FLOP/s (bf16
-dense, the train cells' compute dtype) or 67e12 (fp32, the `H100`
-preset's: serving and the CNNs), HBM 3.35e12 B/s and 450e9 B/s per NVLink
+dense, every LM cell's compute dtype) or 67e12 (fp32, the `H100`
+preset's: the CNNs), HBM 3.35e12 B/s and 450e9 B/s per NVLink
 direction (the preset's beta).  A 256-card mesh spans 32 nodes, whose
 inter-node links are slower than NVLink, so the collective term is a
 lower bound.  An eager step counts every layer, so `raw_scan_counted_once`
 and `probe` (the reference's depth-2/4 extrapolation) are null.
 
-Params: the train cells hold them at rest as the port's trainer does,
-each leaf the reference's `fsdp_tree_specs` cuts as this rank's block
-over "data" (`launch.shardings.rest_dims`), gathered where a layer uses
-it, with the optimizer state the block (or its cut over "model" under
-`opt` / `vpz`, ZeRO-1 over "data" x "model").  Differences by
-construction: the prefill and decode cells still hold whole fp32 params
-on every rank (not yet the reference's FSDP blocks and bf16); under
-`opt` / `vpz` the vocabulary is each rank's block over "model" and,
-where "model" divides the experts (`opt`), so are the experts, each cut
-within that block at rest.  A VLM's patch prefix
-and its text are one sequence split over "model"
-(`data.pipeline.shard_lm_batch`), where the reference splits each on its
-own; an encoder-decoder's memory is in the params' dtype.  A cell that
-cannot be traced raises; nothing is forged.  Fake CUDA tensors need a
+Params: every LM cell holds them at rest as the reference's
+`build_lm_cell` does, each leaf its `fsdp_tree_specs` cuts as this
+rank's block over "data" (`launch.shardings.rest_dims`), gathered where
+a layer uses it (`transformer.forward`, `prefill`, `decode_step` under
+`ShardCtx.rest`), in the reference's dtypes: fp32 masters for the train
+cells (bf16 for a MoE whose experts "model" does not divide under `opt`
+/ `vpz`), bf16 for prefill and decode, whose KV caches, conv buffers and
+encoder memory are bf16 too (the SSM state fp32), with the norms, the
+SSD's scalars and the router fp32 in every cell
+(`transformer.in_dtype`).  A train cell's optimizer state is the block
+(or its cut over "model" under `opt` / `vpz`, ZeRO-1 over "data" x
+"model").  Differences by construction: under `opt` / `vpz` the
+vocabulary is each rank's block over "model" (a serving cell's only
+where "model" divides it, as the reference's) and, where "model"
+divides the experts (`opt`), so are the experts, each cut within that
+block at rest, where the reference places the vocabulary over "model"
+alone; a serving cell, which has no expert axis and no vocab-parallel
+loss, gathers such a block whole over "model" at its use
+(`ShardCtx.model_blocks`).  A VLM's patch prefix and its text are one
+sequence split over "model" (`data.pipeline.shard_lm_batch`), where the
+reference splits each on its own.  A cell that cannot be held at rest
+or traced raises; nothing is forged.  Fake CUDA tensors need a
 CUDA build of torch (no card is used): on a CPU-only build the ops that
 take a CUDA device guard (indexing, autograd's bookkeeping) fail, so
 there `--device cpu` traces the plain versions' path instead.
@@ -185,18 +193,51 @@ def _rehome(tree: Any, device: torch.device, dtype=None) -> Any:
     return tree_map(move, tree)
 
 
-def _lm_params(cfg, device: torch.device, dtype) -> dict:
-    """`transformer.init`'s params of `cfg` on `device` in `dtype`, from
-    seed 0: drawn on the host (a fake mode: shapes only) or, on the card,
-    from a CUDA generator."""
+def _lm_params(cfg, mesh: Mesh, device: torch.device, dtype, *,
+               vocab: bool = False, experts: bool = False):
+    """(params, rest): `transformer.init`'s params of `cfg` from seed 0
+    in `dtype` (the reference's rule: the norms, the SSD's scalars and
+    the router stay fp32), as this rank holds them at rest on `mesh`.
+    With `vocab` / `experts` the vocabulary / each MoE layer's experts
+    are this rank's block over "model" (`shardings.vocab_blocks`,
+    `expert_blocks`); each leaf that `shardings.rest_dims` cuts (`rest`,
+    read from the stacked shapes, `transformer.stack_counts`) is this
+    rank's block over "data" of that.  The placement is read from the
+    shapes first (a fake init); then each layer is drawn, cast and cut
+    before the next is drawn (`transformer.init(place=)`), so no whole
+    copy of the params is ever held: on the card from a CUDA generator,
+    else on the host (under a fake mode shapes only) and moved.  A leaf
+    that cannot be held at rest raises (`rest_dims`)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.models.lm import transformer
+
+    def blocks_over_model(params):
+        if vocab:
+            params = shardings.vocab_blocks(params, mesh)
+        return shardings.expert_blocks(params, mesh) if experts else params
+    with contextlib.nullcontext() if _fake() else FakeTensorMode():
+        shapes = transformer.init(torch.Generator(), cfg, device="cpu")
+        rest = shardings.rest_dims(blocks_over_model(shapes), mesh,
+                                   transformer.stack_counts(shapes, cfg))
+    del shapes
     on_card = device.type == "cuda" and not _fake()
+
+    def place(path, sub):
+        if not on_card:
+            sub = _rehome(sub, device)
+        name = path[0]
+        if vocab and name in shardings.VOCAB_DIMS:
+            sub = shardings.vocab_blocks({name: sub}, mesh)[name]
+        if experts and name == "layers":
+            sub = shardings.expert_blocks({"layers": [sub]},
+                                          mesh)["layers"][0]
+        at = rest[name] if len(path) == 1 else rest[name][path[1]]
+        return shardings.param_blocks(sub, at, mesh)
     gen = torch.Generator(device=device if on_card else "cpu")
     gen.manual_seed(0)
-    params = transformer.init(gen, cfg, device=device if on_card else "cpu")
-    if on_card and dtype == torch.float32:
-        return params
-    return _rehome(params, device, dtype)
+    params = transformer.init(gen, cfg, device=device if on_card else "cpu",
+                              dtype=dtype, place=place)
+    return params, rest
 
 
 def _block(shape, spec, mesh: Mesh) -> tuple[int, ...]:
@@ -237,7 +278,12 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
     the vocab-parallel loss (the vocabulary a block over "model"),
     ZeRO-1 over ("data", "model"), and for a MoE whose experts do not
     divide over "model" bf16 master weights and two micro-batches; "opt"
-    adds expert parallelism where they divide.  `cfg` overrides the
+    adds expert parallelism where they divide.  A serving cell under
+    "opt" / "vpz" holds the vocabulary (where "model" divides it) and,
+    under "opt", the experts as blocks over "model", gathered whole at
+    their use.  Every cell's params are held at rest (`_lm_params`):
+    fp32 for training (bf16 for the big MoE's tuned masters), bf16 for
+    prefill and decode, whose caches are bf16 blocks.  `cfg` overrides the
     registry's config (a reduced one, as the reference's probes pass
     it); `shape` may then be a dict of SHAPES' keys."""
     from repro_torch.models.lm import transformer
@@ -269,21 +315,20 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
         ctx = ShardCtx(mesh=mesh, seq_axis=seq_axes,
                        batch_axes=ba if bspec is not None else ())
     big_moe = bool(cfg.n_experts) and cfg.n_experts % m_sz != 0
-    master = torch.bfloat16 if kind == "train" and tuned and big_moe \
+    p_dtype = torch.bfloat16 if kind != "train" or (tuned and big_moe) \
         else torch.float32
-    params = _lm_params(cfg, dev, master)
     ep = variant == "opt" and bool(cfg.n_experts) and \
         cfg.n_experts % m_sz == 0
-    if kind == "train" and tuned:
-        params = shardings.vocab_blocks(params, mesh)
-        if ep:
-            params = shardings.expert_blocks(params, mesh)
-    rest = None
-    if kind == "train":
-        rest = shardings.rest_dims(params, mesh,
-                                   transformer.stack_counts(params, cfg))
-        params = shardings.param_blocks(params, rest, mesh)
-        ctx = dataclasses.replace(ctx, rest=rest)
+    # the vocabulary over "model": the train cells' vocab-parallel loss
+    # pads it; a serving cell's only where "model" divides it
+    vocab = tuned and (kind == "train" or cfg.vocab % m_sz == 0)
+    params, rest = _lm_params(cfg, mesh, dev, p_dtype, vocab=vocab,
+                              experts=ep)
+    ctx = dataclasses.replace(ctx, rest=rest)
+    if kind != "train":
+        # no tp_axis and no vocab-parallel loss: read whole at their use
+        ctx = dataclasses.replace(ctx, model_blocks=("vocab",) * vocab
+                                  + ("experts",) * ep)
 
     extra: dict[str, Any] = {}
     s_loc = seq // mesh.axis_size(ctx.seq_axis)
@@ -306,7 +351,7 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
 
     if kind == "train":
         opt = adamw(3e-4)
-        roles = shardings.leaf_roles(params, vocab=tuned, experts=ep)
+        roles = shardings.leaf_roles(params, vocab=vocab, experts=ep)
         scfg = TrainStepConfig(
             precision=BF16, grad_accum=2 if tuned and big_moe else 1,
             zero_axes=("data", "model") if tuned else ("data",))
@@ -338,20 +383,19 @@ def build_lm_cell(arch: str, shape: str, mesh, variant: str = "base",
                 frames=b.get("frames"))
         return prefill_fn, (params, batch), cfg
 
-    # decode: the caches of the global batch and sequence, this rank's
-    # blocks of them under the reference's specs
-    whole = transformer.init_decode_state(cfg, gbatch, seq, device=dev)
-    cspecs = shardings.kv_cache_specs(whole, mesh, bspec is not None,
-                                      seq_axes)
-    caches = shardings.cache_blocks(whole, cspecs, mesh)
-    del whole
+    # decode: this rank's blocks of the bf16 caches of the global batch
+    # and sequence under the reference's specs (`kv_cache_specs`: K/V B
+    # over the batch axes where it is split and S over the sequence axes,
+    # the SSM entries B only), allocated as blocks
+    caches = transformer.init_decode_state(cfg, b_loc, s_loc, device=dev,
+                                           dtype=p_dtype)
     tokens = _ints((b_loc, 1), cfg.vocab, dev)
     mem = None
     if cfg.is_encdec:
         mem_axes = seq_axes if seq >= 8192 else "model"
         mem = _normals(_block((gbatch, min(seq, 4096), cfg.d_model),
                               (bspec, mem_axes, None), mesh),
-                       master, dev)
+                       p_dtype, dev)
 
     def decode_fn(p, t, c, length, m):
         return transformer.decode_step(p, cfg, t, c, length, ctx, memory=m)
@@ -541,9 +585,9 @@ def measure_step(step, args, mesh: Mesh, device, memory: bool = True):
 
 
 def compute_dtype(kind: str) -> torch.dtype:
-    """A cell's compute dtype: the train cells' BF16 policy, fp32 for
-    serving (the port's server holds fp32 params) and the CNNs."""
-    return torch.bfloat16 if kind == "train" else torch.float32
+    """A cell's compute dtype: bf16 for every LM cell (the train cells'
+    BF16 policy, the serving cells' bf16 params), fp32 for the CNNs."""
+    return torch.float32 if kind == "cnn" else torch.bfloat16
 
 
 def cell_kind(arch: str, shape) -> str:
@@ -739,16 +783,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.dryrun", allow_abbrev=False,
         description="Trace one rank of an (arch x shape) cell on fake "
-                    "tensors, or audit the bench workloads' plans.  The "
-                    "train cells hold the params at rest as the reference's "
+                    "tensors, or audit the bench workloads' plans.  Every "
+                    "LM cell holds its params at rest as the reference's "
                     "FSDP blocks over data (each layer gathers its blocks "
-                    "at their use); the prefill and decode cells still hold "
-                    "whole fp32 params on every rank.")
+                    "at their use), in the reference's dtypes: fp32 masters "
+                    "for training, bf16 params and caches for prefill and "
+                    "decode.")
     ap.add_argument("--arch")
     ap.add_argument("--shape", default="train_4k",
                     choices=list(registry.SHAPES) + ["cnn"],
-                    help="train_* cells: params as FSDP blocks at rest; "
-                         "prefill_* / decode_* cells: whole fp32 params")
+                    help="every LM cell holds its params as FSDP blocks at "
+                         "rest: train_* in fp32, prefill_* / decode_* (and "
+                         "long_500k) in bf16 with bf16 caches")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--variant", default="base",
                     choices=["base", "opt", "vpz"])

@@ -48,13 +48,20 @@ class ShardCtx:
     `launch.shardings.rest_dims`' tree of them, each leaf's dim cut over
     "data" or None, which the model gathers at its use
     (`launch.shardings.gather_at_use`); None where every leaf is held as
-    the model reads it (serving, one device).  The reference's `unroll`
-    serves its dry-run probes, which are not ported."""
+    the model reads it (the server, one device).  `model_blocks` names
+    the params held as this rank's block over "model" that the model
+    reads whole, and so gathers over "model" at their use after the
+    "data" gather (the dry run's serving cells under `opt` / `vpz`):
+    "vocab" (`embed`, `unembed`: `launch.shardings.vocab_blocks`) and
+    "experts" (each MoE layer's `wi`, `wg`, `wo`: `expert_blocks`, which
+    `tp_axis` reads as blocks instead).  The reference's `unroll` serves
+    its dry-run probes, which are not ported."""
     mesh: Any = None
     seq_axis: str | tuple[str, ...] | None = None
     batch_axes: tuple[str, ...] = ()
     tp_axis: str | None = None
     rest: Any = dataclasses.field(default=None, compare=False)
+    model_blocks: tuple[str, ...] = ()
 
     @property
     def seq_size(self) -> int:

@@ -48,12 +48,15 @@ the sequence that is split: each rank holds its block of prefix + text,
 with -1 labels over the prefix (`data.pipeline.shard_lm_batch`); the
 encoder's frames, and so its memory, are split as the tokens are.
 
-With `ctx.rest` (the trainer's params at rest: each leaf that the
-reference's `fsdp_tree_specs` cuts held as this rank's block over
-"data"), each layer gathers its blocks where it runs, and so do the
+With `ctx.rest` (the params at rest, the trainer's and the dry run's
+cells': each leaf that the reference's `fsdp_tree_specs` cuts held as
+this rank's block over "data"), each layer gathers its blocks where it
+runs, in the forward, `prefill` and `decode_step` alike, and so do the
 embedding, the final norms and the unembedding at their uses
 (`launch.shardings.gather_at_use`); their gradients are reduce-scattered
-over "data" in the backward.  Outside a checkpointed unit
+over "data" in the backward.  The serving cells' vocabulary and expert
+blocks over "model" (`ctx.model_blocks`) are gathered whole after that,
+under no_grad.  Outside a checkpointed unit
 (`shardings.AtUse`) an op's saved copy of a gathered leaf is kept as its
 block and gathered again in the backward; under remat the unit's
 recompute gathers again.  `stack_counts` gives the reference's stacked
@@ -141,30 +144,67 @@ def _block_init(gen: torch.Generator, cfg: LMConfig, btype: str,
     return p
 
 
+# the leaves that the reference draws in fp32 whatever the params' dtype:
+# the norms' scales, the hybrid block's fuse scales, the SSD's dt_bias,
+# A_log, D and gate_norm, and the MoE's router
+FP32_LEAVES = frozenset({
+    "ln1", "ln2", "ln1_post", "ln2_post", "ln_cross", "final_norm",
+    "enc_final_norm", "fuse_attn", "fuse_ssm", "dt_bias", "A_log", "D",
+    "gate_norm", "router"})
+
+
+def in_dtype(tree: Any, dtype: torch.dtype, name: str | None = None
+             ) -> Any:
+    """`tree` (the params, or any subtree of them, `name` the key it
+    sits under) with its leaves in `dtype` by the reference's rule
+    (`init(dtype=)`): every leaf but FP32_LEAVES, which stay fp32.  A
+    leaf already in its dtype is itself; the others are new tensors."""
+    if isinstance(tree, dict):
+        return {k: in_dtype(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(in_dtype(v, dtype, name) for v in tree)
+    return tree.to(torch.float32 if name in FP32_LEAVES else dtype)
+
+
 def init(gen: torch.Generator, cfg: LMConfig, *,
-         device: torch.device | str) -> dict:
-    """Random fp32 params drawn from `gen` (on the generator's device)
-    with the reference's scales: N(0, 1/fan_in) weights, ones for norms and
+         device: torch.device | str, dtype: torch.dtype = torch.float32,
+         place=None) -> dict:
+    """Random params drawn from `gen` (on the generator's device) with
+    the reference's scales: N(0, 1/fan_in) weights, ones for norms and
     the SSD's D, zeros for biases, A_log = log(linspace(1, 16)).  Each
-    tensor is moved to `device` (required, as `MeshNet`'s is) as soon as
-    it is drawn; the leaves require grad.  An encoder-decoder's
-    `enc_layers` and `enc_final_norm` are drawn last, as the reference
-    adds them last."""
+    tensor is drawn in fp32 and moved to `device` (required, as
+    `MeshNet`'s is) as soon as it is drawn; the leaves are then in
+    `dtype` by the reference's rule (`in_dtype`: the norms, the SSD's
+    scalars and the router stay fp32), so one seed gives the same values
+    in every dtype, rounded.  `place(path, subtree)`, where given, is
+    called on each top-level entry and each layer as soon as it is drawn
+    (path ("embed",), ("layers", i), ...) and its result is kept in its
+    place: a caller cuts a layer to its blocks before the next is drawn.
+    The leaves require grad.  An encoder-decoder's `enc_layers` and
+    `enc_final_norm` are drawn last, as the reference adds them last."""
+    def put(path, sub):
+        sub = in_dtype(sub, dtype, path[0])
+        return sub if place is None else place(path, sub)
+
     params: dict[str, Any] = {
-        "embed": M.normal_init(gen, (cfg.vocab, cfg.d_model),
-                               1.0 / math.sqrt(cfg.d_model), device),
-        "final_norm": M.norm_init(cfg, cfg.d_model, device),
-        "layers": [_block_init(gen, cfg, bt, device)
-                   for bt in cfg.layer_types()],
+        "embed": put(("embed",), M.normal_init(
+            gen, (cfg.vocab, cfg.d_model), 1.0 / math.sqrt(cfg.d_model),
+            device)),
+        "final_norm": put(("final_norm",),
+                          M.norm_init(cfg, cfg.d_model, device)),
+        "layers": [put(("layers", i), _block_init(gen, cfg, bt, device))
+                   for i, bt in enumerate(cfg.layer_types())],
     }
     if not cfg.tie_embeddings:
-        params["unembed"] = M.normal_init(
+        params["unembed"] = put(("unembed",), M.normal_init(
             gen, (cfg.d_model, cfg.vocab), 1.0 / math.sqrt(cfg.d_model),
-            device)
+            device))
     if cfg.is_encdec:
-        params["enc_layers"] = [_block_init(gen, cfg, bt, device)
-                                for bt in enc_types(cfg)]
-        params["enc_final_norm"] = M.norm_init(cfg, cfg.d_model, device)
+        params["enc_layers"] = [
+            put(("enc_layers", i), _block_init(gen, cfg, bt, device))
+            for i, bt in enumerate(enc_types(cfg))]
+        params["enc_final_norm"] = put(
+            ("enc_final_norm",), M.norm_init(cfg, cfg.d_model, device))
     return tree_map(lambda t: t.requires_grad_(), params)
 
 
@@ -400,14 +440,40 @@ def _rest(ctx: ShardCtx, *keys):
 
 
 def _at_use(use, params: dict, ctx: ShardCtx, *names: str,
-            summed: bool = False) -> dict:
+            summed: bool = False, cfg: LMConfig | None = None) -> dict:
     """`params` with its top-level leaves `names` (those it has) gathered
-    at their use by `use` (`shardings.AtUse`)."""
+    at their use by `use` (`shardings.AtUse`); with `cfg`, a vocabulary
+    block over "model" that `ctx.model_blocks` names is then gathered
+    whole over "model" too (the serving cells')."""
     names = [n for n in names if n in params]
     part = use({n: params[n] for n in names},
                {n: _rest(ctx, n) for n in names} if ctx.rest is not None
                else None, summed=summed)
+    if cfg is not None and "vocab" in ctx.model_blocks:
+        _serving_only(ctx)
+        part = shardings.gather_vocab(part, ctx.mesh, cfg.vocab)
     return {**params, **part}
+
+
+def _serving_only(ctx: ShardCtx) -> None:
+    """`ctx.model_blocks`' gathers pass no gradient back: serving only."""
+    if torch.is_grad_enabled():
+        raise ValueError(f"ctx.model_blocks {ctx.model_blocks} are gathered "
+                         f"for serving, under no_grad; a trainer reads its "
+                         f"blocks over \"model\" as blocks (tp_axis, the "
+                         f"vocab-parallel loss)")
+
+
+def _layer_at_use(lp: dict, rest, ctx: ShardCtx, use=None) -> dict:
+    """One layer's params `lp` as the layer reads them: its blocks at
+    rest (`rest`, its `ctx.rest` entry) gathered over "data"
+    (`shardings.gather_at_use`, `use` its `AtUse`), then its experts
+    gathered over "model" where `ctx.model_blocks` names them."""
+    lp = shardings.gather_at_use(lp, rest, ctx.mesh, saved=use)
+    if "experts" in ctx.model_blocks and "moe" in lp:
+        _serving_only(ctx)
+        lp = shardings.gather_experts({"layers": [lp]}, ctx.mesh)["layers"][0]
+    return lp
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +487,8 @@ def _embed(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     after the frontend's `extra_embeds` (B, S_img, d), cast to their dtype
     (the reference's modality prefix)."""
     with shardings.AtUse(ctx.mesh) as use:
-        x = _at_use(use, params, ctx, "embed")["embed"][tokens.long()]
+        x = _at_use(use, params, ctx, "embed",
+                    cfg=cfg)["embed"][tokens.long()]
     if cfg.scale_embedding:
         x = x * math.sqrt(cfg.d_model)
     if extra_embeds is not None:
@@ -433,7 +500,7 @@ def _logits(params: dict, cfg: LMConfig, x: torch.Tensor,
             ctx: ShardCtx = ShardCtx()) -> torch.Tensor:
     with shardings.AtUse(ctx.mesh) as use:
         held = _at_use(use, params, ctx, "unembed" if "unembed" in params
-                       else "embed")
+                       else "embed", cfg=cfg)
         emb = held["unembed"] if "unembed" in params else held["embed"].T
         logits = x @ emb
     if cfg.final_softcap:
@@ -448,11 +515,11 @@ def _unit_apply(lps: list, x: torch.Tensor, unit: tuple, cfg: LMConfig,
                 use=None) -> torch.Tensor:
     """One unit of a `plan` segment (the reference's scan body): its
     blocks in order, each gathering its params held at rest (`rests`,
-    their `ctx.rest` entries) at its use (`use`: the `shardings.AtUse`
-    of the unit; None in a checkpointed unit)."""
+    their `ctx.rest` entries) at its use (`_layer_at_use`; `use`: the
+    `shardings.AtUse` of the unit, None in a checkpointed unit)."""
     for i, (bt, lp) in enumerate(zip(unit, lps)):
-        lp = shardings.gather_at_use(lp, None if rests is None else
-                                     rests[i], ctx.mesh, saved=use)
+        lp = _layer_at_use(lp, None if rests is None else rests[i], ctx,
+                           use)
         x = _block_apply(lp, x, bt, cfg, positions, kvs, ctx, memory)
     return x
 
@@ -724,20 +791,23 @@ def prefill(params: dict, cfg: LMConfig, tokens: torch.Tensor,
 
 
 def init_decode_state(cfg: LMConfig, batch: int, max_len: int, *,
-                      device: torch.device | str) -> list[dict]:
-    """Empty decode state in fp32, one dict a layer: `k` / `v` (batch,
-    max_len, Hkv, hd) for attention (`xattn`'s self-attention too) and
-    hybrid blocks; `ssm` (batch, H, P, N) and `conv` (batch, ssm_conv -
-    1, d_inner + 2 N) for SSM and hybrid blocks.  Under a sequence split,
+                      device: torch.device | str,
+                      dtype: torch.dtype = torch.float32) -> list[dict]:
+    """Empty decode state, one dict a layer: `k` / `v` (batch, max_len,
+    Hkv, hd) for attention (`xattn`'s self-attention too) and hybrid
+    blocks; `ssm` (batch, H, P, N) and `conv` (batch, ssm_conv - 1,
+    d_inner + 2 N) for SSM and hybrid blocks.  `k`, `v` and `conv` are in
+    `dtype`, `ssm` in fp32, as the reference's.  Under a sequence split,
     `batch` and `max_len` are this rank's block of them.  (The reference
-    stacks them per segment; its server asks for fp32.)"""
+    stacks them per segment; its server asks for fp32, its dry run for
+    bf16.)"""
     state = []
     for bt in cfg.layer_types():
         entry = {}
         if bt in ("attn", "swa", "xattn") or bt.startswith("hybrid"):
             entry["k"] = torch.zeros(
                 (batch, max_len, cfg.n_kv_heads, cfg.head_dim),
-                dtype=torch.float32, device=device)
+                dtype=dtype, device=device)
             entry["v"] = torch.zeros_like(entry["k"])
         if bt == "ssm" or bt.startswith("hybrid"):
             entry["ssm"] = torch.zeros(
@@ -745,7 +815,7 @@ def init_decode_state(cfg: LMConfig, batch: int, max_len: int, *,
                 dtype=torch.float32, device=device)
             entry["conv"] = torch.zeros(
                 (batch, cfg.ssm_conv - 1, cfg.d_inner + 2 * cfg.ssm_state),
-                dtype=torch.float32, device=device)
+                dtype=dtype, device=device)
         state.append(entry)
     return state
 
@@ -761,17 +831,29 @@ def decode_step(params: dict, cfg: LMConfig, tokens: torch.Tensor,
     encoder-decoder's `encode` output (this rank's block under `ctx`),
     which its `xattn` layers attend to (without it they skip their
     cross-attention, as the reference's do).  The K/V caches are written
-    in place; the SSM entries are replaced.  Returns (logits (B, 1, V),
-    caches)."""
-    x = _embed(params, cfg, tokens)
+    in place; the SSM entries are replaced; each keeps its dtype (`ssm`
+    fp32, the others the params').  Returns (logits (B, 1, V), caches).
+
+    With `ctx.rest` (the params at rest, as `forward` takes them), the
+    embedding, each layer's blocks (an `xattn` layer's cross-attention
+    with them), the final norm and the unembedding are gathered at their
+    use, one layer at a time (`_layer_at_use`; nothing is saved under
+    no_grad), and so are the blocks over "model" that `ctx.model_blocks`
+    names.  Without them the step is the same op for op."""
+    x = _embed(params, cfg, tokens, ctx=ctx)
     positions = torch.full((tokens.shape[0], 1), length, dtype=torch.long,
                            device=x.device)
     scale = cfg.attn_scale or 1.0 / math.sqrt(max(cfg.head_dim, 1))
-    for lp, bt, cache in zip(params["layers"], cfg.layer_types(), caches):
+    rest = _rest(ctx, "layers")
+    for i, (lp, bt, cache) in enumerate(zip(params["layers"],
+                                            cfg.layer_types(), caches)):
+        lp = _layer_at_use(lp, None if rest is None else rest[i], ctx)
         x = _decode_block(lp, x, bt, cfg, ctx, positions, length, cache,
                           scale, memory)
-    x = M.norm_apply(cfg, params["final_norm"], x)
-    return _logits(params, cfg, x), caches
+    with shardings.AtUse(ctx.mesh) as use:
+        x = M.norm_apply(cfg, _at_use(use, params, ctx,
+                                      "final_norm")["final_norm"], x)
+    return _logits(params, cfg, x, ctx), caches
 
 
 def _decode_block(p: dict, x: torch.Tensor, btype: str, cfg: LMConfig,

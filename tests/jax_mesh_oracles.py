@@ -548,7 +548,9 @@ DRYRUN_CELLS = [
     ("mixtral_8x7b", "train_4k", True, "vpz"),
     ("hymba_1_5b", "prefill_32k", True, "base"),
     ("pixtral_12b", "prefill_32k", False, "base"),
+    ("mixtral_8x7b", "prefill_32k", True, "base"),
     ("seamless_m4t_large_v2", "decode_32k", False, "base"),
+    ("olmoe_1b_7b", "decode_32k", False, "opt"),
     ("qwen2_5_14b", "long_500k", True, "base"),
     ("seamless_m4t_large_v2", "long_500k", False, "base"),
     ("mesh1k", "cnn", True, "base"),
@@ -559,12 +561,12 @@ DRYRUN_CELLS = [
 def _dryrun(d):
     """The reference's dry-run builders (`build_lm_cell`, `build_cnn_cell`)
     on the production meshes of 512 host devices, shapes only (no lower,
-    no compile): each DRYRUN_CELLS cell's argument leaves but the params
-    (keypath -> global shape and the per-device shard shape), a train or
-    CNN cell's params too (keypath after "params"), its chip
-    count, the total per-device elements of its optimizer moments, and
-    `model_flops_total` as the reference's `run_cell` computes it, into
-    DIR/dryrun.json."""
+    no compile): each DRYRUN_CELLS cell's argument leaves (keypath ->
+    global shape, the per-device shard shape and the dtype; the params'
+    keypaths after "params", the caches', a decode cell's, under "[1]"),
+    its chip count, the total per-device elements of its optimizer
+    moments, and `model_flops_total` as the reference's `run_cell`
+    computes it, into DIR/dryrun.json."""
     import json
 
     import jax
@@ -588,14 +590,12 @@ def _dryrun(d):
             shard = tuple(s.sharding.shard_shape(s.shape))
             if ".mu" in key or key.startswith("[0][1]"):
                 moments += int(np.prod(shard))
-            leaves[key] = [list(s.shape), list(shard)]
-        if arch in registry.CNN_ARCHS or \
-                registry.SHAPES[shape]["kind"] == "train":
-            for path, s in jax.tree_util.tree_leaves_with_path(args[0]):
-                if hasattr(s, "sharding"):
-                    leaves["params" + jax.tree_util.keystr(path)] = [
-                        list(s.shape),
-                        list(s.sharding.shard_shape(s.shape))]
+            leaves[key] = [list(s.shape), list(shard), str(s.dtype)]
+        for path, s in jax.tree_util.tree_leaves_with_path(args[0]):
+            if hasattr(s, "sharding"):
+                leaves["params" + jax.tree_util.keystr(path)] = [
+                    list(s.shape), list(s.sharding.shard_shape(s.shape)),
+                    str(s.dtype)]
         mf = None
         if arch not in registry.CNN_ARCHS:
             info = registry.SHAPES[shape]

@@ -10,11 +10,12 @@ the reference's.
   2 x 16 x 16.
 - The reference's builders on 512 host devices, shapes only
   (`tests/jax_mesh_oracles.py dryrun`, no compile): each sharded argument
-  of ten full-size cells (batch, frames, prefix, caches, memory, the
-  optimizer state, and a train or CNN cell's params, held at rest as the
+  of twelve full-size cells (batch, frames, prefix, caches, memory, the
+  optimizer state, and every cell's params, held at rest as the
   reference's FSDP blocks) against the port's block on the same rank, by
-  per-device shard shape; the chip count, the tag and
-  `model_flops_total`, exactly.
+  per-device shard shape and dtype (the serving cells' params, caches
+  and memory bf16; the norms, the SSD's scalars and the router fp32);
+  the chip count, the tag and `model_flops_total`, exactly.
 - The abstract trace against the same rank's real step on the CPU
   (`tests/torch_dryrun_cases.py`, the fake group of data 2 x model 2,
   SMOKE configs at reduced shapes): FLOPs and the collectives' bytes by
@@ -236,21 +237,29 @@ def _moment_paths(params, mu, cfg):
 
 
 def _param_paths(params, cfg):
-    """{"params" + reference keypath: this rank's block shape} of the
-    port's held `params`, an LM's stacked into the reference's
-    segments."""
+    """{"params" + reference keypath: (this rank's block shape, its
+    dtype's name)} of the port's held `params`, an LM's stacked into the
+    reference's segments."""
     tree = tT.tree_to_jax(tree_unflatten(params, iter(
-        [torch.empty(p.shape, device="meta") for p in tree_leaves(params)])),
-        cfg) if "layers" in params else params
-    return {"params" + path: tuple(t.shape)
+        [torch.empty(p.shape, dtype=p.dtype, device="meta")
+         for p in tree_leaves(params)])), cfg) \
+        if "layers" in params else params
+    return {"params" + path: (tuple(t.shape), _dtype(t))
             for path, t in leaves_with_path(tree)}
 
 
-def _whole(path: str, variant: str, cfg) -> bool:
+def _dtype(t) -> str:
+    """A tensor's dtype by the reference's (numpy's) name."""
+    return str(t.dtype).split(".")[-1]
+
+
+def _whole(path: str, variant: str, cfg, kind: str = "train") -> bool:
     """Whether the port holds the param at reference keypath `path`
-    whole: not a vocabulary block (opt / vpz) nor an expert block (opt,
+    whole: not a vocabulary block (opt / vpz; a serving cell's only
+    where "model" divides the vocabulary) nor an expert block (opt,
     where "model" divides the experts)."""
-    if variant != "base" and path in ("['embed']", "['unembed']"):
+    if variant != "base" and path in ("['embed']", "['unembed']") and \
+            (kind == "train" or cfg.vocab % 16 == 0):
         return False
     ep = variant == "opt" and getattr(cfg, "n_experts", 0) and \
         cfg.n_experts % 16 == 0
@@ -268,9 +277,24 @@ def test_argument_blocks_match_the_reference(runs, cell):
     assert ref["chips"] == math.prod(MESHES["pod2" if pod2 else
                                             "pod1"].values())
     args, cfg = _port_cell(*cell)
-    leaves = {k: (tuple(g), tuple(s)) for k, (g, s) in ref["leaves"].items()}
+    leaves = {k: (tuple(g), tuple(s)) for k, (g, s, _) in
+              ref["leaves"].items()}
+    dtypes = {k: dt for k, (_, _, dt) in ref["leaves"].items()}
     kind = dryrun.cell_kind(arch, shape)
     checked = 0
+    # the params at rest, in every cell: each leaf in the reference's
+    # dtype, and each but a vocabulary or expert block (cut within the
+    # block) the reference's FSDP block
+    mine = _param_paths(args[0], cfg)
+    assert set(mine) == {k for k in leaves if k.startswith("params")}
+    n_cmp = 0
+    for key, (shape_, dt) in mine.items():
+        assert dt == dtypes[key], key
+        if _whole(key[6:], variant, cfg, kind):
+            assert shape_ == leaves[key][1], key
+            n_cmp += 1
+    assert n_cmp > 0
+    checked += n_cmp
     if kind in ("train", "cnn"):
         batch = args[3]
         for name, t in batch.items():
@@ -304,16 +328,6 @@ def test_argument_blocks_match_the_reference(runs, cell):
             n_cmp += 1
         assert n_cmp > 0
         checked += n_cmp
-        # the params at rest: each leaf but a vocabulary or expert block
-        # (cut within the block) is the reference's FSDP block
-        mine = _param_paths(args[0], cfg)
-        n_cmp = 0
-        for key, (g, s) in leaves.items():
-            if key.startswith("params") and _whole(key[6:], variant, cfg):
-                assert mine[key] == s, key
-                n_cmp += 1
-        assert n_cmp > 0
-        checked += n_cmp
     elif kind == "prefill":
         batch = args[1]
         b_ref = leaves["[0]['tokens']"][1]
@@ -323,6 +337,9 @@ def test_argument_blocks_match_the_reference(runs, cell):
             b_ref = (b_ref[0], b_ref[1] + leaves["[0]['patch_embeds']"][1][1])
         assert (batch["tokens"].shape[0], rows) == b_ref
         checked += 1
+        for name in ("frames", "patch_embeds"):
+            if name in batch:
+                assert _dtype(batch[name]) == dtypes[f"[0]['{name}']"]
         if "frames" in batch:
             assert tuple(batch["frames"].shape) == leaves["[0]['frames']"][1]
             checked += 1
@@ -337,9 +354,11 @@ def test_argument_blocks_match_the_reference(runs, cell):
             for entry in caches:
                 if name in entry:
                     assert tuple(entry[name].shape) == s[1:], k
+                    assert _dtype(entry[name]) == dtypes[k], k
                     checked += 1
         if mem is not None:
             assert tuple(mem.shape) == leaves["[3]"][1]
+            assert _dtype(mem) == dtypes["[3]"]
             checked += 1
     assert checked > 0
     tag = dryrun.cell_tag(arch, shape, pod2, variant)

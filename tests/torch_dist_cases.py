@@ -2313,6 +2313,142 @@ def case_fsdp_pod(mesh, d):
     return out
 
 
+# serving at rest (the dry run's serving cells' placement) against the
+# same run on whole params: (name, arch, blocks over "model"), SMOKE
+# configs; "seamless_xattn" is seamless with every decoder layer an xattn
+# block (no registered config has one), so that the cross-attention's
+# leaves are gathered with their layer; olmoe's "opt" holds the
+# vocabulary and the experts as blocks over "model" (`ctx.model_blocks`)
+SERVE_REST_RUNS = [("qwen", "qwen1.5-0.5b", ()),
+                   ("hymba", "hymba-1.5b", ()),
+                   ("mamba2", "mamba2-780m", ()),
+                   ("mixtral", "mixtral-8x7b", ()),
+                   ("olmoe_opt", "olmoe-1b-7b", ("vocab", "experts")),
+                   ("seamless_xattn", "seamless-m4t-large-v2", ()),
+                   ("pixtral", "pixtral-12b", ())]
+SERVE_REST_BATCH, SERVE_REST_SEQ, SERVE_REST_STEPS = 4, 32, 4
+SERVE_REST_MAX_LEN = 16
+
+
+def serve_rest_cfg(name: str, arch: str):
+    """The SMOKE config of a SERVE_REST_RUNS entry (seamless_xattn's
+    decoder layers all xattn)."""
+    import dataclasses
+    from repro_torch.configs import registry
+    cfg = registry.get(arch, smoke=True)
+    if name != "seamless_xattn":
+        return cfg
+
+    class XAttn(type(cfg)):
+        def layer_types(self):
+            return ["xattn"] * self.n_layers
+    return XAttn(**dataclasses.asdict(cfg))
+
+
+def serve_rest_batch(cfg) -> dict:
+    """The global prompt batch: `synthetic_lm_batch` 0 and, from numpy
+    seed ENCDEC_SEED, an encoder-decoder's frames (B, S, d) or a VLM's
+    patch prefix (B, 8, d)."""
+    from repro_torch.data import pipeline
+    b, s = SERVE_REST_BATCH, SERVE_REST_SEQ
+    batch = pipeline.synthetic_lm_batch(0, b, s, cfg.vocab)
+    rng = np.random.default_rng(ENCDEC_SEED)
+    if cfg.is_encdec:
+        batch["frames"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend == "vit_stub":
+        batch["patch_embeds"] = rng.standard_normal(
+            (b, 8, cfg.d_model)).astype(np.float32)
+        batch = {k: v[:, :s - 8] if k in ("tokens", "labels") else v
+                 for k, v in batch.items()}
+    return batch
+
+
+def _serve_run(mesh, cfg, params, ctx, batch):
+    """`prefill` of this rank's block of the prompt, then
+    SERVE_REST_STEPS greedy `decode_step`s from empty caches (the
+    prompt's last tokens first, the memory the prefill's), each step's
+    collectives recorded: the prefill's last logits, each step's logits
+    and ids, the final caches, and the gathers over "data" at use and
+    over "model" (prefill, then each step)."""
+    import torch
+    from repro_torch import analysis
+    from repro_torch.launch.shardings import AT_USE
+    from repro_torch.models.lm import transformer
+
+    def gathers(rec):
+        ops = [o for o in rec.ops if o.kind == "all_gather"]
+        return [sum(o.region == AT_USE for o in ops),
+                sum(tuple(o.axes) == ("model",) for o in ops)]
+    t = {k: torch.from_numpy(v) for k, v in batch.items()}
+    with analysis.record() as rec:
+        last, _, memory = transformer.prefill(
+            params, cfg, t["tokens"], ctx, extra_embeds=t.get("patch_embeds"),
+            frames=t.get("frames"))
+    counts = [gathers(rec)]
+    rows = SERVE_REST_BATCH // mesh.shape["data"]
+    r0 = mesh.index("data") * rows
+    tok = torch.from_numpy(serve_rest_batch(cfg)["tokens"][r0:r0 + rows,
+                                                            -1:])
+    caches = transformer.init_decode_state(
+        cfg, rows, SERVE_REST_MAX_LEN // mesh.shape["model"], device="cpu")
+    logits, ids = [], []
+    for step in range(SERVE_REST_STEPS):
+        with analysis.record() as rec:
+            lg, caches = transformer.decode_step(params, cfg, tok, caches,
+                                                 step, ctx, memory=memory)
+        counts.append(gathers(rec))
+        tok = lg[:, -1].argmax(-1, keepdim=True)
+        logits.append(lg.numpy())
+        ids.append(tok.numpy())
+    out = {"prefill": last.numpy(), "logits": np.stack(logits),
+           "ids": np.stack(ids), "gathers": np.array(counts)}
+    out.update({f"cache.{i}.{k}": c.numpy() for i, e in enumerate(caches)
+                for k, c in e.items()})
+    return out
+
+
+def case_serve_rest(mesh, d):
+    """SERVE_REST_RUNS on this (data, model) mesh, the sequence over
+    "model" and the batch over "data" as the dry run's serving cells
+    split them: each arch's `_serve_run` with its params at rest (each
+    leaf `rest_dims` cuts this rank's block over "data", of the
+    vocabulary / experts block over "model" where the run names them;
+    `ShardCtx.rest`, `model_blocks`) and with its params whole (fp32,
+    seed 0), and the rank's count of layers that hold a block."""
+    import dataclasses
+    import torch
+    from repro_torch.data import pipeline
+    from repro_torch.launch import shardings
+    from repro_torch.models.lm import transformer
+    from repro_torch.models.lm.modules import ShardCtx
+    ctx = ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",))
+    out = {}
+    for name, arch, blocks in SERVE_REST_RUNS:
+        cfg = serve_rest_cfg(name, arch)
+        params = transformer.init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+        batch = pipeline.shard_lm_batch(serve_rest_batch(cfg), mesh,
+                                        "model", ("data",))
+        held = params
+        if "vocab" in blocks:
+            held = shardings.vocab_blocks(held, mesh)
+        if "experts" in blocks:
+            held = shardings.expert_blocks(held, mesh)
+        rest = shardings.rest_dims(held, mesh,
+                                   transformer.stack_counts(params, cfg))
+        held = shardings.param_blocks(held, rest, mesh)
+        for mode, p, c in (
+                ("rest", held, dataclasses.replace(ctx, rest=rest,
+                                                   model_blocks=blocks)),
+                ("whole", params, ctx)):
+            out.update({f"{name}/{mode}/{k}": v for k, v in
+                        _serve_run(mesh, cfg, p, c, batch).items()})
+        out[f"{name}/held_bytes"] = np.array(shardings.held_bytes(held))
+        out[f"{name}/whole_bytes"] = np.array(shardings.held_bytes(params))
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -2327,7 +2463,8 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "moe": case_moe, "lm_elastic": case_lm_elastic,
          "lm_resume": case_lm_resume, "encdec": case_encdec,
          "zero1": case_zero1, "zero1_pod": case_zero1_pod,
-         "fsdp": case_fsdp, "fsdp_pod": case_fsdp_pod}
+         "fsdp": case_fsdp, "fsdp_pod": case_fsdp_pod,
+         "serve_rest": case_serve_rest}
 
 
 # ------------------------------------------------------------ launcher --

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Params held at rest (FSDP blocks over data) against an earlier tree
 that holds them whole, on the card: the bytes of params a rank holds and
-its peak memory, and the dry run's train cells that did not fit.
+its peak memory, and the dry run's cells that did not fit.
 
     python3 tools/fsdp_ab.py --parent-tree DIR
 
@@ -14,15 +14,18 @@ kernels, then runs in fresh processes of its own `chip_smoke.py`:
   its `torch.cuda.max_memory_allocated`;
 - phase 11's real steps (`dryrun_real`: the last rank of the production
   mesh under the fake group, qwen1.5-0.5b train_4k, hymba-1.5b
-  prefill_32k, mesh1k pod1, full width and depth): the params the step
-  takes and its peak.
+  prefill_32k and decode_32k, mesh1k pod1, full width and depth): the
+  params the step takes and its peak; a step a tree cannot build (an
+  earlier tree's whole decode caches, say) is recorded with its error.
 
-Meanwhile this tree traces on the host's spare cores (`python -m
+Meanwhile both trees trace on the host's spare cores (`python -m
 repro_torch.launch.dryrun --device cuda`, no card used, the lowest CPU
-priority, four at a time) the train cells that the sweep put over 80
-GiB a card with whole params: gemma2-9b, qwen2.5-14b, pixtral-12b,
-olmoe-1b-7b and mixtral-8x7b train_4k, pod1 and pod2; each one's traced
-peak a rank.
+priority, four at a time) the serving cells that the sweep put over 80
+GiB a card with whole fp32 params (mixtral-8x7b prefill_32k, decode_32k
+and long_500k, pod1 and pod2), and this tree the train cells it put
+over 80 GiB with whole params (gemma2-9b, qwen2.5-14b, pixtral-12b,
+olmoe-1b-7b and mixtral-8x7b train_4k, pod1 and pod2); each one's
+traced peak a rank.
 
 A gloo mesh sharing one card is a parity run, not a scaling result.
 Rows go to chiprun_out/fsdp_ab.json, with the card's name and power
@@ -39,8 +42,17 @@ import threading
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OVER_80 = ["gemma2_9b", "qwen2_5_14b", "pixtral_12b", "olmoe_1b_7b",
-           "mixtral_8x7b"]
+# (arch, shape, multi_pod) over 80 GiB a card in the sweep with whole
+# params: the train cells (PR 29), then the serving ones (PR 31)
+TRAIN_OVER_80 = [(a, "train_4k", p) for a in (
+    "gemma2_9b", "qwen2_5_14b", "pixtral_12b", "olmoe_1b_7b",
+    "mixtral_8x7b") for p in (False, True)]
+SERVING_OVER_80 = [("mixtral_8x7b", s, p) for s in (
+    "prefill_32k", "decode_32k", "long_500k") for p in (False, True)]
+REAL_CELLS = [("qwen1_5_0_5b", "train_4k", False),
+              ("hymba_1_5b", "prefill_32k", False),
+              ("hymba_1_5b", "decode_32k", False),
+              ("mesh1k", "cnn", False)]
 TRACE_JOBS = 4
 
 
@@ -91,12 +103,11 @@ def zero_rows(tree: str) -> list[dict]:
 
 
 def real_rows(tree: str) -> dict:
-    """Phase 11's real steps of `tree`, one fresh process a cell, each
-    timed at once: the params' bytes the step takes and its peak."""
+    """Phase 11's real steps of `tree` (REAL_CELLS), one fresh process a
+    cell, each timed at once: the params' bytes the step takes and its
+    peak, or the error of a step the tree cannot build."""
     out = {}
-    for arch, shape, pod2 in (("qwen1_5_0_5b", "train_4k", False),
-                              ("hymba_1_5b", "prefill_32k", False),
-                              ("mesh1k", "cnn", False)):
+    for arch, shape, pod2 in REAL_CELLS:
         path = os.path.join(HERE, "build", "fsdp_ab",
                             f"{os.path.basename(tree)}-{arch}-{shape}.json")
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -104,7 +115,11 @@ def real_rows(tree: str) -> dict:
             pass
         code = ("import chip_smoke as c\n"
                 f"c.dryrun_real({arch!r}, {shape!r}, {pod2!r}, {path!r})\n")
-        _py(tree, code)
+        try:
+            _py(tree, code)
+        except RuntimeError as e:
+            out[f"{arch}-{shape}"] = {"error": str(e).strip().splitlines()[-1]}
+            continue
         with open(path) as f:
             got = json.load(f)
         out[f"{arch}-{shape}"] = {
@@ -131,25 +146,26 @@ def param_bytes_of(tree: str, arch: str, shape: str) -> int:
     return int(_py(tree, code).split("BYTES ", 1)[1].split()[0])
 
 
-def trace_over_80(out_dir: str) -> dict:
-    """This tree's dry run of the train cells the sweep put over 80 GiB
-    with whole params, TRACE_JOBS at a time: each one's traced peak a
-    rank."""
-    sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.launch import dryrun
-    cells = [(a, p) for a in OVER_80 for p in (False, True)]
-    os.makedirs(out_dir, exist_ok=True)
+def trace_over_80(jobs: list, out_dir: str) -> dict:
+    """The dry run of each (tree, arch, shape, multi_pod) of `jobs` in its
+    tree, TRACE_JOBS at a time: each one's traced peak a rank, by tree
+    and cell tag."""
+    def tag_of(arch, shape, pod2):
+        return f"{arch}-{shape}-{'pod2' if pod2 else 'pod1'}"
+    jobs = list(jobs)
     running, rows = [], {}
-    while cells or running:
-        while cells and len(running) < TRACE_JOBS:
-            arch, pod2 = cells.pop(0)
-            tag = dryrun.cell_tag(arch, "train_4k", pod2)
+    while jobs or running:
+        while jobs and len(running) < TRACE_JOBS:
+            tree, arch, shape, pod2 = jobs.pop(0)
+            tag = f"{os.path.basename(tree)}/{tag_of(arch, shape, pod2)}"
+            out = os.path.join(out_dir, os.path.basename(tree))
+            os.makedirs(out, exist_ok=True)
             cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                   "--arch", arch, "--shape", "train_4k", "--device",
-                   "cuda", "--out", out_dir] + ["--multi-pod"] * pod2
+                   "--arch", arch, "--shape", shape, "--device",
+                   "cuda", "--out", out] + ["--multi-pod"] * pod2
             log = open(os.path.join(out_dir, tag + ".log"), "w")
             running.append((tag, log, subprocess.Popen(
-                cmd, cwd=HERE, env=_env(HERE), stdout=log,
+                cmd, cwd=tree, env=_env(tree), stdout=log,
                 stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))))
         time.sleep(1)
         for item in list(running):
@@ -186,14 +202,16 @@ def main() -> int:
           flush=True)
     out = {"card": card, "trees": {}}
     # the traces use no card: on the host's spare cores meanwhile
+    jobs = [(t, *c) for c in SERVING_OVER_80 for t in (parent, HERE)] + \
+        [(HERE, *c) for c in TRAIN_OVER_80]
     traced = threading.Thread(target=lambda: out.update(
-        over_80_train=trace_over_80(os.path.join(HERE, "build", "fsdp_ab",
+        over_80=trace_over_80(jobs, os.path.join(HERE, "build", "fsdp_ab",
                                                  "dryrun"))))
     traced.start()
     for name, tree in (("parent", parent), ("this", HERE)):
         row = {"zero": zero_rows(tree), "real": real_rows(tree)}
         for cell, r in row["real"].items():
-            if r["param_bytes"] is None:
+            if "error" not in r and r["param_bytes"] is None:
                 r["param_bytes"] = param_bytes_of(tree, *cell.split("-"))
         out["trees"][name] = row
         for i, r in enumerate(row["zero"]):
@@ -202,13 +220,14 @@ def main() -> int:
                 f"{v['peak_gib']:.3f} GiB" for m, v in r.items())
                 + f" ({card})", flush=True)
         for cell, r in row["real"].items():
-            print(f"{name}: phase 11 {cell} real step: params held "
-                  f"{r['param_bytes']} B, peak {r['peak_bytes']} B "
-                  f"({r['peak_bytes'] / 2 ** 30:.3f} GiB), step "
-                  f"{r['step_ms']:.1f} ms ({card})", flush=True)
+            print(f"{name}: phase 11 {cell} real step: " + (
+                f"params held {r['param_bytes']} B, peak "
+                f"{r['peak_bytes']} B ({r['peak_bytes'] / 2 ** 30:.3f} "
+                f"GiB), step {r['step_ms']:.1f} ms" if "error" not in r
+                else f"failed: {r['error']}") + f" ({card})", flush=True)
     traced.join()
-    for tag, r in out["over_80_train"].items():
-        print(f"this: dry run {tag}: " + (
+    for tag, r in out["over_80"].items():
+        print(f"dry run {tag}: " + (
             f"peak {r['peak_bytes'] / 2 ** 30:.2f} GiB a rank "
             f"({'fits' if r['fits_80gib'] else 'OVER'} 80 GiB), arguments "
             f"{r['argument_bytes'] / 2 ** 30:.2f} GiB" if r["result"] == "ok"
