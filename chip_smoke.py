@@ -17,8 +17,12 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    the kernel, the plain version and one `F.conv2d` call (channels_last,
    TF32 off: the yardstick, never called by the port); compute the bound;
    then the same for the flash-attention kernel at hymba-1.5b's shapes
-   (window 1024 and none, each row with its plan, the bf16 ones on
-   `wgmma` and held element by element to one bf16 ulp of A + |o32|, and
+   (window 1024 and none, and one call of 2048 rows against 512 keys
+   under the window, whose rows 1535.. see no key: the mean of V there,
+   the wrapper's fill timed alone, SDPA's yardstick taking the
+   reference's mask as an additive 0 / -1e30 one; each row with its
+   plan, the bf16 ones on `wgmma` and held element by element to one
+   bf16 ulp of A + |o32|, and
    the CPU emulation of its tiling, `flash_attention_emulated`, run on
    the same inputs, held against it; yardstick
    `F.scaled_dot_product_attention`) and
@@ -131,13 +135,23 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    holds at rest (its FSDP blocks over data) beside their whole bytes,
    the bytes put on the pod axis, the peak memory and step seconds a
    rank.  Not a scaling result.
-   Then full-width hymba-1.5b (cut to 8 layers, `HYMBA_LAYERS`, handed
+   Then full-width hymba-1.5b (cut to 4 layers, `HYMBA_LAYERS`, handed
    to the trainer as its config), FP32, with and without `--remat`:
-   losses within 1e-6, 2 x 8 x 3 LM kernel launches against 8 x 3,
+   losses within 1e-6, 2 x 4 x 3 LM kernel launches against 4 x 3,
    both peaks;
-5. hymba-1.5b: the same entry at full width (8 layers), batch 1 x seq
+4i. the examples (`examples/*_torch.py`), the single-process ones through
+   their own `main`: `quickstart_torch` (the reduced mesh-tangling net:
+   the plans solved on the H100 preset and printed, the audit with 0
+   errors, 10 steps under the plan, the checkpoint round trip, the
+   rollback at step 5 whose replayed steps equal their first run, the
+   traced attribution table) and `train_mesh_e2e_torch --full --steps
+   10` (the paper's 1K model at 1024^2 x 18, batch 2: finite losses, 19 x
+   10 conv launches, s/step and the first and last loss).  The 8-rank
+   examples are run as scripts of their own (`python
+   examples/serve_lm_torch.py`, `examples/spatial_parallel_cnn_torch.py`);
+5. hymba-1.5b: the same entry at full width (4 layers), batch 1 x seq
    2048, 3 steps, FP32 (phase 4h's run) and then `--bf16`: each with
-   finite losses and 8 x 3 launches of each LM kernel;
+   finite losses and 4 x 3 launches of each LM kernel;
    the forward loss of a 4-layer full-width hymba (layer types g, s, g, g)
    at seq 1280 on the card against the CPU; one profiled step and the
    SSD's inter-chunk recurrence timed alone, with its launches per layer;
@@ -162,8 +176,8 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    steps on the card against the CPU; and the sequence-sharded decode on
    2 gloo ranks sharing the card (model 2, the 4-layer hymba, prompt 64,
    gen 16) against one rank: every step's logits and the caches within
-   1e-4, the ids equal.  Not a scaling result.  hymba runs at 8
-   layers here and in phase 6 (its prefill launches 8 / 8);
+   1e-4, the ids equal.  Not a scaling result.  hymba runs at 4
+   layers here and in phase 6 (its prefill launches 4 / 4);
 6. the LM on a mesh: the attention kernel's block call (ring attention's
    tile, query rows `delta` after the keys, o in fp32 and the rows' lse)
    at hymba's ring shapes (1 x 1024 rows a block, 25 / 5 heads, D 64):
@@ -364,8 +378,8 @@ from repro_torch.optim.optimizer import (  # noqa: E402
 from repro_torch.train.train_loop import (  # noqa: E402
     TrainStepConfig, make_train_step, reduce_replicated_grads)
 from repro_torch.utils import (  # noqa: E402
-    FP32, interleaved_samples, same_pads, time_fn, tree_leaves, tree_map,
-    tree_unflatten, trimmed_mean)
+    FP32, interleaved_samples, load_example, same_pads, time_fn,
+    tree_leaves, tree_map, tree_unflatten, trimmed_mean)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_FLOPS = {torch.float32: 67e12,     # fp32 on the CUDA cores
@@ -411,12 +425,13 @@ ATTN_ELEM_ULP = 2.0 ** -7
 # step breakdown that profiles the same step, phase 5's BF16 run,
 # serving's, phase 6's sharded prefill and --remat steps, and the
 # one-device runs they are held against) at full width, cut to
-# HYMBA_LAYERS of its 32 layers (global attention on layers 0, 4 and 7),
-# handed to the trainer and the server as their `cfg` (the registry's
-# config cut in depth, which they announce): 8 keeps the whole script,
-# with phase 11's serving cells, well inside its time limit (the served
-# prompt of 1088 tokens is replayed a token a layer at a time)
-HYMBA_LAYERS = 8
+# HYMBA_LAYERS of its 32 layers (global attention on layers 0, 2 and 3,
+# sliding-window on layer 1), handed to the trainer and the server as
+# their `cfg` (the registry's config cut in depth, which they announce):
+# 4 keeps the whole script, with phase 11's serving cells and phase 4i's
+# examples, inside its time limit on a slow host (the served prompt of
+# 1088 tokens is replayed a token a layer at a time)
+HYMBA_LAYERS = 4
 HYMBA = dataclasses.replace(hymba_1_5b.CONFIG, n_layers=HYMBA_LAYERS)
 LM_BATCH, LM_SEQ = 1, 2048
 # the 4-layer full-width forward loss, card vs CPU: fp32 through four
@@ -706,6 +721,65 @@ def train_phase() -> dict:
     return {"launches": launches, "losses": res["losses"],
             "step_s": res["step_s"], "data_s": res["data_s"],
             "steady_step_s": step_s, "steady_compute_s": compute_s}
+
+
+E2E_STEPS = 10
+
+
+def examples_phase(card: str) -> dict:
+    """Phase 4i: `quickstart_torch.main` and `train_mesh_e2e_torch.main(
+    ["--full", "--steps", "10"])` on the card, each with every launch
+    count set to 0 just before it and read just after."""
+    t0 = time.perf_counter()
+    quick = load_example("quickstart_torch")
+    ops.reset_launch_counts()
+    q = quick.main([])
+    q_launches = ops.launch_counts()["conv2d"]
+    steps = [i for i, _ in q["resilient"]]
+    replay = [l for _, l in q["resilient"]]
+    if q["errors"] or q["machine"] != H100.name or not q_launches:
+        raise AssertionError(f"quickstart: {q['errors']} audit errors, "
+                             f"machine {q['machine']}, {q_launches} conv "
+                             f"launches")
+    if steps != [0, 1, 2, 3, 4, 3, 4, 5, 6, 7] or replay[3:5] != replay[5:7]:
+        raise AssertionError(f"quickstart rollback: steps {steps}, losses "
+                             f"{replay}")
+    if not all(math.isfinite(l) for l in q["losses"] + replay):
+        raise AssertionError(f"quickstart losses {q['losses']} {replay}")
+    q_s = time.perf_counter() - t0
+
+    e2e = load_example("train_mesh_e2e_torch")
+    ops.reset_launch_counts()
+    e = e2e.main(["--full", "--steps", str(E2E_STEPS)])
+    e_launches = ops.launch_counts()["conv2d"]
+    n_convs = len(meshnet.layer_names(e["cfg"]))
+    if e_launches != n_convs * E2E_STEPS:
+        raise AssertionError(f"train_mesh_e2e --full: {e_launches} conv "
+                             f"launches in {E2E_STEPS} steps, want "
+                             f"{n_convs} a step")
+    if not all(math.isfinite(l) for l in e["losses"]):
+        raise AssertionError(f"train_mesh_e2e losses {e['losses']}")
+    steady = e["step_s"][1:]
+    step_s = sum(steady) / len(steady)
+    print(f"examples: quickstart_torch on the {q['machine']} preset: "
+          f"{len(q['findings'])} audit finding(s), 0 errors, losses "
+          f"{q['losses']}, rollback steps {steps} (replayed 3-4 equal), "
+          f"{q_launches} conv launches, {q_s:.1f} s; train_mesh_e2e_torch "
+          f"--full --steps {E2E_STEPS}: loss {e['losses'][0]:.6f} -> "
+          f"{e['losses'][-1]:.6f}, steps 2..{E2E_STEPS} {step_s:.4f} s/step "
+          f"(batch wait included), conv launches {e_launches} "
+          f"({e_launches // E2E_STEPS} a step) ({card})", flush=True)
+    return {"quickstart": {
+                "machine": q["machine"], "losses": q["losses"],
+                "resilient": q["resilient"], "launches": q_launches,
+                "findings": len(q["findings"]),
+                "plans": {k: p.describe() for k, p in q["plans"].items()},
+                "attribution": q["report"], "seconds": q_s},
+            "train_mesh_e2e": {
+                "losses": e["losses"], "step_s": e["step_s"],
+                "steady_step_s": step_s, "launches": e_launches,
+                "launches_per_step": e_launches // E2E_STEPS},
+            "phase_s": time.perf_counter() - t0}
 
 
 def _annotation(e) -> bool:
@@ -2941,6 +3015,106 @@ def check_attention(case: dict, dtype: torch.dtype, gen: torch.Generator,
     return row
 
 
+# a one-device windowed call with rows that see no key: hymba's heads,
+# 2048 query rows against 512 keys under its window of 1024, so rows
+# 1535.. see none (the reference gives each the mean of V); no forward of
+# a registered arch makes it (count 0)
+KEYLESS_SQ, KEYLESS_SK = 2048, 512
+
+
+def check_attention_keyless(dtype: torch.dtype, gen: torch.Generator,
+                            cfg=HYMBA) -> dict:
+    """The kernel (with its wrapper's fill) at Sq >= Sk + window against
+    its plain version, its CPU emulation and (bf16) the element limit,
+    the rows that see no key against the mean of V; its autograd
+    Function; its times beside the bound, one SDPA call's and the fill's
+    alone.  SDPA takes the reference's mask as an additive 0 / -1e30
+    float mask, under which a row with no admitted key is uniform over
+    all Sk keys, the mean of V, as in the reference (a bool mask would
+    make it NaN)."""
+    dev = torch.device("cuda")
+    hq, hkv, d, window = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.window
+    what = f"flash_attention keyless {dtype}"
+    q = torch.randn((1, KEYLESS_SQ, hq, d), generator=gen,
+                    device=dev).to(dtype)
+    k = torch.randn((1, KEYLESS_SK, hkv, d), generator=gen,
+                    device=dev).to(dtype)
+    v = torch.randn((1, KEYLESS_SK, hkv, d), generator=gen,
+                    device=dev).to(dtype)
+    first = kfa.keyless_from(KEYLESS_SQ, KEYLESS_SK, window)
+    if first >= KEYLESS_SQ:
+        raise AssertionError(f"{what}: every row sees a key")
+    o = kfa.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    err = _check_close(what, o, flash_attention_ref(q, k, v, window=window),
+                       LM_FWD_TOL[dtype])
+    emu_err = _check_close(f"{what} emulation vs kernel",
+                           kfa.flash_attention_emulated(q, k, v,
+                                                        window=window),
+                           o, LM_FWD_TOL[dtype])
+    mean = v.float().mean(1).repeat_interleave(hq // hkv, 1)[:, None]
+    mean_err = _check_close(f"{what} rows {first}.. vs the mean of V",
+                            o[:, first:], mean.expand_as(o[:, first:]),
+                            LM_FWD_TOL[dtype])
+    elem = None
+    if dtype == torch.bfloat16:
+        want, limit = attention_limit(q, k, v, window=window)
+        elem = float(((o.float() - want).abs() / limit).max())
+        if not elem <= 1.0:
+            raise AssertionError(f"{what}: an element is {elem} x its "
+                                 f"limit (one bf16 ulp of A + |o32|)")
+        del want, limit
+
+    # the autograd Function vs autograd through the plain version: the
+    # rows that see no key give dq 0 and each key's v 1/Sk of their go
+    g = torch.randn(o.shape, generator=gen, device=dev).to(dtype)
+    grads = []
+    for fwd in (lambda *a: kfa.FlashAttention.apply(*a, True, window, None,
+                                                    None),
+                lambda *a: flash_attention_ref(*a, window=window)):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        (fwd(*ts).float() * g.float()).sum().backward()
+        grads.append([t.grad for t in ts])
+    for nm, got, want in zip(("dq", "dk", "dv"), *grads):
+        _check_close(f"{what} {nm}", got, want, LM_BWD_TOL[dtype])
+    del grads
+
+    # the yardstick: one SDPA call, GQA, the reference's -1e30 as an
+    # additive mask (causal and the window)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    qpos = torch.arange(KEYLESS_SQ, device=dev)[:, None]
+    kpos = torch.arange(KEYLESS_SK, device=dev)[None, :]
+    bias = torch.zeros((KEYLESS_SQ, KEYLESS_SK), dtype=dtype, device=dev) \
+        .masked_fill(~((qpos >= kpos) & (qpos - kpos < window)), -1e30)
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias,
+                                              enable_gqa=True)
+    lib_err = _check_close(f"{what} SDPA (additive mask) vs kernel",
+                           library().transpose(1, 2), o, LM_FWD_TOL[dtype])
+    # the wrapper's fill alone (it rewrites the same rows of o)
+    fill_ms = time_fn(lambda: kfa.fill_keyless(o, v, window), reps=10,
+                      warmup=2) * 1e3
+    p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, True, window)
+    pairs = kfa.admitted_pairs(KEYLESS_SQ, KEYLESS_SK, True, window)
+    row = {"kernel": "flash_attention", "mask": "keyless",
+           "model": cfg.name, "dtype": str(dtype).split(".")[-1],
+           "count": 0, "q": list(q.shape), "kv": list(k.shape),
+           "keyless_from": first, "max_abs_err": err,
+           "keyless_vs_mean_err": mean_err, "fill_ms": fill_ms,
+           "max_err_over_elem_limit": elem,
+           "emulation_vs_kernel_err": emu_err,
+           "library_vs_kernel_err": lib_err, "plan": dataclasses.asdict(p),
+           "plan_str": f"{p.path} {p.tile_q}x{p.tile_k}"}
+    row.update(_timings(
+        lambda: kfa.flash_attention(q, k, v, window=window),
+        lambda: flash_attention_ref(q, k, v, window=window), library,
+        4.0 * d * pairs * hq,
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size(), dtype))
+    return row
+
+
 # the SSD shapes: hymba's and mamba2-780m's (d 1536 x expand 2 / head dim
 # 64 = 48 heads, state 128, chunk 128; phase 9 trains it at this batch and
 # sequence), each one call a layer
@@ -3055,6 +3229,7 @@ def lm_kernel_phase(card: str) -> list[dict]:
           f"{'bound_ms':>9s} {'TFLOP/s':>8s} {'max_err':>9s}   ({card})")
     for dtype in (torch.float32, torch.bfloat16):
         cases = [(check_attention, c) for c in attention_cases(HYMBA)] + \
+            [(lambda _, dt, g: check_attention_keyless(dt, g), None)] + \
             [(check_ssd, s) for s in SSD_SHAPES]
         for check, case in cases:
             r = check(case, dtype, gen)
@@ -3075,7 +3250,11 @@ def lm_kernel_phase(card: str) -> list[dict]:
                      f"{r['max_err_over_elem_limit']:.3f}")
                   + ("" if r.get("emulation_vs_kernel_err") is None else
                      f"  emulation vs kernel "
-                     f"{r['emulation_vs_kernel_err']:.2e}"),
+                     f"{r['emulation_vs_kernel_err']:.2e}")
+                  + ("" if r.get("fill_ms") is None else
+                     f"  rows {r['keyless_from']}.. the mean of V, within "
+                     f"{r['keyless_vs_mean_err']:.2e}; the fill alone "
+                     f"{r['fill_ms']:.4f} ms"),
                   flush=True)
             torch.cuda.empty_cache()
     return rows
@@ -6025,6 +6204,9 @@ def main() -> int:
     train = train_phase()
     fwd = forward_check()
     breakdown = profile_phase()
+    examples = examples_phase(card)
+    print(f"examples phase took {examples['phase_s']:.1f} s of this run "
+          f"({card})")
     t_spatial = time.perf_counter()
     interior = interior_copy_phase(card)
     spatial = spatial_phase(card)
@@ -6094,7 +6276,7 @@ def main() -> int:
               "w") as f:
         json.dump({"card": card, "shapes": rows, "lm_shapes": lm_rows,
                    "train": train, "forward_check": fwd,
-                   "step_breakdown": breakdown,
+                   "step_breakdown": breakdown, "examples": examples,
                    "interior_copy": interior, "spatial": spatial,
                    "auto": auto,
                    "resnet50": {"shapes": resnet_rows,
@@ -6328,7 +6510,11 @@ def main() -> int:
                  f"{len(resnet_rows) // 2} shapes"),
                  auto_launches_per_rank=[r["launches"] for r in
                                          resnet_auto["ranks"]]),
-             dryrun_launches=dryrun_launches("conv2d")),
+             dryrun_launches=dryrun_launches("conv2d"),
+             examples_launches={
+                 "quickstart_torch": examples["quickstart"]["launches"],
+                 "train_mesh_e2e_torch --full --steps "
+                 f"{E2E_STEPS}": examples["train_mesh_e2e"]["launches"]}),
         dict(entry("flash_attention",
                    "src/repro_torch/kernels/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:77",
@@ -6343,6 +6529,13 @@ def main() -> int:
              mesh_launches_per_rank=mesh_launches("flash_attention"),
              ring_block=ring_block(), vocab=vocab_rows(), moe=moe_rows(),
              encdec=encdec_rows(),
+             keyless=[{k: r[k] for k in (
+                 "dtype", "q", "kv", "keyless_from", "plan_str",
+                 "max_abs_err", "keyless_vs_mean_err",
+                 "max_err_over_elem_limit", "library_vs_kernel_err",
+                 "fill_ms", "ms", "plain_ms", "library_ms", "bound_ms",
+                 "bound_by")} for r in lm_rows
+                 if r.get("mask") == "keyless"],
              dryrun_launches=dryrun_launches("flash_attention")),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",

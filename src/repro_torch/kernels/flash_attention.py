@@ -115,10 +115,10 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int | None, softcap: float | None,
                scale: float | None, block: bool = False) -> None:
     """Raise on anything the kernel does not take: ranks and shapes, GQA
-    grouping, dtype, devices, contiguity, head dim > 256, a window below 1,
-    a softcap that is not positive, and, unless this is a `block` call
-    (which returns each row's lse for a merge), rows that no key is
-    admitted to."""
+    grouping, dtype, devices, contiguity, head dim > 256, a window below 1
+    and a softcap that is not positive.  Rows that no key is admitted to
+    are taken: a `block` call returns them with lse <= -1e29 for a merge,
+    a one-device call gives them the mean of V (`keyless_from`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention wants q (B,Sq,Hq,D) and k/v "
                          f"(B,Sk,Hkv,D); got ranks {q.dim()}, {k.dim()}, "
@@ -147,9 +147,31 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be > 0, got {softcap}")
     if scale is not None and not math.isfinite(scale):
         raise ValueError(f"scale must be finite, got {scale}")
-    if not block and window is not None and sq >= sk + window:
-        raise ValueError(f"query rows {sk + window - 1}.. of {sq} see no "
-                         f"key (Sk {sk}, window {window})")
+
+
+def keyless_from(sq: int, sk: int, window: int | None) -> int:
+    """The first of a one-device call's query rows that the window admits
+    no key to (row i sees keys j <= sk - 1 with i - j < window, so rows
+    sk + window - 1 and after see none, with or without causality), or
+    sq where every row sees one."""
+    return sq if window is None else min(sq, sk + window - 1)
+
+
+def fill_keyless(o: torch.Tensor, v: torch.Tensor,
+                 window: int | None) -> torch.Tensor:
+    """`o` (B,Sq,Hq,D) of a one-device call with its rows that see no key
+    (`keyless_from`) set, in place, to the reference's answer there: its
+    -1e30 masking leaves such a row a softmax uniform over all Sk keys,
+    so each gets the mean of V over the keys of its q head's kv head,
+    in fp32, cast to o's dtype.  The kernel's own output on those rows is
+    a mean over the key tiles it walked, or 0; this fills them from the
+    shapes alone."""
+    sq, hq = o.shape[1], o.shape[2]
+    first = keyless_from(sq, v.shape[1], window)
+    if first < sq:
+        mean = v.float().mean(1).repeat_interleave(hq // v.shape[2], 1)
+        o[:, first:] = mean[:, None].to(o.dtype)
+    return o
 
 
 def admitted_pairs(sq: int, sk: int, causal: bool, window: int | None,
@@ -216,7 +238,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"cudaError_t {err} (q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}, delta {delta}, {p})")
     flash_attention.launches += 1
-    return (o, lse) if block else o
+    return (o, lse) if block else fill_keyless(o, v, window)
 
 
 def _attention_launch(q, k, v, causal, window, softcap, scale):
@@ -263,7 +285,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float | None = None,
                     scale: float | None = None) -> torch.Tensor:
     """Attention on the card: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) ->
-    (B,Sq,Hq,D) in q's dtype, as `plan` says.
+    (B,Sq,Hq,D) in q's dtype, as `plan` says.  Rows that the window
+    admits no key to get the mean of V (`fill_keyless`, after the
+    launch), as in the reference.
 
     One call of the custom op `repro::flash_attention`: on CUDA tensors
     it launches the kernel on the current stream and does not
@@ -374,7 +398,9 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     and sum l rescaled by 2^(m_old - m_new), as is the accumulator; on the
     `wgmma` path P rounded to bf16 before P.V (l sums it in fp32).  At the
     end l is clamped at 1e-30, the output rounded once to q's dtype (kept
-    in fp32 with `return_lse`) and lse = (m + log2 l) ln 2."""
+    in fp32 with `return_lse`) and lse = (m + log2 l) ln 2.  Without
+    `return_lse` the rows that see no key are then filled as the
+    wrapper fills them (`fill_keyless`)."""
     check_args(q, k, v, window, softcap, scale, block=return_lse)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
@@ -442,4 +468,4 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     o = o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
     if return_lse:
         return o, lse.reshape(b, hq, sq)
-    return o
+    return fill_keyless(o, v, window)

@@ -402,6 +402,33 @@ def init_distributed(device: torch.device) -> tuple[int, int, int]:
     return rank, world, local
 
 
+def spawn_local(fn, world: int, *args) -> None:
+    """fn(*args) in `world` fresh processes of this host, joined as one
+    gloo process group over a FileStore in a temporary directory (process
+    r is rank r): a mesh of ranks without torchrun, where
+    `init_distributed` then finds the group.  On CUDA every rank runs on
+    cuda:(rank % device_count); ranks that share a card need gloo, as
+    NCCL refuses two ranks on one card.  Each rank takes its share of the
+    host's threads.  A rank that raises fails the call."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_spawned, args=(world, d, fn, args), nprocs=world,
+                 join=True)
+
+
+def _spawned(rank: int, world: int, d: str, fn, args: tuple) -> None:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world)
+    try:
+        fn(*args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
 def elastic_factorization(n: int, *, batch: int | None = None
                           ) -> tuple[int, int]:
     """A (data, model) factorization of `n` devices: the most balanced

@@ -45,6 +45,7 @@ from repro_torch.launch.mesh import batch_axes
 from repro_torch.launch.train import arch_config, set_fp32_numerics, setup
 from repro_torch.models.lm import transformer
 from repro_torch.models.lm.modules import ShardCtx
+from repro_torch.utils import tree_map
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -140,9 +141,12 @@ def generate(params: dict, cfg, tokens: torch.Tensor, gen: int,
             "logits": kept}
 
 
-def run(args: argparse.Namespace, keep=(), cfg=None) -> dict:
+def run(args: argparse.Namespace, keep=(), cfg=None, params=None) -> dict:
     """Serve one prompt batch as `args` say (the arch cut in depth where
-    `cfg` says so: `train.arch_config`); rank 0 prints the summary and
+    `cfg` says so: `train.arch_config`), on `params` where given (the
+    port's tree, e.g. the reference's carried over by
+    `transformer.params_from_jax`, copied to the run's device), else on
+    `transformer.init`'s draw from `--seed`; rank 0 prints the summary and
     the generated ids.  Returns the run's cfg, params, prompts, the global
     ids (numpy, on every rank), this rank's caches and `generate`'s
     timings and kept logits; an encoder-decoder's frames (global, numpy),
@@ -150,8 +154,11 @@ def run(args: argparse.Namespace, keep=(), cfg=None) -> dict:
     device, mesh, rank = setup(args)
     set_fp32_numerics(device, echo=rank == 0)
     cfg = arch_config(args, cfg, echo=rank == 0)
-    params = transformer.init(torch.Generator().manual_seed(args.seed), cfg,
-                              device=device)
+    if params is None:
+        params = transformer.init(torch.Generator().manual_seed(args.seed),
+                                  cfg, device=device)
+    else:
+        params = tree_map(lambda t: t.detach().to(device), params)
     max_len = cache_len(args.prompt_len, args.gen, args.model)
     prompts = prompts_for(cfg, args.batch, args.prompt_len, args.seed)
     split = args.data > 1

@@ -312,6 +312,15 @@ def _group_prefix(cnt: torch.Tensor, g0: int, n_global: int,
     return before[:, g0:g0 + n]
 
 
+def shard_groups(s: int, gs: int, shards: int) -> int:
+    """The most routing groups of `gs` positions that any one of `shards`
+    consecutive blocks of `s` positions touches: the groups an expert
+    buffer holds a row block for under expert parallelism, the same on
+    every shard of the axis."""
+    return max((i * s + s - 1) // gs - i * s // gs + 1
+               for i in range(shards))
+
+
 def _ep_size(ctx: ShardCtx, e: int) -> int:
     """The number of expert blocks: the size of `ctx.tp_axis` where it
     divides the expert count (the reference's condition), else 1."""
@@ -336,7 +345,13 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     `ctx.tp_axis` splitting the experts
     (p's expert leaves this rank's block of E), the buffers go to the
     ranks that own their experts and come back by all-to-all on that
-    axis; the groups must not span sequence shards there."""
+    axis.  Every shard's buffers then hold a row block for as many
+    groups as any shard of the sequence touches (`shard_groups`), so the
+    all-to-all's blocks are equal: where a group spans sequence shards,
+    each shard's block of it holds the slots its own pairs took (their
+    counts continue the group's earlier shards', `moe_route`) and zero
+    rows elsewhere.  The experts act row by row, so a shard's rows come
+    back as the whole group's buffer would give them."""
     b, s, d = x.shape
     e = cfg.n_experts
     r = moe_route(p["router"], x, cfg, ctx)
@@ -344,13 +359,11 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: LMConfig,
     if p["wi"].shape[0] * n_ep != e:
         raise ValueError(f"MoE: {p['wi'].shape[0]} experts held on {n_ep} "
                          f"expert block(s), {e} wanted")
-    if n_ep > 1 and ctx.sharded and s % r.gs:
-        raise NotImplementedError(
-            f"MoE expert parallelism with routing groups ({r.gs}) that span "
-            f"sequence shards ({s} tokens a rank)")
-    nb = b * r.n_groups * r.cap                 # one expert's buffer rows
+    groups = shard_groups(s, r.gs, ctx.seq_size) if n_ep > 1 \
+        else r.n_groups
+    nb = b * groups * r.cap                     # one expert's buffer rows
     k = cfg.top_k
-    row = (torch.arange(b, device=x.device)[:, None, None] * r.n_groups
+    row = (torch.arange(b, device=x.device)[:, None, None] * groups
            + r.group[None, :, None]) * r.cap          # (b, s, 1)
     dest = torch.where(r.keep, r.idx * nb + row + r.slot,
                        e * nb).reshape(-1)   # token-major, choice-minor

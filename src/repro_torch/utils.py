@@ -57,6 +57,30 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_num_params(tree: Any) -> int:
+    """The number of elements over the tree's leaves (tensors, or
+    anything with a `numel` or a `size`), as `repro.utils.tree_num_params`
+    counts them."""
+    return sum(int(l.numel()) if hasattr(l, "numel") else int(l.size)
+               for l in tree_leaves(tree))
+
+
+def load_example(name: str):
+    """`examples/<name>.py` of the checkout this package lies in, imported
+    as the module `name`, its directory put on `sys.path` (so that its
+    functions pickle into spawned ranks)."""
+    import importlib
+    import os
+    import sys
+    path = os.path.normpath(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), os.pardir, os.pardir, "examples"))
+    if not os.path.isfile(os.path.join(path, f"{name}.py")):
+        raise FileNotFoundError(f"no {name}.py under {path}")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
 def tree_map(fn, tree: Any) -> Any:
     """`fn` applied to every leaf, the tree's structure kept."""
     if isinstance(tree, dict):

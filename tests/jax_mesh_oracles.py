@@ -610,6 +610,144 @@ def _dryrun(d):
         json.dump(out, f)
 
 
+def _flat_meshnet(params, prefix: str = "") -> dict:
+    """A meshnet param list as `<prefix><layer>.<module>.<leaf>` arrays."""
+    import numpy as np
+    return {f"{prefix}{i}.{k}.{pk}": np.asarray(v)
+            for i, layer in enumerate(params) for k, sub in layer.items()
+            for pk, v in sub.items()}
+
+
+def _run_example(name: str) -> dict:
+    """examples/<name>.py run as a script (`runpy`); its globals."""
+    import runpy
+    here = os.path.dirname(os.path.abspath(__file__))
+    return runpy.run_path(os.path.join(os.path.dirname(here), "examples",
+                                       f"{name}.py"))
+
+
+def _examples(d):
+    """The single-device examples (one host device), into
+    DIR/examples.npz: (1) `train_mesh_e2e.py`'s loop at
+    `torch_dist_cases.E2E_NET` for E2E_STEPS steps (the reference's
+    `make_train_step` + `warmup_cosine`, as the script builds them), its
+    initial params and losses; (2) `examples/quickstart.py` itself with
+    `perfmodel.TPU_V5E` set to `LASSEN` (the preset the port's CPU run
+    solves on), every call of its jitted `step` recorded: the plans'
+    `describe()` text, the memory limit, the audit's error count, its
+    initial params (`init` of its config from seed 0), the 10 training
+    losses, then the resilient run's losses and final loss."""
+    import functools
+    import jax
+    import numpy as np
+    import torch_dist_cases as cases
+    from repro.core import perfmodel as pm
+    from repro.core.spatial_conv import ConvSharding
+    from repro.data.pipeline import synthetic_mesh_batch
+    from repro.models.cnn import meshnet
+    from repro.optim.optimizer import sgd, warmup_cosine
+    from repro.train.train_loop import TrainStepConfig, make_train_step
+    from repro.utils import FP32
+    cfg = meshnet.MeshNetConfig("mesh-e2e", **cases.E2E_NET)
+    params = meshnet.init(jax.random.PRNGKey(0), cfg)
+    out = _flat_meshnet(params, "e2e/param/")
+
+    class _NoMesh:
+        axis_names = ()
+    opt = sgd(warmup_cosine(0.02, 20, cases.E2E_STEPS), momentum=0.9)
+    tstep = make_train_step(functools.partial(
+        meshnet.loss_fn, cfg=cfg, plan=ConvSharding()), opt, _NoMesh(),
+        TrainStepConfig(precision=FP32))
+    state, losses = (params, opt.init(params), None), []
+    for s in range(cases.E2E_STEPS):
+        b = synthetic_mesh_batch(s, cases.E2E_BATCH, cfg.input_hw,
+                                 cfg.in_channels, out_hw=cfg.out_hw)
+        p, o, ef, m = tstep(*state, {k: jax.numpy.asarray(v)
+                                     for k, v in b.items()})
+        state = (p, o, ef)
+        losses.append(float(m["loss"]))
+    out["e2e/losses"] = np.array(losses)
+
+    pm.TPU_V5E = pm.LASSEN
+    steps, real_jit = [], jax.jit
+
+    def jit(fn=None, *a, **k):
+        f = real_jit(fn, *a, **k)
+        if getattr(fn, "__module__", None) != "<run_path>" or \
+                fn.__name__ != "step":
+            return f
+
+        def recorded(*xs):
+            res = f(*xs)
+            steps.append(float(res[2]))
+            return res
+        return recorded
+    jax.jit = jit
+    try:
+        g = _run_example("quickstart")
+    finally:
+        jax.jit = real_jit
+    out.update(_flat_meshnet(meshnet.init(jax.random.PRNGKey(0), g["cfg"]),
+                             "quickstart/param/"))
+    for name in ("hypo", "mixed", "auto16", "mixed16", "sample2", "fit2",
+                 "plan"):
+        out[f"quickstart/describe/{name}"] = np.array(g[name].describe())
+    out["quickstart/limit"] = np.array(g["limit"])
+    out["quickstart/errors"] = np.array(
+        sum(f.severity == "error" for f in g["findings"]))
+    out["quickstart/losses"] = np.array(steps)
+    out["quickstart/final_loss"] = np.array(g["m"]["loss"])
+    out["quickstart/end"] = np.array(g["end"])
+    np.savez(os.path.join(d, "examples.npz"), **out)
+
+
+def _serve_lm(d):
+    """`examples/serve_lm.py` itself on 8 host devices, into
+    DIR/serve_lm.npz: its generated ids (B, GEN) and its params' leaves
+    in `jax.tree.leaves` order."""
+    import jax
+    import numpy as np
+    g = _run_example("serve_lm")
+    out = {"ids": np.stack(g["generated"], 1)}
+    out.update({f"param/{i}": np.asarray(x)
+                for i, x in enumerate(jax.tree.leaves(g["params"]))})
+    np.savez(os.path.join(d, "serve_lm.npz"), **out)
+
+
+def _spatial_example(d):
+    """`examples/spatial_parallel_cnn.py` itself on 8 host devices, its
+    train step's every call recorded (loss, grad norm), into
+    DIR/spatial_example.npz, with its initial params (`init` of its
+    config from seed 0), its final params and the final step."""
+    import jax
+    import numpy as np
+    from repro.models.cnn import meshnet
+    from repro.train import train_loop as jtl
+    calls, real = [], jtl.make_train_step
+
+    def make(*a, **k):
+        f = real(*a, **k)
+
+        def recorded(*xs):
+            res = f(*xs)
+            calls.append((float(res[3]["loss"]),
+                          float(res[3]["grad_norm"])))
+            return res
+        return recorded
+    jtl.make_train_step = make
+    try:
+        g = _run_example("spatial_parallel_cnn")
+    finally:
+        jtl.make_train_step = real
+    out = _flat_meshnet(meshnet.init(jax.random.PRNGKey(0), g["cfg"]),
+                        "param/")
+    out.update(_flat_meshnet(g["state"][0], "final/"))
+    out["losses"] = np.array([c[0] for c in calls])
+    out["grad_norms"] = np.array([c[1] for c in calls])
+    out["end"] = np.array(g["step"])
+    np.savez(os.path.join(d, "spatial_example.npz"), **out)
+
+
 def popen(what: str, d: str, *args: str, devices: int = 8
           ) -> subprocess.Popen:
     """Start `what` (with `args`) in a subprocess with `devices` host
@@ -661,4 +799,6 @@ if __name__ == "__main__":
      "plan": _plan, "resnet": _resnet,
      "audit": _audit, "compress": _compress,
      "zero": _zero, "lm_prefill": _lm_prefill,
-     "vocab": _vocab, "dryrun": _dryrun}[sys.argv[1]](*sys.argv[2:])
+     "vocab": _vocab, "dryrun": _dryrun, "examples": _examples,
+     "serve_lm": _serve_lm, "spatial_example": _spatial_example,
+     }[sys.argv[1]](*sys.argv[2:])

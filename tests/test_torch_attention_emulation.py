@@ -133,9 +133,9 @@ def test_emulation_refuses_what_the_kernel_refuses():
     with pytest.raises(ValueError, match="head dim 264 > 256"):
         tfa.flash_attention_emulated(q, q, q)
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(ValueError, match="see no"):
+    with pytest.raises(ValueError, match="window must be >= 1"):
         tfa.flash_attention_emulated(q, q[:, :2], q[:, :2], causal=False,
-                                     window=1)
+                                     window=0)
 
 
 # ---------------------------------------------------------------------------
@@ -299,13 +299,68 @@ def test_block_emulation_matches_plain_at_tile_edges(b, sq, sk, hq, hkv, d,
 
 
 def test_only_block_calls_take_rows_that_see_no_key():
-    """A one-device call still refuses rows with no key (the kernel's
-    output there would be a mean of V); a block call takes them."""
+    """Only a block call returns rows that see no key as such (lse <=
+    -1e29: weight 0 in the ring's merge); a one-device call takes them
+    too and gives each the mean of V, the reference's answer."""
     q = torch.zeros(1, 8, 2, 16)
-    with pytest.raises(ValueError, match="see no"):
-        tfa.check_args(q, q[:, :2], q[:, :2], 1, None, None)
+    v = torch.arange(64.0).reshape(1, 2, 2, 16)
+    tfa.check_args(q, q[:, :2], q[:, :2], 1, None, None)
     tfa.check_args(q, q[:, :2], q[:, :2], 1, None, None, block=True)
-    o, lse = ops.flash_attention_block(q, q[:, :2].contiguous(),
-                                       q[:, :2].contiguous(), delta=0,
-                                       causal=False, window=1)
+    o, lse = ops.flash_attention_block(q, q[:, :2].contiguous(), v,
+                                       delta=0, causal=False, window=1)
     assert o.dtype == torch.float32 and (lse[..., 2:] <= -1e29).all()
+    o = ops.flash_attention(q, q[:, :2].contiguous(), v, causal=False,
+                            window=1)
+    assert tfa.keyless_from(8, 2, 1) == 2
+    assert torch.equal(o[0, 2:], v[0].mean(0).expand(6, 2, 16))
+
+
+# (b, sq, sk, hq, hkv, d, causal, window, softcap): one-device calls with
+# Sq >= Sk + window, whose rows Sk + window - 1 .. see no key: a window
+# inside one key tile, one straddling two, causal and bidirectional, GQA
+# g = 1, 2, 3, the softcap, a single key, and D 256 (64-query fma tiles)
+KEYLESS = [
+    (1, 40, 16, 4, 2, 16, False, 8, None),
+    (2, 200, 64, 6, 3, 32, True, 70, 30.0),
+    (1, 300, 100, 2, 2, 64, False, 5, None),
+    (1, 130, 1, 3, 1, 20, True, 1, None),
+    (1, 150, 60, 2, 1, 256, True, 40, 50.0),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window,cap", KEYLESS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_one_device_rows_that_see_no_key_match_the_reference(
+        b, sq, sk, hq, hkv, d, causal, window, cap, dtype):
+    """The port's one-device attention (the plain version on the CPU,
+    `ops.flash_attention`) and the emulation of the kernel's tiling with
+    the wrapper's fill against the reference's one-device attention
+    (`ring_attention` with no sequence axis) and its `kernels/ref.py`:
+    every row, the rows that see no key the mean of V (f32: 2e-5; bf16:
+    one bf16 rounding of the output, TOL)."""
+    from repro.kernels.ref import flash_attention_ref as jref
+    rng = np.random.default_rng(7)
+    arrays = [rng.standard_normal(sh).astype(np.float32)
+              for sh in ((b, sq, hq, d), (b, sk, hkv, d), (b, sk, hkv, d))]
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(tdt) for a in arrays)
+    opts = dict(causal=causal, window=window, softcap=cap)
+    jq, jk, jv = (jnp.asarray(a, dtype) for a in arrays)
+    wants = [np.asarray(jra.ring_attention(jq, jk, jv, mesh=None,
+                                           seq_axis=None, **opts),
+                        np.float32),
+             np.asarray(jref(jq, jk, jv, **opts), np.float32)]
+    first = tfa.keyless_from(sq, sk, window)
+    assert first < sq
+    mean = v.float().mean(1).repeat_interleave(hq // hkv, 1)
+    for got in (ops.flash_attention(q, k, v, **opts),
+                tfa.flash_attention_emulated(q, k, v, **opts)):
+        assert got.dtype == tdt and torch.isfinite(got.float()).all()
+        got = got.float().numpy()
+        for want in wants:
+            np.testing.assert_allclose(got, want, rtol=TOL[dtype],
+                                       atol=TOL[dtype])
+        np.testing.assert_allclose(
+            got[:, first:], np.broadcast_to(
+                mean[:, None].numpy(), got[:, first:].shape),
+            rtol=TOL[dtype], atol=TOL[dtype])

@@ -238,6 +238,39 @@ def test_flash_kernel_matches_plain(cuda, b, sq, hq, hkv, d, causal, window,
         assert worst <= 1.0, f"an element is {worst} x its limit"
 
 
+# (b, sq, sk, hq, hkv, d, causal, window, cap): one-device calls whose
+# rows sk + window - 1 .. see no key, on both paths' tiles
+KEYLESS = [(1, 300, 100, 4, 2, 64, True, 70, None),
+           (2, 200, 64, 6, 3, 32, False, 8, 30.0),
+           (1, 150, 60, 2, 1, 256, True, 40, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window,cap", KEYLESS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_rows_that_see_no_key(cuda, b, sq, sk, hq, hkv, d,
+                                           causal, window, cap, dtype):
+    """Rows that the window admits no key to: one launch, the output
+    against the plain version (the mean of V there) and the emulation."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(cuda, tdt) for sh in ((b, sq, hq, d),
+                                              (b, sk, hkv, d),
+                                              (b, sk, hkv, d)))
+    opts = dict(causal=causal, window=window, softcap=cap)
+    before = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    assert tfa.keyless_from(sq, sk, window) < sq
+    for want in (flash_attention_ref(q, k, v, **opts),
+                 tfa.flash_attention_emulated(q, k, v, **opts)):
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,sq,hq,hkv,d,causal,window,cap", ATTN)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

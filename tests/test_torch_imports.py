@@ -1,6 +1,8 @@
-"""Import hygiene of the port: every `repro_torch` module and the chip
-smoke script load without jax, networkx and anything of the `repro`
-package (the card's machine has neither jax nor networkx)."""
+"""Import hygiene of the port: every `repro_torch` module, the chip
+smoke script and the examples' counterparts (`examples/*_torch.py`) load
+without jax, networkx and anything of the `repro` package (the card's
+machine has neither jax nor networkx)."""
+import glob
 import json
 import os
 import subprocess
@@ -17,10 +19,15 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke  # noqa: F401
+sys.path.insert(0, sys.argv[3])
+examples = json.loads(sys.argv[4])
+for n in examples:
+    importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "networkx"))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names + examples, "bad": bad}))
 """
+EXAMPLES = sorted(glob.glob(os.path.join(REPO, "examples", "*_torch.py")))
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -28,7 +35,9 @@ def test_port_imports_no_jax_and_no_reference():
     env.pop("PYTHONPATH", None)
     env["OMP_NUM_THREADS"] = "1"
     r = subprocess.run(
-        [sys.executable, "-c", PROBE, os.path.join(REPO, "src"), REPO],
+        [sys.executable, "-c", PROBE, os.path.join(REPO, "src"), REPO,
+         os.path.join(REPO, "examples"), json.dumps(
+             [os.path.basename(p)[:-3] for p in EXAMPLES])],
         capture_output=True, text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr[-3000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
@@ -71,15 +80,18 @@ def test_port_imports_no_jax_and_no_reference():
                 "repro_torch.analysis.workloads",
                 "repro_torch.launch.dryrun",
                 "repro_torch.launch.shardings",
-                "repro_torch.optim.grad_compress"}
+                "repro_torch.optim.grad_compress", "quickstart_torch",
+                "train_mesh_e2e_torch", "serve_lm_torch",
+                "spatial_parallel_cnn_torch"}
     assert expected <= set(out["modules"])
 
 
 def test_port_sources_name_no_jax():
-    """No source line of the port or the smoke script imports jax or the
-    reference package."""
+    """No source line of the port, the smoke script or the examples'
+    counterparts imports jax or the reference package."""
     roots = [os.path.join(REPO, "src", "repro_torch")]
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py")] + EXAMPLES
+    assert len(EXAMPLES) == 4
     for root in roots:
         for d, _, fs in os.walk(root):
             files += [os.path.join(d, f) for f in fs if f.endswith(".py")]

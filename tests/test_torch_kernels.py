@@ -450,9 +450,10 @@ def test_flash_attention_checks_raise(bad):
     elif bad == "head_dim":     # the kernel takes D <= 256
         q = torch.zeros(1, 8, 4, 264)
         k = v = torch.zeros(1, 8, 2, 264)
-    elif bad == "unseen_rows":
-        q = torch.zeros(1, 12, 4, 16)
-        opts["window"] = 4
+    elif bad == "unseen_rows":  # rows that see no key as there is none:
+        k = v = torch.zeros(1, 0, 2, 16)    # no mean of V to give them,
+        opts["window"] = 4                  # the zero-extent refusal's one
+        # case here (rows that the window alone leaves keyless are taken)
     with pytest.raises((ValueError, TypeError)):
         ops.flash_attention(q, k, v, **opts)
 

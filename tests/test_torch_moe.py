@@ -33,7 +33,13 @@ to the reference's, with no tolerance.  Tolerances:
   the layer's gradients summed over the ranks within 1e-4 of each one's
   largest magnitude; olmoe's expert-parallel loss shares summed at rtol
   2e-5 (the sharded dense loss's) and its gradients whole within 1e-4 of
-  each one's largest magnitude, the all-to-all bytes exact.
+  each one's largest magnitude, the all-to-all bytes exact, on model 4
+  too, where a group of 256 spans two shards of 128; and olmoe's layer-0
+  MoE at S 768 with its experts over "model" (shards of 384 or 192 rows,
+  groups of 256 spanning them unaligned): the routing equal to the
+  reference's, y and dx within 2e-5 and the gradients whole within 1e-4
+  of the reference's one-device layer and of the port's layer with every
+  expert on every rank.
 """
 import dataclasses
 import functools
@@ -472,14 +478,21 @@ def _ep_reference():
         tT.params_from_jax(jax.tree.map(np.asarray, grads), tcfg))]
 
 
-@pytest.mark.parametrize("dims", EP_MESHES)
-def test_expert_parallel_loss_matches_jax(dims, runs):
-    """olmoe SMOKE at batch 2 x seq 512 with its 8 experts over model 2
-    (4 a rank): the summed shares against the reference's one-device
-    loss, every gradient whole against `jax.grad`, and each all-to-all's
-    bytes: a rank's (e, B_local x groups x cap, d) fp32 buffer, half of
-    it sent, once a layer forward and once backward, for the dispatch
-    and for the combine."""
+def _groups_touched(s_local: int, shards: int) -> int:
+    """The most routing groups of MOE_GROUP positions that one shard of
+    s_local positions touches, over the shards."""
+    gs = min(s_local * shards, tM.MOE_GROUP)
+    return max((i * s_local + s_local - 1) // gs - i * s_local // gs + 1
+               for i in range(shards))
+
+
+def _check_expert_parallel_loss(dims, runs):
+    """olmoe SMOKE at batch 2 x seq 512 with its 8 experts over the model
+    axis: the summed shares against the reference's one-device loss,
+    every gradient whole against `jax.grad`, and each all-to-all's
+    bytes: a rank's (e, B_local x groups x cap, d) fp32 buffer, groups
+    the most any shard touches, all but its own block sent, once a layer
+    forward and once backward, for the dispatch and for the combine."""
     ranks = runs[dims]
     loss, grads = _ep_reference()
     np.testing.assert_allclose(sum(float(r["ep.loss_share"]) for r in ranks),
@@ -491,18 +504,88 @@ def test_expert_parallel_loss_matches_jax(dims, runs):
     cfg = treg.get(cases.MOE_EP_ARCH, smoke=True)
     cap = int(cfg.capacity_factor * cfg.top_k * tM.MOE_GROUP
               / cfg.n_experts)
-    rows = cases.MOE_BATCH // dims[0] * (cases.MOE_EP_SEQ // dims[1]
-                                         // tM.MOE_GROUP) * cap
-    half = cfg.n_experts * rows * cfg.d_model * 4 // 2
+    rows = cases.MOE_BATCH // dims[0] * _groups_touched(
+        cases.MOE_EP_SEQ // dims[1], dims[1]) * cap
+    sent = cfg.n_experts * rows * cfg.d_model * 4 * (dims[1] - 1) \
+        // dims[1]
     for r in ranks:
         for name in ("moe_dispatch", "moe_combine"):
-            assert int(r[f"ep.sent.{name}"]) == 2 * cfg.n_layers * half
+            assert int(r[f"ep.sent.{name}"]) == 2 * cfg.n_layers * sent
+
+
+@pytest.mark.parametrize("dims", EP_MESHES)
+def test_expert_parallel_loss_matches_jax(dims, runs):
+    _check_expert_parallel_loss(dims, runs)
 
 
 def test_expert_parallel_refuses_groups_spanning_shards(runs):
     """On model 4 a group of 256 spans two shards of 128: expert
-    parallelism raises there (ROADMAP Queue 3) while the non-EP layer
-    routes the same groups (test_sharded_moe_matches_jax)."""
-    for r in runs[(1, 4)]:
-        assert "span sequence shards" in str(r["ep.error"])
-        assert not any(k.startswith("ep.grad.") for k in r)
+    parallelism runs there, each shard's buffers holding the slots of
+    its own pairs, and its loss, gradients and all-to-all bytes are held
+    against the reference's as the runs whose groups lie within a shard
+    are (test_expert_parallel_loss_matches_jax).  The name is older than
+    what it holds: the port refused this run before it took spanning
+    groups, and the test that read the refusal now holds the run."""
+    _check_expert_parallel_loss((1, 4), runs)
+
+
+@functools.lru_cache(maxsize=None)
+def _span_reference():
+    """The reference's olmoe SMOKE layer-0 MoE on the whole of the span
+    inputs: y, its vjp of g in x and the leaves, the routing."""
+    jcfg = jreg.get(cases.MOE_EP_ARCH.replace("-", "_"), smoke=True)
+    p = _moe_leaves("olmoe_1b_7b")
+    x = cases.moe_inputs(jcfg.d_model, cases.MOE_SPAN_SEQ, 16)
+    y, vjp = jax.vjp(jax.jit(lambda p, x: jM.moe_apply(
+        p, x, jcfg, jM.ShardCtx())), p, jnp.asarray(x["x"]))
+    gp, gx = vjp(jnp.asarray(x["g"]))
+    return {"y": np.asarray(y), "dx": np.asarray(gx),
+            "grads": {k: np.asarray(v) for k, v in gp.items()},
+            "routing": _jax_routing(p, x["x"], jcfg)}
+
+
+@pytest.mark.parametrize("dims", MESHES)
+def test_expert_parallel_spanning_routing_matches_jax(dims, runs):
+    """Groups of 256 over shards of 384 or 192 rows, not aligned to them:
+    every pair's expert, slot and keep equal the reference's."""
+    ranks = runs[dims]
+    idx, slot, keep, margin = _span_reference()["routing"]
+    print(f"smallest top-k margin of the inputs: {margin:.3e}")
+    for name, want in (("idx", idx), ("slot", slot), ("keep", keep)):
+        np.testing.assert_array_equal(
+            _stitch([r[f"span.route.{name}"] for r in ranks], dims), want)
+
+
+@pytest.mark.parametrize("dims", MESHES)
+def test_expert_parallel_spanning_layer_matches_jax(dims, runs):
+    """The same layer with its experts over "model": y, dx and every
+    gradient against the reference's one-device layer and against the
+    port's layer with every expert on every rank, and the all-to-all
+    bytes of buffers of as many groups as a shard touches at most."""
+    ranks, ref = runs[dims], _span_reference()
+    for tag in ("ep", "dense"):
+        _close(_stitch([r[f"span.{tag}.y"] for r in ranks], dims),
+               ref["y"], F32, f"{tag} y")
+        _close(_stitch([r[f"span.{tag}.dx"] for r in ranks], dims),
+               ref["dx"], F32, f"{tag} dx")
+        for n, want in ref["grads"].items():
+            for r in ranks:
+                _close(r[f"span.{tag}.grad.{n}"], want, GRAD_TOL,
+                       f"{tag} {n}")
+    for r in ranks:
+        _close(r["span.ep.y"], r["span.dense.y"], F32, "ep against dense")
+        for n in ref["grads"]:
+            _close(r[f"span.ep.grad.{n}"], r[f"span.dense.grad.{n}"],
+                   GRAD_TOL, f"ep against dense {n}")
+    cfg = treg.get(cases.MOE_EP_ARCH, smoke=True)
+    cap = int(cfg.capacity_factor * cfg.top_k * tM.MOE_GROUP
+              / cfg.n_experts)
+    s_local = cases.MOE_SPAN_SEQ // dims[1]
+    assert _groups_touched(s_local, dims[1]) == 2
+    rows = cases.MOE_BATCH // dims[0] * 2 * cap
+    sent = cfg.n_experts * rows * cfg.d_model * 4 * (dims[1] - 1) \
+        // dims[1]
+    for r in ranks:
+        for name in ("moe_dispatch", "moe_combine"):
+            assert int(r[f"span.ep.sent.{name}"]) == 2 * sent
+        assert not any(k.startswith("span.dense.sent.moe") for k in r)

@@ -4,9 +4,9 @@
     PYTHONPATH=src python tests/torch_dist_cases.py <case> <pod>,<data>,<model> DIR
 
 spawns one process per rank of a ("data", "model") (or ("pod", "data",
-"model")) mesh with
-torch.multiprocessing (spawn).  Each joins a gloo group through a
-FileStore in DIR, builds the port's `Mesh`, runs `CASES[case]` on its
+"model")) mesh with the port's `launch.mesh.spawn_local` (one thread
+each).  Each joins one gloo group through a FileStore in a temporary
+directory, builds the port's `Mesh`, runs `CASES[case]` on its
 block of the case's global inputs (made from numpy seeds here, or read
 from DIR/inputs.npz where the test wrote them) and writes what the case
 returns to DIR/rank<r>.npz.  A rank that raises makes the run exit
@@ -1542,15 +1542,63 @@ def case_lm(mesh, d):
 # groups of 256 within a shard where the model axis is 2)
 MOE_ROUTE_ARCH, MOE_BATCH, MOE_SEQ = "mixtral-8x7b", 2, 64
 MOE_EP_ARCH, MOE_EP_SEQ = "olmoe-1b-7b", 512
+# olmoe SMOKE's layer-0 MoE under expert parallelism at S 768: shards of
+# 384 (model 2) or 192 (model 4) rows against routing groups of 256, so
+# groups span shards and no shard starts on a group's edge but the first
+MOE_SPAN_SEQ = 768
 
 
-def moe_inputs(d_model: int) -> dict:
+def moe_inputs(d_model: int, seq: int = MOE_SEQ, seed: int = 15) -> dict:
     """x (B, S, d) into a MoE layer and its output's cotangent g, numpy
-    seed 15."""
-    rng = np.random.default_rng(15)
-    shape = (MOE_BATCH, MOE_SEQ, d_model)
+    seed 15 (16 for the expert-parallel layer at MOE_SPAN_SEQ)."""
+    rng = np.random.default_rng(seed)
+    shape = (MOE_BATCH, seq, d_model)
     return {"x": rng.standard_normal(shape).astype(np.float32),
             "g": rng.standard_normal(shape).astype(np.float32)}
+
+
+def _moe_span(mesh, d, ctx) -> dict:
+    """olmoe SMOKE's layer-0 MoE on this rank's block of
+    `moe_inputs(seq=MOE_SPAN_SEQ, seed=16)`, with its experts over
+    "model" (`ShardCtx(tp_axis="model")`, `shardings.expert_blocks`) and
+    with every expert on every rank: the routing, y, and the gradients
+    of sum(y * g) in x and every leaf, whole on every rank (the expert
+    blocks' summed over "data" and gathered over "model", the rest
+    summed over the mesh), and the all-to-all bytes."""
+    import dataclasses
+    import torch
+    from repro_torch.core import collectives
+    from repro_torch.launch import shardings
+    from repro_torch.models.lm import modules as M
+    dims, rank = (mesh.shape["data"], mesh.shape["model"]), mesh.rank
+    cfg, params = lm_params(MOE_EP_ARCH, d)
+    moe = params["layers"][0]["moe"]
+    blocks = shardings.expert_blocks({"layers": [{"moe": moe}]},
+                                     mesh)["layers"][0]["moe"]
+    ep = dataclasses.replace(ctx, tp_axis="model")
+    x = {n: torch.from_numpy(decode_block(a, rank, dims, ("data",), "model"))
+         for n, a in moe_inputs(cfg.d_model, MOE_SPAN_SEQ, 16).items()}
+    r = M.moe_route(moe["router"], x["x"], cfg, ep)
+    out = {"span.route.idx": r.idx.numpy(), "span.route.slot":
+           r.slot.numpy(), "span.route.keep": r.keep.numpy()}
+    names = sorted(moe)
+    for tag, p, c in (("ep", blocks, ep), ("dense", moe, ctx)):
+        xs = x["x"].clone().requires_grad_()
+        collectives.reset_sent()
+        y = M.moe_apply(p, xs, cfg, c)
+        grads = torch.autograd.grad((y * x["g"]).sum(),
+                                    [xs] + [p[n] for n in names])
+        out[f"span.{tag}.y"] = y.detach().numpy()
+        out[f"span.{tag}.dx"] = grads[0].numpy()
+        for n, g in zip(names, grads[1:]):
+            if c.tp_axis is not None and n in shardings.EXPERT_LEAVES:
+                g = mesh.all_gather(mesh.all_reduce(g, "data"), "model", 0)
+            else:
+                g = mesh.all_reduce(g, ("data", "model"))
+            out[f"span.{tag}.grad.{n}"] = g.numpy()
+        out.update({f"span.{tag}.sent.{k}": np.array(v)
+                    for k, v in collectives.sent.items()})
+    return out
 
 
 def case_moe(mesh, d):
@@ -1563,8 +1611,9 @@ def case_moe(mesh, d):
     `shardings.expert_blocks`: the share, every gradient whole (the
     expert blocks' summed over "data" and gathered by
     `shardings.gather_experts`, the others summed over the mesh) and the
-    bytes each all-to-all sent; where the groups span the shards, the
-    error it raises instead."""
+    bytes each all-to-all sent; and `_moe_span`'s layer, whose routing
+    groups span unaligned shards, with and without its experts over
+    "model"."""
     import torch
     from repro_torch.core import collectives
     from repro_torch.data import pipeline
@@ -1591,6 +1640,7 @@ def case_moe(mesh, d):
     out["moe.dx"] = grads[0].numpy()
     out.update({f"moe.grad.{n}": g.numpy()
                 for n, g in zip(names, grads[1:])})
+    out.update(_moe_span(mesh, d, ctx))
 
     cfg, params = lm_params(MOE_EP_ARCH, d)
     ep = M.ShardCtx(mesh=mesh, seq_axis="model", batch_axes=("data",),
@@ -1600,11 +1650,7 @@ def case_moe(mesh, d):
         pipeline.synthetic_lm_batch(0, MOE_BATCH, MOE_EP_SEQ, cfg.vocab),
         mesh, "model", ("data",)), torch.device("cpu"))
     collectives.reset_sent()
-    try:
-        share = transformer.loss_fn(blocks, batch, cfg, ctx=ep)
-    except NotImplementedError as e:
-        out["ep.error"] = np.array(str(e))
-        return out
+    share = transformer.loss_fn(blocks, batch, cfg, ctx=ep)
     leaves = tree_leaves(blocks)
     g = tree_unflatten(blocks, iter(torch.autograd.grad(share, leaves)))
     for lp in g["layers"]:
@@ -1621,6 +1667,13 @@ def case_moe(mesh, d):
     out.update({f"ep.sent.{k}": np.array(v)
                 for k, v in collectives.sent.items()})
     return out
+
+
+# train_mesh_e2e's loop at a small config (the script's widths cut, its
+# 18 input channels kept): E2E_STEPS steps at batch E2E_BATCH
+E2E_NET = {"input_hw": 64, "in_channels": 18, "convs_per_block": 2,
+           "widths": (8, 16, 16)}
+E2E_STEPS, E2E_BATCH = 5, 2
 
 
 # an LM's elastic restart: qwen1.5 SMOKE trained with --elastic from data
@@ -2449,6 +2502,47 @@ def case_serve_rest(mesh, d):
     return out
 
 
+def meshnet_params(flat, prefix: str) -> list:
+    """A meshnet param list (numpy leaves) from `<prefix><layer>.<module>.
+    <leaf>` arrays (`jax_mesh_oracles._flat_meshnet`'s layout)."""
+    out: dict = {}
+    for key in flat:
+        if key.startswith(prefix):
+            i, k, pk = key[len(prefix):].split(".")
+            out.setdefault(int(i), {}).setdefault(k, {})[pk] = flat[key]
+    return [out[i] for i in sorted(out)]
+
+
+def case_serve_lm_example(mesh, d):
+    """`examples/serve_lm_torch.py`'s rank on this data 2 x model 4 mesh,
+    serving qwen1.5 SMOKE's params from DIR/inputs.npz: the generated
+    ids (global, on every rank)."""
+    from repro_torch.utils import load_example
+    ex = load_example("serve_lm_torch")
+    _, params = lm_params(ex.ARCH, d)
+    res = ex.run(ex.parse_args(["--device", "cpu"]), params)
+    return {"ids": np.asarray(res["ids"])}
+
+
+def case_spatial_example(mesh, d):
+    """`examples/spatial_parallel_cnn_torch.py`'s rank on this pod 2 x
+    data 2 x model 2 mesh from the params in DIR/inputs.npz: every step
+    it ran (a rolled-back step again), each one's loss and gradient norm,
+    the final step, and the final params (whole)."""
+    from repro_torch.utils import load_example, tree_leaves
+    ex = load_example("spatial_parallel_cnn_torch")
+    params = meshnet_params(np.load(os.path.join(d, "inputs.npz")),
+                            "param/")
+    res = ex.run(ex.parse_args(["--device", "cpu"]), params)
+    out = {"steps": np.array([r[0] for r in res["ran"]]),
+           "losses": np.array([r[1] for r in res["ran"]]),
+           "grad_norms": np.array([r[2] for r in res["ran"]]),
+           "end": np.array(res["end"])}
+    out.update({f"final/{i}": t.detach().numpy()
+                for i, t in enumerate(tree_leaves(res["state"][0]))})
+    return out
+
+
 CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "spatial2d": case_spatial2d, "bn": case_bn,
          "meshnet": case_meshnet, "trajectory": case_trajectory,
@@ -2464,7 +2558,9 @@ CASES = {"halo": case_halo, "conv": case_conv, "pool": case_pool,
          "lm_resume": case_lm_resume, "encdec": case_encdec,
          "zero1": case_zero1, "zero1_pod": case_zero1_pod,
          "fsdp": case_fsdp, "fsdp_pod": case_fsdp_pod,
-         "serve_rest": case_serve_rest}
+         "serve_rest": case_serve_rest,
+         "serve_lm_example": case_serve_lm_example,
+         "spatial_example": case_spatial_example}
 
 
 # ------------------------------------------------------------ launcher --
@@ -2477,21 +2573,15 @@ def world(dims: tuple) -> int:
     return n
 
 
-def _rank_main(rank: int, case: str, dims: tuple, d: str) -> None:
+def _rank_main(case: str, dims: tuple, d: str) -> None:
     import torch
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{d}/store",
-                            rank=rank, world_size=world(dims))
-    try:
-        mesh = make_mesh(data=dims[-2], model=dims[-1],
-                         pod=dims[0] if len(dims) == 3 else 1)
-        out = CASES[case](mesh, d)
-        np.savez(os.path.join(d, f"rank{rank}.npz"), **out)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
+    mesh = make_mesh(data=dims[-2], model=dims[-1],
+                     pod=dims[0] if len(dims) == 3 else 1)
+    out = CASES[case](mesh, d)
+    np.savez(os.path.join(d, f"rank{dist.get_rank()}.npz"), **out)
 
 
 def start(case: str, dims: tuple, d: str) -> subprocess.Popen:
@@ -2525,11 +2615,10 @@ def run(case: str, dims: tuple, d: str, timeout: int = 300) -> list[dict]:
 
 
 def main(argv) -> int:
-    import torch.multiprocessing as mp
+    from repro_torch.launch.mesh import spawn_local
     case, dims, d = argv[0], tuple(int(v) for v in argv[1].split(",")), \
         argv[2]
-    mp.spawn(_rank_main, args=(case, dims, d), nprocs=world(dims),
-             join=True)
+    spawn_local(_rank_main, world(dims), case, dims, d)
     print(json.dumps({"case": case, "dims": dims, "ok": True}))
     return 0
 
