@@ -30,6 +30,15 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    with its plan, the bf16 ones on `mma.sync` and held element by element
    to 2^-7 |y32| + 2^-12 |M|.|xdt|; no yardstick: no one PyTorch call
    computes it), forward and gradients of their autograd Functions;
+3b. the two kernels past the first paths' CTAs, f32 and bf16, each row
+   with its plan, against its plain version (bf16 element by element
+   within its limit), its times, the bound and (attention) SDPA's time
+   with the backend its dispatcher took: the SSD's wide path at
+   mamba2-780m's heads at chunk 256 and at p 128 / n 256, chunk 256
+   (batch 1 x 2048; the autograd Function's gradients too), attention's
+   split path at D 512 causal under a window of 4096 at 1 x 4096 (8 / 8
+   heads), D 320 bidirectional at 2048 rows against 1536 keys (16 / 4
+   heads) and the block entry at D 512 with `delta` 1024 (o and lse);
 4. mesh1k: run the trainer's own entry (`launch.train.main`) on
    full-width mesh1k, batch 2, 3 steps; check finite losses and 19 x 3
    conv launches; hold the full-width forward loss of one batch-1 sample
@@ -225,7 +234,9 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    `mesh_launches_per_rank`; the block call's times, `ring_block`; the
    attention kernel's rows and launches on phase 7's runs, `vocab`, on
    phase 9's, `moe`, and on phase 10's, `encdec`; the SSD's on
-   mamba2-780m, `mamba2`) and, last, the `ok` JSON line;
+   mamba2-780m, `mamba2`, and at chunk 256, `mamba2_chunk256`; the new
+   paths' rows no arch launches, `split_not_launched` and
+   `wide_not_launched`) and, last, the `ok` JSON line;
 9. mixture of experts (run before the lines of 8): the attention kernel
    at mixtral-8x7b's shapes (32 / 8 heads, D 128, window 4096) on one
    device at 1 x 8192, where the window binds, and the ring's blocks of
@@ -262,6 +273,16 @@ Needs one CUDA card and `nvcc` (CUDA_HOME or /usr/local/cuda).  Phases:
    full depth (48 SSD layers) through the trainer's entry, batch 1 x seq
    2048, 3 FP32 steps: finite losses, 48 x 3 SSD launches, s a step and
    peak memory;
+9b. mamba2-780m the same way at mamba_ssm's SSD chunk of 256 (the
+   registry's config with `ssm_chunk` replaced, handed to the trainer as
+   its `cfg`), MAMBA2_WIDE_STEPS steps: 48 SSD launches a step, each at
+   chunk 256 on the wide path; on the same params and batch the chunked
+   scan's two chunks held within 1e-4 (the first step's loss against the
+   chunk-128 run's, and the forward loss at both chunks on the trained
+   params); the later steps' losses, which AdamW's updates move apart in
+   the plain version as in the kernel, printed beside the plain
+   version's own runs at both chunks; s a step and peak memory beside the
+   chunk-128 run's;
 10. the encoder-decoder and the prefix frontend (run before the lines of
    8): the attention kernel bidirectional (`causal=False`, the in-order
    launch) at seamless-m4t-large-v2's shapes (16 / 16 heads, D 64): its
@@ -337,6 +358,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -3159,9 +3181,11 @@ def ssd_work(xdt, la, B, S, chunk: int) -> tuple[float, float]:
 
 
 def ssd_plan_str(pl, ctas: int | None = None) -> str:
-    """path, the chunk the CTA is built for, its heads and (if given) the
-    CTAs an SM holds: "mma 64 h2 3/SM"."""
+    """path, the chunk the CTA is built for, its heads, on the wide path
+    its p and n slices, and (if given) the CTAs an SM holds: "mma 64 h2
+    3/SM", "wide 64 h1 p1 n4 2/SM"."""
     return f"{pl.path} {pl.chunk_tile} h{pl.heads}" + (
+        f" p{pl.p_slices} n{pl.n_slices}" if pl.path == "wide" else "") + (
         "" if ctas is None else f" {ctas}/SM")
 
 
@@ -3172,10 +3196,12 @@ def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator,
     times beside the bound."""
     dev = torch.device("cuda")
     chunk = shape["chunk"]
-    what = f"ssd_chunk {shape['model']} {dtype}"
+    what = f"ssd_chunk {shape['model']} chunk {chunk} {dtype}"
     xdt, la, B, C = ssd_inputs(shape, dtype, gen, b, l)
-    pl = kssd.plan(chunk, shape["n"], dtype)
-    if pl.path != ("mma" if dtype == torch.bfloat16 else "fma"):
+    pl = kssd.plan(chunk, shape["n"], dtype, shape["p"])
+    want_path = "wide" if not kssd.first_path(chunk, shape["p"], shape["n"]) \
+        else "mma" if dtype == torch.bfloat16 else "fma"
+    if pl.path != want_path:
         raise AssertionError(f"{what} planned {pl}")
     y, S = kssd.ssd_chunk(xdt, la, B, C, chunk=chunk)
     torch.cuda.synchronize()
@@ -3211,7 +3237,8 @@ def check_ssd(shape: dict, dtype: torch.dtype, gen: torch.Generator,
            "xdt": list(xdt.shape), "n": shape["n"], "chunk": chunk,
            "max_abs_err": err, "max_err_over_elem_limit": elem,
            "plan": dataclasses.asdict(pl),
-           "ctas_per_sm": kssd.occupancy(chunk, shape["n"], dtype)}
+           "ctas_per_sm": kssd.occupancy(chunk, shape["n"], dtype,
+                                         shape["p"])}
     row["plan_str"] = ssd_plan_str(pl, row["ctas_per_sm"])
     row.update(_timings(
         lambda: kssd.ssd_chunk(xdt, la, B, C, chunk=chunk),
@@ -3258,6 +3285,213 @@ def lm_kernel_phase(card: str) -> list[dict]:
                   flush=True)
             torch.cuda.empty_cache()
     return rows
+
+
+# ------------------------------------------- the kernels' whole range --
+
+# the SSD shapes past the first path's CTA (chunk <= 128, p <= 64, n <=
+# 128), on its wide path: mamba2-780m's heads at mamba_ssm's default chunk
+# of 256, which `mamba2_wide_chunk_phase` trains (48 calls a forward), and
+# p 128 / n 256 at chunk 256 (24 heads: mamba2's d_inner; no registered
+# arch reaches it, count 0), each at batch 1 x 2048
+MAMBA2_WIDE_CHUNK = 256
+WIDE_SSD_SHAPES = [
+    {"model": "mamba2-780m", "h": mamba2_780m.CONFIG.ssm_heads,
+     "p": mamba2_780m.CONFIG.ssm_head_dim, "n": mamba2_780m.CONFIG.ssm_state,
+     "chunk": MAMBA2_WIDE_CHUNK, "count": mamba2_780m.CONFIG.n_layers},
+    {"model": "p128-n256", "h": 24, "p": 128, "n": 256,
+     "chunk": MAMBA2_WIDE_CHUNK, "count": 0},
+]
+
+
+def _heads(name: str, hq: int, hkv: int, d: int):
+    """What `vocab_attention_row` reads of a config: its name, heads, head
+    dim and softcap (none)."""
+    return types.SimpleNamespace(name=name, n_heads=hq, n_kv_heads=hkv,
+                                 head_dim=d, attn_softcap=None)
+
+
+# attention past D 256, on the split path (no registered arch reaches it:
+# count 0): D 512 causal with a window of 4096 at 1 x 4096 (8 / 8 heads),
+# D 320 bidirectional with Sq != Sk and GQA (16 / 4 heads, 2048 rows
+# against 1536 keys), and the ring's block entry at D 512 (2048 rows,
+# `delta` 1024: the queries half a block after the keys)
+SPLIT_ATTN = [
+    {"cfg": _heads("d512", 8, 8, 512), "s": 4096, "window": 4096,
+     "mask": "window 4096", "count": 0},
+    {"cfg": _heads("d320", 16, 4, 320), "s": 2048, "sk": 1536,
+     "causal": False, "window": None, "mask": "bidirectional", "count": 0},
+    {"cfg": _heads("d512", 8, 8, 512), "s": 2048, "delta": 1024,
+     "window": None, "mask": "causal", "count": 0},
+]
+
+
+def range_kernel_phase(card: str) -> list[dict]:
+    """The two kernels' new paths against their plain versions on the
+    card, f32 and bf16: the SSD's wide path at WIDE_SSD_SHAPES
+    (`check_ssd`: y at LM_FWD_TOL, S at the f32 one, bf16 y element by
+    element within `ssd.elem_limit`, the autograd Function's gradients),
+    attention's split path at SPLIT_ATTN (`vocab_attention_row`: o and a
+    block's lse at LM_FWD_TOL, bf16 element by element within one bf16
+    ulp of A + |o32|, SDPA's time and the backend it took); each row's
+    times beside its bound."""
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in WIDE_SSD_SHAPES:
+            rows.append(r := check_ssd(shape, dtype, gen))
+            print(f"ssd_chunk {r['model']} chunk {r['chunk']}, {r['dtype']}, "
+                  f"xdt {r['xdt']} n {r['n']}, {r['count']} a forward: "
+                  f"{r['plan_str']}; max |err| {r['max_abs_err']:.3e}"
+                  + ("" if r["max_err_over_elem_limit"] is None else
+                     f", err/elem limit "
+                     f"{r['max_err_over_elem_limit']:.3f}")
+                  + f"; kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}), {r['tflops_s']:.2f} TFLOP/s "
+                  f"({card})", flush=True)
+            torch.cuda.empty_cache()
+        for case in SPLIT_ATTN:
+            rows.append(r := vocab_attention_row(case, dtype, gen))
+            print(f"{r['kernel']} D {r['q'][3]} {r['mask']} (delta "
+                  f"{r['delta']}), {r['dtype']}, q {r['q']} kv {r['kv']}: "
+                  f"{r['plan_str']} (score work x{r['plan']['out_slices']})"
+                  f"; max |err| {r['max_abs_err']:.3e}"
+                  + ("" if r["lse_err"] is None else
+                     f", lse {r['lse_err']:.3e}")
+                  + ("" if r["max_err_over_elem_limit"] is None else
+                     f", err/elem limit {r['max_err_over_elem_limit']:.3f}")
+                  + f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+                  f"ms, SDPA ({r['library_backend']}) "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['pairs']} pairs), "
+                  f"{r['tflops_s']:.2f} TFLOP/s ({card})", flush=True)
+            torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def _plain_ssd():
+    """While open, the port's SSD-chunk calls (`ops.ssd_chunk`) go to the
+    plain version on the card (`ssd_chunked_ref`, differentiated by
+    autograd) instead of the kernel: the yardstick of a training run."""
+    fn = ops.ssd_chunk
+
+    def plain(xdt, la, B, C, *, chunk):
+        kssd.check_args(xdt, la, B, C, chunk)
+        return ssd_chunked_ref(xdt, la, B, C, chunk)
+    ops.ssd_chunk = plain
+    try:
+        yield
+    finally:
+        ops.ssd_chunk = fn
+
+
+def _mamba2_run(chunk: int, steps: int) -> dict:
+    """Full-width mamba2-780m through the trainer's own entry at this SSD
+    chunk (the registry's config with `ssm_chunk` replaced, as its
+    `cfg`), FP32, batch 1 x MAMBA2_SEQ, seed 0."""
+    cfg = dataclasses.replace(MAMBA2, ssm_chunk=chunk)
+    return train_cli.main(["--arch", "mamba2-780m", "--batch", "1", "--seq",
+                           str(MAMBA2_SEQ), "--steps", str(steps),
+                           "--device", "cuda", "--log-every", "1"],
+                          cfg=None if cfg == MAMBA2 else cfg)
+
+
+def _rel(got: list, want: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def mamba2_wide_chunk_phase(card: str, base: dict) -> dict:
+    """Full-width mamba2-780m at full depth with its SSD chunk raised to
+    mamba_ssm's 256 (`dataclasses.replace` of the registry's config, which
+    keeps 128) through the trainer's own entry, as `mamba2_train_phase`
+    runs it at 128 (`base`): FP32, batch 1 x MAMBA2_SEQ, MAMBA2_WIDE_STEPS
+    steps on the same seed, so the same params and batches.  48 SSD-chunk
+    launches a step, each at chunk 256 on the wide path, no attention.
+    The chunked scan is exact for any chunk, so on the same params and
+    batch the two chunks' losses differ by rounding only: held within
+    LM_LOSS_RTOL are the first step's loss against the chunk-128 run's
+    (its params are the seed's in both) and, on the chunk-256 run's final
+    params, the forward loss at chunk 256 against chunk 128's on one
+    batch.  The later steps' losses run on params that each run's own
+    AdamW update moved: that update turns the two chunks' rounding
+    (their gradient norms differ by about 1e-3 of themselves) into
+    differences of about 1e-4 of the loss and more, in the plain version
+    as in the kernel, so they are printed beside the plain version's own
+    runs at both chunks (`_plain_ssd`), not held.  Its step time and
+    peak memory beside the chunk-128 run's."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with _observed(ops, "ssd_chunk",
+                   lambda out, xdt, *a: (xdt.shape[1] // out[1].shape[1],
+                                         xdt.shape[3], out[1].shape[-1],
+                                         xdt.dtype)) as calls:
+        res = _mamba2_run(MAMBA2_WIDE_CHUNK, MAMBA2_WIDE_STEPS)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"conv2d": 0, "flash_attention": 0,
+            "ssd_chunk": MAMBA2.n_layers * MAMBA2_WIDE_STEPS}
+    paths = {(c, kssd.plan(c, n, dt, p).path) for c, p, n, dt in calls}
+    if counts != want or len(calls) != want["ssd_chunk"] or \
+            paths != {(MAMBA2_WIDE_CHUNK, "wide")}:
+        raise AssertionError(f"mamba2 chunk {MAMBA2_WIDE_CHUNK}: launches "
+                             f"{counts} (want {want}), {len(calls)} calls "
+                             f"at (chunk, path) {paths}")
+    # the forward loss on the trained params at both chunks, one batch
+    batch = pipeline.to_device(pipeline.synthetic_lm_batch(
+        MAMBA2_WIDE_STEPS, 1, MAMBA2_SEQ, MAMBA2.vocab), torch.device("cuda"))
+    with torch.no_grad():
+        trained = {c: float(transformer.loss_fn(
+            res["params"], batch, dataclasses.replace(MAMBA2, ssm_chunk=c)))
+            for c in (MAMBA2.ssm_chunk, MAMBA2_WIDE_CHUNK)}
+    del res["params"], res["held"]
+    ref = base["losses"][:MAMBA2_WIDE_STEPS]
+    rel = _rel(res["losses"], ref)
+    trained_rel = abs(trained[MAMBA2_WIDE_CHUNK] - trained[MAMBA2.ssm_chunk]) \
+        / abs(trained[MAMBA2.ssm_chunk])
+    if not all(math.isfinite(l) for l in res["losses"]) or \
+            not rel[0] <= LM_LOSS_RTOL or not trained_rel <= LM_LOSS_RTOL:
+        raise AssertionError(f"mamba2 chunk {MAMBA2_WIDE_CHUNK}: losses "
+                             f"{res['losses']} against chunk "
+                             f"{MAMBA2.ssm_chunk}'s {ref} (rel {rel}); on the "
+                             f"trained params {trained} (rel {trained_rel}; "
+                             f"tol {LM_LOSS_RTOL})")
+    plain = {}
+    with _plain_ssd():
+        for c in (MAMBA2.ssm_chunk, MAMBA2_WIDE_CHUNK):
+            plain[c] = _mamba2_run(c, MAMBA2_WIDE_STEPS)["losses"]
+    steady = res["step_s"][1:]
+    out = {"losses": res["losses"], "chunk128_losses": ref,
+           "loss_rel": rel, "trained_losses": trained,
+           "trained_rel": trained_rel, "plain_losses": plain,
+           "plain_rel": _rel(plain[MAMBA2_WIDE_CHUNK],
+                             plain[MAMBA2.ssm_chunk]),
+           "kernel_vs_plain_rel": _rel(res["losses"],
+                                       plain[MAMBA2_WIDE_CHUNK]),
+           "step_s": res["step_s"],
+           "steady_step_s": sum(steady) / len(steady), "peak_gib": peak,
+           "launches": counts, "chunk": MAMBA2_WIDE_CHUNK,
+           "chunk128_steady_step_s": base["steady_step_s"],
+           "chunk128_peak_gib": base["peak_gib"]}
+    print(f"mamba2-780m train at SSD chunk {MAMBA2_WIDE_CHUNK} (the wide "
+          f"path): full width and depth, FP32, batch 1 x seq {MAMBA2_SEQ}, "
+          f"{MAMBA2_WIDE_STEPS} steps: losses {res['losses']}; the first "
+          f"within {rel[0]:.2e} of chunk {MAMBA2.ssm_chunk}'s {ref[0]}, the "
+          f"trained params' forward loss {trained} within "
+          f"{trained_rel:.2e} (both held at {LM_LOSS_RTOL}); after the "
+          f"updates (not held) {rel[1:]} from chunk {MAMBA2.ssm_chunk}'s, "
+          f"where the plain version's own two chunks differ by "
+          f"{out['plain_rel'][1:]} and the kernel's from the plain "
+          f"version's at chunk {MAMBA2_WIDE_CHUNK} by "
+          f"{out['kernel_vs_plain_rel'][1:]}; step seconds "
+          f"{res['step_s']}, {out['steady_step_s']:.4f} s a step after the "
+          f"first (chunk {MAMBA2.ssm_chunk}: {base['steady_step_s']:.4f}), "
+          f"peak {peak:.2f} GiB (chunk {MAMBA2.ssm_chunk}: "
+          f"{base['peak_gib']:.2f}), launches {counts} ({card})",
+          flush=True)
+    return out
 
 
 def lm_train_phase(bf16: bool = False, remat: bool = False) -> dict:
@@ -4314,21 +4548,27 @@ def sdpa_library(q, k, v, *, window, delta, block: bool,
     views, GQA, `is_causal` for a one-device causal call, no mask for a
     bidirectional one (every key of Sk admitted: the encoder's and the
     cross call's), else the block's bool mask.  Never called by the
-    port."""
+    port.  The call's `backend` names the SDPA backend its dispatcher
+    picks for these arguments (`torch._fused_sdp_choice`)."""
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    if not causal and window is None:
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      enable_gqa=True)
-    if window is None and delta == 0 and not block:
-        return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    s = q.shape[1]
-    pos = torch.arange(s, device=q.device)
-    keep = pos[:, None] + delta >= pos[None, :]
-    if window is not None:
-        keep &= pos[:, None] + delta - pos[None, :] < window
-    return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=keep, enable_gqa=True)
+    mask, is_causal = None, False
+    if causal and window is None and delta == 0 and not block:
+        is_causal = True
+    elif causal or window is not None:
+        s = q.shape[1]
+        pos = torch.arange(s, device=q.device)
+        mask = pos[:, None] + delta >= pos[None, :]
+        if window is not None:
+            mask &= pos[:, None] + delta - pos[None, :] < window
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=is_causal, enable_gqa=True)
+    from torch.nn.attention import SDPBackend
+    library.backend = SDPBackend(torch._fused_sdp_choice(
+        qt, kt, vt, attn_mask=mask, dropout_p=0.0, is_causal=is_causal,
+        enable_gqa=True)).name
+    return library
 
 
 def vocab_attention_row(case: dict, dtype: torch.dtype,
@@ -4359,8 +4599,11 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
     v = torch.randn((b, sk, hkv, d), generator=gen, device=dev).to(dtype)
     p = kfa.plan(tuple(q.shape), tuple(k.shape), dtype, causal,
                  case["window"])
-    if (p.path, p.d_pad) != ("wgmma" if dtype == torch.bfloat16 else "fma",
-                             d):
+    if d > kfa.WHOLE_HEAD_DIM:
+        if (p.path, p.out_slices) != ("split", -(-d // kfa.SPLIT_DV)):
+            raise AssertionError(f"{what} planned {p}")
+    elif (p.path, p.d_pad) != ("wgmma" if dtype == torch.bfloat16 else
+                               "fma", d):
         raise AssertionError(f"{what} planned {p}")
     if block:
         def kernel():
@@ -4410,6 +4653,7 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
     lib = library()
     torch.cuda.synchronize()
     library_first_s = time.perf_counter() - t0
+    backend = "flex_attention" if cap else library.backend
     lib_o = (lib[0] if isinstance(lib, tuple) else lib).transpose(1, 2)
     lib_err = float((lib_o.float() - o.float())[:, seen].abs().max()) / \
         float(o.float()[:, seen].abs().max())
@@ -4438,10 +4682,12 @@ def vocab_attention_row(case: dict, dtype: torch.dtype,
             "q": list(q.shape), "kv": list(k.shape), "pairs": pairs,
             "max_abs_err": err, "lse_err": lse_err,
             "max_err_over_elem_limit": elem, "plan": dataclasses.asdict(p),
-            "plan_str": f"{p.path} {p.tile_q}x{p.tile_k} d{p.d_pad}",
+            "plan_str": f"{p.path} {p.tile_q}x{p.tile_k} d{p.d_pad}" + (
+                f" x{p.out_slices}" if p.out_slices > 1 else ""),
             "order": p.order,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "flex_attention (compiled)" if cap else "SDPA",
+            "library_backend": backend,
             "library_vs_kernel_err": lib_err,
             "library_first_call_s": library_first_s,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -4747,6 +4993,9 @@ MOE_DIR = os.path.join(HERE, "build", "moe")
 OLMOE_PROMPT, OLMOE_GEN = 256, 16
 OLMOE_CHECK_LAYERS, OLMOE_CHECK_PROMPT, OLMOE_CHECK_GEN = 2, 4, 5
 MAMBA2_SEQ = 2048
+# the chunk-256 run's steps (mamba2_wide_chunk_phase), and its plain
+# yardsticks' at both chunks
+MAMBA2_WIDE_STEPS = STEPS
 # routing is discrete: a token whose k-th and (k+1)-th router
 # probabilities lie closer than this may pick the other expert under
 # another order of summation (the card against the CPU, one device against
@@ -6201,6 +6450,10 @@ def main() -> int:
 
     rows = kernel_phase(card)
     lm_rows = lm_kernel_phase(card)
+    t_range = time.perf_counter()
+    range_rows = range_kernel_phase(card)
+    print(f"the kernels' new paths (wide SSD, split attention) took "
+          f"{time.perf_counter() - t_range:.1f} s of this run ({card})")
     train = train_phase()
     fwd = forward_check()
     breakdown = profile_phase()
@@ -6268,6 +6521,11 @@ def main() -> int:
     dry_started = dryrun_traces_start()
     vocab = vocab_phase(card)
     moe = moe_phase(card)
+    t_wide = time.perf_counter()
+    mamba_wide = mamba2_wide_chunk_phase(card, moe["mamba2"])
+    mamba_wide["phase_s"] = time.perf_counter() - t_wide
+    print(f"mamba2 chunk-{MAMBA2_WIDE_CHUNK} phase took "
+          f"{mamba_wide['phase_s']:.1f} s of this run ({card})")
     encdec = encdec_phase(card)
     dry = dryrun_phase(card, dry_started)
 
@@ -6275,6 +6533,8 @@ def main() -> int:
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"),
               "w") as f:
         json.dump({"card": card, "shapes": rows, "lm_shapes": lm_rows,
+                   "range_shapes": range_rows,
+                   "mamba2_wide_chunk": mamba_wide,
                    "train": train, "forward_check": fwd,
                    "step_breakdown": breakdown, "examples": examples,
                    "interior_copy": interior, "spatial": spatial,
@@ -6479,6 +6739,17 @@ def main() -> int:
                       "traced_calls": dry["traced"][tag]["kernel_calls"][
                           name]} for tag, r in dry["real"].items()}
 
+    def not_launched(kernel):
+        """The kernel's rows on its new path that no registered arch
+        launches (count 0), each on its own."""
+        return [{k: r.get(k) for k in (
+            "kernel", "model", "mask", "delta", "dtype", "q", "kv", "xdt",
+            "n", "chunk", "plan_str", "max_abs_err",
+            "max_err_over_elem_limit", "lse_err", "ms", "plain_ms",
+            "library_ms", "library_backend", "bound_ms", "bound_by")}
+            for r in range_rows if r["kernel"].startswith(kernel)
+            and not r["count"]]
+
     n_glob = sum(t == "hybrid_g" for t in HYMBA.layer_types())
     lm_scope = f"one hymba-1.5b forward ({HYMBA.n_layers} layers), batch " \
         f"{LM_BATCH} x seq {LM_SEQ}, float32: "
@@ -6536,7 +6807,8 @@ def main() -> int:
                  "fill_ms", "ms", "plain_ms", "library_ms", "bound_ms",
                  "bound_by")} for r in lm_rows
                  if r.get("mask") == "keyless"],
-             dryrun_launches=dryrun_launches("flash_attention")),
+             dryrun_launches=dryrun_launches("flash_attention"),
+             split_not_launched=not_launched("flash_attention")),
         dict(entry("ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
                    "src/repro/kernels/ssd.py:55",
                    lm_train["launches"]["ssd_chunk"],
@@ -6555,6 +6827,21 @@ def main() -> int:
                   and r["model"] == "mamba2-780m"],
                  f"one mamba2-780m forward, batch {LM_BATCH} x seq "
                  f"{LM_SEQ}, float32: {MAMBA2.n_layers} calls")),
+             mamba2_chunk256=dict(entry(
+                 "ssd_chunk", "src/repro_torch/kernels/csrc/ssd.cu",
+                 "src/repro/kernels/ssd.py:55",
+                 mamba_wide["launches"]["ssd_chunk"],
+                 [r for r in range_rows if r["kernel"] == "ssd_chunk"
+                  and r["model"] == "mamba2-780m"],
+                 f"one mamba2-780m forward at SSD chunk "
+                 f"{MAMBA2_WIDE_CHUNK} (the wide path), batch {LM_BATCH} x "
+                 f"seq {LM_SEQ}, float32: {MAMBA2.n_layers} calls"),
+                 **{k: mamba_wide[k] for k in (
+                     "losses", "chunk128_losses", "loss_rel",
+                     "trained_rel", "plain_rel", "steady_step_s",
+                     "chunk128_steady_step_s", "peak_gib",
+                     "chunk128_peak_gib")}),
+             wide_not_launched=not_launched("ssd_chunk"),
              dryrun_launches=dryrun_launches("ssd_chunk")),
     ]
     print("kernel resources (ptxas):")

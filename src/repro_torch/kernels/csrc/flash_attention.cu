@@ -83,6 +83,21 @@
 //   are staged (synchronous copies, as for f32 rows that are not 16
 //   bytes).
 //
+// - D > 256 (`split`; the Pallas kernel takes any D, and the two paths
+//   above keep a whole row of Q, K and V, padded to 256 at most, in shared
+//   memory): the output's head dim is split over CTAs, 256 columns of V
+//   and O each, so the grid is (q heads, query tiles, batch x ceil(D /
+//   256)).  Each CTA walks the key tiles of 64 keys as the `fma` path does
+//   (64 query rows, 4 a thread; the same masks, edge test, softcap and
+//   online softmax in log2 units, fp32 on the CUDA cores, bf16 widened as
+//   it is staged, P in fp32), but accumulates S = Q.K^T over D in 64-column
+//   slices of Q and K staged through shared memory, then O += P.V over its
+//   256 columns.  Every CTA of a row computes the same S, m and l bit for
+//   bit, so the slices agree; the first writes the row's lse.  The score
+//   work is ceil(D / 256) times the function's: at D = 512 the CTAs do 1.5
+//   times the FLOPs the bound counts.  Shared memory: 115 KB, one CTA an
+//   SM.
+//
 // The backward pass is not here: the autograd Function recomputes through
 // the plain version (the TPU kernel is forward-only too).
 #include <cuda_bf16.h>
@@ -526,14 +541,35 @@ flash_fwd_wgmma_kernel(const Args a) {
 
 // Rows r0 .. r0+ROWS-1 (of n_rows; stride rs elements) of a (rows, D)
 // matrix into ROWS x DP fp32 of shared memory at dst (row stride ds
-// floats); rows past n_rows and columns past D are zero-filled.  VEC: the
-// source is fp32 with D a multiple of 4, copied 16 bytes at a time by
-// cp.async; else element by element, converted to fp32.
+// floats, a multiple of 4); rows past n_rows and columns past D are
+// zero-filled.  VEC: the source is fp32 with D a multiple of 4, copied 16
+// bytes at a time by cp.async, or (the split path) bf16 with D a multiple
+// of 8, read 16 bytes at a time and widened; else element by element,
+// converted to fp32.
 template <int ROWS, int DP, bool VEC, typename T>
 __device__ __forceinline__ void load_rows(float* dst, int ds, const T* src,
                                           int64_t r0, int64_t n_rows,
                                           int64_t rs, int D, int tid) {
-  if constexpr (VEC) {
+  if constexpr (VEC && sizeof(T) == 2) {
+    constexpr int CPR = DP / 8;
+    for (int e = tid; e < ROWS * CPR; e += THREADS) {
+      const int r = e / CPR, c = e % CPR;
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (r0 + r < n_rows && c * 8 < D) {
+        const uint4 u =
+            *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c * 8);
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+        const float2 f0 = __bfloat1622float2(h[0]),
+                     f1 = __bfloat1622float2(h[1]),
+                     f2 = __bfloat1622float2(h[2]),
+                     f3 = __bfloat1622float2(h[3]);
+        lo = make_float4(f0.x, f0.y, f1.x, f1.y);
+        hi = make_float4(f2.x, f2.y, f3.x, f3.y);
+      }
+      *reinterpret_cast<float4*>(dst + r * ds + c * 8) = lo;
+      *reinterpret_cast<float4*>(dst + r * ds + c * 8 + 4) = hi;
+    }
+  } else if constexpr (VEC) {
     constexpr int CPR = DP / 4;
     static_assert(ROWS * CPR % THREADS == 0, "whole passes");
 #pragma unroll
@@ -760,6 +796,211 @@ flash_fwd_fma_kernel(const Args a) {
   }
 }
 
+// ---------------------------------------------------------- split path --
+
+constexpr int SP_BQ = 64;        // query rows per CTA
+constexpr int SP_BK = 64;        // keys per tile
+constexpr int SP_DS = 64;        // D columns a slice of the score product
+constexpr int SP_DV = 256;       // output (V and O) columns per CTA
+constexpr int SP_QP = SP_DS + 4, SP_PP = SP_BK + 4;   // padded strides
+
+__host__ __device__ constexpr int split_smem_bytes() {
+  return (SP_BQ * SP_QP + SP_BK * SP_QP + SP_BK * SP_DV + SP_BQ * SP_PP) * 4;
+}
+__host__ __device__ constexpr int split_slices(int d) {
+  return (d + SP_DV - 1) / SP_DV;
+}
+
+// D > 256: columns dv0 .. dv0 + 255 of the output, blockIdx.z = batch x
+// slices + slice.  VEC: fp32 with D a multiple of 4 (16-byte copies), or
+// bf16 with D a multiple of 8 (16-byte reads).
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_split_kernel(const Args a) {
+  constexpr int BQ = SP_BQ, BK = SP_BK;
+  constexpr int RI = BQ / 16;               // query rows per thread
+  constexpr int NC = SP_DV / 16;            // output columns per thread
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);   // [BQ][SP_QP]
+  float* Ks = Qs + BQ * SP_QP;                      // [BK][SP_QP]
+  float* Vs = Ks + BK * SP_QP;                      // [BK][SP_DV]
+  float* Ps = Vs + BK * SP_DV;                      // [BQ][SP_PP]
+
+  // thread (ty, tx): rows ty + 16i, keys tx + 16j, output columns
+  // dv0 + 64h + 4tx .. +3 (h < 4); a row's 16 threads are one half-warp
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ns = split_slices(a.D);
+  const int hq = blockIdx.x, hk = hq / (a.Hq / a.Hkv);
+  const int64_t b = blockIdx.z / ns;
+  const int dv0 = (int)(blockIdx.z % ns) * SP_DV;
+  const int64_t qs = (int64_t)a.Hq * a.D, ks = (int64_t)a.Hkv * a.D;
+  const T* qb = static_cast<const T*>(a.q) + b * a.Sq * qs +
+                (int64_t)hq * a.D;
+  const T* kb = static_cast<const T*>(a.k) + b * a.Sk * ks +
+                (int64_t)hk * a.D;
+  const T* vb = static_cast<const T*>(a.v) + b * a.Sk * ks +
+                (int64_t)hk * a.D;
+  const Tiles tl(a, BQ, BK);
+  const int nt = (int)(tl.t_hi - tl.t_lo + 1);
+
+  const float sl2 = a.scale * LOG2E;
+  const bool plain = !(a.softcap > 0.f);
+  float acc[RI][NC], m[RI], l[RI];   // l: this thread's part of the row sum
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = NEG_BIG2;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int it = 0; it < nt; ++it) {
+    const int64_t k0 = (tl.t_lo + it) * BK;
+    __syncthreads();   // tile it-1's reads of V are done
+    load_rows<BK, SP_DV, VEC>(Vs, SP_DV, vb + dv0, k0, a.Sk, ks, a.D - dv0,
+                              tid);
+    // S = Q.K^T, a 64-column slice of D at a time
+    float s[RI][4];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int d0 = 0; d0 < a.D; d0 += SP_DS) {
+      load_rows<BQ, SP_DS, VEC>(Qs, SP_QP, qb + d0, tl.q0, a.Sq, qs,
+                                a.D - d0, tid);
+      load_rows<BK, SP_DS, VEC>(Ks, SP_QP, kb + d0, k0, a.Sk, ks, a.D - d0,
+                                tid);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+#pragma unroll 4
+      for (int d = 0; d < SP_DS; d += 4) {
+        float4 qv[RI], kv[4];
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+          qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * SP_QP +
+                                                   d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          kv[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * SP_QP +
+                                                   d);
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+            s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+            s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+            s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+          }
+      }
+      __syncthreads();   // before the next slice lands on Q and K
+    }
+
+    // the online softmax, as on the fma path
+    const bool fast = plain && sl2 > 0.f && !tl.edge(a, k0, BK);
+    const float mul = fast ? sl2 : 1.f;
+    float corr[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!fast)
+          s[i][j] = masked_logit(a, s[i][j], tl.q0 + ty + 16 * i,
+                                 k0 + tx + 16 * j);
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off, 16));
+      const float m_new = fmaxf(m[i], mx * mul);
+      corr[i] = ex2(m[i] - m_new);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ex2(fmaf(s[i][j], mul, -m_new));
+        sum += p;
+        Ps[(ty + 16 * i) * SP_PP + tx + 16 * j] = p;
+      }
+      l[i] = l[i] * corr[i] + sum;
+    }
+    __syncwarp();   // P's rows are this half-warp's own
+
+    // O += P.V over this CTA's 256 columns
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= corr[i];
+#pragma unroll 2
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 pv[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * SP_PP +
+                                                 kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float vv[NC];
+#pragma unroll
+        for (int h = 0; h < SP_DV / 64; ++h) {
+          const float4 v4 = *reinterpret_cast<const float4*>(
+              Vs + (kk + u) * SP_DV + 64 * h + 4 * tx);
+          vv[4 * h] = v4.x;
+          vv[4 * h + 1] = v4.y;
+          vv[4 * h + 2] = v4.z;
+          vv[4 * h + 3] = v4.w;
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          const float pu = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                         : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pu, vv[c], acc[i][c]);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off, 16);
+    const int64_t row = tl.q0 + ty + 16 * i;
+    if (row >= a.Sq) continue;
+    const float lc = fmaxf(l[i], 1e-30f), inv = 1.f / lc;
+    // a block call: the row's lse, once a row (the first slice's CTA)
+    if (a.lse != nullptr && tx == 0 && dv0 == 0)
+      a.lse[(b * a.Hq + hq) * a.Sq + row] = (m[i] + log2f(lc)) * LN2;
+    T* orow = static_cast<T*>(a.o) + (b * a.Sq + row) * qs +
+              (int64_t)hq * a.D + dv0;
+    // a block call on bf16 inputs writes fp32 (on fp32 inputs T is float)
+    float* orow32 = static_cast<float*>(a.o) + (b * a.Sq + row) * qs +
+                    (int64_t)hq * a.D + dv0;
+#pragma unroll
+    for (int h = 0; h < SP_DV / 64; ++h) {
+      const int col = 64 * h + 4 * tx;
+      if (sizeof(T) != 4 && a.lse != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (dv0 + col + c < a.D) orow32[col + c] = acc[i][4 * h + c] * inv;
+      } else if constexpr (VEC && sizeof(T) == 4) {   // float4s
+        if (dv0 + col < a.D)
+          *reinterpret_cast<float4*>(orow + col) =
+              make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv,
+                          acc[i][4 * h + 2] * inv, acc[i][4 * h + 3] * inv);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (dv0 + col + c < a.D) put(orow + col + c, acc[i][4 * h + c] * inv);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host --
 
 template <typename Kernel>
@@ -790,6 +1031,15 @@ cudaError_t launch_fma(const Args& a, bool vec, dim3 grid, cudaStream_t st) {
                 grid, st);
 }
 
+template <typename T>
+cudaError_t launch_split(const Args& a, bool vec, dim3 grid, cudaStream_t st) {
+  constexpr int smem = split_smem_bytes();
+  if (vec)
+    return launch(flash_fwd_split_kernel<T, true>, THREADS, smem, a, grid,
+                  st);
+  return launch(flash_fwd_split_kernel<T, false>, THREADS, smem, a, grid, st);
+}
+
 bool misaligned(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
 }
@@ -799,14 +1049,15 @@ bool misaligned(const void* p) {
 // dtype: 0 = float32, 1 = bfloat16.  q (b, sq, hq, d), k and v (b, sk, hkv,
 // d) and o (b, sq, hq, d) are contiguous device buffers of that type.
 // softcap <= 0 means none; window <= 0 means none.  path: 1 = wgmma (bf16
-// with d a multiple of 8), 0 = fma (anything else), as kernels/
-// flash_attention.py::plan picks it; each path's tiles and stages follow
-// from d (at most 256) here.  Where a path copies 16 bytes at a time (wgmma; fma on fp32
-// with d a multiple of 4) the buffers must be 16-byte aligned.  Returns
-// the cudaError_t of the launch (0 on success).  delta: query row i sits
-// at position i + delta (0 for a one-device call).  lse: null for a
-// one-device call; else a block call, o is fp32 whatever `dtype` and lse
-// (b, hq, sq) fp32 receives each row's log-sum-exp.
+// with d <= 256 a multiple of 8), 0 = fma (any other d <= 256), 2 = split
+// (d > 256), as kernels/flash_attention.py::plan picks it; each path's
+// tiles and stages follow from d here.  Where a path copies 16 bytes at a
+// time (wgmma; fma and split on fp32 with d a multiple of 4; split on bf16
+// with d a multiple of 8) the buffers must be 16-byte aligned.  Returns the cudaError_t of the launch (0 on
+// success).  delta: query row i sits at position i + delta (0 for a
+// one-device call).  lse: null for a one-device call; else a block call,
+// o is fp32 whatever `dtype` and lse (b, hq, sq) fp32 receives each row's
+// log-sum-exp.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int dtype,
                                      int64_t b, int64_t sq, int64_t sk,
@@ -815,17 +1066,20 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int64_t window, int path, int64_t delta,
                                      float* lse, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || hq < 1 || hkv < 1 || hq % hkv != 0 ||
-      d < 1 || d > 256 || (dtype != 0 && dtype != 1) ||
-      (path != 0 && path != 1) || (path == 1 && (dtype != 1 || d % 8 != 0)))
+      d < 1 || d > 0x7fffffffLL || (dtype != 0 && dtype != 1) || path < 0 ||
+      path > 2 || (path == 2) != (d > 256) ||
+      (path == 1 && (dtype != 1 || d % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   const int dp = d <= 64 ? 64 : d <= 128 ? 128 : 256;
-  const bool vec = path == 1 || (dtype == 0 && d % 4 == 0);
+  const bool vec = path == 1 || (dtype == 0 && d % 4 == 0) ||
+                   (path == 2 && d % 8 == 0);
   if (vec && (misaligned(q) || misaligned(k) || misaligned(v) ||
               misaligned(o)))
     return (int)cudaErrorMisalignedAddress;
-  const int tile_q = path == 1 ? WG_BQ : fma_bq(dp);
+  const int tile_q = path == 1 ? WG_BQ : path == 2 ? SP_BQ : fma_bq(dp);
   const int64_t tiles_q = (sq + tile_q - 1) / tile_q;
-  if (tiles_q > 65535 || b > 65535 || hq > 0x7fffffffLL)
+  const int64_t bz = path == 2 ? b * split_slices((int)d) : b;
+  if (tiles_q > 65535 || bz > 65535 || hq > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.lse = lse;
@@ -835,8 +1089,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   a.scale = scale; a.softcap = softcap;
   // the query tile is the grid's slow dimension: with causality the
   // longest tiles of every head go first
-  const dim3 grid((unsigned)hq, (unsigned)tiles_q, (unsigned)b);
+  const dim3 grid((unsigned)hq, (unsigned)tiles_q, (unsigned)bz);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (path == 2)
+    return (int)(dtype == 0 ? launch_split<float>(a, vec, grid, st)
+                            : launch_split<bf16>(a, vec, grid, st));
   if (path == 1)
     return (int)(dp == 64    ? launch_wgmma<64>(a, grid, st)
                  : dp == 128 ? launch_wgmma<128>(a, grid, st)

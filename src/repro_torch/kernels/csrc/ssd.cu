@@ -18,8 +18,9 @@
 // (h 48, n 128, cl 128) the work is 2.5 GFLOP: operations bound it in f32
 // on the CUDA cores (37 us at 67 TFLOP/s), bytes in bf16.
 //
-// Design.  One CTA of 4 x CLM threads (CLM = 64 or 128, the chunk rounded
-// up: 8 or 16 warps) per (batch x chunk, block of heads).
+// Design of the first path (cl <= 128, p <= 64, n <= 128).  One CTA of
+// 4 x CLM threads (CLM = 64 or 128, the chunk rounded up: 8 or 16 warps)
+// per (batch x chunk, block of heads).
 //   * B and C have no head dim: the CTA builds G = C . B^T once, only its
 //     16 x 16 tiles on or below the diagonal, packed, and reuses it for its
 //     heads (2 where G is cheap, n <= 32, else 4).
@@ -52,9 +53,34 @@
 //     shared-memory descriptors, swizzle and proxy fences buy nothing.
 //   * y leaves in 16-byte stores (bf16 through a per-warp staging tile).
 // A chunk shorter than CLM, or one that is not a multiple of 16, is
-// masked: rows past cl stage as zeros and are never stored.  p <= 64,
-// n <= 128; offsets into global memory are 64-bit.  There is no backward
-// kernel: the autograd Function recomputes through the plain version.
+// masked: rows past cl stage as zeros and are never stored.  That CTA
+// holds the whole chunk's packed G, M and a head's xdt slice in shared
+// memory, so it is built for cl <= 128, p <= 64, n <= 128.
+//
+// The wide path takes every other shape (a longer chunk, a wider head or
+// a larger state; mamba_ssm's default chunk of 256), as the Pallas kernel
+// does.  Its M would not fit: at cl 256 it alone is 256 KB in fp32, over
+// the 227 KB a CTA may have.  So it tiles everything and keeps nothing of
+// the chunk whole, fp32 on the CUDA cores for both dtypes (bf16 inputs
+// widened as they are staged, y rounded once to bf16):
+//   * 256 threads, each a 4 x 4 block of a 64 x 64 tile.  A y CTA takes
+//     one row block of 64 rows and one 64-column slice of p, and walks the
+//     column blocks j <= i of the lower triangle: G_ij = C_i . B_j^T
+//     contracted over n in 32-column slices staged through shared memory,
+//     M_ij = G_ij o exp(cum_i - cum_j) masked above the diagonal and past
+//     the chunk, y_i += M_ij . xdt_j.  M does not depend on p, so a
+//     second p slice repeats the G work (p <= 64 at every registered
+//     arch: one slice).
+//   * An S CTA takes one 64 x 64 tile of (p, n) and walks the chunk's row
+//     blocks: S += (xdt_j o w_j)^T . B_j.
+//   * Each CTA recomputes the chunk's cumulative log-decay from la in
+//     fp32, a 64-row block at a time, each block's scan carried from the
+//     last row of the one before, so every CTA of a (chunk, head) holds
+//     the same bits (exp(cum_i - cum_i) = 1 on the diagonal).
+//   * The grid puts the longest y row blocks first (slowest dimension),
+//     then the S tiles.
+// Offsets into global memory are 64-bit.  There is no backward kernel:
+// the autograd Function recomputes through the plain version.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,8 +96,8 @@ constexpr int TILE_F = TILE * GP;
 constexpr int MB = 24;          // bf16 a row of a bf16 M tile (48 bytes)
 constexpr int TILE_B = TILE * MB;
 constexpr int YB = 24;          // bf16 a row of a warp's y staging tile
-constexpr int PMAX = 64;        // largest head dim p
-constexpr int NMAX = 128;       // largest state size n
+constexpr int PMAX = 64;        // the first path's largest head dim p
+constexpr int NMAX = 128;       // the first path's largest state size n
 constexpr int STAGES = 2;       // the xdt / la ring (ring0, ring1)
 constexpr int MAX_SMEM = 232448;
 
@@ -739,40 +765,316 @@ cudaError_t launch(const Args& a, int64_t bnc, cudaStream_t stream) {
   return launch_cl<T, 128>(a, bnc, stream);
 }
 
+// ------------------------------------------------------ the wide path --
+
+constexpr int WB = 64;           // rows of a row block, columns of a column block
+constexpr int WP = 64;           // p columns a y CTA, p rows of an S tile
+constexpr int WN = 32;           // n columns a slice of G's contraction
+constexpr int WS = 64;           // n columns of an S tile
+constexpr int W_THREADS = 256;   // 16 x 16, each a 4 x 4 block of a tile
+constexpr int WNP = WN + 1;      // pitch of the staged C and B slices
+constexpr int WMP = WB + 1;      // pitch of M
+// float offsets of the shared regions: C and B slices, M (an S CTA's B
+// tile instead), xdt (o w), the row block's and the column block's cum
+constexpr int W_CS = 0, W_BS = WB * WNP, W_MS = 2 * WB * WNP,
+              W_XS = W_MS + WB * WMP, W_CR = W_XS + WB * WP,
+              W_CC = W_CR + WB, W_FLOATS = W_CC + WB;
+static_assert(WB * WS <= WB * WMP, "an S tile's B fits M's place");
+constexpr int W_SMEM = W_FLOATS * 4;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// The cumulative log-decay of row block k of the chunk (rows past cl add
+// 0) into out[WB], from `carry`, the cum at the last row of block k - 1;
+// returns the cum at the block's last row.  Warp 0 scans; every thread
+// takes part in its two barriers.
+__device__ float wide_cum(const float* la, int64_t row0, int H, int h,
+                          int cl, int k, float carry, float* out) {
+  __syncthreads();                       // out's last readers are done
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x, j = k * WB + 2 * lane;
+    const float a0 = j < cl ? la[(row0 + j) * H + h] : 0.f;
+    const float a1 = j + 1 < cl ? la[(row0 + j + 1) * H + h] : 0.f;
+    float tot = a0 + a1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, tot, off);
+      if (lane >= off) tot += t;
+    }
+    float before = __shfl_up_sync(0xffffffffu, tot, 1);
+    if (lane == 0) before = 0.f;
+    out[2 * lane] = carry + (before + a0);
+    out[2 * lane + 1] = carry + (before + a0 + a1);
+  }
+  __syncthreads();
+  return out[WB - 1];
+}
+
+// y over row block i, p columns ps * WP.., of one (chunk, head)
+template <typename T>
+__device__ void wide_y(const Args& a, float* sm, int64_t bc, int h, int i,
+                       int ps) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int cl = a.cl, H = a.H, P = a.P, N = a.N;
+  float *Cs = sm + W_CS, *Bs = sm + W_BS, *Ms = sm + W_MS, *Xs = sm + W_XS,
+        *cr = sm + W_CR, *cc = sm + W_CC;
+  const int64_t row0 = bc * cl;
+  const T* xdt = static_cast<const T*>(a.xdt);
+  const T* Bg = static_cast<const T*>(a.B) + row0 * N;
+  const T* Cg = static_cast<const T*>(a.C) + row0 * N;
+  float carry = 0.f;
+  for (int k = 0; k < i; ++k)
+    carry = wide_cum(a.la, row0, H, h, cl, k, carry, cc);
+  wide_cum(a.la, row0, H, h, cl, i, carry, cr);
+
+  float acc[4][4] = {};
+  carry = 0.f;
+#pragma unroll 1
+  for (int j = 0; j <= i; ++j) {
+    carry = wide_cum(a.la, row0, H, h, cl, j, carry, cc);
+    // G_ij = C_i . B_j^T, over n a slice at a time
+    float g[4][4] = {};
+#pragma unroll 1
+    for (int n0 = 0; n0 < N; n0 += WN) {
+      for (int e = tid; e < WB * WN; e += W_THREADS) {
+        const int r = e / WN, c = e % WN, n = n0 + c;
+        const int ri = i * WB + r, rj = j * WB + r;
+        Cs[r * WNP + c] =
+            ri < cl && n < N ? to_f32(Cg[(int64_t)ri * N + n]) : 0.f;
+        Bs[r * WNP + c] =
+            rj < cl && n < N ? to_f32(Bg[(int64_t)rj * N + n]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < WN; ++c) {
+        float cv[4], bv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          cv[u] = Cs[(ty + 16 * u) * WNP + c];
+          bv[u] = Bs[(tx + 16 * u) * WNP + c];
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int s = 0; s < 4; ++s) g[r][s] = fmaf(cv[r], bv[s], g[r][s]);
+      }
+      __syncthreads();
+    }
+    // M_ij, zero above the diagonal and past the chunk
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const int ii = ty + 16 * r, jj = tx + 16 * s;
+        const int gi = i * WB + ii, gj = j * WB + jj;
+        Ms[ii * WMP + jj] =
+            gi < cl && gj <= gi ? g[r][s] * expf(cr[ii] - cc[jj]) : 0.f;
+      }
+    for (int e = tid; e < WB * WP; e += W_THREADS) {
+      const int r = e / WP, c = e % WP, rj = j * WB + r, pc = ps * WP + c;
+      Xs[r * WP + c] =
+          rj < cl && pc < P
+              ? to_f32(xdt[((row0 + rj) * H + h) * (int64_t)P + pc])
+              : 0.f;
+    }
+    __syncthreads();
+    // y_i += M_ij . xdt_j
+#pragma unroll 8
+    for (int c = 0; c < WB; ++c) {
+      float mv[4], xv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        mv[u] = Ms[(ty + 16 * u) * WMP + c];
+        xv[u] = Xs[c * WP + tx + 16 * u];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(mv[r], xv[s], acc[r][s]);
+    }
+  }
+  T* y = static_cast<T*>(a.y);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int gi = i * WB + ty + 16 * r;
+    if (gi >= cl) continue;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int pc = ps * WP + tx + 16 * s;
+      if (pc < P) put(y + ((row0 + gi) * H + h) * (int64_t)P + pc, acc[r][s]);
+    }
+  }
+}
+
+// S over the (p, n) tile (ps * WP.., ns * WS..) of one (chunk, head)
+template <typename T>
+__device__ void wide_s(const Args& a, float* sm, int64_t bc, int h, int ps,
+                       int ns) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int cl = a.cl, H = a.H, P = a.P, N = a.N;
+  float *Bt = sm + W_MS, *Xs = sm + W_XS, *cc = sm + W_CC;
+  const int64_t row0 = bc * cl;
+  const int nrb = (cl + WB - 1) / WB;
+  const T* xdt = static_cast<const T*>(a.xdt);
+  const T* Bg = static_cast<const T*>(a.B) + row0 * N;
+  float carry = 0.f;
+  for (int k = 0; k < nrb; ++k)
+    carry = wide_cum(a.la, row0, H, h, cl, k, carry, cc);
+  const float end = carry;               // the cum at the chunk's last row
+
+  float acc[4][4] = {};
+  carry = 0.f;
+#pragma unroll 1
+  for (int k = 0; k < nrb; ++k) {
+    carry = wide_cum(a.la, row0, H, h, cl, k, carry, cc);
+    for (int e = tid; e < WB * WP; e += W_THREADS) {
+      const int r = e / WP, c = e % WP, rj = k * WB + r, pc = ps * WP + c;
+      Xs[r * WP + c] =
+          rj < cl && pc < P
+              ? to_f32(xdt[((row0 + rj) * H + h) * (int64_t)P + pc]) *
+                    expf(end - cc[r])
+              : 0.f;
+    }
+    for (int e = tid; e < WB * WS; e += W_THREADS) {
+      const int r = e / WS, c = e % WS, rj = k * WB + r, n = ns * WS + c;
+      Bt[r * WS + c] = rj < cl && n < N ? to_f32(Bg[(int64_t)rj * N + n])
+                                        : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < WB; ++r) {
+      float xv[4], bv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        xv[u] = Xs[r * WP + ty + 16 * u];
+        bv[u] = Bt[r * WS + tx + 16 * u];
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) acc[q][s] = fmaf(xv[q], bv[s], acc[q][s]);
+    }
+  }
+  float* Sh = a.S + (bc * H + h) * (int64_t)P * N;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int pp = ps * WP + ty + 16 * q;
+    if (pp >= P) continue;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int n = ns * WS + tx + 16 * s;
+      if (n < N) Sh[(int64_t)pp * N + n] = acc[q][s];
+    }
+  }
+}
+
+__host__ __device__ inline int wide_y_units(int cl, int p) {
+  return (cl + WB - 1) / WB * ((p + WP - 1) / WP);
+}
+
+// grid (b * n_chunks, heads, units): units are the y CTAs, the longest row
+// blocks first, then the S tiles
+template <typename T>
+__global__ void __launch_bounds__(W_THREADS, 2)
+ssd_wide_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  const int nps = (a.P + WP - 1) / WP, nrb = (a.cl + WB - 1) / WB;
+  const int u = blockIdx.z, ny = wide_y_units(a.cl, a.P);
+  if (u < ny) {
+    wide_y<T>(a, sm, blockIdx.x, blockIdx.y, nrb - 1 - u / nps, u % nps);
+  } else {
+    const int v = u - ny, nns = (a.N + WS - 1) / WS;
+    wide_s<T>(a, sm, blockIdx.x, blockIdx.y, v / nns, v % nns);
+  }
+}
+
+template <typename T>
+cudaError_t configure_wide() {
+  return cudaFuncSetAttribute(ssd_wide_kernel<T>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              W_SMEM);
+}
+
+template <typename T>
+cudaError_t launch_wide(const Args& a, int64_t bnc, cudaStream_t stream) {
+  const cudaError_t e = configure_wide<T>();
+  if (e != cudaSuccess) return e;
+  const int64_t units = (int64_t)wide_y_units(a.cl, a.P) +
+                        (int64_t)((a.P + WP - 1) / WP) * ((a.N + WS - 1) / WS);
+  if (bnc > 0x7fffffffLL || a.H > 65535 || units > 65535)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)bnc, (unsigned)a.H, (unsigned)units);
+  ssd_wide_kernel<T><<<grid, W_THREADS, (size_t)W_SMEM, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int wide_ctas_per_sm() {
+  int blocks = 0;
+  if (configure_wide<T>() != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, ssd_wide_kernel<T>, W_THREADS, W_SMEM) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// whether the CTA of the first path is built for this shape
+bool narrow(int64_t cl, int64_t p, int64_t n) {
+  return cl <= 128 && p <= PMAX && n <= NMAX;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (of xdt, B, C and y); la and S are
 // float32.  xdt (b, l, h, p), la (b, l, h), B and C (b, l, n), y (b, l, h,
 // p) and S (b, l / cl, h, p, n) are contiguous device buffers; bnc =
-// b * l / cl.  Takes cl <= 128, p <= 64, n <= 128.  The kernel derives its
-// tiles, threads, heads per CTA and stages from the dtype, cl and n
-// (kernels/ssd.py::plan mirrors them).  Returns the cudaError_t of the
+// b * l / cl.  Takes any cl, p and n >= 1: cl <= 128, p <= 64 and
+// n <= 128 run on the first path, whose tiles, threads, heads per CTA and
+// stages follow from the dtype, cl and n; anything else on the wide path
+// (kernels/ssd.py::plan mirrors both).  Returns the cudaError_t of the
 // launch (0 on success).
 extern "C" int repro_ssd_chunk(const void* xdt, const void* la, const void* B,
                                const void* C, void* y, void* S, int dtype,
                                int64_t bnc, int64_t cl, int64_t h, int64_t p,
                                int64_t n, void* stream) {
-  if (bnc < 1 || cl < 1 || cl > 128 || h < 1 || h > 0x7fffffffLL || p < 1 ||
-      p > PMAX || n < 1 || n > NMAX)
+  constexpr int64_t I32 = 0x7fffffffLL;
+  if (bnc < 1 || cl < 1 || cl > I32 || h < 1 || h > I32 || p < 1 ||
+      p > I32 || n < 1 || n > I32)
     return (int)cudaErrorInvalidValue;
   const Args a{xdt, static_cast<const float*>(la), B, C, y,
                static_cast<float*>(S), (int)cl, (int)h, (int)p, (int)n,
                n <= 32 ? 2 : 4};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(a, bnc, st);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(a, bnc, st);
+  const bool first = narrow(cl, p, n);
+  if (dtype == 0)
+    return (int)(first ? launch<float>(a, bnc, st)
+                       : launch_wide<float>(a, bnc, st));
+  if (dtype == 1)
+    return (int)(first ? launch<__nv_bfloat16>(a, bnc, st)
+                       : launch_wide<__nv_bfloat16>(a, bnc, st));
   return (int)cudaErrorInvalidValue;
 }
 
-// CTAs of the kernel that fit one SM at this dtype, chunk and state size
-// (-1 if the query fails): what `kernels/ssd.py::occupancy` reports.
-extern "C" int repro_ssd_ctas_per_sm(int dtype, int64_t cl, int64_t n) {
-  if (cl < 1 || cl > 128 || n < 1 || n > NMAX) return -1;
+// CTAs of the kernel that fit one SM at this dtype, chunk, head dim and
+// state size (-1 if the query fails): what `kernels/ssd.py::occupancy`
+// reports.
+extern "C" int repro_ssd_ctas_per_sm(int dtype, int64_t cl, int64_t p,
+                                     int64_t n) {
+  if (cl < 1 || p < 1 || n < 1 || (dtype != 0 && dtype != 1)) return -1;
+  if (!narrow(cl, p, n))
+    return dtype == 0 ? wide_ctas_per_sm<float>()
+                      : wide_ctas_per_sm<__nv_bfloat16>();
   if (dtype == 0)
     return cl <= 64 ? ctas_per_sm<float, 64>((int)n)
                     : ctas_per_sm<float, 128>((int)n);
-  if (dtype == 1)
-    return cl <= 64 ? ctas_per_sm<__nv_bfloat16, 64>((int)n)
-                    : ctas_per_sm<__nv_bfloat16, 128>((int)n);
-  return -1;
+  return cl <= 64 ? ctas_per_sm<__nv_bfloat16, 64>((int)n)
+                  : ctas_per_sm<__nv_bfloat16, 128>((int)n);
 }

@@ -4,9 +4,11 @@
 counterpart of the Pallas kernel `repro/kernels/flash_attention.py::
 flash_attention`) on CUDA tensors and counts its launches in
 `flash_attention.launches`.  `plan` picks the path from the shapes alone
-(bf16 on `wgmma`, everything else on fp32 FMAs) and states the tiles, the
-padded head dim and the K/V ring's stages that the kernel derives from
-them.  It never falls back: anything the kernel does not take raises.
+(bf16 on `wgmma`, everything else on fp32 FMAs, and D > 256 on `split`,
+the output's head dim split over CTAs) and states the tiles, the padded
+head dim, the K/V ring's stages and the output slices that the kernel
+derives from them.  It takes every head dim, as the Pallas kernel does.
+It never falls back: anything the kernel does not take raises.
 The plain version is `ref.flash_attention_ref`; `ops.flash_attention`
 picks between the two by the tensor's device.
 
@@ -47,9 +49,13 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PATHS = {"fma": 0, "wgmma": 1}
+_PATHS = {"fma": 0, "wgmma": 1, "split": 2}
 _I64 = ctypes.c_int64
-MAX_HEAD_DIM = 256
+# the `fma` and `wgmma` CTAs hold a row of Q, K and V padded to at most
+# this; past it the `split` path takes SPLIT_DV output columns a CTA and
+# S = Q.K^T in SPLIT_DS-column slices of D
+WHOLE_HEAD_DIM = 256
+SPLIT_DS, SPLIT_DV = 64, 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,18 +63,23 @@ class Plan:
     """How `csrc/flash_attention.cu` runs one call, from the shapes alone.
 
     path: "wgmma" (bf16 on the tensor cores) or "fma" (fp32 on the CUDA
-    cores), the one choice passed to the kernel.  The rest states what the
-    kernel derives from the path, D and causality, for printing and tests:
-    tile_q x tile_k queries x keys per score tile; d_pad: the head dim as
-    the kernel stages it (zero columns past D); stages: K/V tiles in shared
-    memory; order: "longest-first" (causal: the query tiles that see the
-    most keys launch first) or "in-order"."""
+    cores) or "split" (D > 256, fp32 on the CUDA cores, the output's head
+    dim over CTAs), the one choice passed to the kernel.  The rest states
+    what the kernel derives from the path, D and causality, for printing
+    and tests: tile_q x tile_k queries x keys per score tile; d_pad: the
+    head dim as the kernel stages it (zero columns past D; on `split` in
+    SPLIT_DS-column slices); stages: K/V tiles in shared memory; order:
+    "longest-first" (causal: the query tiles that see the most keys launch
+    first) or "in-order"; out_slices: the CTAs that share a row's output,
+    SPLIT_DV columns each, each computing the row's whole S (1 but on
+    `split`): the score work is out_slices times the function's."""
     path: str
     tile_q: int
     tile_k: int
     d_pad: int
     stages: int
     order: str
+    out_slices: int = 1
 
 
 @functools.lru_cache(maxsize=256)
@@ -82,11 +93,17 @@ def plan(q_shape, k_shape, dtype: torch.dtype, causal: bool,
     2-stage K/V ring.  f32, and bf16 with any other D, take `fma`: 64
     keys a tile, D padded to 64 with a 2-stage ring, to 128 with one stage
     (two do not fit in shared memory), both at 128 queries, or to 256 with
-    one stage at 64 queries (128 would not fit either).  The window does
-    not change the plan: masks cost only on the tiles they cross."""
+    one stage at 64 queries (128 would not fit either).  D > 256 takes
+    `split` in either dtype: 64 queries x 64 keys, S over D in 64-column
+    slices (d_pad: D rounded up to 64), one stage, ceil(D / 256) CTAs a
+    row.  The window does not change the plan: masks cost only on the
+    tiles they cross."""
     d = q_shape[3]
-    d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
     order = "longest-first" if causal else "in-order"
+    if d > WHOLE_HEAD_DIM:
+        return Plan("split", 64, 64, -(-d // SPLIT_DS) * SPLIT_DS, 1, order,
+                    -(-d // SPLIT_DV))
+    d_pad = 64 if d <= 64 else 128 if d <= 128 else 256
     if dtype == torch.bfloat16 and d % 8 == 0:
         return Plan("wgmma", 128, 64, d_pad, 2, order)
     return Plan("fma", 64 if d_pad == 256 else 128, 64, d_pad,
@@ -115,10 +132,11 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                window: int | None, softcap: float | None,
                scale: float | None, block: bool = False) -> None:
     """Raise on anything the kernel does not take: ranks and shapes, GQA
-    grouping, dtype, devices, contiguity, head dim > 256, a window below 1
-    and a softcap that is not positive.  Rows that no key is admitted to
-    are taken: a `block` call returns them with lse <= -1e29 for a merge,
-    a one-device call gives them the mean of V (`keyless_from`)."""
+    grouping, dtype, devices, contiguity, a window below 1 and a softcap
+    that is not positive (every head dim is taken).  Rows that no key is
+    admitted to are taken: a `block` call returns them with lse <= -1e29
+    for a merge, a one-device call gives them the mean of V
+    (`keyless_from`)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention wants q (B,Sq,Hq,D) and k/v "
                          f"(B,Sk,Hkv,D); got ranks {q.dim()}, {k.dim()}, "
@@ -131,8 +149,6 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if min(b, sq, sk, hq, hkv, d) < 1 or hq % hkv:
         raise ValueError(f"q heads {hq} must be a multiple of kv heads "
                          f"{hkv}, and no extent may be 0")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -400,13 +416,17 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
     end l is clamped at 1e-30, the output rounded once to q's dtype (kept
     in fp32 with `return_lse`) and lse = (m + log2 l) ln 2.  Without
     `return_lse` the rows that see no key are then filled as the
-    wrapper fills them (`fill_keyless`)."""
+    wrapper fills them (`fill_keyless`).  On `split` (D > 256) S is
+    summed over SPLIT_DS-column slices of D and P.V taken a SPLIT_DV
+    -column output slice at a time, each slice's CTA walking the same
+    scores (computed once here: the kernel's copies agree bit for bit)."""
     check_args(q, k, v, window, softcap, scale, block=return_lse)
     b, sq, hq, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     p = plan(tuple(q.shape), tuple(k.shape), q.dtype, causal, window)
     bq, bk = p.tile_q, p.tile_k
+    dv = SPLIT_DV if p.path == "split" else d      # output columns a CTA
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     # (B, Hkv, G, S, D) and (B, Hkv, S, D) in fp32 (bf16 is exact in it)
     qf = q.float().reshape(b, sq, hkv, g, d).permute(0, 2, 3, 1, 4)
@@ -434,8 +454,14 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
         for kt in range(k_lo // bk, k_hi // bk + 1 if k_hi >= k_lo else 0):
             k0 = kt * bk
             k1 = min(k0 + bk, sk)
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, :, q0:q_last + 1],
-                             kf[:, :, k0:k1])
+            qs, ks = qf[:, :, :, q0:q_last + 1], kf[:, :, k0:k1]
+            if p.path == "split":
+                s = sum(torch.einsum("bhgqd,bhkd->bhgqk",
+                                     qs[..., d0:d0 + SPLIT_DS],
+                                     ks[..., d0:d0 + SPLIT_DS])
+                        for d0 in range(0, d, SPLIT_DS))
+            else:
+                s = torch.einsum("bhgqd,bhkd->bhgqk", qs, ks)
             edge = k0 + bk > sk or (causal and k0 + bk - 1 > q0 + delta) \
                 or (window is not None and q_last + delta - k0 >= window)
             if softcap or edge:
@@ -459,8 +485,9 @@ def flash_attention_emulated(q: torch.Tensor, k: torch.Tensor,
             if p.path == "wgmma":
                 pt = pt.to(torch.bfloat16).float()
             vt = vf[:, :, k0:k1]
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bhkd->bhgqd", pt, vt)
+            acc = acc * corr[..., None] + torch.cat(
+                [torch.einsum("bhgqk,bhkd->bhgqd", pt, vt[..., c0:c0 + dv])
+                 for c0 in range(0, d, dv)], -1)
             m = m_new
         lc = l.clamp_min(1e-30)
         o[:, :, :, q0:q_last + 1] = (acc / lc[..., None]).to(o.dtype)

@@ -7,13 +7,19 @@ launches in `ssd_chunk.launches`.  It never falls back: anything the
 kernel does not take raises.  The plain version is `ref.ssd_chunked_ref`;
 `ops.ssd_chunk` picks between the two by the tensor's device.
 
-`plan` states the tiles, threads, heads per CTA and ring stages that the
-kernel derives from the dtype, the chunk and the state size.
-`ssd_chunk_emulated` runs that tiling in plain PyTorch on any device:
-16-row tiles, the tiles above the diagonal skipped, the partial last tile
-masked and, for bf16, M and xdt * w split into a bf16 high and low part
-at the kernel's places.  `elem_limit` is the element-wise bound the bf16
-kernel is held to.
+The kernel takes every chunk, head dim p and state size n, as the Pallas
+kernel does.  `plan` states the path, tiles, threads, heads per CTA, ring
+stages and slices that the kernel derives from the dtype, the chunk, p
+and n: a chunk up to 128 with p <= 64 and n <= 128 runs on the first
+path ("mma" in bf16, "fma" in f32), whose CTA holds the chunk whole;
+anything else on "wide", which tiles the chunk into 64-row blocks, p
+and n into slices (`WIDE_*`).  `ssd_chunk_emulated` runs either tiling
+in plain PyTorch on any device: on the first path 16-row tiles, the
+tiles above the diagonal skipped, the partial last tile masked and, for
+bf16, M and xdt * w split into a bf16 high and low part at the kernel's
+places; on "wide" its row and column blocks, p and n slices and masked
+last block, in fp32.  `elem_limit` is the element-wise bound the bf16
+kernel is held to on both.
 
 The launch is the custom op `repro::ssd_chunk` (`ops` says why); its
 FLOP formula (`ssd_flops`) counts what the bound counts.
@@ -38,8 +44,13 @@ from repro_torch.kernels.ref import NEG_INF, ssd_chunked_ref, ssd_scores
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I64 = ctypes.c_int64
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+# the first path's CTA holds the chunk whole: it is built for these
+FIRST_CHUNK, FIRST_HEAD_DIM, FIRST_STATE = 128, 64, 128
 TILE = 16               # rows of one tile of M, y and the S product
+# the wide path: rows of a row (and column) block, p columns a y CTA (and
+# p rows of an S tile), n columns a slice of G's contraction, n columns of
+# an S tile
+WIDE_ROWS, WIDE_P, WIDE_N, WIDE_S = 64, 64, 32, 64
 # the bf16 kernel's element-wise bound: |y - y32| <= ELEM_ULP |y32| +
 # ELEM_SPLIT A, A = |M|.|xdt| (see `elem_limit`)
 ELEM_ULP, ELEM_SPLIT = 2.0 ** -7, 2.0 ** -12
@@ -53,25 +64,44 @@ class Plan:
 
     path: "mma" (bf16: `mma.sync.m16n8k16` with bf16 operands and fp32
     accumulators; M and xdt * w each split into a bf16 high and low part,
-    two products each) or "fma" (fp32 register-tiled CUDA-core FMAs);
-    chunk_tile: the chunk length the CTA is built for, 64 or 128; threads:
-    the CTA's, 4 x chunk_tile (each warp a pair of row tiles from both
-    ends of the chunk and a quarter of p); row_tiles: 16-row tiles
-    covering the chunk, the last one masked when chunk % 16 != 0; heads:
-    heads per CTA, which share one G = C.B^T (2 where G is cheap, n <= 32;
-    else 4); stages: the cp.async ring of xdt and la slices, one head a
-    stage."""
+    two products each), "fma" (fp32 register-tiled CUDA-core FMAs) or
+    "wide" (chunk > 128, p > 64 or n > 128, either dtype: fp32 FMAs, bf16
+    widened as it is staged); chunk_tile: the chunk length the CTA is
+    built for, 64 or 128 (wide: the 64 rows of a row block); threads: the
+    CTA's, 4 x chunk_tile (each warp a pair of row tiles from both ends of
+    the chunk and a quarter of p; wide: 256, each a 4 x 4 block of a
+    64 x 64 tile); row_tiles: 16-row tiles covering the chunk, the last
+    one masked when chunk % 16 != 0 (wide: 64-row blocks, the last masked
+    when chunk % 64 != 0); heads: heads per CTA, which share one G = C.B^T
+    (2 where G is cheap, n <= 32; else 4; wide: 1); stages: the cp.async
+    ring of xdt and la slices, one head a stage (wide: 1, no ring);
+    p_slices: the 64-column slices of p a row block's y is split over,
+    each CTA recomputing G (1 but on wide); n_slices: the 32-column slices
+    of n that G's contraction stages (1 but on wide: the first path
+    stages n whole)."""
     path: str
     chunk_tile: int
     threads: int
     row_tiles: int
     heads: int
     stages: int
+    p_slices: int = 1
+    n_slices: int = 1
+
+
+def first_path(chunk: int, p: int, n: int) -> bool:
+    """Whether the first path's CTA is built for this chunk, head dim and
+    state size (else the call runs on "wide")."""
+    return chunk <= FIRST_CHUNK and p <= FIRST_HEAD_DIM and n <= FIRST_STATE
 
 
 @functools.lru_cache(maxsize=64)
-def plan(chunk: int, n: int, dtype: torch.dtype) -> Plan:
-    """The launch plan of one call at this chunk, state size and dtype."""
+def plan(chunk: int, n: int, dtype: torch.dtype, p: int = 64) -> Plan:
+    """The launch plan of one call at this chunk, state size, dtype and
+    head dim p (the default, 64, plans as every p up to it does)."""
+    if not first_path(chunk, p, n):
+        return Plan("wide", WIDE_ROWS, 256, -(-chunk // WIDE_ROWS), 1, 1,
+                    -(-p // WIDE_P), -(-n // WIDE_N))
     tile = 64 if chunk <= 64 else 128
     return Plan("mma" if dtype == torch.bfloat16 else "fma", tile, 4 * tile,
                 -(-chunk // TILE), 2 if n <= 32 else 4, 2)
@@ -94,26 +124,26 @@ def _lib():
     return _fn
 
 
-def occupancy(chunk: int, n: int, dtype: torch.dtype) -> int:
+def occupancy(chunk: int, n: int, dtype: torch.dtype, p: int = 64) -> int:
     """CTAs of the kernel that fit one SM of the current card at this
-    chunk, state size and dtype (the CUDA occupancy query); builds the
-    kernel if needed."""
+    chunk, state size, dtype and head dim (the CUDA occupancy query);
+    builds the kernel if needed."""
     fn = _build.load("ssd").repro_ssd_ctas_per_sm
-    fn.argtypes = [ctypes.c_int, _I64, _I64]
+    fn.argtypes = [ctypes.c_int, _I64, _I64, _I64]
     fn.restype = ctypes.c_int
-    blocks = fn(_DTYPES[dtype], chunk, n)
+    blocks = fn(_DTYPES[dtype], chunk, p, n)
     if blocks < 1:
         raise RuntimeError(f"the occupancy query failed for chunk {chunk}, "
-                           f"n {n}, {dtype}")
+                           f"p {p}, n {n}, {dtype}")
     return blocks
 
 
 def check_args(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
                C: torch.Tensor, chunk: int) -> None:
-    """Raise on anything the kernel does not take: ranks and shapes, a
-    chunk that does not divide l or exceeds 128, p > 64, n > 128, dtypes
-    (xdt, B, C of one float32/bfloat16 dtype; la float32 or that dtype),
-    devices and contiguity."""
+    """Raise on anything the kernel does not take: ranks and shapes, an
+    extent of 0, a chunk that does not divide l, dtypes (xdt, B, C of one
+    float32/bfloat16 dtype; la float32 or that dtype), devices and
+    contiguity.  Every chunk, p and n is taken."""
     if xdt.dim() != 4 or la.dim() != 3 or B.dim() != 3 or C.dim() != 3:
         raise ValueError(f"ssd_chunk wants xdt (b,l,h,p), la (b,l,h), B/C "
                          f"(b,l,n); got ranks {xdt.dim()}, {la.dim()}, "
@@ -128,13 +158,9 @@ def check_args(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     if min(b, l, h, p, n) < 1:
         raise ValueError(f"no extent may be 0: xdt {tuple(xdt.shape)}, "
                          f"n {n}")
-    if not isinstance(chunk, int) or not 1 <= chunk <= MAX_CHUNK \
-            or l % chunk:
-        raise ValueError(f"chunk {chunk!r} must divide l = {l} and lie in "
-                         f"1..{MAX_CHUNK}")
-    if p > MAX_HEAD_DIM or n > MAX_STATE:
-        raise ValueError(f"head dim {p} > {MAX_HEAD_DIM} or state {n} > "
-                         f"{MAX_STATE}")
+    if not isinstance(chunk, int) or chunk < 1 or l % chunk:
+        raise ValueError(f"chunk {chunk!r} must be a positive divisor of "
+                         f"l = {l}")
     if xdt.dtype not in _DTYPES or B.dtype != xdt.dtype \
             or C.dtype != xdt.dtype \
             or la.dtype not in (torch.float32, xdt.dtype):
@@ -257,11 +283,14 @@ def ssd_chunk_emulated(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
     slices of the chunk.  On the bf16 path ("mma") M and xdt * w are split
     into a bf16 high and low part and multiplied by the exact bf16 xdt or
     B, two products summed in fp32; `split=False` drops the low part (M
-    rounded to bf16 alone, as attention rounds P)."""
+    rounded to bf16 alone, as attention rounds P).  On "wide" it follows
+    `_wide_emulated` (`split` does not apply: that path is fp32)."""
     check_args(xdt, la, B, C, chunk)
     b, l, h, p = xdt.shape
     n = B.shape[-1]
-    pl = plan(chunk, n, xdt.dtype)
+    pl = plan(chunk, n, xdt.dtype, p)
+    if pl.path == "wide":
+        return _wide_emulated(xdt, la, B, C, chunk, pl)
     mma = pl.path == "mma"
     rows = pl.row_tiles * TILE
     x, lam, Bz, Cz = _by_chunk(xdt, la, B, C, chunk, rows)
@@ -287,6 +316,55 @@ def ssd_chunk_emulated(xdt: torch.Tensor, la: torch.Tensor, B: torch.Tensor,
         tj = slice(kt * TILE, (kt + 1) * TILE)
         for part in (_split(xw[:, tj], split) if mma else [xw[:, tj]]):
             S += torch.einsum("bjhp,bjn->bhpn", part, Bz[:, tj])
+    return (y[:, :chunk].reshape(b, l, h, p).to(xdt.dtype),
+            S.reshape(b, l // chunk, h, p, n))
+
+
+def _wide_emulated(xdt, la, B, C, chunk: int, pl: Plan
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wide path's tiling: the chunk padded to whole 64-row blocks, the
+    padding masked; cum a block at a time, each block's scan carried from
+    the last row of the one before; for each row block i and p slice, the
+    column blocks j <= i, G_ij summed over 32-column slices of n, M_ij =
+    G_ij exp(cum_i - cum_j) with the exponent at -1e30 above the diagonal
+    and past the chunk, y_i += M_ij xdt_j; S a (64 p x 64 n) tile at a
+    time over the row blocks, xdt_j scaled by w_j = exp(cum_end - cum_j).
+    All in fp32, y rounded once to xdt's dtype."""
+    b, l, h, p = xdt.shape
+    n = B.shape[-1]
+    R, nrb = WIDE_ROWS, pl.row_tiles
+    x, lam, Bz, Cz = _by_chunk(xdt, la, B, C, chunk, nrb * R)
+    blocks = [slice(k * R, (k + 1) * R) for k in range(nrb)]
+    cum = torch.empty_like(lam)                             # (bc, rows, h)
+    carry = torch.zeros_like(lam[:, :1])
+    for blk in blocks:
+        cum[:, blk] = carry + torch.cumsum(lam[:, blk], dim=1)
+        carry = cum[:, blk.stop - 1:blk.stop]
+    idx = torch.arange(nrb * R, device=xdt.device)
+    y = torch.zeros_like(x)
+    for i, ti in enumerate(blocks):
+        for tj in blocks[:i + 1]:
+            G = sum(torch.einsum("bin,bjn->bij", Cz[:, ti, n0:n0 + WIDE_N],
+                                 Bz[:, tj, n0:n0 + WIDE_N])
+                    for n0 in range(0, n, WIDE_N))
+            keep = (idx[ti, None] >= idx[None, tj]) & (idx[ti, None] < chunk)
+            seg = cum[:, ti, None, :] - cum[:, None, tj, :]
+            M = G[..., None] * torch.exp(torch.where(
+                keep[None, :, :, None], seg, seg.new_tensor(NEG_INF)))
+            for p0 in range(0, p, WIDE_P):
+                ps = slice(p0, p0 + WIDE_P)
+                y[:, ti, :, ps] += torch.einsum("bijh,bjhp->bihp", M,
+                                                x[:, tj, :, ps])
+    w = torch.exp(carry - cum) * (idx < chunk)[:, None]
+    S = torch.zeros((x.shape[0], h, p, n), device=xdt.device)
+    for p0 in range(0, p, WIDE_P):
+        ps = slice(p0, p0 + WIDE_P)
+        for s0 in range(0, n, WIDE_S):
+            ns = slice(s0, s0 + WIDE_S)
+            for tk in blocks:
+                S[:, :, ps, ns] += torch.einsum(
+                    "bjhp,bjn->bhpn", x[:, tk, :, ps] * w[:, tk, :, None],
+                    Bz[:, tk, ns])
     return (y[:, :chunk].reshape(b, l, h, p).to(xdt.dtype),
             S.reshape(b, l // chunk, h, p, n))
 

@@ -423,17 +423,23 @@ def build_cnn_plan(args: argparse.Namespace, specs, device: torch.device,
 
 def arch_config(args: argparse.Namespace, cfg=None, echo: bool = True):
     """The config of --arch (--smoke): the registry's, or `cfg`, a
-    caller's copy of it cut in depth, which must keep its name and
-    widths; a cut one is announced with the depth it runs at."""
+    caller's copy of it cut in depth or with another SSD chunk (the
+    chunked scan is exact for any chunk), which must keep its name and
+    widths; a cut one is announced with the depth it runs at, another
+    chunk with its chunk."""
     full = registry.get(args.arch, smoke=args.smoke)
     if cfg is None or cfg == full:
         return full
-    if dataclasses.replace(cfg, n_layers=full.n_layers) != full:
+    if dataclasses.replace(cfg, n_layers=full.n_layers,
+                           ssm_chunk=full.ssm_chunk) != full:
         raise ValueError(f"{args.arch}: a config other than the registry's "
-                         f"in more than its depth")
-    if echo:
+                         f"in more than its depth and its SSD chunk")
+    if echo and cfg.n_layers != full.n_layers:
         print(f"arch={cfg.name} cut to {cfg.n_layers} of its "
               f"{full.n_layers} layers")
+    if echo and cfg.ssm_chunk != full.ssm_chunk:
+        print(f"arch={cfg.name} at SSD chunk {cfg.ssm_chunk} (the "
+              f"registry's {full.ssm_chunk})")
     return cfg
 
 

@@ -129,9 +129,12 @@ def test_plan_at_head_dims_up_to_256(d, dtype, want):
 
 
 def test_emulation_refuses_what_the_kernel_refuses():
-    q = torch.zeros(1, 8, 2, 264)
-    with pytest.raises(ValueError, match="head dim 264 > 256"):
-        tfa.flash_attention_emulated(q, q, q)
+    # D 264 is taken (the `split` path) and equals the plain version
+    q = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 8, 2, 264)).astype(np.float32))
+    np.testing.assert_allclose(tfa.flash_attention_emulated(q, q, q).numpy(),
+                               flash_attention_ref(q, q, q).numpy(),
+                               rtol=TOL["float32"], atol=TOL["float32"])
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="window must be >= 1"):
         tfa.flash_attention_emulated(q, q[:, :2], q[:, :2], causal=False,

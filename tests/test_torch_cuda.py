@@ -239,10 +239,12 @@ def test_flash_kernel_matches_plain(cuda, b, sq, hq, hkv, d, causal, window,
 
 
 # (b, sq, sk, hq, hkv, d, causal, window, cap): one-device calls whose
-# rows sk + window - 1 .. see no key, on both paths' tiles
+# rows sk + window - 1 .. see no key, on every path's tiles (D 320:
+# split)
 KEYLESS = [(1, 300, 100, 4, 2, 64, True, 70, None),
            (2, 200, 64, 6, 3, 32, False, 8, 30.0),
-           (1, 150, 60, 2, 1, 256, True, 40, 50.0)]
+           (1, 150, 60, 2, 1, 256, True, 40, 50.0),
+           (1, 150, 60, 4, 2, 320, True, 40, None)]
 
 
 @pytest.mark.cuda
@@ -452,6 +454,115 @@ def test_ssd_bf16_within_the_element_limit(cuda, h, n, chunk):
             atol=tol * max(1.0, float(np.abs(want).max())))
 
 
+# (b, l, h, p, n, chunk) past the first path's CTA, on the wide path:
+# mamba_ssm's chunk 256 at mamba2's p 64 / n 128; chunk 160 at p 128 /
+# n 256 (two p slices, a masked last row block); chunk 136 (not a
+# multiple of 16); p 72 and n 129 (ragged slices) at chunks of 1 and 24
+SSD_WIDE = [(1, 512, 3, 64, 128, 256), (1, 320, 2, 128, 256, 160),
+            (2, 272, 2, 16, 16, 136), (1, 48, 2, 72, 129, 24),
+            (1, 8, 3, 4, 129, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l,h,p,n,chunk", SSD_WIDE)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_wide_kernel_matches_plain(cuda, b, l, h, p, n, chunk, dtype):
+    """The wide path: one launch, y and S against the plain version at
+    TOL of the largest magnitude, the CPU emulation of its tiling against
+    the kernel, bf16 y element by element within `ssd.elem_limit`."""
+    tdt = getattr(torch, dtype)
+    xdt, la, B, C = _ssd_inputs(b, l, h, p, n, seed=5)
+    xdt, B, C = (torch.from_numpy(a).to(cuda, tdt) for a in (xdt, B, C))
+    la = torch.from_numpy(la).to(cuda)
+    assert tssd.plan(chunk, n, tdt, p).path == "wide"
+    before = tssd.ssd_chunk.launches
+    y, S = tssd.ssd_chunk(xdt, la, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk.launches == before + 1
+    yr, Sr = ssd_chunked_ref(xdt, la, B, C, chunk)
+    ye, Se = tssd.ssd_chunk_emulated(xdt, la, B, C, chunk)
+    for got, want, tol in ((y, yr, TOL[dtype]), (S, Sr, TOL["float32"]),
+                           (y, ye, TOL[dtype]), (S, Se, TOL["float32"])):
+        want = want.float().cpu().numpy()
+        np.testing.assert_allclose(
+            got.float().cpu().numpy(), want, rtol=tol,
+            atol=tol * max(1.0, float(np.abs(want).max())))
+    if dtype == "bfloat16":
+        y32, limit = tssd.elem_limit(xdt, la, B, C, chunk)
+        worst = float(((y.float() - y32).abs() / limit).max())
+        assert worst <= 1.0, f"an element is {worst} x its limit"
+
+
+# (b, sq, sk, hq, hkv, d, causal, window, softcap, delta) on the split
+# path (D > 256): D 264 (two output slices, the second 8 columns) causal
+# with a window, D 320 bidirectional with Sq != Sk and GQA, D 512 with the
+# softcap, D 300 (f32 rows of element copies), D 1024 (four slices); the
+# block entry with delta (lse, fp32 output), and one whose first rows see
+# no key of the block
+ATTN_SPLIT = [(1, 130, 130, 4, 2, 264, True, 70, None, None),
+              (2, 100, 77, 6, 2, 320, False, None, None, None),
+              (1, 200, 200, 2, 1, 512, True, None, 30.0, None),
+              (1, 65, 65, 3, 3, 300, True, 5, None, None),
+              (1, 70, 70, 2, 2, 1024, True, None, None, None),
+              (1, 96, 96, 4, 2, 512, True, 150, None, 96),
+              (1, 64, 80, 2, 1, 320, True, 20, 20.0, -30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,hq,hkv,d,causal,window,cap,delta",
+                         ATTN_SPLIT)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_split_kernel_matches_plain(cuda, b, sq, sk, hq, hkv, d,
+                                          causal, window, cap, delta,
+                                          dtype):
+    """D > 256: one launch on the `split` path, against the plain version
+    at TOL (the block entry: o and lse on the rows that see a key) and the
+    CPU emulation; bf16 element by element within one bf16 ulp of
+    softmax(S).|v| + |o32| (P stays fp32 on this path)."""
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(
+        np.float32)).to(cuda, tdt) for sh in ((b, sq, hq, d),
+                                              (b, sk, hkv, d),
+                                              (b, sk, hkv, d)))
+    opts = dict(causal=causal, window=window, softcap=cap)
+    assert tfa.plan(tuple(q.shape), tuple(k.shape), tdt, causal,
+                    window).path == "split"
+    before = tfa.flash_attention.launches
+    if delta is None:
+        got = tfa.flash_attention(q, k, v, **opts)
+        want = flash_attention_ref(q, k, v, **opts)
+        emu = tfa.flash_attention_emulated(q, k, v, **opts)
+        seen = slice(None)
+    else:
+        got, lse = tfa.flash_attention_block(q, k, v, delta=delta, **opts)
+        want, lse_r = flash_attention_ref(q, k, v, delta=delta,
+                                          return_lse=True, **opts)
+        emu, lse_e = tfa.flash_attention_emulated(q, k, v, delta=delta,
+                                                  return_lse=True, **opts)
+        seen = lse_r[0, 0] > -1e29
+        assert bool(seen.any()) and bool((lse[..., ~seen] <= -1e29).all())
+        for other in (lse_r, lse_e):
+            np.testing.assert_allclose(lse[..., seen].cpu().numpy(),
+                                       other[..., seen].cpu().numpy(),
+                                       rtol=TOL["float32"],
+                                       atol=TOL["float32"])
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    for other in (want, emu):
+        np.testing.assert_allclose(got[:, seen].float().cpu().numpy(),
+                                   other[:, seen].float().cpu().numpy(),
+                                   rtol=TOL[dtype], atol=TOL[dtype])
+    if dtype == "bfloat16":
+        ref_opts = dict(opts, delta=delta or 0)
+        o32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                  **ref_opts)
+        limit = 2.0 ** -7 * (flash_attention_ref(
+            q.float(), k.float(), v.float().abs(), **ref_opts) + o32.abs())
+        worst = float(((got.float() - o32).abs() / limit)[:, seen].max())
+        assert worst <= 1.0, f"an element is {worst} x its limit"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,l,h,p,n,chunk", [SSD[0], SSD[1], SSD[3]])
 def test_ssd_function_grads_match_plain(cuda, b, l, h, p, n, chunk):
@@ -479,9 +590,12 @@ def test_attention_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
                             q.transpose(1, 2))
-    with pytest.raises(ValueError, match="head dim 264 > 256"):
-        big = torch.zeros(1, 8, 2, 264, device=cuda)
-        tfa.flash_attention(big, big, big)
+    # D 264 is taken (the `split` path) and equals the plain version
+    big = torch.randn(1, 8, 2, 264, device=cuda)
+    np.testing.assert_allclose(
+        tfa.flash_attention(big, big, big).cpu().numpy(),
+        flash_attention_ref(big, big, big).cpu().numpy(),
+        rtol=TOL["float32"], atol=TOL["float32"])
     with pytest.raises(TypeError):
         tfa.flash_attention(q.half(), q.half(), q.half())
     x = torch.zeros(1, 8, 2, 4, device=cuda)
@@ -489,9 +603,13 @@ def test_attention_and_ssd_kernels_refuse_what_they_do_not_take(cuda):
     bc = torch.zeros(1, 8, 3, device=cuda)
     with pytest.raises(ValueError, match="chunk"):
         tssd.ssd_chunk(x, la, bc, bc, chunk=3)
-    with pytest.raises(ValueError, match="state"):
-        wide = torch.zeros(1, 8, 129, device=cuda)
-        tssd.ssd_chunk(x, la, wide, wide, chunk=8)
+    # state 129 is taken (the wide path) and equals the plain version
+    wide = torch.randn(1, 8, 129, device=cuda)
+    xr = torch.randn(1, 8, 2, 4, device=cuda)
+    for got, want in zip(tssd.ssd_chunk(xr, la, wide, wide, chunk=8),
+                         ssd_chunked_ref(xr, la, wide, wide, 8)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=TOL["float32"], atol=TOL["float32"])
 
 
 @pytest.mark.cuda

@@ -447,9 +447,9 @@ def test_flash_attention_checks_raise(bad):
         opts["window"] = 0
     elif bad == "softcap":
         opts["softcap"] = -1.0
-    elif bad == "head_dim":     # the kernel takes D <= 256
+    elif bad == "head_dim":     # every D is taken, q's and k's alike
         q = torch.zeros(1, 8, 4, 264)
-        k = v = torch.zeros(1, 8, 2, 264)
+        k = v = torch.zeros(1, 8, 2, 256)
     elif bad == "unseen_rows":  # rows that see no key as there is none:
         k = v = torch.zeros(1, 0, 2, 16)    # no mean of V to give them,
         opts["window"] = 4                  # the zero-extent refusal's one
@@ -470,14 +470,12 @@ def test_ssd_chunk_checks_raise(bad):
         C = torch.zeros(1, 16, 5)
     elif bad == "chunk":
         chunk = 5
-    elif bad == "big_chunk":
-        x, la = torch.zeros(1, 256, 2, 4), torch.zeros(1, 256, 2)
-        B = C = torch.zeros(1, 256, 3)
+    elif bad == "big_chunk":    # any chunk that divides l; 256 does not
         chunk = 256
     elif bad == "dtype":
         B = B.to(torch.bfloat16)
-    elif bad == "state":
-        B = C = torch.zeros(1, 16, 129)
+    elif bad == "state":        # any n >= 1 is taken
+        B = C = torch.zeros(1, 16, 0)
     with pytest.raises((ValueError, TypeError)):
         ops.ssd_chunk(x, la, B, C, chunk=chunk)
 
